@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # one CUDA card, the full-size corpus
+
+Phases:
+  1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and report
+     the card (name and power limit, as nvidia-smi gives them).
+  2. Serve the main path at full size: a flickr-like corpus of 10^6 points
+     (Table III's largest real dataset: u=24,874 keywords, t=11 tags, at the
+     d=64 top of the paper's dimensionality grid; m=2, 5 scales). Four paths,
+     each driven with the launch counters set to 0 just before it and read
+     just after: a batch of 64 random 3-keyword queries (k=1) in the exact
+     tier and then in the approx tier through the engine's default torch
+     backend; the exact batch again with every bin forced onto the device and
+     the bf16 prune tier armed; and ``backend.pairwise`` on one subset. The
+     default exact batch must launch K1, the forced batch K1 and K2, the
+     pairwise call K3.
+     Answers are held to the numpy backend on the same engine (identical ids,
+     float64 diameters to 1e-9: the two backends score through different
+     float64 formulas), the forced run to the default run bit for bit, and
+     every answer is checked to be a covering set of finite diameter.
+  3. Hold each kernel against its plain PyTorch version on the card, on the
+     largest input the main path gave it (recorded during phase 2): masks
+     may differ only on cells whose float64 squared distance lies within the
+     fp32 error band of the threshold, counts by at most that many cells, sq
+     by at most the band. Time kernel, plain version and (K3) torch.cdist
+     with CUDA events.
+
+Prints the kernels' JSON line, the card line, and last
+``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when a
+phase fails, when there is no CUDA device, or when the port's sources are
+not beside this file. Details go to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+# H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores,
+# bf16 on the tensor cores, HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
+EPS32 = 2.0 ** -23
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+class Recorder:
+    """Wraps one ``kernels.ops`` entry point during the served run and keeps
+    a copy of the largest input it was given (by padded join cells) that the
+    plain version can hold in memory: at most ``CAP_CELLS`` cells, or else
+    the smallest one."""
+
+    CAP_CELLS = 1 << 28
+
+    def __init__(self, ops, name: str, cells):
+        self.ops, self.name, self.cells = ops, name, cells
+        self.fn = getattr(ops, name)
+        self.calls = 0
+        self.best = None
+        self.best_cells = -1
+        self.shapes: dict[str, int] = {}
+        setattr(ops, name, self)
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        c = self.cells(*args)
+        key = "x".join(str(s) for s in args[0].shape)
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+        cap = self.CAP_CELLS
+        if self.best is None or (c <= cap and (c > self.best_cells
+                                               or self.best_cells > cap)) \
+                or (c > cap and self.best_cells > cap
+                    and c < self.best_cells):
+            self.best_cells = c
+            self.best = [a.clone() if hasattr(a, "clone") else a for a in args]
+        return self.fn(*args, **kw)
+
+    def restore(self) -> None:
+        setattr(self.ops, self.name, self.fn)
+
+
+def batched_cells(x, *_):
+    return x.shape[0] * x.shape[1] * x.shape[1]
+
+
+def pair_cells(a, b, *_):
+    return a.shape[0] * b.shape[0]
+
+
+def self_sq64(x):
+    """float64 squared distances of a (S, P, d) tile (difference-free but in
+    float64, whose error is ~1e-16 of the norms: far inside the fp32 band)."""
+    x64 = x.double()
+    n2 = (x64 * x64).sum(-1)
+    return (n2[:, :, None] + n2[:, None, :]
+            - 2.0 * x64 @ x64.transpose(1, 2)).clamp_min(0.0), n2
+
+
+def band_check_batched(x, lengths, r, got_counts, want_counts,
+                       got_mask=None, want_mask=None, bf16=False):
+    """Masks equal off the fp32 boundary band; counts within the band size.
+    Returns (max |count diff|, differing mask bits)."""
+    import torch
+    from repro_torch.kernels import ref
+    s, p, d = x.shape
+    xx = x.to(torch.bfloat16).float() if bf16 else x
+    diff_counts = (got_counts.long() - want_counts.long()).abs()
+    bits = 0
+    step = max(1, (1 << 26) // max(p * p, 1))      # bound the float64 block
+    for s0 in range(0, s, step):
+        sl = slice(s0, min(s, s0 + step))
+        d2, n2 = self_sq64(xx[sl])
+        live = torch.arange(p, device=x.device)[None, :] \
+            < lengths[sl].long()[:, None]
+        sq_live = live[:, :, None] & live[:, None, :]
+        norm2 = torch.where(live, n2, torch.zeros_like(n2)).amax(dim=1)
+        tol = (64.0 + 4.0 * d) * EPS32 * norm2
+        r2 = r[sl].double() ** 2
+        band = sq_live & ((d2 - r2[:, None, None]).abs()
+                          <= tol[:, None, None])
+        band_n = band.sum(dim=(1, 2))
+        check(bool((diff_counts[sl] <= band_n).all()),
+              "counts differ beyond the boundary band")
+        if got_mask is not None:
+            off = ref.unpack_bits(got_mask[sl], p) \
+                != ref.unpack_bits(want_mask[sl], p)
+            bits += int(off.sum())
+            check(not bool((off & ~band).any()),
+                  "mask bits differ off the boundary band")
+    return int(diff_counts.max()) if s else 0, bits
+
+
+def self_join_work(x, lengths) -> tuple[float, float]:
+    """(operations, input bytes) a batched self-join needs: 2d flops per
+    distinct pair of live points (the Gram matrix is symmetric) and per
+    squared norm, and each live point's d fp32 coordinates read once."""
+    d = x.shape[2]
+    lens = lengths.double()
+    flops = 2.0 * d * float((lens * (lens + 1) / 2).sum() + lens.sum())
+    return flops, float(lens.sum()) * d * 4 + lengths.numel() * 8
+
+
+def launch_path(name: str, by_path: dict) -> str:
+    """The first path (in the order driven) on which kernel ``name``
+    launched."""
+    for path, counts in by_path.items():
+        if counts[name] > 0:
+            return path
+    raise SmokeError(f"kernel {name} launched on no path")
+
+
+def kernel_rows(rec_mask, rec_prune, rec_pair, by_path) -> list[dict]:
+    import torch
+    from repro_torch.kernels import pairwise_l2 as K
+    from repro_torch.kernels import ref
+    rows = []
+
+    def launches(name):
+        path = launch_path(name, by_path)
+        return dict(launches=by_path[path][name], path=path,
+                    launches_by_path={p: c[name] for p, c in by_path.items()})
+
+    x, lengths, r = rec_mask.best[:3]
+    s, p, d = x.shape
+    m_k, c_k = K.join_batched_masked(x, lengths, r)
+    m_p, c_p = ref.join_batched_masked(x, lengths, r)
+    torch.cuda.synchronize()
+    err, bits = band_check_batched(x, lengths, r, c_k, c_p, m_k, m_p)
+    flops, in_bytes = self_join_work(x, lengths)
+    b_ms, b_by = bound(flops, in_bytes + m_k.numel() * 4 + s * 4,
+                       PEAK_FP32_FLOPS)
+    rows.append(dict(
+        name="join_batched_masked", route="cuda",
+        source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        replaces="src/repro/kernels/pairwise_l2.py:368",
+        **launches("join_batched_masked"), max_abs_err=err,
+        mask_bits_in_band=bits, shape=[s, p, d],
+        ms=cuda_ms(lambda: K.join_batched_masked(x, lengths, r), 20),
+        plain_ms=cuda_ms(lambda: ref.join_batched_masked(x, lengths, r), 3,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    x, lengths, r = rec_prune.best[:3]
+    s, p, d = x.shape
+    k_k = K.join_batched_prune(x, lengths, r)
+    k_p = ref.join_batched_counts(x, lengths, r)
+    torch.cuda.synchronize()
+    err, _ = band_check_batched(x, lengths, r, k_k, k_p, bf16=True)
+    # bf16 x bf16 products accumulated in fp32: the tensor cores' contract
+    flops, in_bytes = self_join_work(x, lengths)
+    b_ms, b_by = bound(flops, in_bytes + s * 4, PEAK_BF16_FLOPS)
+    rows.append(dict(
+        name="join_batched_prune", route="cuda",
+        source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        replaces="src/repro/kernels/pairwise_l2.py:262",
+        **launches("join_batched_prune"), max_abs_err=err,
+        shape=[s, p, d],
+        ms=cuda_ms(lambda: K.join_batched_prune(x, lengths, r), 20),
+        plain_ms=cuda_ms(lambda: ref.join_batched_counts(x, lengths, r), 3,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    a, b = rec_pair.best[:2]
+    (m, d), n = a.shape, b.shape[0]
+    sq_k, n_k = K.pairwise_join(a, b)
+    sq_p, n_p = ref.pairwise_join(a, b)
+    torch.cuda.synchronize()
+    norm2 = max(float((a.double() ** 2).sum(-1).max()),
+                float((b.double() ** 2).sum(-1).max()))
+    err = float((sq_k - sq_p).abs().max())
+    check(err <= (64.0 + 4.0 * d) * EPS32 * norm2,
+          f"pairwise_join sq differs by {err} beyond the fp32 band")
+    check(int(n_k.sum()) == int(n_p.sum()) == m * n,
+          "pairwise_join counts at r=inf must cover every pair")
+    flops = 2.0 * d * (m * n + m + n)
+    nbytes = (m + n) * d * 4 + m * n * 4 + n_k.numel() * 4
+    b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    rows.append(dict(
+        name="pairwise_join", route="cuda",
+        source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        replaces="src/repro/kernels/pairwise_l2.py:111",
+        **launches("pairwise_join"), max_abs_err=err, shape=[m, n, d],
+        ms=cuda_ms(lambda: K.pairwise_join(a, b), 20),
+        plain_ms=cuda_ms(lambda: ref.pairwise_join(a, b), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.cdist(a, b).square(), 20)))
+    return rows
+
+
+def check_answers(ds, queries, results, tier) -> None:
+    import math
+    for q, res in zip(queries, results):
+        check(len(res.candidates) == 1, f"{tier}: query {q} has "
+              f"{len(res.candidates)} answers, want 1")
+        c = res.candidates[0]
+        check(math.isfinite(c.diameter) and c.diameter >= 0.0,
+              f"{tier}: query {q} diameter {c.diameter}")
+        covered = set()
+        for i in c.ids:
+            covered.update(int(v) for v in ds.kw.row(i))
+        check(set(q) <= covered, f"{tier}: answer {c.ids} does not cover {q}")
+
+
+def same_answers(a, b, rtol: float) -> bool:
+    for ra, rb in zip(a, b):
+        if [c.ids for c in ra.candidates] != [c.ids for c in rb.candidates]:
+            return False
+        for ca, cb in zip(ra.candidates, rb.candidates):
+            if abs(ca.diameter - cb.diameter) > rtol * max(abs(cb.diameter),
+                                                           1e-300):
+                return False
+    return len(a) == len(b)
+
+
+def serve(args, report: dict) -> tuple:
+    import numpy as np
+    import torch
+    from repro_torch import NKSEngine, flickr_like_dataset, random_queries
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise_l2 as K
+
+    t0 = time.perf_counter()
+    ds = flickr_like_dataset(n=args.n, u=24_874, t=11, d=64, seed=args.seed)
+    t1 = time.perf_counter()
+    engine = NKSEngine(ds, m=2, n_scales=5, seed=args.seed)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    queries = random_queries(ds, 3, args.queries, seed=args.seed + 1)
+    report["setup"] = {"n": ds.n, "d": ds.dim, "u": ds.n_keywords,
+                       "dataset_s": t1 - t0, "engine_build_s": t2 - t1,
+                       "points_bytes": ds.points.nbytes,
+                       "index_bytes": {"exact": engine.index_e.nbytes(),
+                                       "approx": engine.index_a.nbytes()},
+                       "device_bytes_after_build":
+                           torch.cuda.memory_allocated(),
+                       "cost_model": dataclasses.asdict(engine.backend._model)
+                       if engine.backend._model is not None else None}
+    print(f"[serve] corpus n={ds.n} d={ds.dim} u={ds.n_keywords}: dataset "
+          f"{t1 - t0:.1f}s, indices + upload + calibration {t2 - t1:.1f}s",
+          flush=True)
+
+    recs = (Recorder(ops, "pairwise_l2_join_batched_masked", batched_cells),
+            Recorder(ops, "pairwise_l2_join_batched_counts", batched_cells),
+            Recorder(ops, "pairwise_l2_join", pair_cells))
+    answers, by_path = {}, {}
+
+    def drive(path, fn):
+        """Run one path with the launch counters set to 0 just before it and
+        read just after."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        ts = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        by_path[path] = dict(K.launches)
+        return out, wall
+
+    def batch_report(wall, st):
+        return {"wall_s": wall, "qps": len(queries) / wall,
+                "phases": st.phases, "cascade": st.cascade,
+                "binning": st.binning,
+                "fallback_queries": st.fallback_queries,
+                "dispatches_per_scale": st.dispatches_per_scale,
+                "device_bins": st.device_dispatches,
+                "host_bins": st.host_routed_dispatches,
+                "h2d_bytes": st.h2d_bytes, "d2h_bytes": st.d2h_bytes}
+
+    backend = engine.backend
+    prune_armed = backend._prune_active(ds.dim)
+    report["default_backend"] = {"route": backend.route,
+                                 "prune_tier": backend.prune_tier,
+                                 "prune_armed": prune_armed}
+    print(f"[serve] default backend: route {backend.route}, prune tier "
+          f"{backend.prune_tier} -> armed {prune_armed}; cost model "
+          f"{report['setup']['cost_model']}", flush=True)
+    forced = TorchBackend(route="device", prune_tier="on")
+    forced.attach(ds.points)                    # upload outside the timing
+    # one subset: the largest relevant-point set of the batch's queries (the
+    # union of its keywords' postings), cut to 4096 points
+    ids = max((np.unique(np.concatenate([ds.points_with(v) for v in q]))
+               for q in queries), key=len)[:4096]
+    try:
+        for tier in ("exact", "approx"):
+            answers[tier], wall = drive(tier, lambda: engine.query_batch(
+                queries, k=1, tier=tier))
+            st = engine.last_batch_stats
+            report[tier] = batch_report(wall, st)
+            print(f"[serve] {tier}: {len(queries)} queries in {wall:.3f}s = "
+                  f"{len(queries) / wall:.2f} QPS; phases {st.phases}; "
+                  f"device bins {st.device_dispatches}, host bins "
+                  f"{st.host_routed_dispatches}; fallback "
+                  f"{st.fallback_queries}; launches {by_path[tier]}",
+                  flush=True)
+        forced_ans, wall = drive("forced", lambda: engine.query_batch(
+            queries, k=1, tier="exact", backend=forced))
+        st = engine.last_batch_stats
+        report["exact_forced_device_prune"] = batch_report(wall, st)
+        print(f"[serve] exact, route=device + prune tier: {wall:.3f}s = "
+              f"{len(queries) / wall:.2f} QPS; cascade {st.cascade}; "
+              f"launches {by_path['forced']}", flush=True)
+        one, _ = drive("pairwise", lambda: forced.pairwise(ds.points[ids],
+                                                           ds.points[ids]))
+        print(f"[serve] backend.pairwise on {len(ids)} points: launches "
+              f"{by_path['pairwise']}", flush=True)
+    finally:
+        for rec in recs:
+            rec.restore()
+    report["launches_by_path"] = by_path
+    report["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    report["recorded_shapes"] = {r.name: r.shapes for r in recs}
+
+    check(by_path["exact"]["join_batched_masked"] > 0,
+          "the default exact batch launched no masked join")
+    if prune_armed:
+        check(by_path["exact"]["join_batched_prune"] > 0,
+              "the prune tier is armed but the exact batch launched no prune")
+    for name in ("join_batched_masked", "join_batched_prune"):
+        check(by_path["forced"][name] > 0,
+              f"kernel {name} never launched in the forced run")
+    check(by_path["pairwise"]["pairwise_join"] == 1,
+          "backend.pairwise did not launch the pairwise join once")
+    check(one.shape == (len(ids), len(ids)), "pairwise shape")
+    for tier in ("exact", "approx"):
+        check_answers(ds, queries, answers[tier], tier)
+    check_answers(ds, queries, forced_ans, "exact-forced")
+    check([[(c.ids, c.diameter) for c in r.candidates] for r in forced_ans]
+          == [[(c.ids, c.diameter) for c in r.candidates]
+              for r in answers["exact"]],
+          "forced device + prune run differs from the default run")
+    n_cmp = min(args.compare, len(queries))
+    for tier in ("exact", "approx"):
+        ts = time.perf_counter()
+        ref_ans = engine.query_batch(queries[:n_cmp], k=1, tier=tier,
+                                     backend="numpy")
+        report[tier]["numpy_backend_s"] = time.perf_counter() - ts
+        check(same_answers(answers[tier][:n_cmp], ref_ans, 1e-9),
+              f"{tier}: torch and numpy backends disagree")
+    print(f"[serve] answers: all covering and finite; forced run identical "
+          f"to the default; first {n_cmp} per tier agree with the numpy "
+          f"backend", flush=True)
+    return recs, by_path
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1_000_000,
+                    help="corpus points (default: Table III's 10^6)")
+    ap.add_argument("--queries", type=int, default=64)
+    ap.add_argument("--compare", type=int, default=8,
+                    help="queries per tier held to the numpy backend")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out"
+                                          / "chip_smoke.json"))
+    args = ap.parse_args()
+
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: the port's sources (src/repro_torch) are not "
+              "beside this script", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import pairwise_l2 as K
+
+    report: dict = {}
+    try:
+        t0 = time.perf_counter()
+        K.library()
+        report["build_s"] = time.perf_counter() - t0
+        card = card_line()
+        report["card"] = card
+        print(f"[build] kernels built in {report['build_s']:.1f}s; card: "
+              f"{card}", flush=True)
+        recs, by_path = serve(args, report)
+        rows = kernel_rows(*recs, by_path)
+        report["kernels"] = rows
+        for row in rows:
+            print(f"[kernel] {row['name']} {row['shape']}: {row['ms']:.4f} ms "
+                  f"(plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                  f" ms by {row['bound_by']}, library {row['library_ms']}); "
+                  f"max_abs_err {row['max_abs_err']}; launches "
+                  f"{row['launches_by_path']}", flush=True)
+    except SmokeError as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        out = pathlib.Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(report, indent=1, default=str))
+
+    keys = ("name", "route", "source", "replaces", "launches", "path",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,63 @@
+"""Carry a built corpus and index across as plain arrays.
+
+The system holds no weights: its state is the corpus and the two ProMiSH
+indices. These constructors rebuild that state from plain numpy arrays —
+what any other implementation (or a file) can hand over — so an engine
+answers exactly as the engine the arrays were read from.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+from repro_torch.core.index import HIStructure, PromishIndex
+from repro_torch.core.types import KeywordDataset, dataset_from_csr
+from repro_torch.utils.csr import CSR
+
+
+def _csr(offsets, values) -> CSR:
+    return CSR(offsets=np.ascontiguousarray(offsets, dtype=np.int64),
+               values=np.ascontiguousarray(values))
+
+
+def dataset_from_arrays(points: np.ndarray, kw_offsets: np.ndarray,
+                        kw_values: np.ndarray,
+                        n_keywords: int) -> KeywordDataset:
+    """(N, d) points and the point -> keywords CSR (sorted unique rows)."""
+    kw = _csr(kw_offsets, np.asarray(kw_values, dtype=np.int32))
+    if kw.n_rows != len(points):
+        raise ValueError(f"{len(points)} points but {kw.n_rows} keyword rows")
+    return dataset_from_csr(points, kw, n_keywords)
+
+
+def index_from_arrays(z: np.ndarray, p_max: float, n_scales: int,
+                      exact: bool, scales: Sequence[dict]) -> PromishIndex:
+    """A :class:`PromishIndex` from its arrays: the (m, d) projection
+    vectors, the projection span and, per scale, ``width``, ``n_buckets``
+    and the two CSRs (``table_offsets``/``table_values`` bucket -> points,
+    ``khb_offsets``/``khb_values`` keyword -> buckets)."""
+    if len(scales) != n_scales:
+        raise ValueError(f"{n_scales} scales but {len(scales)} given")
+    structures = tuple(
+        HIStructure(scale=s, width=float(sc["width"]),
+                    n_buckets=int(sc["n_buckets"]),
+                    table=_csr(sc["table_offsets"], sc["table_values"]),
+                    khb=_csr(sc["khb_offsets"], sc["khb_values"]))
+        for s, sc in enumerate(scales))
+    return PromishIndex(z=np.ascontiguousarray(z, dtype=np.float32),
+                        w0=structures[0].width, n_scales=int(n_scales),
+                        exact=bool(exact), structures=structures,
+                        p_max=float(p_max))
+
+
+def index_to_arrays(index: PromishIndex) -> dict:
+    """The keyword arguments of :func:`index_from_arrays` for ``index``."""
+    return dict(z=index.z, p_max=index.p_max, n_scales=index.n_scales,
+                exact=index.exact,
+                scales=[dict(width=h.width, n_buckets=h.n_buckets,
+                             table_offsets=h.table.offsets,
+                             table_values=h.table.values,
+                             khb_offsets=h.khb.offsets,
+                             khb_values=h.khb.values)
+                        for h in index.structures])

@@ -1,0 +1,149 @@
+"""Batched query planning (Algorithm 1 steps 10-22, lifted out of the search).
+
+The per-query recursion in ``promish_e``/``promish_a`` interleaves bucket
+selection with subset search, so every query pays its own device dispatches.
+This module separates the *what to search* decision from the searching: per
+scale, :func:`plan_scale` collects every covering-bucket subset for a whole
+batch of queries up front (bucket selection, bitset filtering, Algorithm-2
+dedup keyed per query), producing a flat list of :class:`SubsetTask` that a
+``DistanceBackend`` can pack into a single fused device dispatch.
+
+Both the single-query searches (a batch of one) and the serving engine's
+``query_batch`` pipeline are built on this layer.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+from repro_torch.core.index import PromishIndex
+from repro_torch.core.types import KeywordDataset
+
+
+@dataclasses.dataclass
+class PlanStats:
+    """Bucket-selection accounting. ``promish_e.SearchStats`` is a duck-typed
+    superset, so the single-query searches pass their own stats object."""
+
+    buckets_selected: int = 0
+    duplicate_subsets: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SubsetTask:
+    """One covering-bucket subset F' queued for search on behalf of a query."""
+
+    qidx: int            # position in the batch
+    f_ids: np.ndarray    # sorted unique point ids of F'
+
+
+def query_bitset(dataset: KeywordDataset, query: Sequence[int]) -> np.ndarray:
+    """BS: mark every point tagged with >=1 query keyword (Alg. 1 steps 4-6)."""
+    bs = np.zeros(dataset.n, dtype=bool)
+    for v in query:
+        bs[dataset.ikp.row(v)] = True
+    return bs
+
+
+class BatchPlanContext:
+    """Per-batch memoization shared by planning and keyword grouping.
+
+    One batch touches the same few keywords over and over: every scale's
+    covering-bucket selection re-reads the same I_khb rows, and every subset
+    task re-runs a membership test per query keyword. The context converts
+    both into per-batch one-time work:
+
+      * :meth:`kw_mask` — a boolean corpus mask per keyword, built once and
+        reused by every bitset and every keyword-group restriction;
+      * :meth:`covering` — the per-(scale, query) covering-bucket array,
+        computed once even when duplicate queries share a batch or the
+        fallback stage revisits a scale.
+
+    The context is valid for exactly one batch. Build a fresh one per
+    ``query_batch`` call.
+    """
+
+    def __init__(self, dataset: KeywordDataset):
+        self.dataset = dataset
+        self._kw_masks: dict[int, np.ndarray] = {}
+        self._covers: dict[tuple, np.ndarray] = {}
+
+    def kw_mask(self, v: int) -> np.ndarray:
+        m = self._kw_masks.get(v)
+        if m is None:
+            m = np.zeros(self.dataset.n, dtype=bool)
+            m[self.dataset.ikp.row(int(v))] = True
+            self._kw_masks[v] = m
+        return m
+
+    def query_bitset(self, query: Sequence[int]) -> np.ndarray:
+        bs = np.zeros(self.dataset.n, dtype=bool)
+        for v in query:
+            bs |= self.kw_mask(v)
+        return bs
+
+    def covering(self, hi, scale: int, query: Sequence[int]) -> np.ndarray:
+        key = (id(hi), scale, tuple(query))
+        cover = self._covers.get(key)
+        if cover is None:
+            cover = self._covers[key] = covering_buckets(hi, query)
+        return cover
+
+
+def covering_buckets(hi, query: Sequence[int]) -> np.ndarray:
+    """Buckets containing all query keywords: intersect I_khb rows by counting."""
+    counts = np.zeros(hi.n_buckets, dtype=np.int32)
+    for v in query:
+        counts[hi.khb.row(v)] += 1
+    return np.flatnonzero(counts == len(query))
+
+
+def plan_scale(index: PromishIndex, scale: int,
+               queries: Sequence[Sequence[int]],
+               bitsets: Sequence[np.ndarray],
+               active: Sequence[int],
+               explored: dict[int, set[bytes]] | None,
+               stats: PlanStats | None = None,
+               ctx: BatchPlanContext | None = None) -> list[SubsetTask]:
+    """Collect every subset to search at ``scale`` for the active queries.
+
+    ``explored`` maps query index -> Algorithm-2 hash set (exact set-hash on
+    sorted id bytes); pass None for ProMiSH-A semantics (disjoint bins make
+    within-scale subsets distinct, and the paper does not dedup across
+    scales). Task order is (query, bucket) — identical to the per-query loop,
+    so a batch of one reproduces the classic search exactly.
+    """
+    hi = index.structures[scale]
+    tasks: list[SubsetTask] = []
+    for qidx in active:
+        bs = bitsets[qidx]
+        cover = ctx.covering(hi, scale, queries[qidx]) if ctx is not None \
+            else covering_buckets(hi, queries[qidx])
+        for b in cover:
+            if stats is not None:
+                stats.buckets_selected += 1
+            pts = hi.table.row(int(b))
+            # table rows are sorted unique point ids (CSR contract), so the
+            # bitset filter preserves that — no np.unique on the hot path.
+            f = np.ascontiguousarray(pts[bs[pts]], dtype=np.int64)
+            if len(f) == 0:
+                continue
+            if explored is not None:
+                key = f.tobytes()
+                if key in explored[qidx]:
+                    if stats is not None:
+                        stats.duplicate_subsets += 1
+                    continue
+                explored[qidx].add(key)
+            tasks.append(SubsetTask(qidx=qidx, f_ids=f))
+    return tasks
+
+
+def fallback_tasks(bitsets: Sequence[np.ndarray],
+                   active: Sequence[int]) -> list[SubsetTask]:
+    """Alg. 1 steps 33-39: the full relevant-point subset per unfinished query."""
+    return [SubsetTask(qidx=qidx,
+                       f_ids=np.flatnonzero(bitsets[qidx]).astype(np.int64))
+            for qidx in active]

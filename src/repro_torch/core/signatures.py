@@ -1,0 +1,71 @@
+"""Signature construction and bucket hashing (paper §III).
+
+ProMiSH-E: each point has 2 keys per projection (overlapping bins); the
+cartesian product over m projections yields 2^m signatures per point.
+ProMiSH-A: one key per projection -> one signature per point.
+
+A signature is reduced to a hashtable bucket id with a fixed multiplicative
+hash. The multipliers are constants (not data-dependent) so that distributed
+shards agree on bucket ids.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+# Fixed odd 64-bit multipliers (splitmix64 outputs), one per projection slot.
+_MULTIPLIERS = np.array(
+    [
+        0x9E3779B97F4A7C15,
+        0xBF58476D1CE4E5B9,
+        0x94D049BB133111EB,
+        0xD6E8FEB86659FD93,
+        0xA5CB3B1F6E9F8B17,
+        0xC2B2AE3D27D4EB4F,
+        0x165667B19E3779F9,
+        0x27D4EB2F165667C5,
+    ],
+    dtype=np.uint64,
+)
+
+
+def signature_table(m: int) -> np.ndarray:
+    """(2^m, m) binary selector table: row j picks key h1 or h2 for each of the
+    m projections — the cartesian product enumeration."""
+    j = np.arange(1 << m, dtype=np.int64)[:, None]
+    return ((j >> np.arange(m, dtype=np.int64)[None, :]) & 1).astype(np.int64)
+
+
+def signatures_overlapping(keys2: np.ndarray) -> np.ndarray:
+    """keys2: (N, m, 2) dual keys -> (N, 2^m, m) all signatures per point."""
+    n, m, _ = keys2.shape
+    sel = signature_table(m)                      # (2^m, m)
+    idx = np.broadcast_to(sel[None], (n, 1 << m, m))
+    gathered = np.take_along_axis(keys2[:, None, :, :].repeat(1 << m, axis=1),
+                                  idx[..., None], axis=3)
+    return gathered[..., 0]                        # (N, 2^m, m)
+
+
+def hash_signatures(sigs: np.ndarray, n_buckets: int) -> np.ndarray:
+    """Multiplicative hash: (sum_i key_i * mult_i) mod n_buckets.
+
+    sigs: (..., m) int64 -> (...,) int64 bucket ids in [0, n_buckets).
+    """
+    m = sigs.shape[-1]
+    if m > len(_MULTIPLIERS):
+        raise ValueError(f"m={m} exceeds supported projections {len(_MULTIPLIERS)}")
+    acc = (sigs.astype(np.uint64) * _MULTIPLIERS[:m]).sum(axis=-1)
+    # 64-bit finalizer improves low-bit avalanche before the modulo.
+    acc ^= acc >> np.uint64(33)
+    acc *= np.uint64(0xFF51AFD7ED558CCD)
+    acc ^= acc >> np.uint64(33)
+    return (acc % np.uint64(n_buckets)).astype(np.int64)
+
+
+def bucket_ids_overlapping(keys2: np.ndarray, n_buckets: int) -> np.ndarray:
+    """(N, m, 2) -> (N, 2^m) bucket ids (ProMiSH-E: 2^m buckets per point)."""
+    return hash_signatures(signatures_overlapping(keys2), n_buckets)
+
+
+def bucket_ids_disjoint(keys: np.ndarray, n_buckets: int) -> np.ndarray:
+    """(N, m) -> (N,) bucket ids (ProMiSH-A: one bucket per point)."""
+    return hash_signatures(keys, n_buckets)

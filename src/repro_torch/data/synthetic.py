@@ -1,0 +1,40 @@
+"""Synthetic dataset generator exactly per paper §VIII:
+
+  * each coordinate uniform in [0, 10000]
+  * each point tagged with t keywords drawn from a dictionary of size U
+    (uniformly, like the paper's complexity model §VII).
+
+Draws are made in the same order as the reference package's generator, so a
+seed yields the same corpus and the same queries in both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.types import KeywordDataset, make_dataset
+
+
+def synthetic_dataset(n: int, d: int, u: int, t: int = 1, *, seed: int = 0,
+                      coord_range: float = 10_000.0) -> KeywordDataset:
+    rng = np.random.default_rng(seed)
+    points = rng.uniform(0.0, coord_range, size=(n, d)).astype(np.float32)
+    # t distinct keywords per point
+    if t == 1:
+        kws = rng.integers(0, u, size=(n, 1))
+    else:
+        kws = np.argsort(rng.random((n, u)), axis=1)[:, :t]
+    keywords = [row.tolist() for row in kws]
+    return make_dataset(points, keywords, n_keywords=u)
+
+
+def random_queries(dataset: KeywordDataset, q: int, n_queries: int, *,
+                   seed: int = 0, require_nonempty: bool = True) -> list[list[int]]:
+    """Random q-keyword queries from the dictionary (paper §VIII), keeping only
+    keywords that tag >=1 point so every query has at least one candidate."""
+    rng = np.random.default_rng(seed)
+    present = np.flatnonzero(np.diff(dataset.ikp.offsets) > 0) if require_nonempty \
+        else np.arange(dataset.n_keywords)
+    if len(present) < q:
+        raise ValueError("not enough populated keywords for query size")
+    return [sorted(rng.choice(present, size=q, replace=False).tolist())
+            for _ in range(n_queries)]

@@ -1,0 +1,63 @@
+"""Public threshold-join ops, routed by the device of their tensors.
+
+A CUDA tensor goes to the hand-written kernel (``kernels.pairwise_l2``),
+which launches or raises; a CPU tensor goes to the kernel's plain PyTorch
+version (``kernels.ref``). Nothing else is routed: there is no silent
+fallback from the card to the host.
+
+  * :func:`pairwise_l2_join_batched_masked` — the fp32 masked self-join of a
+    batch of padded subsets (the serving hot path), with the optional
+    eligibility fold.
+  * :func:`pairwise_l2_join_batched_counts` — the bf16 coarse counts of the
+    cascade's prune tier.
+  * :func:`pairwise_l2_join` — one (M, d) x (N, d) join.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import pairwise_l2 as _cuda
+from repro_torch.kernels import ref
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def pairwise_l2_join_batched_masked(x: torch.Tensor, lengths: torch.Tensor,
+                                    r: torch.Tensor,
+                                    elig: torch.Tensor | None = None, *,
+                                    with_sq: bool = False):
+    """Fused batched self-join emitting the packed adjacency bitmask.
+
+    Returns ``(mask, counts[, sq])``: mask (S, P, ceil(P/32)) int32 words
+    (bit ``j % 32`` of word ``j // 32`` of row i set iff points i, j of the
+    subset join at its radius, both valid and, with ``elig``, both
+    eligible), counts (S,) int32 (diagonal included), and the dense fp32
+    block only when ``with_sq``."""
+    if _route(x) == "cuda":
+        return _cuda.join_batched_masked(x, lengths, r, elig, with_sq=with_sq)
+    return ref.join_batched_masked(x, lengths, r, elig, with_sq=with_sq)
+
+
+def pairwise_l2_join_batched_counts(x: torch.Tensor, lengths: torch.Tensor,
+                                    r: torch.Tensor) -> torch.Tensor:
+    """Coarse bf16 threshold-join counts (the cascade's tier 0): same batching
+    contract as the masked join, counts (S,) int32 only. Call with the
+    error-widened coarse radii; a subset whose count stays at or below its
+    diagonal provably has no off-diagonal fp32 pair."""
+    if _route(x) == "cuda":
+        return _cuda.join_batched_prune(x, lengths, r)
+    return ref.join_batched_counts(x, lengths, r)
+
+
+def pairwise_l2_join(a: torch.Tensor, b: torch.Tensor,
+                     r: float = float("inf")
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pairwise squared-L2 + threshold-join counts. Returns (sq (M, N),
+    per-tile counts); ``counts.sum()`` is the join size at ``r``."""
+    if _route(a) == "cuda":
+        return _cuda.pairwise_join(a, b, r)
+    return ref.pairwise_join(a, b, r)

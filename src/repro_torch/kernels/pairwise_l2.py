@@ -1,0 +1,159 @@
+"""Wrappers of the CUDA threshold-join kernels (``csrc/pairwise_l2.cu``).
+
+The library builds at the first call (``kernels.build``) and binds through
+``ctypes``. Every wrapper checks device, dtype, shape and contiguity,
+allocates its outputs, launches on the current stream, raises on a launch
+error, and adds one to its entry of :data:`launches` for each launch — the
+count a run reads to show that its path went through the kernel. There is no
+fallback: these take CUDA tensors only (``kernels.ops`` routes CPU tensors to
+the plain versions in ``kernels.ref``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import JOIN_TILE
+
+# Launches per kernel since the last reset_launches().
+launches = {"join_batched_masked": 0, "join_batched_prune": 0,
+            "pairwise_join": 0}
+
+_LIB: ctypes.CDLL | None = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def library() -> ctypes.CDLL:
+    """The built and bound kernel library (builds on first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build.build("pairwise_l2")))
+        lib.join_batched_masked.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
+                                            _P, _P, _P]
+        lib.join_batched_prune.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P]
+        lib.pairwise_join.argtypes = [_P, _P, _I, _I, _I, ctypes.c_float, _P,
+                                      _P, _P]
+        for fn in (lib.join_batched_masked, lib.join_batched_prune,
+                   lib.pairwise_join, lib.join_tile_rows, lib.join_tile_cols):
+            fn.restype = _I
+        lib.join_tile_rows.argtypes = []
+        lib.join_tile_cols.argtypes = []
+        if (lib.join_tile_rows(), lib.join_tile_cols()) != JOIN_TILE:
+            raise RuntimeError("kernel tile differs from kernels.ref.JOIN_TILE")
+        _LIB = lib
+    return _LIB
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device or t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _launched(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    launches[name] += 1
+
+
+_MAX_GRID_Y = 65535
+
+
+def _check_batched(x, lengths, r, elig=None):
+    if x.dim() != 3:
+        raise ValueError(f"x must be (S, P, d), got {tuple(x.shape)}")
+    s, p, d = x.shape
+    _check(x, "x", torch.float32, (s, p, d), x.device)
+    _check(lengths, "lengths", torch.int32, (s,), x.device)
+    _check(r, "r", torch.float32, (s,), x.device)
+    if elig is not None:
+        _check(elig, "elig", torch.int32, (s, (p + 31) // 32), x.device)
+    if -(-p // JOIN_TILE[0]) > _MAX_GRID_Y:
+        raise ValueError(f"P={p} exceeds the kernel grid")
+    return s, p, d
+
+
+def join_batched_masked(x: torch.Tensor, lengths: torch.Tensor,
+                        r: torch.Tensor, elig: torch.Tensor | None = None, *,
+                        with_sq: bool = False):
+    """CUDA kernel K1 — see ``kernels.ref.join_batched_masked``."""
+    s, p, d = _check_batched(x, lengths, r, elig)
+    dev = x.device
+    mask = torch.empty((s, p, (p + 31) // 32), dtype=torch.int32, device=dev)
+    counts = torch.zeros(s, dtype=torch.int32, device=dev)
+    sq = torch.empty((s, p, p), dtype=torch.float32, device=dev) \
+        if with_sq else None
+    if s and p and d:
+        with torch.cuda.device(dev):
+            err = library().join_batched_masked(
+                _ptr(x), _ptr(lengths), _ptr(r), _ptr(elig), s, p, d,
+                _ptr(mask), _ptr(counts), _ptr(sq),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _launched("join_batched_masked", err)
+    elif d == 0:
+        raise ValueError("x must have at least one feature")
+    return (mask, counts, sq) if with_sq else (mask, counts)
+
+
+def join_batched_prune(x: torch.Tensor, lengths: torch.Tensor,
+                       r: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel K2 — see ``kernels.ref.join_batched_counts``. Takes the
+    fp32 tile and rounds coordinates to bf16 as it loads them."""
+    s, p, d = _check_batched(x, lengths, r)
+    counts = torch.zeros(s, dtype=torch.int32, device=x.device)
+    if s and p and d:
+        with torch.cuda.device(x.device):
+            err = library().join_batched_prune(
+                _ptr(x), _ptr(lengths), _ptr(r), s, p, d, _ptr(counts),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _launched("join_batched_prune", err)
+    elif d == 0:
+        raise ValueError("x must have at least one feature")
+    return counts
+
+
+def pairwise_join(a: torch.Tensor, b: torch.Tensor,
+                  r: float = float("inf")) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA kernel K3 — see ``kernels.ref.pairwise_join``."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"a (M, d) and b (N, d) expected, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    (m, d), n = a.shape, b.shape[0]
+    _check(a, "a", torch.float32, (m, d), a.device)
+    _check(b, "b", torch.float32, (n, d), a.device)
+    tm, tn = JOIN_TILE
+    if -(-m // tm) > _MAX_GRID_Y:
+        raise ValueError(f"M={m} exceeds the kernel grid")
+    sq = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    counts = torch.zeros((-(-m // tm), -(-n // tn)), dtype=torch.int32,
+                         device=a.device)
+    if m and n and d:
+        with torch.cuda.device(a.device):
+            err = library().pairwise_join(
+                _ptr(a), _ptr(b), m, n, d, float(r), _ptr(sq), _ptr(counts),
+                torch.cuda.current_stream(a.device).cuda_stream)
+        _launched("pairwise_join", err)
+    elif d == 0:
+        raise ValueError("a and b must have at least one feature")
+    return sq, counts

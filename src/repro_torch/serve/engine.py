@@ -1,0 +1,372 @@
+"""Batched NKS serving engine over a static corpus.
+
+Production shape: a frontend batches keyword-set queries; the engine answers
+from a ProMiSH index over an embedding corpus, in two quality/latency tiers:
+
+  * ``exact``  — ProMiSH-E (100% accuracy, Lemma-2 guarantee);
+  * ``approx`` — ProMiSH-A (the paper's fast tier).
+
+``query_batch`` runs both tiers as a **staged batched pipeline**: per scale,
+bucket selection for the whole batch is amortised through
+``core.plan.plan_scale`` (shared per-query Algorithm-2 dedup), surviving
+subsets are packed on the device into a handful of size-binned fused
+threshold-join dispatches (``backend="torch"``, each emitting the packed join
+bitmask; subsets whose pruning radius is still infinite skip the device
+entirely) or looped through float64 numpy (``backend="numpy"``), and the host
+enumeration stage consumes the join blocks through the vectorized frontier of
+``subset_search.enumerate_with_block``. Per-scale dispatches, phase timings
+and cache hits are recorded in :class:`PipelineStats`
+(``engine.last_batch_stats``).
+
+The engine runs on the card: it puts the corpus on the CUDA device once, at
+construction, and its ``"torch"`` backend launches the hand-written kernels.
+``device="cpu"`` runs the same pipeline on the host through the kernels'
+plain PyTorch versions; with no CUDA device and no ``device`` it raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import carry, plan, promish_a, promish_e
+from repro_torch.core.backend import (DistanceBackend, NumpyBackend,
+                                      TorchBackend, resolve_device)
+from repro_torch.core.index import PromishIndex, build_index
+from repro_torch.core.subset_search import enumerate_with_block, local_groups
+from repro_torch.core.types import Candidate, KeywordDataset, TopK
+
+
+@dataclasses.dataclass
+class QueryResult:
+    query: list[int]
+    candidates: list[Candidate]
+    latency_s: float
+    tier: str
+
+
+@dataclasses.dataclass
+class ScaleStats:
+    """One pipeline stage = one scale of the multi-scale index."""
+
+    scale: int
+    active_queries: int = 0
+    buckets_selected: int = 0
+    duplicate_subsets: int = 0
+    tasks_planned: int = 0
+    tasks_searched: int = 0      # tasks with all keyword groups non-empty
+    dispatches: int = 0          # device/loop distance dispatches this scale
+    join_pairs: int = 0
+    queries_finished: int = 0
+
+
+@dataclasses.dataclass
+class PipelineStats:
+    """End-to-end accounting for one ``query_batch`` call.
+
+    The four phase timers split the batch wall time: ``plan`` (bucket
+    selection + keyword grouping), ``pack`` (tile packing, backend-side),
+    ``dispatch`` (device dispatch + D2H readback, and host-routed bins),
+    ``enumerate`` (host Alg. 4 over the join masks). Cache counters mirror
+    the backend's LRU.
+    """
+
+    batch_size: int
+    tier: str
+    backend: str
+    scales: list[ScaleStats] = dataclasses.field(default_factory=list)
+    fallback_queries: int = 0
+    fallback_dispatches: int = 0
+    candidates_explored: int = 0
+    t_plan_s: float = 0.0
+    t_pack_s: float = 0.0
+    t_dispatch_s: float = 0.0
+    t_enumerate_s: float = 0.0
+    cache_hits: int = 0
+    cache_misses: int = 0
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    valid_cells: int = 0
+    total_cells: int = 0
+    # Cascade accounting: the coarse bf16 count pass (``t_prune_s``), the
+    # fp32 masked join (the remainder of ``t_dispatch_s``), the host float64
+    # settlement of surviving tuples (``t_rescore_s``, measured inside the
+    # enumeration stage), and cost-model routing (bins sent to the float64
+    # host loop instead of the device). ``bin_occupancy`` maps each size
+    # class (padded width) to [valid, padded] packed point counts.
+    prune_tier_dispatches: int = 0
+    cells_pruned: int = 0
+    t_prune_s: float = 0.0
+    t_rescore_s: float = 0.0
+    t_host_s: float = 0.0
+    host_routed_dispatches: int = 0
+    host_routed_subsets: int = 0
+    bin_occupancy: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def dispatches_per_scale(self) -> list[int]:
+        return [s.dispatches for s in self.scales]
+
+    @property
+    def total_dispatches(self) -> int:
+        return sum(s.dispatches for s in self.scales) + self.fallback_dispatches
+
+    @property
+    def device_dispatches(self) -> int:
+        """Bins the backend joined on the device (the rest went to the host
+        route)."""
+        return self.total_dispatches - self.host_routed_dispatches
+
+    @property
+    def phases(self) -> dict:
+        """JSON-ready phase breakdown."""
+        probed = self.cache_hits + self.cache_misses
+        return {
+            "plan_s": self.t_plan_s,
+            "pack_s": self.t_pack_s,
+            "dispatch_s": self.t_dispatch_s,
+            "enumerate_s": self.t_enumerate_s,
+            "cache_hit_rate": self.cache_hits / probed if probed else None,
+        }
+
+    @property
+    def padded_cell_ratio(self) -> float | None:
+        """Fraction of dispatched join-block cells that were padding; None
+        with no device dispatches."""
+        if not self.total_cells:
+            return None
+        return 1.0 - self.valid_cells / self.total_cells
+
+    @property
+    def cascade(self) -> dict:
+        """JSON-ready per-tier cascade summary."""
+        return {
+            "prune_tier_dispatches": self.prune_tier_dispatches,
+            "cells_pruned": self.cells_pruned,
+            "prune_s": self.t_prune_s,
+            "join_s": max(self.t_dispatch_s - self.t_prune_s
+                          - self.t_host_s, 0.0),
+            "rescore_s": self.t_rescore_s,
+            "device_dispatches": self.device_dispatches,
+            "host_routed_dispatches": self.host_routed_dispatches,
+            "host_routed_subsets": self.host_routed_subsets,
+            "host_s": self.t_host_s,
+        }
+
+    @property
+    def binning(self) -> dict:
+        """JSON-ready size-class occupancy."""
+        return {
+            "padded_cell_ratio": self.padded_cell_ratio,
+            "bins": {str(k): {"points": v[0], "padded": v[1]}
+                     for k, v in sorted(self.bin_occupancy.items())},
+        }
+
+
+_DELTA_FIELDS = ("t_pack_s", "t_dispatch_s", "cache_hits", "cache_misses",
+                 "h2d_bytes", "d2h_bytes", "valid_cells", "total_cells",
+                 "prune_tier_dispatches", "cells_pruned", "t_prune_s",
+                 "t_host_s", "host_routed_dispatches", "host_routed_subsets")
+
+
+class NKSEngine:
+    def __init__(self, dataset: KeywordDataset, *, m: int = 2,
+                 n_scales: int = 5, seed: int = 0,
+                 device: str | torch.device | None = None,
+                 _indices: tuple[PromishIndex, PromishIndex] | None = None):
+        """Build both indices over ``dataset`` and put the corpus on
+        ``device`` (the CUDA card unless the caller passes another; see
+        :func:`repro_torch.core.backend.resolve_device`). The ``"torch"``
+        backend is built here too, so its cost model is calibrated — and on
+        the card its kernels built — before the first batch."""
+        self.device = resolve_device(device)
+        self.dataset = dataset
+        self.last_batch_stats: PipelineStats | None = None
+        if _indices is not None:
+            self.index_e, self.index_a = _indices
+        else:
+            self.index_e = build_index(dataset, exact=True, m=m,
+                                       n_scales=n_scales, seed=seed)
+            self.index_a = build_index(dataset, exact=False, m=m,
+                                       n_scales=n_scales, seed=seed)
+        self.backend = TorchBackend(device=self.device)
+        self.backend.attach(dataset.points)
+        self.backend.warmup(dataset.dim)
+
+    @classmethod
+    def from_arrays(cls, points: np.ndarray, kw_offsets: np.ndarray,
+                    kw_values: np.ndarray, n_keywords: int, *,
+                    index_e: dict, index_a: dict,
+                    device: str | torch.device | None = None) -> "NKSEngine":
+        """An engine over a corpus and indices given as plain arrays (see
+        :mod:`repro_torch.core.carry`): ``index_e``/``index_a`` are the
+        keyword arguments of :func:`carry.index_from_arrays`."""
+        dataset = carry.dataset_from_arrays(points, kw_offsets, kw_values,
+                                            n_keywords)
+        return cls(dataset, device=device,
+                   _indices=(carry.index_from_arrays(**index_e),
+                             carry.index_from_arrays(**index_a)))
+
+    def query(self, keywords: Sequence[int], k: int = 1,
+              tier: str = "approx") -> QueryResult:
+        """One query through the per-query search (float64 on the host)."""
+        t0 = time.perf_counter()
+        self._validate_queries([keywords])
+        if tier == "exact":
+            pq = promish_e.search(self.dataset, self.index_e, keywords, k=k)
+        elif tier == "approx":
+            pq = promish_a.search(self.dataset, self.index_a, keywords, k=k)
+        else:
+            raise ValueError(tier)
+        return QueryResult(list(keywords), pq.items,
+                           time.perf_counter() - t0, tier)
+
+    # ------------------------------------------------------------- batched path
+    def _validate_queries(self, queries: Sequence[Sequence[int]]
+                          ) -> list[list[int]]:
+        out = []
+        for q in queries:
+            q = sorted(set(int(v) for v in q))
+            if any(v < 0 or v >= self.dataset.n_keywords for v in q):
+                raise ValueError("query keyword outside dictionary")
+            out.append(q)
+        return out
+
+    def _run_tasks(self, tasks: list[plan.SubsetTask],
+                   queries: list[list[int]], pqs: list[TopK],
+                   backend: DistanceBackend, stats: PipelineStats,
+                   ctx: plan.BatchPlanContext, timers: dict
+                   ) -> tuple[int, int, int]:
+        """Distance stage + enumeration stage for one batch of subset tasks.
+        Returns (tasks_searched, dispatches_issued, join_pairs)."""
+        t0 = time.perf_counter()
+        prepared = []
+        for t in tasks:
+            gl = local_groups(t.f_ids, queries[t.qidx], self.dataset, ctx=ctx)
+            if gl is not None:
+                prepared.append((t, gl))
+        stats.t_plan_s += time.perf_counter() - t0
+        if not prepared:
+            return 0, 0, 0
+        d0 = backend.stats.dispatches
+        blocks = backend.self_join_blocks(
+            self.dataset.points,
+            [t.f_ids for t, _ in prepared],
+            [pqs[t.qidx].kth_diameter() for t, _ in prepared],
+            keys=[t.f_ids.tobytes() for t, _ in prepared])
+        t1 = time.perf_counter()
+        join_pairs = 0
+        for (t, gl), db in zip(prepared, blocks):
+            join_pairs += db.join_count
+            stats.candidates_explored += enumerate_with_block(
+                t.f_ids, gl, queries[t.qidx], self.dataset, pqs[t.qidx], db,
+                timers=timers)
+        stats.t_enumerate_s += time.perf_counter() - t1
+        return len(prepared), backend.stats.dispatches - d0, join_pairs
+
+    def _batch_search(self, queries: list[list[int]], k: int, tier: str,
+                      backend: DistanceBackend
+                      ) -> tuple[list[TopK], PipelineStats]:
+        exact = tier == "exact"
+        index = self.index_e if exact else self.index_a
+        stats = PipelineStats(batch_size=len(queries), tier=tier,
+                              backend=backend.name)
+        b0 = dataclasses.replace(backend.stats)
+        b0_bins = dict(backend.stats.bin_points)
+        pqs = [TopK(k) for _ in queries]
+        t0 = time.perf_counter()
+        # One BatchPlanContext per batch: keyword masks and covering-bucket
+        # selections are memoized for the batch's lifetime.
+        pctx = plan.BatchPlanContext(self.dataset)
+        bitsets = [pctx.query_bitset(q) for q in queries]
+        stats.t_plan_s += time.perf_counter() - t0
+        explored = {i: set() for i in range(len(queries))} if exact else None
+        active = list(range(len(queries)))
+        timers = {"rescore_s": 0.0}
+
+        for s in range(index.n_scales):
+            if not active:
+                break
+            sstats = ScaleStats(scale=s, active_queries=len(active))
+            pstats = plan.PlanStats()
+            t0 = time.perf_counter()
+            tasks = plan.plan_scale(index, s, queries, bitsets, active,
+                                    explored, pstats, ctx=pctx)
+            stats.t_plan_s += time.perf_counter() - t0
+            sstats.buckets_selected = pstats.buckets_selected
+            sstats.duplicate_subsets = pstats.duplicate_subsets
+            sstats.tasks_planned = len(tasks)
+            searched, dispatches, pairs = self._run_tasks(
+                tasks, queries, pqs, backend, stats, pctx, timers)
+            sstats.tasks_searched = searched
+            sstats.dispatches = dispatches
+            sstats.join_pairs = pairs
+            # Per-query termination, exactly as the per-query searches do it:
+            # E: Lemma-2 radius test after the scale; A: first full PQ.
+            still = []
+            for qidx in active:
+                done = pqs[qidx].kth_diameter() <= index.w0 * (2.0 ** (s - 1)) \
+                    if exact else pqs[qidx].full()
+                if done:
+                    sstats.queries_finished += 1
+                else:
+                    still.append(qidx)
+            active = still
+            stats.scales.append(sstats)
+
+        if active:
+            stats.fallback_queries = len(active)
+            tasks = plan.fallback_tasks(bitsets, active)
+            _, stats.fallback_dispatches, _ = self._run_tasks(
+                tasks, queries, pqs, backend, stats, pctx, timers)
+        stats.t_rescore_s = timers["rescore_s"]
+        for f in _DELTA_FIELDS:
+            setattr(stats, f, getattr(backend.stats, f) - getattr(b0, f))
+        for edge, (pts, padded) in backend.stats.bin_points.items():
+            before = b0_bins.get(edge, (0, 0))
+            dp, dpad = pts - before[0], padded - before[1]
+            if dp or dpad:
+                stats.bin_occupancy[edge] = (dp, dpad)
+        return pqs, stats
+
+    def query_batch(self, queries: Sequence[Sequence[int]], k: int = 1,
+                    tier: str = "approx",
+                    backend: str | DistanceBackend = "torch"
+                    ) -> list[QueryResult]:
+        """Answer a batch of queries through the staged pipeline.
+
+        Bucket selection, Algorithm-2 dedup and device dispatch are amortised
+        across the batch: with ``backend="torch"`` (the engine's own backend,
+        on its device) each scale issues a few size-binned fused
+        threshold-join dispatches covering all live subsets; ``"numpy"``
+        loops float64 joins on the host; a :class:`DistanceBackend` instance
+        is used as given. Per-result latency is the batch wall time divided
+        by the batch size. Pipeline accounting lands in
+        ``self.last_batch_stats``."""
+        if tier not in ("exact", "approx"):
+            raise ValueError(tier)
+        t0 = time.perf_counter()
+        qlists = self._validate_queries(queries)
+        pqs, stats = self._batch_search(qlists, k, tier,
+                                        self._resolve_backend(backend))
+        self.last_batch_stats = stats
+        per_q = (time.perf_counter() - t0) / max(len(qlists), 1)
+        # results echo the caller's keyword lists verbatim
+        return [QueryResult(list(q), pq.items, per_q, tier)
+                for q, pq in zip(queries, pqs)]
+
+    def _resolve_backend(self, backend: str | DistanceBackend
+                         ) -> DistanceBackend:
+        """``"torch"``: the engine's own backend (corpus already on its
+        device, cost model calibrated); ``"numpy"``: a fresh float64 host
+        loop; an instance passes through."""
+        if isinstance(backend, DistanceBackend):
+            return backend
+        if backend == "torch":
+            return self.backend
+        if backend == "numpy":
+            return NumpyBackend()
+        raise ValueError(f"unknown distance backend: {backend!r}")

@@ -1,0 +1,83 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Runs only where there is a CUDA device and nvcc (``pytest -m cuda
+tests/test_torch_cuda.py`` on the H100); elsewhere it skips. It imports
+nothing of JAX, so it runs on a machine without it. Tolerance, as in
+``test_torch_kernels.py``: masks identical except on cells whose float64
+squared distance lies within ``(64 + 4d) * eps32 * max|x|^2`` of ``r^2``,
+counts within the number of such cells, ``sq`` within that band.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.subset_search import pack_join_mask
+from repro_torch.kernels import pairwise_l2, ref
+
+_EPS32 = float(np.finfo(np.float32).eps)
+CASES = [(3, 10, 8), (5, 37, 9), (4, 64, 16), (3, 130, 5), (2, 200, 33),
+         (9, 7, 33), (16, 512, 64)]
+
+
+def _band(x, lens, radii, el, bf16=False):
+    if bf16:
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    out = []
+    for si in range(x.shape[0]):
+        n = int(lens[si])
+        pts = x[si].astype(np.float64)
+        d2 = ((pts[:, None] - pts[None, :]) ** 2).sum(-1)
+        live = (np.arange(x.shape[1]) < n) & el[si]
+        sq_live = live[:, None] & live[None, :]
+        r2 = float(np.float32(radii[si])) ** 2
+        norm2 = (pts[:n] ** 2).sum(-1).max() if n else 0.0
+        tol = (64.0 + 4.0 * x.shape[2]) * _EPS32 * norm2
+        out.append(sq_live & (np.abs(d2 - r2) <= tol) if np.isfinite(r2)
+                   else np.zeros_like(sq_live))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,p,d", CASES)
+def test_kernels_match_plain_versions_on_card(s, p, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(p + d)
+    x = rng.uniform(0, 100, (s, p, d)).astype(np.float32)
+    lens = rng.integers(0, p + 1, size=s).astype(np.int32)
+    lens[0], lens[-1] = p, 0
+    radii = rng.uniform(0, 150, size=s).astype(np.float32)
+    radii[min(2, s - 1)] = np.inf
+    el = rng.random((s, p)) < 0.6
+    for fold in (False, True):
+        live = el if fold else np.ones_like(el)
+        elig = torch.from_numpy(pack_join_mask(el).view(np.int32)).to(dev) \
+            if fold else None
+        args = [torch.from_numpy(a).to(dev) for a in (x, lens, radii)]
+        m_k, c_k = pairwise_l2.join_batched_masked(*args, elig)
+        m_p, c_p = ref.join_batched_masked(*args, elig)
+        got = ref.unpack_bits(m_k, p).cpu().numpy()
+        want = ref.unpack_bits(m_p, p).cpu().numpy()
+        for si, band in enumerate(_band(x, lens, radii, live)):
+            assert not ((got[si] != want[si]) & ~band).any(), f"subset {si}"
+            assert abs(int(c_k[si]) - int(c_p[si])) <= int(band.sum())
+            assert int(c_k[si]) == int(got[si].sum())
+    norms = np.sqrt((x.astype(np.float64) ** 2).sum(-1)).max()
+    rc = ((radii + 2 * 2.0 ** -8 * norms) * 1.05).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (x, lens, rc)]
+    k_k = pairwise_l2.join_batched_prune(*args).cpu().numpy()
+    k_p = ref.join_batched_counts(*args).cpu().numpy()
+    for si, band in enumerate(_band(x, lens, rc, np.ones_like(el),
+                                    bf16=True)):
+        assert abs(int(k_k[si]) - int(k_p[si])) <= int(band.sum())
+    a = torch.from_numpy(x[0]).to(dev)
+    b = torch.from_numpy(x[-1]).to(dev)
+    sq_k, n_k = pairwise_l2.pairwise_join(a, b, 50.0)
+    sq_p, n_p = ref.pairwise_join(a, b, 50.0)
+    norm2 = max((x[0].astype(np.float64) ** 2).sum(-1).max(),
+                (x[-1].astype(np.float64) ** 2).sum(-1).max())
+    assert float((sq_k - sq_p).abs().max()) <= (64 + 4 * d) * _EPS32 * norm2
+    assert tuple(n_k.shape) == tuple(n_p.shape)
+    assert int(n_k.sum()) == int((sq_k <= np.float32(50.0) ** 2).sum())

@@ -1,0 +1,281 @@
+"""The port's threshold-join ops against the reference package's, on the CPU.
+
+On a CPU tensor ``repro_torch.kernels.ops`` runs each kernel's plain PyTorch
+version; these tests hold those against the reference lowerings (``impl="xla"``
+and, on one small case each, the Pallas program in interpret mode) on the
+same seeded numpy inputs. Tolerance: masks must be identical except on cells
+whose float64 squared distance lies within the fp32 error band of the
+threshold, ``|d^2 - r^2| <= (64 + 4d) * eps32 * max|x|^2`` (the bound behind
+the backend's slack); counts may differ by no more than the number of such
+cells. The kernels themselves run only on the card: ``test_torch_cuda.py``
+holds them against these plain versions there, and ``chip_smoke.py`` does
+so at the serving path's shapes.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.subset_search import pack_join_mask as ref_pack_join_mask
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops, pairwise_l2, ref
+
+torch.set_num_threads(1)
+
+_EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _band(x, lens, radii, elig_dense=None):
+    """Per subset: (exact float64 join, boundary-band cells) on the live
+    square, for finite radii (an infinite radius has no band)."""
+    s, p, d = x.shape
+    out = []
+    for si in range(s):
+        n = int(lens[si])
+        pts = x[si].astype(np.float64)
+        d2 = ((pts[:, None] - pts[None, :]) ** 2).sum(-1)
+        live = np.arange(p) < n
+        if elig_dense is not None:
+            live &= elig_dense[si]
+        sq_live = live[:, None] & live[None, :]
+        r2 = float(np.float32(radii[si])) ** 2
+        norm2 = (pts[:n] ** 2).sum(-1).max() if n else 0.0
+        tol = (64.0 + 4.0 * d) * _EPS32 * norm2
+        band = sq_live & (np.abs(d2 - r2) <= tol) if np.isfinite(r2) \
+            else np.zeros_like(sq_live)
+        out.append((sq_live & (d2 <= r2), band))
+    return out
+
+
+def _unpack(words, p):
+    w = np.ascontiguousarray(words).view(np.uint32)
+    cols = np.arange(p)
+    return ((w[..., cols // 32] >> (cols % 32).astype(np.uint32)) & 1) \
+        .astype(bool)
+
+
+def _assert_mask_close(m_got, c_got, m_want, c_want, bands, p):
+    got, want = _unpack(m_got, p), _unpack(m_want, p)
+    for si, (_, band) in enumerate(bands):
+        off = got[si] != want[si]
+        assert not (off & ~band).any(), f"subset {si}: mask differs off-band"
+        assert abs(int(c_got[si]) - int(c_want[si])) <= int(band.sum()), \
+            f"subset {si}: counts {c_got[si]} vs {c_want[si]}"
+        assert int(c_got[si]) == int(got[si].sum()), f"subset {si}"
+
+
+def _case(s, p, d, seed, scale=100.0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, scale, (s, p, d)).astype(np.float32)
+    lens = rng.integers(0, p + 1, size=s).astype(np.int32)
+    lens[0] = p
+    lens[-1] = 0                                     # empty subset
+    if s > 2:
+        lens[1] = 1                                  # single point
+    radii = rng.uniform(0, 1.5 * scale, size=s).astype(np.float32)
+    radii[min(2, s - 1)] = np.inf
+    el = rng.random((s, p)) < 0.5
+    return x, lens, radii, el
+
+
+CASES = [(3, 10, 8), (5, 37, 9), (4, 64, 16), (3, 130, 5), (2, 200, 33),
+         (9, 7, 33)]
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("s,p,d", CASES)
+def test_join_batched_masked_matches_xla(s, p, d, fold):
+    x, lens, radii, el = _case(s, p, d, seed=s * 100 + p + d)
+    elig = ref_pack_join_mask(el.reshape(-1, p)).reshape(s, -1) if fold \
+        else None
+    m_j, c_j = jops.pairwise_l2_join_batched_masked(
+        jnp.asarray(x), lens, radii,
+        None if elig is None else jnp.asarray(elig), impl="xla")
+    m_t, c_t = ops.pairwise_l2_join_batched_masked(
+        _t(x), _t(lens), _t(radii),
+        None if elig is None else _t(elig.view(np.int32)))
+    assert m_t.dtype == torch.int32 and tuple(m_t.shape) == (s, p, (p + 31) // 32)
+    assert c_t.dtype == torch.int32 and tuple(c_t.shape) == (s,)
+    bands = _band(x, lens, radii, el if fold else None)
+    _assert_mask_close(m_t.numpy(), c_t.numpy(), np.asarray(m_j),
+                       np.asarray(c_j), bands, p)
+    # the exact float64 join is inside the band too
+    got = _unpack(m_t.numpy(), p)
+    for si, (exact, band) in enumerate(bands):
+        assert not ((got[si] != exact) & ~band).any(), f"subset {si}"
+
+
+def test_join_batched_masked_matches_pallas_interpret():
+    """One small case against the Pallas program itself (interpret mode),
+    with padding, a zero-length and a one-point subset, r = inf and the
+    eligibility fold."""
+    s, p, d = 4, 37, 6
+    x, lens, radii, el = _case(s, p, d, seed=9, scale=50.0)
+    elig = ref_pack_join_mask(el.reshape(-1, p)).reshape(s, -1)
+    m_j, c_j = jops.pairwise_l2_join_batched_masked(
+        jnp.asarray(x), lens, radii, jnp.asarray(elig), bm=16, bn=32,
+        impl="pallas", interpret=True)
+    m_t, c_t = ops.pairwise_l2_join_batched_masked(
+        _t(x), _t(lens), _t(radii), _t(elig.view(np.int32)))
+    _assert_mask_close(m_t.numpy(), c_t.numpy(), np.asarray(m_j),
+                       np.asarray(c_j), _band(x, lens, radii, el), p)
+
+
+def test_join_batched_masked_sq_block():
+    """``with_sq``: the dense block matches the reference's (fmax outside
+    the valid square) and every mask bit thresholds it."""
+    s, p, d = 4, 21, 6
+    x, lens, radii, _ = _case(s, p, d, seed=3, scale=50.0)
+    _, _, sq_j = jops.pairwise_l2_join_batched_masked(
+        jnp.asarray(x), lens, radii, impl="xla", with_sq=True)
+    m_t, c_t, sq_t = ops.pairwise_l2_join_batched_masked(
+        _t(x), _t(lens), _t(radii), with_sq=True)
+    sq_j, sq_t = np.asarray(sq_j), sq_t.numpy()
+    fmax = np.finfo(np.float32).max
+    scale = (x.astype(np.float64) ** 2).sum(-1).max()
+    np.testing.assert_allclose(sq_t, sq_j, rtol=0,
+                               atol=(64 + 4 * d) * _EPS32 * scale)
+    assert ((sq_t == fmax) == (sq_j == fmax)).all()
+    got = _unpack(m_t.numpy(), p)
+    for si in range(s):
+        dense = sq_t[si] <= np.float32(radii[si]) ** 2
+        np.testing.assert_array_equal(got[si], dense & (sq_t[si] != fmax))
+        assert int(c_t[si]) == int(got[si].sum())
+
+
+def test_pack_bits_matches_reference_layout():
+    rng = np.random.default_rng(1)
+    for n in (1, 31, 32, 33, 70):
+        adj = rng.random((5, n)) < 0.5
+        adj[0] = True                                # bit 31 set: sign bit
+        want = ref_pack_join_mask(adj)
+        got = ref.pack_bits(torch.from_numpy(adj))
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        np.testing.assert_array_equal(ref.unpack_bits(got, n).numpy(), adj)
+
+
+# ------------------------------------------------------------- prune tier (K2)
+COUNT_CASES = [(4, 37, 8), (6, 64, 16), (3, 130, 5)]
+
+
+def _coarse_radii(x, radii):
+    norms = np.sqrt((x.astype(np.float64) ** 2).sum(-1)).max()
+    return ((radii + 2 * 2.0 ** -8 * norms) * 1.05).astype(np.float32)
+
+
+@pytest.mark.parametrize("s,p,d", COUNT_CASES)
+def test_join_batched_counts_match_reference_bf16(s, p, d):
+    """The reference's counts-superset cases: the port's bf16 counts equal
+    the reference's bf16 counts and are never below the float64 join at the
+    base radius."""
+    rng = np.random.default_rng(s * 10 + p + d)
+    x = rng.uniform(-20, 20, (s, p, d)).astype(np.float32)
+    lens = rng.integers(1, p + 1, size=s).astype(np.int32)
+    lens[-1] = 0
+    radii = rng.uniform(1.0, 25.0, size=s).astype(np.float32)
+    rc = _coarse_radii(x, radii)
+    want = np.asarray(jops.pairwise_l2_join_batched_counts(
+        jnp.asarray(x), lens, rc, dtype="bf16", impl="xla"))
+    got = ops.pairwise_l2_join_batched_counts(_t(x), _t(lens), _t(rc)).numpy()
+    np.testing.assert_array_equal(got, want)
+    for si, (exact, _) in enumerate(_band(x, lens, radii)):
+        assert got[si] >= int(exact.sum()), f"subset {si}"
+
+
+def test_join_batched_counts_match_pallas_interpret():
+    rng = np.random.default_rng(11)
+    s, p, d = 5, 70, 12
+    x = rng.uniform(-10, 10, (s, p, d)).astype(np.float32)
+    lens = np.array([70, 33, 16, 1, 0], np.int32)
+    radii = np.array([8.0, np.inf, 4.0, 1.0, 2.0], np.float32)
+    want = np.asarray(jops.pairwise_l2_join_batched_counts(
+        jnp.asarray(x), lens, radii, dtype="bf16", bm=32, bn=32,
+        impl="pallas", interpret=True))
+    got = ops.pairwise_l2_join_batched_counts(_t(x), _t(lens), _t(radii))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_join_batched_counts_edge_lengths_and_radii():
+    """Lengths of 0, 1 and P, and infinite radii: counts equal the
+    reference's bf16 counts, cover the whole live square at r=inf and are 0
+    for an empty subset."""
+    rng = np.random.default_rng(13)
+    s, p, d = 5, 45, 7
+    x = rng.uniform(-5, 5, (s, p, d)).astype(np.float32)
+    lens = np.array([45, 1, 0, 20, 45], np.int32)
+    radii = np.array([np.inf, 0.5, np.inf, 2.0, 4.0], np.float32)
+    want = np.asarray(jops.pairwise_l2_join_batched_counts(
+        jnp.asarray(x), lens, radii, dtype="bf16", impl="xla"))
+    got = ops.pairwise_l2_join_batched_counts(
+        _t(x), _t(lens), _t(radii)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == p * p and got[1] == 1 and got[2] == 0
+
+
+def test_join_batched_counts_adversarial_boundary():
+    """Pairs within r*(1 +/- k*2^-9) of the threshold: the coarse count at
+    the widened radius never misses a pair at true distance <= r."""
+    d = 8
+    for seed, r in ((0, 1.0), (1, 7.3), (2, 123.0)):
+        rng = np.random.default_rng(seed)
+        base = rng.uniform(-1, 1, d)
+        base /= np.linalg.norm(base)
+        pts = [rng.uniform(-r, r, d).astype(np.float32)]
+        for k in (-4, -1, 0, 1, 4):
+            delta = r * (1.0 + k * 2.0 ** -9)
+            pts.append((pts[0] + base * delta).astype(np.float32))
+        x = np.stack(pts)[None].astype(np.float32)
+        lens = np.array([x.shape[1]], np.int32)
+        pf = x[0].astype(np.float64)
+        d2 = ((pf[:, None] - pf[None, :]) ** 2).sum(-1)
+        exact = int((np.sqrt(d2) <= r).sum())
+        norms = np.sqrt((pf ** 2).sum(-1)).max()
+        rc = np.array([(r + 2 * 2.0 ** -8 * norms) * 1.05], np.float32)
+        got = int(ops.pairwise_l2_join_batched_counts(
+            _t(x), _t(lens), _t(rc))[0])
+        assert got >= exact, f"seed={seed} r={r}: {got} < {exact}"
+
+
+# ---------------------------------------------------------- single join (K3)
+@pytest.mark.parametrize("m,n,d", [(8, 8, 4), (130, 70, 33), (257, 129, 64),
+                                   (64, 300, 8)])
+def test_pairwise_join_matches_reference(m, n, d):
+    rng = np.random.default_rng(m + n + d)
+    a = rng.standard_normal((m, d)).astype(np.float32) * 10
+    b = rng.standard_normal((n, d)).astype(np.float32) * 10
+    r = 40.0
+    sq_j, cnt_j = jops.pairwise_l2_join(jnp.asarray(a), jnp.asarray(b), r,
+                                        bm=128, bn=128, interpret=True)
+    sq_t, cnt_t = ops.pairwise_l2_join(_t(a), _t(b), r)
+    scale = max((a.astype(np.float64) ** 2).sum(-1).max(),
+                (b.astype(np.float64) ** 2).sum(-1).max())
+    tol = (64 + 4 * d) * _EPS32 * scale
+    np.testing.assert_allclose(sq_t.numpy(), np.asarray(sq_j), rtol=0,
+                               atol=tol)
+    assert tuple(cnt_t.shape) == (-(-m // ref.JOIN_TILE[0]),
+                                  -(-n // ref.JOIN_TILE[1]))
+    d2 = ((a.astype(np.float64)[:, None] - b[None].astype(np.float64)) ** 2
+          ).sum(-1)
+    band = int((np.abs(d2 - np.float32(r) ** 2) <= tol).sum())
+    assert abs(int(cnt_t.sum()) - int(np.asarray(cnt_j).sum())) <= band
+    assert int(cnt_t.sum()) == int((sq_t.numpy() <= np.float32(r) ** 2).sum())
+
+
+# ------------------------------------------------------------ routing rules
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers take CUDA tensors only: nothing falls back."""
+    x = torch.zeros((2, 8, 4))
+    lens = torch.full((2,), 8, dtype=torch.int32)
+    r = torch.ones(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_l2.join_batched_masked(x, lens, r)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_l2.join_batched_prune(x, lens, r)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_l2.pairwise_join(x[0], x[1])
+    assert all(v == 0 for v in pairwise_l2.launches.values())
+
