@@ -2,6 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one CUDA card, the full-size corpus
+    python3 chip_smoke.py --n 20000 --embed-docs 64 --embed-long-docs 2
+                                     # a quick check of every phase
 
 Phases:
   1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and report
@@ -27,6 +29,26 @@ Phases:
      by at most the band. Time kernel, plain version and (K3) torch.cdist
      with CUDA events.
 
+  4. Embed at full width: MiniCPM-2B (40 layers, d_model 2304, 36 heads of
+     64; random weights from a seeded generator on the card) embeds 4,096
+     documents of 512 tokens in batches of 32 and 8 documents of its 4,096
+     context in batches of 2 through ``NKSEngine.ingest_embeddings``; every
+     self-attention runs the hand-written kernel K7, which must launch 40
+     times per batch. Tags come from the flickr-like sampler (u=1,000,
+     t=3). Every embedding must be finite and no two equal; 64 exact
+     3-keyword queries (k=1, m=2, 5 scales) over the embedded corpus must
+     answer as the numpy backend does (ids equal, diameters to 1e-9).
+     Prints embed wall time, tokens/s, the model-FLOP share of the embed
+     wall against the bf16 peak, K7's launches and peak device memory.
+  5. Hold K7 against its plain PyTorch version on the card: on the path's
+     own q, k, v of both shapes (recorded during phase 4), causal; the long
+     shape again with window 1024; grouped-query heads (36 query, 4 kv,
+     head dim 128). Tolerance: the two round the softmax numerators at
+     different scales (running against final maximum: 2^-9 relative each)
+     and the output once, so ``|kernel - plain| <= 2^-7 |plain| + 2^-8
+     max|v|``. Time kernel, plain version and
+     ``F.scaled_dot_product_attention`` with CUDA events.
+
 Prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when a
 phase fails, when there is no CUDA device, or when the port's sources are
@@ -35,6 +57,7 @@ not beside this file. Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import pathlib
@@ -428,6 +451,339 @@ def serve(args, report: dict) -> tuple:
     return recs, by_path
 
 
+class ShapeRecorder:
+    """Wraps ``kernels.ops.flash_attention`` during the embed path: counts
+    calls per q shape and keeps a copy of the first (q, k, v) of each."""
+
+    def __init__(self, ops):
+        self.ops, self.fn = ops, ops.flash_attention
+        self.calls: dict[tuple, int] = {}
+        self.first: dict[tuple, tuple] = {}
+        ops.flash_attention = self
+
+    def __call__(self, q, k, v, **kw):
+        key = tuple(q.shape)
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if key not in self.first:
+            self.first[key] = (q.clone(), k.clone(), v.clone())
+        return self.fn(q, k, v, **kw)
+
+    def restore(self) -> None:
+        self.ops.flash_attention = self.fn
+
+
+def live_pairs(s: int, t: int, causal: bool, window) -> int:
+    """(query, key) pairs the attention mask leaves live, per (batch, head)."""
+    i = range(s)
+    hi = [min(t, q + 1) if causal else t for q in i]
+    lo = [max(0, q - window + 1) if window else 0 for q in i]
+    return sum(max(0, h - lo_) for h, lo_ in zip(hi, lo))
+
+
+def attention_flops(b, s, h, hd, t=None, causal=True, window=None) -> float:
+    """QK^T and PV over the live pairs: 4 hd flops per pair."""
+    return 4.0 * hd * b * h * live_pairs(s, s if t is None else t, causal,
+                                         window)
+
+
+def embed(args, report: dict) -> tuple[ShapeRecorder, int]:
+    import numpy as np
+    import torch
+    from repro_torch import NKSEngine, flickr_like_dataset, random_queries
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise_l2 as K
+    from repro_torch.kernels import ref
+    from repro_torch.models.api import model_api
+
+    cfg = get_config("minicpm-2b")
+    api = model_api(cfg)
+    hd = cfg.resolved_head_dim
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for layer in params["layers"]
+                   for part in layer.values() for t in part.values()) \
+        + sum(t.numel() for t in params["final_norm"].values())
+
+    rng = np.random.default_rng(args.seed)
+    groups = [(args.embed_docs, 512, 32), (args.embed_long_docs, 4096, 2)]
+    batches = []
+    for n_docs, seq, bsz in groups:
+        toks = rng.integers(0, cfg.vocab_size, (n_docs, seq))
+        batches += [{"tokens": toks[i:i + bsz]}
+                    for i in range(0, n_docs, bsz)]
+    n_docs = sum(g[0] for g in groups)
+    tokens = sum(g[0] * g[1] for g in groups)
+    tags = flickr_like_dataset(n=n_docs, d=1, u=1_000, t=3, seed=args.seed)
+    keywords = [tags.kw.row(i).tolist() for i in range(n_docs)]
+    attn = cfg.n_layers * sum(
+        attention_flops(*b["tokens"].shape, cfg.n_heads, hd) for b in batches)
+    model_flops = 2.0 * n_params * tokens + attn
+
+    embed_s = [0.0]
+
+    def timed_embed(p, batch):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = api.embed(p, batch)
+        torch.cuda.synchronize()
+        embed_s[0] += time.perf_counter() - ts
+        return out
+
+    rec = ShapeRecorder(ops)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launches()
+        K.reset_launches()
+        ts = time.perf_counter()
+        engine = NKSEngine.ingest_embeddings(
+            dataclasses.replace(api, embed=timed_embed), params, batches,
+            keywords, m=2, n_scales=5, seed=args.seed)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - ts
+        k7 = FA.launches["flash_attention"]
+        ingest_joins = dict(K.launches)
+    finally:
+        rec.restore()
+    peak = torch.cuda.max_memory_allocated()
+    mfu = model_flops / embed_s[0] / PEAK_BF16_FLOPS
+    points = engine.dataset.points
+    emb = {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "head_dim": hd, "docs": n_docs,
+           "tokens": tokens, "batches": len(batches),
+           "non_embedding_params": n_params, "init_s": init_s,
+           "embed_s": embed_s[0], "tokens_per_s": tokens / embed_s[0],
+           "model_flops": model_flops, "attention_flops": attn,
+           "model_flop_share": mfu,
+           "engine_build_s": ingest_s - embed_s[0],
+           "k7_launches": k7, "k7_calls_by_shape":
+               {"x".join(map(str, k)): c for k, c in rec.calls.items()},
+           "join_launches_in_build": ingest_joins,
+           "peak_device_bytes": peak,
+           "cost_model": dataclasses.asdict(engine.backend._model)}
+    report["embed"] = emb
+    print(f"[embed] {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}x{hd} heads): {n_docs} documents, "
+          f"{tokens} tokens in {len(batches)} batches; weights {init_s:.1f}s",
+          flush=True)
+    print(f"[embed] embed wall {embed_s[0]:.3f}s = {tokens / embed_s[0]:.0f} "
+          f"tokens/s; model-FLOP share {mfu:.4f} of {PEAK_BF16_FLOPS:.3g} "
+          f"FLOP/s ({model_flops:.4g} FLOP, attention {attn:.4g}); K7 "
+          f"launches {k7} by shape {emb['k7_calls_by_shape']}; peak device "
+          f"memory {peak} bytes; engine build (index, upload, cost model at "
+          f"d={cfg.d_model}) {ingest_s - embed_s[0]:.3f}s", flush=True)
+
+    check(k7 == cfg.n_layers * len(batches),
+          f"K7 launched {k7} times, want {cfg.n_layers} x {len(batches)}")
+    check(points.shape == (n_docs, cfg.d_model), f"points {points.shape}")
+    check(bool(np.isfinite(points).all()), "non-finite embedding")
+    distinct = len(np.unique(points, axis=0))
+    check(distinct == n_docs, f"only {distinct} distinct embeddings of "
+          f"{n_docs}")
+
+    prof = profile_embed(api, params, batches[:4])
+    emb["profile"] = prof
+    if prof:
+        print(f"[embed] profiler, {prof['batches']} batches of 32x512: "
+              f"device busy {prof['busy_share']:.4f} of {prof['wall_s']:.3f}s;"
+              f" kernel time by kind {prof['share_of_kernel_time']}",
+              flush=True)
+    else:
+        print("[embed] profiler saw no device time", flush=True)
+    emb["geometry"] = corpus_geometry(points, cfg.d_model,
+                                      engine.backend.device)
+    print(f"[embed] corpus geometry {emb['geometry']}", flush=True)
+
+    queries = random_queries(engine.dataset, 3, args.queries,
+                             seed=args.seed + 2)
+    rec_join = Recorder(ops, "pairwise_l2_join_batched_masked", batched_cells)
+    try:
+        K.reset_launches()
+        ts = time.perf_counter()
+        answers = engine.query_batch(queries, k=1, tier="exact")
+        wall = time.perf_counter() - ts
+        serve_joins = dict(K.launches)
+    finally:
+        rec_join.restore()
+    st = engine.last_batch_stats
+    ts = time.perf_counter()
+    ref_ans = engine.query_batch(queries, k=1, tier="exact", backend="numpy")
+    numpy_s = time.perf_counter() - ts
+    check_answers(engine.dataset, queries, answers, "embed-exact")
+    check(same_answers(answers, ref_ans, 1e-9),
+          "embedded corpus: torch and numpy backends disagree")
+    emb["serve"] = {"queries": len(queries), "wall_s": wall,
+                    "qps": len(queries) / wall, "numpy_backend_s": numpy_s,
+                    "phases": st.phases, "cascade": st.cascade,
+                    "binning": st.binning, "launches": serve_joins,
+                    "fallback_queries": st.fallback_queries}
+    if rec_join.best is not None:
+        x, lengths, r = rec_join.best[:3]
+        m_k, c_k = K.join_batched_masked(x, lengths, r)
+        m_p, c_p = ref.join_batched_masked(x, lengths, r)
+        torch.cuda.synchronize()
+        err, bits = band_check_batched(x, lengths, r, c_k, c_p, m_k, m_p)
+        emb["serve"]["k1_vs_plain"] = {"shape": list(x.shape),
+                                      "max_count_diff": err,
+                                      "mask_bits_in_band": bits}
+    print(f"[embed] exact over the {n_docs} x {cfg.d_model} corpus: "
+          f"{len(queries)} queries in {wall:.3f}s = {len(queries) / wall:.2f}"
+          f" QPS; phases {st.phases}; cascade {st.cascade}; device bins "
+          f"{st.device_dispatches}, host bins {st.host_routed_dispatches}; "
+          f"launches {serve_joins}; K1 vs plain "
+          f"{emb['serve'].get('k1_vs_plain')}; answers equal the numpy "
+          f"backend's, which took {numpy_s:.3f}s", flush=True)
+    return rec, k7
+
+
+def corpus_geometry(points, d: int, device) -> dict:
+    """Norms and inter-point distances of the embedded corpus (float64 on
+    the card, the first 2,048 points) beside the fp32 slack the torch
+    backend widens every pruning radius by (``TorchBackend._slack`` for a
+    subset holding the largest-norm point): how many pairs lie inside that
+    band decides how much of the join the host must settle in float64."""
+    import torch
+    x = torch.from_numpy(points).to(device, torch.float64)
+    n2 = (x * x).sum(1)
+    slack = float(((64.0 + 4.0 * d) * EPS32 * n2.max()).sqrt())
+    sample = x[:2048]
+    dist = torch.cdist(sample, sample)
+    off = dist[~torch.eye(len(sample), dtype=torch.bool, device=device)]
+    q = torch.quantile(off[:1 << 24], torch.tensor(
+        [0.01, 0.5], dtype=torch.float64, device=device)).tolist()
+    return {"max_norm": float(n2.max().sqrt()),
+            "median_norm": float(n2.sqrt().median()), "slack": slack,
+            "dist_q01": q[0], "dist_median": q[1],
+            "pairs_within_slack": float((off <= slack).double().mean())}
+
+
+def profile_embed(api, params, batches) -> dict:
+    """Kernel time by kind over a few embed batches, from torch.profiler's
+    CUDA activity: K7 (``flash_fwd``), matrix products (cuBLAS/CUTLASS
+    kernels) and everything else (norms, RoPE, SwiGLU, casts, adds). Busy
+    share = summed kernel time / wall of the window. Runs after the embed
+    path's launches were read; returns ``{}`` if the profiler saw no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = params["final_norm"]["w"].device
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode(), profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        for b in batches:
+            api.embed(params, {"tokens": torch.as_tensor(b["tokens"],
+                                                         device=dev)})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        kernels[e.key] = kernels.get(e.key, 0.0) + us * 1e-6
+    total = sum(kernels.values())
+    if total <= 0.0:
+        return {}
+    matmul_marks = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
+    kinds = {"flash_attention (K7)": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, sec in kernels.items():
+        kind = "flash_attention (K7)" if "flash_fwd" in name else "matmul" \
+            if any(m in name.lower() for m in matmul_marks) else "other"
+        kinds[kind] += sec
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"batches": len(batches), "wall_s": wall, "kernel_s": total,
+            "busy_share": total / wall,
+            "share_of_kernel_time": {k: v / total for k, v in kinds.items()},
+            "kernel_s_by_kind": kinds,
+            "top_kernels_s": {k[:120]: v for k, v in top}}
+
+
+def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
+    """K7 against its plain version at the embed path's shapes and two
+    variants; timings with CUDA events. The row's own numbers are those of
+    the shape the path launched most."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    def sdpa(q, k, v, window):
+        """The library's causal attention on the same inputs."""
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        mask = None
+        if window is not None:
+            i = torch.arange(q.shape[1], device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                  - window)
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=k.shape[2] != q.shape[2])
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    gqa = tuple(torch.randn(shape, generator=gen, device="cuda")
+                .to(torch.bfloat16)
+                for shape in ((2, 2048, 36, 128), (2, 2048, 4, 128),
+                              (2, 2048, 4, 128)))
+    shapes = sorted(rec.first, key=lambda sh: -rec.calls[sh])
+    longest = max(shapes, key=lambda sh: sh[1])
+    cases = [("path", rec.first[sh], None) for sh in shapes]
+    cases.append(("path+window", rec.first[longest], 1024))
+    cases.append(("gqa", gqa, None))
+    rows = []
+    for label, (q, k, v), window in cases:
+        b, s, h, hd = q.shape
+        got = FA.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = 2.0 ** -7 * want.float().abs() \
+            + 2.0 ** -8 * v.float().abs().max()
+        max_err = float(err.max())
+        check(bool((err <= tol).all()),
+              f"K7 {label} {tuple(q.shape)}: differs from the plain version "
+              f"by {max_err} beyond the bf16 tolerance")
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(attention_flops(b, s, h, hd, k.shape[1], True,
+                                           window), nbytes, PEAK_BF16_FLOPS)
+        del got, want, err, tol
+        rows.append(dict(
+            case=label, shape=list(q.shape), kv_heads=k.shape[2],
+            window=window, max_abs_err=max_err,
+            ms=cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True,
+                                                  window=window), 20),
+            plain_ms=cuda_ms(lambda: ref.flash_attention(
+                q, k, v, causal=True, window=window), 3, warmup=1),
+            library_ms=cuda_ms(lambda: sdpa(q, k, v, window), 20),
+            bound_ms=b_ms, bound_by=b_by))
+        torch.cuda.empty_cache()
+        print(f"[kernel] flash_attention {label} {tuple(q.shape)} kv "
+              f"{k.shape[2]} window {window}: {rows[-1]['ms']:.4f} ms (plain "
+              f"{rows[-1]['plain_ms']:.4f} ms, sdpa "
+              f"{rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by}); max_abs_err {rows[-1]['max_abs_err']}", flush=True)
+    main_case = rows[0]
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:99",
+                launches=k7_launches, path="embed",
+                launches_by_path={"embed": k7_launches},
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                shape=main_case["shape"], ms=main_case["ms"],
+                plain_ms=main_case["plain_ms"],
+                bound_ms=main_case["bound_ms"],
+                bound_by=main_case["bound_by"],
+                library_ms=main_case["library_ms"], cases=rows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -435,6 +791,10 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--compare", type=int, default=8,
                     help="queries per tier held to the numpy backend")
+    ap.add_argument("--embed-docs", type=int, default=4096,
+                    help="documents of 512 tokens to embed (batches of 32)")
+    ap.add_argument("--embed-long-docs", type=int, default=8,
+                    help="documents of 4096 tokens to embed (batches of 2)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                           / "chip_smoke.json"))
@@ -451,12 +811,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import pairwise_l2 as K
+    from repro_torch.kernels import build
 
     report: dict = {}
     try:
         t0 = time.perf_counter()
-        K.library()
+        # one nvcc per source, all started together
+        with concurrent.futures.ThreadPoolExecutor() as pool:
+            list(pool.map(build.build, ("pairwise_l2", "flash_attention")))
         report["build_s"] = time.perf_counter() - t0
         card = card_line()
         report["card"] = card
@@ -471,6 +833,9 @@ def main() -> int:
                   f" ms by {row['bound_by']}, library {row['library_ms']}); "
                   f"max_abs_err {row['max_abs_err']}; launches "
                   f"{row['launches_by_path']}", flush=True)
+        rec, k7 = embed(args, report)
+        rows.append(flash_row(rec, k7))
+        del rec
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,16 +1,19 @@
-"""Carry a built corpus and index across as plain arrays.
+"""Carry a built corpus, an index or model parameters across as plain arrays.
 
-The system holds no weights: its state is the corpus and the two ProMiSH
-indices. These constructors rebuild that state from plain numpy arrays —
-what any other implementation (or a file) can hand over — so an engine
-answers exactly as the engine the arrays were read from.
+The serving state is the corpus and the two ProMiSH indices; the embedder's
+is the language model's parameters. These constructors rebuild that state
+from plain numpy arrays — what any other implementation (or a file) can hand
+over — so an engine answers, and a model embeds, as the one the arrays were
+read from.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.index import HIStructure, PromishIndex
 from repro_torch.core.types import KeywordDataset, dataset_from_csr
 from repro_torch.utils.csr import CSR
@@ -61,3 +64,39 @@ def index_to_arrays(index: PromishIndex) -> dict:
                              khb_offsets=h.khb.offsets,
                              khb_values=h.khb.values)
                         for h in index.structures])
+
+
+# Parameters held in fp32 (the norms' weights, which the forward reads in
+# fp32); every other leaf is a matrix or bias the forward casts to bf16.
+_FP32_LEAVES = ("w", "b", "qn", "kn")
+
+
+def _leaf(name: str, a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.tensor(np.asarray(a, dtype=np.float32))
+    dtype = torch.float32 if name in _FP32_LEAVES else torch.bfloat16
+    return t.to(device=device, dtype=dtype)
+
+
+def model_params_from_numpy(cfg: ArchConfig, tree: dict, *,
+                            device: str | torch.device = "cpu") -> dict:
+    """The port's parameters from a dense model's parameter tree as numpy
+    arrays: fp32 leaves, the layers stacked on a leading axis (the layout of
+    the reference's ``init_params``). Matrices and biases become bf16 — the
+    value the forward casts them to at every use — and norm weights stay
+    fp32. The layer stack becomes a list of per-layer dictionaries."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family}: dense only")
+    device = torch.device(device)
+
+    def convert(node, index=None):
+        return {k: convert(v, index) if isinstance(v, dict)
+                else _leaf(k, v if index is None else v[index], device)
+                for k, v in node.items()}
+
+    stacked = tree["layers"]
+    n = len(stacked["ln1"]["w"])
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} stacked layers, config has {cfg.n_layers}")
+    return {"embed": convert(tree["embed"]),
+            "final_norm": convert(tree["final_norm"]),
+            "layers": [convert(stacked, i) for i in range(n)]}

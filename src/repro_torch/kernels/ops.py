@@ -11,11 +11,14 @@ fallback from the card to the host.
   * :func:`pairwise_l2_join_batched_counts` — the bf16 coarse counts of the
     cascade's prune tier.
   * :func:`pairwise_l2_join` — one (M, d) x (N, d) join.
+  * :func:`flash_attention` — causal or windowed attention forward (the LM
+    embedder's self-attention).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import pairwise_l2 as _cuda
 from repro_torch.kernels import ref
 
@@ -61,3 +64,14 @@ def pairwise_l2_join(a: torch.Tensor, b: torch.Tensor,
     if _route(a) == "cuda":
         return _cuda.pairwise_join(a, b, r)
     return ref.pairwise_join(a, b, r)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Attention of q (B, S, H, hd) over k, v (B, T, Kv, hd), positions 0..
+    on both axes; returns (B, S, H, hd). On the card only bf16 with hd 64 or
+    128 is taken (anything else raises)."""
+    if _route(q) == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.flash_attention(q, k, v, causal=causal, window=window)

@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the threshold-join kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-Each function computes exactly what its CUDA kernel in ``csrc/pairwise_l2.cu``
-computes, with the same inputs and outputs; ``kernels.ops`` routes a CPU
-tensor here, and the tests and ``chip_smoke.py`` hold the kernels against
-these. They transcribe the reference package's memory-lean formulations
-(the masked join and the bf16 coarse counts).
+Each function computes what its CUDA kernel in ``csrc/pairwise_l2.cu`` (the
+threshold joins) or ``csrc/flash_attention.cu`` (attention) computes, with
+the same inputs and outputs; ``kernels.ops`` routes a CPU tensor here, and the
+tests and ``chip_smoke.py`` hold the kernels against these. They transcribe
+the reference package's memory-lean formulations (the masked join and the
+bf16 coarse counts).
 
 Mask words are ``int32`` tensors holding the uint32 bit patterns (PyTorch has
 no shifts or comparisons for uint32 on the CPU). At the host boundary
@@ -123,3 +124,48 @@ def pairwise_join(a: torch.Tensor, b: torch.Tensor,
     pad[:m, :n] = joined
     counts = pad.view(gm, tm, gn, tn).sum(dim=(1, 3), dtype=torch.int32)
     return sq, counts
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Attention forward (kernel ``flash_attention`` in
+    ``csrc/flash_attention.cu``), written out as einsum and softmax.
+
+    q (B, S, H, hd); k, v (B, T, Kv, hd) with H a multiple of Kv (query head
+    h reads kv head ``h // (H // Kv)``); positions run 0.. on both axes.
+    Query ``i`` sees key ``j`` iff ``j < T``, and ``j <= i`` when ``causal``,
+    and ``j > i - window`` with a ``window``; masked scores are -1e30.
+    Returns (B, S, H, hd) in q's dtype.
+
+    Rounds where the kernel rounds: ``q * (1/sqrt(hd))`` is taken in fp32 and
+    rounded to q's dtype before the QK^T dot, the softmax numerators to v's
+    dtype before the PV dot; products accumulate in fp32 and the output is
+    ``acc / max(l, 1e-30)`` with the fp32 denominator. In fp32 this is the
+    dense-softmax oracle of the flash kernel. The kernel normalises
+    numerators by a running maximum, this version by the row maximum, so the
+    two round the numerators at different scales."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if h % kvh:
+        raise ValueError(f"{h} query heads are not a multiple of {kvh} "
+                         f"kv heads")
+    g = h // kvh
+    qs = (q.float() * (1.0 / float(hd) ** 0.5)).to(q.dtype).float()
+    kf = k.repeat_interleave(g, dim=2).float() if g > 1 else k.float()
+    vv = v.repeat_interleave(g, dim=2) if g > 1 else v
+    sc = torch.einsum("bshd,bthd->bhst", qs, kf)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    kv_pos = torch.arange(t, device=q.device)[None, :]
+    valid = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kv_pos <= q_pos
+    if window is not None:
+        valid &= kv_pos > q_pos - window
+    # in place: at (2, 4096, 36, 64) one score block is 4.8 GB
+    p = sc.masked_fill_(~valid, -1e30)
+    p = p.sub_(p.amax(dim=-1, keepdim=True)).exp_()
+    denom = p.sum(dim=-1)                                       # (B, H, S)
+    out = torch.einsum("bhst,bthd->bshd", p.to(v.dtype).float(), vv.float())
+    return (out / denom.clamp_min(1e-30).transpose(1, 2)[..., None]) \
+        .to(q.dtype)

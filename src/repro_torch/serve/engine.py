@@ -37,7 +37,8 @@ from repro_torch.core.backend import (DistanceBackend, NumpyBackend,
                                       TorchBackend, resolve_device)
 from repro_torch.core.index import PromishIndex, build_index
 from repro_torch.core.subset_search import enumerate_with_block, local_groups
-from repro_torch.core.types import Candidate, KeywordDataset, TopK
+from repro_torch.core.types import (Candidate, KeywordDataset, TopK,
+                                    make_dataset)
 
 
 @dataclasses.dataclass
@@ -209,6 +210,26 @@ class NKSEngine:
         return cls(dataset, device=device,
                    _indices=(carry.index_from_arrays(**index_e),
                              carry.index_from_arrays(**index_a)))
+
+    @classmethod
+    def ingest_embeddings(cls, api, params, batches: Sequence[dict],
+                          keywords: Sequence[Sequence[int]], *,
+                          device: str | torch.device | None = None,
+                          **kw) -> "NKSEngine":
+        """Build the corpus from model embeddings: each batch (``"tokens"``
+        (B, S) and an optional ``"mask"``) is embedded by ``api.embed`` on the
+        engine's device, where ``params`` must live; the (B, d_model) rows,
+        as float32, are the points, tagged with ``keywords`` in order.
+        ``kw`` goes to the constructor."""
+        device = resolve_device(device)
+        embs = []
+        with torch.inference_mode():
+            for batch in batches:
+                on_dev = {name: torch.as_tensor(t, device=device)
+                          for name, t in batch.items()}
+                embs.append(api.embed(params, on_dev).float().cpu().numpy())
+        points = np.concatenate(embs, axis=0)
+        return cls(make_dataset(points, keywords), device=device, **kw)
 
     def query(self, keywords: Sequence[int], k: int = 1,
               tier: str = "approx") -> QueryResult:

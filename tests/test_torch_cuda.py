@@ -2,10 +2,15 @@
 
 Runs only where there is a CUDA device and nvcc (``pytest -m cuda
 tests/test_torch_cuda.py`` on the H100); elsewhere it skips. It imports
-nothing of JAX, so it runs on a machine without it. Tolerance, as in
-``test_torch_kernels.py``: masks identical except on cells whose float64
-squared distance lies within ``(64 + 4d) * eps32 * max|x|^2`` of ``r^2``,
-counts within the number of such cells, ``sq`` within that band.
+nothing of JAX, so it runs on a machine without it. Tolerance of the
+threshold joins, as in ``test_torch_kernels.py``: masks identical except on
+cells whose float64 squared distance lies within ``(64 + 4d) * eps32 *
+max|x|^2`` of ``r^2``, counts within the number of such cells, ``sq`` within
+that band. Tolerance of the attention kernel: both versions round q*scale and
+the softmax numerators to bf16 and the output once; they normalise the
+numerators by different maxima (running against final), so each numerator
+may round differently (2^-9 relative), and the output may land one bf16 ulp
+apart: ``|kernel - plain| <= 2^-7 |plain| + 2^-8 max|v|``.
 """
 import numpy as np
 import pytest
@@ -81,3 +86,52 @@ def test_kernels_match_plain_versions_on_card(s, p, d):
     assert float((sq_k - sq_p).abs().max()) <= (64 + 4 * d) * _EPS32 * norm2
     assert tuple(n_k.shape) == tuple(n_p.shape)
     assert int(n_k.sum()) == int((sq_k <= np.float32(50.0) ** 2).sum())
+
+
+# (B, S, H, Kv, hd, causal, window): tails off the 64-row tile, windows,
+# grouped-query heads, both head dims.
+FLASH_CASES = [(2, 64, 2, 2, 64, True, None), (1, 200, 3, 3, 64, True, None),
+               (2, 130, 4, 2, 64, False, None), (1, 300, 2, 1, 64, True, 70),
+               (2, 97, 4, 4, 128, True, None), (1, 260, 36, 4, 128, True, None),
+               (1, 190, 8, 2, 128, True, 64), (3, 33, 2, 1, 128, False, 5)]
+
+
+def flash_tolerance(plain, v):
+    return 2.0 ** -7 * plain.float().abs() + 2.0 ** -8 * v.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window", FLASH_CASES)
+def test_flash_attention_matches_plain_version_on_card(b, s, h, kv, hd,
+                                                       causal, window):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import flash_attention as flash
+    gen = torch.Generator(device="cuda").manual_seed(s * hd + h)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    before = flash.launches["flash_attention"]
+    got = flash.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash.launches["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= flash_tolerance(want, v)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import flash_attention as flash
+    ok = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros((1, 16, 2, 32), dtype=torch.bfloat16, device="cuda")
+        flash.flash_attention(x, x, x)
+    with pytest.raises(TypeError):
+        flash.flash_attention(ok.float(), ok.float(), ok.float())
+    with pytest.raises(ValueError, match="multiple"):
+        kv = torch.zeros((1, 16, 3, 64), dtype=torch.bfloat16, device="cuda")
+        flash.flash_attention(ok, kv, kv)

@@ -11,6 +11,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def test_cpu_query_batch_runs_with_jax_blocked():
+    """A CPU query batch and a smoke embed-and-ingest, with JAX blocked."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None          # any import of jax now fails
@@ -23,6 +24,22 @@ def test_cpu_query_batch_runs_with_jax_blocked():
         for tier in ("exact", "approx"):
             out = engine.query_batch(queries, k=2, tier=tier)
             assert len(out) == 4 and all(r.candidates for r in out)
+        from repro_torch.configs import get_config
+        from repro_torch.models.api import model_api
+        cfg = get_config("minicpm-2b").smoke()
+        api = model_api(cfg)
+        params = api.init(torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(1)
+        batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 12),
+                                            generator=gen)}
+                   for _ in range(2)]
+        emb = api.embed(params, batches[0])
+        assert emb.shape == (4, cfg.d_model)
+        assert bool(torch.isfinite(emb.float()).all())
+        tagged = NKSEngine.ingest_embeddings(
+            api, params, batches, [[i % 3, 3] for i in range(8)],
+            device="cpu", n_scales=3)
+        assert tagged.query_batch([[0, 3]], k=1)[0].candidates
         loaded = [m for m in sys.modules
                   if m == "repro" or m.startswith(("repro.", "jax"))]
         assert loaded == ["jax"], loaded      # only the blocking sentinel
