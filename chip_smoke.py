@@ -43,10 +43,13 @@ Phases:
   5. Hold K7 against its plain PyTorch version on the card: on the path's
      own q, k, v of both shapes (recorded during phase 4), causal; the long
      shape again with window 1024; grouped-query heads (36 query, 4 kv,
-     head dim 128). Tolerance: the two round the softmax numerators at
-     different scales (running against final maximum: 2^-9 relative each)
-     and the output once, so ``|kernel - plain| <= 2^-7 |plain| + 2^-8
-     max|v|``. Time kernel, plain version and
+     head dim 128). Tolerance (``kernels.ref.flash_attention_tolerance``):
+     the two round the softmax numerators at different scales (running
+     against final maximum: 2^-9 relative each) and the output once, so
+     ``|kernel - plain| <= 2^-7 |plain| + 2^-6 sqrt(sum_j p_j^2 v_j^2) / l``,
+     a bound that scales with each row's own rounding noise. A planted
+     fault (the last query tile skipping the key tile before its diagonal)
+     must lie outside it. Time kernel, plain version and
      ``F.scaled_dot_product_attention`` with CUDA events.
 
 Prints the kernels' JSON line, the card line, and last
@@ -728,6 +731,16 @@ def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
             qt, kt, vt, attn_mask=mask, is_causal=mask is None,
             enable_gqa=k.shape[2] != q.shape[2])
 
+    def dropped_tile(q, k, v):
+        """A planted fault: the plain version's rows S-64.. (the last query
+        tile) computed without key tile [S-128, S-64) that they all see."""
+        s = q.shape[1]
+
+        def keep(a):
+            return torch.cat([a[:, :s - 128], a[:, s - 64:]], dim=1)
+        return ref.flash_attention(keep(q), keep(k), keep(v),
+                                   causal=True)[:, s - 128:]
+
     gen = torch.Generator(device="cuda").manual_seed(7)
     gqa = tuple(torch.randn(shape, generator=gen, device="cuda")
                 .to(torch.bfloat16)
@@ -743,21 +756,36 @@ def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
         b, s, h, hd = q.shape
         got = FA.flash_attention(q, k, v, causal=True, window=window)
         want = ref.flash_attention(q, k, v, causal=True, window=window)
+        tol = ref.flash_attention_tolerance(q, k, v, want, causal=True,
+                                            window=window).clamp_min_(1e-30)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
-        tol = 2.0 ** -7 * want.float().abs() \
-            + 2.0 ** -8 * v.float().abs().max()
         max_err = float(err.max())
-        check(bool((err <= tol).all()),
+        err_over_tol = float((err / tol).max())
+        check(err_over_tol <= 1.0,
               f"K7 {label} {tuple(q.shape)}: differs from the plain version "
-              f"by {max_err} beyond the bf16 tolerance")
+              f"by {max_err} ({err_over_tol} of the bf16 tolerance)")
+        fault = None
+        if window is None and s >= 128:
+            fault = float(((dropped_tile(q, k, v).float()
+                            - want[:, s - 64:].float()).abs()
+                           / tol[:, s - 64:]).max())
+            check(fault > 1.0, f"K7 {label}: a dropped key tile stays "
+                               f"within the tolerance ({fault} of it)")
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         b_ms, b_by = bound(attention_flops(b, s, h, hd, k.shape[1], True,
                                            window), nbytes, PEAK_BF16_FLOPS)
-        del got, want, err, tol
+        plain_abs = want.float().abs()
+        stats = dict(max_abs_plain=float(plain_abs.max()),
+                     rms_plain=float(plain_abs.square().mean().sqrt()),
+                     median_row_rms_plain=float(
+                         plain_abs.square().mean(-1).sqrt().median()),
+                     max_err_over_tol=err_over_tol,
+                     dropped_tile_err_over_tol=fault)
+        del got, want, err, tol, plain_abs
         rows.append(dict(
             case=label, shape=list(q.shape), kv_heads=k.shape[2],
-            window=window, max_abs_err=max_err,
+            window=window, max_abs_err=max_err, **stats,
             ms=cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True,
                                                   window=window), 20),
             plain_ms=cuda_ms(lambda: ref.flash_attention(
@@ -769,7 +797,10 @@ def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
               f"{k.shape[2]} window {window}: {rows[-1]['ms']:.4f} ms (plain "
               f"{rows[-1]['plain_ms']:.4f} ms, sdpa "
               f"{rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms by "
-              f"{b_by}); max_abs_err {rows[-1]['max_abs_err']}", flush=True)
+              f"{b_by}); max_abs_err {rows[-1]['max_abs_err']}, max|plain| "
+              f"{stats['max_abs_plain']}, rms(plain) {stats['rms_plain']}, "
+              f"err/tol {err_over_tol}, dropped tile err/tol {fault}",
+              flush=True)
     main_case = rows[0]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -777,6 +808,10 @@ def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
                 launches=k7_launches, path="embed",
                 launches_by_path={"embed": k7_launches},
                 max_abs_err=max(r["max_abs_err"] for r in rows),
+                max_err_over_tol=max(r["max_err_over_tol"] for r in rows),
+                min_dropped_tile_err_over_tol=min(
+                    r["dropped_tile_err_over_tol"] for r in rows
+                    if r["dropped_tile_err_over_tol"] is not None),
                 shape=main_case["shape"], ms=main_case["ms"],
                 plain_ms=main_case["plain_ms"],
                 bound_ms=main_case["bound_ms"],

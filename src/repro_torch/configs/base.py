@@ -3,8 +3,9 @@
 One :class:`ArchConfig` per architecture, with the published numbers, plus a
 ``smoke()`` reduction for the CPU tests. This is the reference package's
 ``configs/base.py`` trimmed to what the dense decoder forward reads: the
-mixture-of-experts, state-space, hybrid, vision and audio fields, and the
-training shape cells, come with the slices that run those families.
+mixture-of-experts, state-space, hybrid, vision and audio fields come with
+the slices that run those families; the training schedule, the shape cells
+and the output head's tying with the slices that train and compute logits.
 """
 from __future__ import annotations
 
@@ -30,9 +31,7 @@ class ArchConfig:
     mlp: Literal["swiglu", "gelu"] = "swiglu"
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     rope_theta: float = 10_000.0
-    tie_embeddings: bool = False
     norm_eps: float = 1e-5
-    schedule: Literal["wsd", "cosine"] = "cosine"
 
     @property
     def resolved_head_dim(self) -> int:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.backend import resolve_device
 from repro_torch.core.index import HIStructure, PromishIndex
 from repro_torch.core.types import KeywordDataset, dataset_from_csr
 from repro_torch.utils.csr import CSR
@@ -78,15 +79,18 @@ def _leaf(name: str, a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def model_params_from_numpy(cfg: ArchConfig, tree: dict, *,
-                            device: str | torch.device = "cpu") -> dict:
-    """The port's parameters from a dense model's parameter tree as numpy
-    arrays: fp32 leaves, the layers stacked on a leading axis (the layout of
-    the reference's ``init_params``). Matrices and biases become bf16 — the
+                            device: str | torch.device | None = None) -> dict:
+    """The port's parameters, on ``device`` (the card unless the caller
+    asks for another), from a dense model's parameter tree as numpy arrays:
+    fp32 leaves, the layers stacked on a leading axis (the layout of the
+    reference's ``init_params``). Matrices and biases become bf16 — the
     value the forward casts them to at every use — and norm weights stay
-    fp32. The layer stack becomes a list of per-layer dictionaries."""
+    fp32. The layer stack becomes a list of per-layer dictionaries. An
+    untied output head is not carried: the embedding forward never reads
+    it."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family}: dense only")
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def convert(node, index=None):
         return {k: convert(v, index) if isinstance(v, dict)
@@ -97,6 +101,6 @@ def model_params_from_numpy(cfg: ArchConfig, tree: dict, *,
     n = len(stacked["ln1"]["w"])
     if n != cfg.n_layers:
         raise ValueError(f"{n} stacked layers, config has {cfg.n_layers}")
-    return {"embed": convert(tree["embed"]),
+    return {"embed": {"tok": _leaf("tok", tree["embed"]["tok"], device)},
             "final_norm": convert(tree["final_norm"]),
             "layers": [convert(stacked, i) for i in range(n)]}

@@ -126,25 +126,11 @@ def pairwise_join(a: torch.Tensor, b: torch.Tensor,
     return sq, counts
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
-    """Attention forward (kernel ``flash_attention`` in
-    ``csrc/flash_attention.cu``), written out as einsum and softmax.
-
-    q (B, S, H, hd); k, v (B, T, Kv, hd) with H a multiple of Kv (query head
-    h reads kv head ``h // (H // Kv)``); positions run 0.. on both axes.
-    Query ``i`` sees key ``j`` iff ``j < T``, and ``j <= i`` when ``causal``,
-    and ``j > i - window`` with a ``window``; masked scores are -1e30.
-    Returns (B, S, H, hd) in q's dtype.
-
-    Rounds where the kernel rounds: ``q * (1/sqrt(hd))`` is taken in fp32 and
-    rounded to q's dtype before the QK^T dot, the softmax numerators to v's
-    dtype before the PV dot; products accumulate in fp32 and the output is
-    ``acc / max(l, 1e-30)`` with the fp32 denominator. In fp32 this is the
-    dense-softmax oracle of the flash kernel. The kernel normalises
-    numerators by a running maximum, this version by the row maximum, so the
-    two round the numerators at different scales."""
+def _attention_numerators(q, k, v, causal, window):
+    """Unnormalised softmax numerators ``p = exp(s - rowmax)`` (B, H, S, T)
+    in fp32 over the scores of ``q * (1/sqrt(hd))`` (rounded to q's dtype)
+    against k, with masked scores at -1e30, and v repeated per query head
+    (B, T, H, hd)."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     if h % kvh:
@@ -164,8 +150,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid &= kv_pos > q_pos - window
     # in place: at (2, 4096, 36, 64) one score block is 4.8 GB
     p = sc.masked_fill_(~valid, -1e30)
-    p = p.sub_(p.amax(dim=-1, keepdim=True)).exp_()
+    return p.sub_(p.amax(dim=-1, keepdim=True)).exp_(), vv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Attention forward (kernel ``flash_attention`` in
+    ``csrc/flash_attention.cu``), written out as einsum and softmax.
+
+    q (B, S, H, hd); k, v (B, T, Kv, hd) with H a multiple of Kv (query head
+    h reads kv head ``h // (H // Kv)``); positions run 0.. on both axes.
+    Query ``i`` sees key ``j`` iff ``j < T``, and ``j <= i`` when ``causal``,
+    and ``j > i - window`` with a ``window``; masked scores are -1e30.
+    Returns (B, S, H, hd) in q's dtype.
+
+    Rounds where the kernel rounds: ``q * (1/sqrt(hd))`` is taken in fp32 and
+    rounded to q's dtype before the QK^T dot, the softmax numerators to v's
+    dtype before the PV dot; products accumulate in fp32 and the output is
+    ``acc / max(l, 1e-30)`` with the fp32 denominator. In fp32 this is the
+    dense-softmax oracle of the flash kernel. The kernel normalises
+    numerators by a running maximum, this version by the row maximum, so the
+    two round the numerators at different scales."""
+    p, vv = _attention_numerators(q, k, v, causal, window)
     denom = p.sum(dim=-1)                                       # (B, H, S)
     out = torch.einsum("bhst,bthd->bshd", p.to(v.dtype).float(), vv.float())
     return (out / denom.clamp_min(1e-30).transpose(1, 2)[..., None]) \
         .to(q.dtype)
+
+
+def flash_attention_tolerance(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, plain: torch.Tensor, *,
+                              causal: bool = True,
+                              window: int | None = None) -> torch.Tensor:
+    """Element-wise bound (B, S, H, hd) fp32 on ``|kernel - plain|`` for
+    bf16 inputs, ``plain`` being :func:`flash_attention` on them:
+
+        2^-7 |plain| + 2^-6 sqrt(sum_j p_j^2 v_j^2) / l
+
+    The two versions differ in two roundings. (1) Each rounds the softmax
+    numerator p_j to bf16 at its own scale (the kernel's running maximum,
+    this version's row maximum), a relative 2^-9 each, so the numerators
+    differ by |dp_j| <= 2^-8 p_j. These roundings do not depend on v, so the
+    output's error sum_j dp_j v_j / l has a standard deviation of at most
+    2^-9 sqrt(2/3) sqrt(sum_j p_j^2 v_j^2) / l; the second term is ~10 of
+    those, and for a row of 16 live keys or fewer it also covers the worst
+    case 2^-8 sum_j p_j |v_j| / l. It scales with the row's own rounding
+    noise, so it shrinks as 1/sqrt(live keys) where the output does, and a
+    kernel that drops or mis-weights one key tile lies far outside it.
+    (2) Each rounds its fp32 output to bf16: one bf16 ulp, <= 2^-7 |plain|.
+    fp32 summation-order differences are ~2^-24 sqrt(T) relative, far
+    below both terms."""
+    p, vv = _attention_numerators(q, k, v, causal, window)
+    denom = p.sum(dim=-1).clamp_min(1e-30).transpose(1, 2)[..., None]
+    spread = torch.einsum("bhst,bthd->bshd", p.square_(),
+                          vv.float().square()).sqrt_() / denom
+    return 2.0 ** -7 * plain.float().abs() + 2.0 ** -6 * spread

@@ -2,6 +2,7 @@
 
     api = model_api(get_config("minicpm-2b"))
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    # on the host: api.init(torch.Generator().manual_seed(0), device="cpu")
     emb = api.embed(params, {"tokens": tokens})   # (B, d_model) -> points
 
 The reference's ``loss``, ``prefill`` and ``decode`` come with the training
@@ -15,6 +16,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.backend import resolve_device
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.common import Params
 
@@ -33,7 +35,14 @@ def model_api(cfg: ArchConfig) -> ModelAPI:
         raise NotImplementedError(f"family {cfg.family}: the port runs the "
                                   f"dense family only")
 
-    def init(gen: torch.Generator) -> Params:
+    def init(gen: torch.Generator, *,
+             device: str | torch.device | None = None) -> Params:
+        """Random parameters drawn from ``gen`` on ``device``: the card
+        unless the caller asks for another, and ``gen`` must live there."""
+        device = resolve_device(device)
+        if resolve_device(gen.device) != device:
+            raise ValueError(f"generator on {gen.device}, parameters asked "
+                             f"for on {device}")
         return tf_lib.init_params(cfg, gen)
 
     def embed(params: Params, batch: Batch) -> torch.Tensor:

@@ -189,14 +189,10 @@ def padded_vocab(vocab: int) -> int:
     return ((vocab + VOCAB_ALIGN - 1) // VOCAB_ALIGN) * VOCAB_ALIGN
 
 
-def init_embed(gen: torch.Generator, vocab: int, d: int, tie: bool) -> Params:
-    """Embedding table padded to :data:`VOCAB_ALIGN` rows; an untied output
-    head beside it, as the reference keeps one."""
-    vp = padded_vocab(vocab)
-    p = {"tok": dense_init(gen, (vp, d))}
-    if not tie:
-        p["head"] = dense_init(gen, (d, vp))
-    return p
+def init_embed(gen: torch.Generator, vocab: int, d: int) -> Params:
+    """Embedding table padded to :data:`VOCAB_ALIGN` rows. (The reference's
+    untied output head comes with the slice that computes logits.)"""
+    return {"tok": dense_init(gen, (padded_vocab(vocab), d))}
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:

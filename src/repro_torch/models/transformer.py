@@ -44,8 +44,7 @@ def apply_self_layer(p: Params, cfg: ArchConfig, x: torch.Tensor,
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     """Random parameters (N(0, 0.02) matrices, unit norms, zero biases) of
     a dense config on the generator's device."""
-    return {"embed": init_embed(gen, cfg.vocab_size, cfg.d_model,
-                                cfg.tie_embeddings),
+    return {"embed": init_embed(gen, cfg.vocab_size, cfg.d_model),
             "final_norm": init_norm(cfg.d_model, cfg.norm, gen.device),
             "layers": [init_self_layer(gen, cfg)
                        for _ in range(cfg.n_layers)]}

@@ -90,6 +90,67 @@ def test_plain_flash_matches_model_attention_bf16(b, s, h, kv, hd, causal,
         float(err.max())
 
 
+def _online_softmax(q, k, v, causal, window, skip=None, tile=64):
+    """The kernel's arithmetic, written out on the CPU: fp32 scores of the
+    bf16-rounded q*scale, an online softmax over key tiles of ``tile`` with
+    the numerators rounded to bf16 at the running maximum, fp32 accumulators
+    and denominator, bf16 output. ``skip=(rows, keys)`` plants a fault: the
+    query rows ``rows`` never see the key tile starting at ``keys``."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    qs = (q.float() * hd ** -0.5).to(q.dtype).float()
+    kf = k.repeat_interleave(g, dim=2).float()
+    vf = v.repeat_interleave(g, dim=2).float()
+    sc = torch.einsum("bshd,bthd->bhst", qs, kf)
+    i, j = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    valid = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        valid &= j <= i
+    if window is not None:
+        valid &= j > i - window
+    sc = sc.masked_fill(~valid, -1e30)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, hd))
+    for t0 in range(0, s, tile):
+        st = sc[..., t0:t0 + tile]
+        if skip is not None and t0 == skip[1]:
+            st = st.clone()
+            st[:, :, skip[0]] = -1e30
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        pt = torch.exp(st - m_new)
+        l = l * alpha + pt.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhst,bthd->bhsd", pt.to(v.dtype).float(), vf[:, t0:t0 + tile])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window",
+                         [(1, 320, 2, 2, 64, True, None),
+                          (2, 256, 4, 1, 128, True, None),
+                          (1, 300, 3, 3, 64, True, 100),
+                          (1, 200, 2, 1, 64, False, None)])
+def test_flash_tolerance_admits_running_max_and_rejects_dropped_tile(
+        b, s, h, kv, hd, causal, window):
+    """``ref.flash_attention_tolerance``, the bound the card holds K7 to,
+    admits the kernel's own rounding (numerators at the running maximum)
+    and rejects a kernel that drops the key tile [64, 128) for the query
+    rows from 128 on, which see it."""
+    from repro_torch.kernels import ref
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(b, s, h, kv, hd, seed=3 * s + hd))
+    plain = ref.flash_attention(q, k, v, causal=causal, window=window)
+    tol = ref.flash_attention_tolerance(q, k, v, plain, causal=causal,
+                                        window=window)
+    ok = _online_softmax(q, k, v, causal, window)
+    err = (ok.float() - plain.float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+    bad = _online_softmax(q, k, v, causal, window, skip=(slice(128, s), 64))
+    assert float(((bad.float() - plain.float()).abs() / tol).max()) > 1.0
+
+
 def test_kernel_wrapper_takes_cuda_bf16_only():
     """The kernel's wrapper never runs the plain version: a CPU tensor, a
     non-bf16 dtype or an unsupported head dim raises before any launch."""

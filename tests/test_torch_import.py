@@ -28,7 +28,7 @@ def test_cpu_query_batch_runs_with_jax_blocked():
         from repro_torch.models.api import model_api
         cfg = get_config("minicpm-2b").smoke()
         api = model_api(cfg)
-        params = api.init(torch.Generator().manual_seed(0))
+        params = api.init(torch.Generator().manual_seed(0), device="cpu")
         gen = torch.Generator().manual_seed(1)
         batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 12),
                                             generator=gen)}

@@ -45,7 +45,8 @@ def arch(request):
     rcfg = ref_get_config(request.param).smoke()
     cfg = get_config(request.param).smoke()
     rparams = ref_model_api(rcfg).init(jax.random.PRNGKey(3))
-    tparams = model_params_from_numpy(cfg, jax.tree.map(np.asarray, rparams))
+    tparams = model_params_from_numpy(cfg, jax.tree.map(np.asarray, rparams),
+                                      device="cpu")
     return rcfg, cfg, rparams, tparams
 
 
@@ -94,10 +95,38 @@ def test_other_families_name_their_slice(name):
         get_config(name)
 
 
+@pytest.mark.parametrize("entry", ["init", "carry"])
+def test_model_entry_points_run_on_the_card_unless_asked(entry):
+    """With no ``device`` the parameters go to the card: with no card that
+    raises, and a generator that is not on the card is refused; with
+    ``device="cpu"`` they are built on the host."""
+    cfg = get_config("minicpm-2b").smoke()
+    api = model_api(cfg)
+    if entry == "init":
+        def build(**kw):
+            return api.init(torch.Generator().manual_seed(0), **kw)
+    else:
+        tree = jax.tree.map(np.asarray, ref_model_api(
+            ref_get_config("minicpm-2b").smoke()).init(jax.random.PRNGKey(0)))
+
+        def build(**kw):
+            return model_params_from_numpy(cfg, tree, **kw)
+    if torch.cuda.is_available():
+        if entry == "init":
+            with pytest.raises(ValueError, match="generator"):
+                build()
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    params = build(device="cpu")
+    assert params["layers"][0]["attn"]["wq"].device.type == "cpu"
+
+
 def test_embed_tokens_and_vocab_padding(arch):
     rcfg, cfg, rparams, tparams = arch
     assert tc.padded_vocab(cfg.vocab_size) == rc.padded_vocab(rcfg.vocab_size)
     assert tparams["embed"]["tok"].shape[0] % tc.VOCAB_ALIGN == 0
+    assert set(tparams["embed"]) == {"tok"}       # no untied head carried
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
     want = rc.embed_tokens(rparams["embed"], jnp.asarray(toks))
     got = tc.embed_tokens(tparams["embed"], torch.from_numpy(toks))
@@ -205,7 +234,8 @@ def test_ingest_embeddings_slice():
     cfg = get_config("minicpm-2b").smoke()
     rapi, api = ref_model_api(rcfg), model_api(cfg)
     rparams = rapi.init(jax.random.PRNGKey(0))
-    tparams = model_params_from_numpy(cfg, jax.tree.map(np.asarray, rparams))
+    tparams = model_params_from_numpy(cfg, jax.tree.map(np.asarray, rparams),
+                                      device="cpu")
     rng = np.random.default_rng(0)
     toks = [rng.integers(0, cfg.vocab_size, (4, 16)) for _ in range(4)]
     keywords = [sorted(rng.choice(6, size=2, replace=False).tolist())
