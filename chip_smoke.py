@@ -28,6 +28,20 @@ Phases:
      fp32 error band of the threshold, counts by at most that many cells, sq
      by at most the band. Time kernel, plain version and (K3) torch.cdist
      with CUDA events.
+  3b. The anchor-star device tier on the same engine (no second build), each
+     batch a path of its own: (a) the same 64 queries at k=1 on
+     ``tier="device"``; (b) 64 random 9-keyword queries (the paper's largest
+     query size) at k=10. K6 must launch exactly once per query (every pack
+     has R >= 128 anchors) and no join kernel may launch. Every answer is a
+     covering set of finite diameter, ascending, and its float64 rescore
+     from its ids lies within the fp32 band ``sqrt((64 + 4d) eps32
+     max|x - c|^2)`` of the reported diameter (x the query's packed points,
+     c their mean: ``core.distributed.diameter_band``); at k=1 the answer
+     lies in [opt - band, 2 opt + band] against the exact tier's optimum
+     (the triangle-inequality guarantee).
+     (c) The first 8 queries of (a): ``nks_anchor_topk`` on the card
+     against the same packed groups on the CPU (the plain path end to end):
+     equal id sets, diameters within the band.
 
   4. Embed at full width: MiniCPM-2B (40 layers, d_model 2304, 36 heads of
      64; random weights from a seeded generator on the card) embeds 4,096
@@ -39,7 +53,9 @@ Phases:
      3-keyword queries (k=1, m=2, 5 scales) over the embedded corpus must
      answer as the numpy backend does (ids equal, diameters to 1e-9).
      Prints embed wall time, tokens/s, the model-FLOP share of the embed
-     wall against the bf16 peak, K7's launches and peak device memory.
+     wall against the bf16 peak, K7's launches and peak device memory. The
+     same 64 queries then run on ``tier="device"`` with the checks of 3b (a):
+     K6 at d=2304.
   5. Hold K7 against its plain PyTorch version on the card: on the path's
      own q, k, v of both shapes (recorded during phase 4), causal; the long
      shape again with window 1024; grouped-query heads (36 query, 4 kv,
@@ -51,6 +67,12 @@ Phases:
      fault (the last query tile skipping the key tile before its diagonal)
      must lie outside it. Time kernel, plain version and
      ``F.scaled_dot_product_attention`` with CUDA events.
+  6. Hold K6 against its plain PyTorch version on the card at the largest
+     (T, q, d) of 3b (a), of 3b (b) (q=9) and of the embed corpus's device
+     batch (d=2304): max |kernel - plain| over the per-tuple band of the
+     norms identity ``sqrt((64 + 4d) eps32 max|x|^2)`` at most 1. Time
+     kernel, plain version and ``torch.cdist(pts, pts).amax(dim=(1, 2))``
+     (two calls: no single PyTorch call computes r(A)) with CUDA events.
 
 Prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when a
@@ -109,6 +131,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_ms(fn, reps: int, marker: str) -> float | None:
+    """Mean device time (ms) of the CUDA kernels whose name holds ``marker``
+    per call of ``fn``, from torch.profiler over ``reps`` calls: the kernel
+    alone, without the host's launch gaps that CUDA events between
+    back-to-back calls also count. None if the profiler saw no such
+    kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    sec = sum(v for k, v in kernel_seconds(prof).items() if marker in k)
+    return sec * 1e3 / reps if sec > 0 else None
+
+
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -148,6 +189,10 @@ class Recorder:
 
     def restore(self) -> None:
         setattr(self.ops, self.name, self.fn)
+
+
+def tuple_cells(pts, *_):
+    return pts.shape[0] * pts.shape[1] * pts.shape[2]
 
 
 def batched_cells(x, *_):
@@ -323,11 +368,86 @@ def same_answers(a, b, rtol: float) -> bool:
     return len(a) == len(b)
 
 
+def rescore(ds, ids) -> float:
+    """float64 diameter of a point set, by coordinate differences."""
+    import numpy as np
+    x = ds.points[list(ids)].astype(np.float64)
+    return float(np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1).max()))
+
+
+def check_device_answers(ds, queries, results, label: str, k: int,
+                         opts=None) -> dict:
+    """Every answer covering, finite, ascending, and within the query's band
+    of its float64 rescore; with ``opts`` (the exact tier's diameters) the
+    first answer in [opt - band, 2 opt + band]. Returns the largest
+    |rescore - reported| / band and the device/opt ratios (float64 rescore
+    over opt, where opt > 0)."""
+    import numpy as np
+    from repro_torch.core.device_plane import pack_groups
+    from repro_torch.core.distributed import diameter_band
+    worst, ratios = 0.0, []
+    for i, (q, res) in enumerate(zip(queries, results)):
+        cands = res.candidates
+        check(1 <= len(cands) <= k, f"{label}: query {q} has {len(cands)} "
+              f"answers, want 1..{k}")
+        diams = [c.diameter for c in cands]
+        check(diams == sorted(diams), f"{label}: query {q} not ascending")
+        pg = pack_groups(ds, q)
+        band = diameter_band(pg.groups, pg.mask)
+        for c in cands:
+            check(np.isfinite(c.diameter), f"{label}: query {q} diameter "
+                  f"{c.diameter}")
+            covered = set()
+            for p in c.ids:
+                covered.update(int(v) for v in ds.kw.row(p))
+            check(set(q) <= covered, f"{label}: answer {c.ids} does not "
+                  f"cover {q}")
+            err = abs(rescore(ds, c.ids) - c.diameter)
+            check(err <= band, f"{label}: query {q} answer {c.ids} reports "
+                  f"{c.diameter}, float64 rescore differs by {err} > band "
+                  f"{band}")
+            worst = max(worst, err / band if band else 0.0)
+        if opts is not None:
+            opt, got = opts[i], cands[0].diameter
+            check(opt - band <= got <= 2.0 * opt + band,
+                  f"{label}: query {q} device {got} outside [opt - band, "
+                  f"2 opt + band] for opt {opt}, band {band}")
+            if opt > 0:
+                ratios.append(rescore(ds, cands[0].ids) / opt)
+    out = {"max_err_over_band": worst}
+    if opts is not None:
+        out["device_over_opt"] = {
+            "n": len(ratios), "median": float(np.median(ratios)),
+            "max": float(np.max(ratios)), "min": float(np.min(ratios))} \
+            if ratios else None
+    return out
+
+
+def device_report(ds, queries, wall: float, st, rec) -> dict:
+    """One device-tier batch: QPS, phases, transfers, K6's input shapes
+    (T = R anchors per query), the distance cells the batch computes
+    (sum of R * R * (q - 1)) and the largest anchor group."""
+    cells = sum(n * int(key.split("x")[0]) ** 2
+                * (int(key.split("x")[1]) - 1)
+                for key, n in rec.shapes.items())
+    return {"queries": len(queries), "q": len(queries[0]), "wall_s": wall,
+            "qps": len(queries) / wall, "phases": st.phases,
+            "shard_dispatches": st.shard_dispatches,
+            "h2d_bytes": st.h2d_bytes, "d2h_bytes": st.d2h_bytes,
+            "k6_calls_by_shape": rec.shapes,
+            "k6_largest": list(rec.best[0].shape), "distance_cells": cells,
+            "largest_anchor_group": max(len(ds.points_with(q[0]))
+                                        for q in queries)}
+
+
 def serve(args, report: dict) -> tuple:
     import numpy as np
     import torch
     from repro_torch import NKSEngine, flickr_like_dataset, random_queries
     from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.device_plane import pack_groups
+    from repro_torch.core.distributed import diameter_band, nks_anchor_topk
+    from repro_torch.kernels import diameter as D
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_l2 as K
 
@@ -354,18 +474,19 @@ def serve(args, report: dict) -> tuple:
     recs = (Recorder(ops, "pairwise_l2_join_batched_masked", batched_cells),
             Recorder(ops, "pairwise_l2_join_batched_counts", batched_cells),
             Recorder(ops, "pairwise_l2_join", pair_cells))
-    answers, by_path = {}, {}
+    answers, by_path, diam_recs = {}, {}, {}
 
     def drive(path, fn):
         """Run one path with the launch counters set to 0 just before it and
         read just after."""
         torch.cuda.synchronize()
         K.reset_launches()
+        D.reset_launches()
         ts = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - ts
-        by_path[path] = dict(K.launches)
+        by_path[path] = {**K.launches, **D.launches}
         return out, wall
 
     def batch_report(wall, st):
@@ -415,6 +536,25 @@ def serve(args, report: dict) -> tuple:
                                                            ds.points[ids]))
         print(f"[serve] backend.pairwise on {len(ids)} points: launches "
               f"{by_path['pairwise']}", flush=True)
+        queries9 = random_queries(ds, 9, args.queries, seed=args.seed + 2)
+        for path, qs, k in (("device-q3", queries, 1),
+                            ("device-q9", queries9, 10)):
+            rec = diam_recs[path] = Recorder(ops, "tuple_diameters",
+                                             tuple_cells)
+            try:
+                answers[path], wall = drive(path, lambda: engine.query_batch(
+                    qs, k=k, tier="device"))
+            finally:
+                rec.restore()
+            st = engine.last_batch_stats
+            report[path] = device_report(ds, qs, wall, st, rec)
+            print(f"[device] {path}: {len(qs)} queries of {len(qs[0])} "
+                  f"keywords at k={k} in {wall:.4f}s = {len(qs) / wall:.2f} "
+                  f"QPS; phases {st.phases}; launches {by_path[path]}; "
+                  f"largest K6 input {report[path]['k6_largest']}; distance "
+                  f"cells {report[path]['distance_cells']}; largest anchor "
+                  f"group {report[path]['largest_anchor_group']}",
+                  flush=True)
     finally:
         for rec in recs:
             rec.restore()
@@ -451,7 +591,54 @@ def serve(args, report: dict) -> tuple:
     print(f"[serve] answers: all covering and finite; forced run identical "
           f"to the default; first {n_cmp} per tier agree with the numpy "
           f"backend", flush=True)
-    return recs, by_path
+
+    for path, qs in (("device-q3", queries), ("device-q9", queries9)):
+        check(by_path[path]["tuple_diameters"] == len(qs),
+              f"{path}: K6 launched {by_path[path]['tuple_diameters']} "
+              f"times for {len(qs)} queries, want one per query")
+        check(not any(by_path[path][n] for n in K.launches),
+              f"{path}: the device tier launched a join kernel")
+    for path in ("exact", "approx", "forced", "pairwise"):
+        check(by_path[path]["tuple_diameters"] == 0,
+              f"{path}: a join path launched K6")
+    opts = [r.candidates[0].diameter for r in answers["exact"]]
+    report["device-q3"]["checks"] = check_device_answers(
+        ds, queries, answers["device-q3"], "device-q3", 1, opts)
+    report["device-q9"]["checks"] = check_device_answers(
+        ds, queries9, answers["device-q9"], "device-q9", 10)
+    worst = 0.0
+    for q, res in zip(queries[:n_cmp], answers["device-q3"][:n_cmp]):
+        pg = pack_groups(ds, q)
+        band = diameter_band(pg.groups, pg.mask)
+        host = [torch.from_numpy(a) for a in pg]
+        on_card = [a.cuda() for a in host]
+        (d_c, c_c), (d_h, c_h) = (nks_anchor_topk(*on_card, 1),
+                                  nks_anchor_topk(*host, 1))
+        check(sorted(set(c_c[0].tolist())) == sorted(set(c_h[0].tolist()))
+              == list(res.candidates[0].ids),
+              f"device tier on the card and on the CPU disagree on {q}")
+        err = abs(float(d_c[0]) - float(d_h[0]))
+        check(err <= band, f"device tier on {q}: card {float(d_c[0])} vs CPU "
+              f"{float(d_h[0])} beyond the band {band}")
+        worst = max(worst, err / band if band else 0.0)
+    report["device-q3"]["card_vs_cpu"] = {"queries": n_cmp,
+                                         "max_err_over_band": worst}
+    for path, qs, k in (("device-q3", queries, 1),
+                        ("device-q9", queries9, 10)):
+        report[path]["profile"] = profile_window(
+            lambda: engine.query_batch(qs, k=k, tier="device"),
+            ("tuple_diameters (K6)", "tuple_diameters_kernel"))
+        prof = report[path]["profile"]
+        print(f"[device] profiler, {path} again after its launches were "
+              f"read: device busy {prof.get('busy_share')} of "
+              f"{prof.get('wall_s')}s; kernel time by kind "
+              f"{prof.get('share_of_kernel_time')}; top kernels "
+              f"{prof.get('top_kernels_s')}", flush=True)
+    print(f"[device] answers covering, finite, ascending and within the band "
+          f"of their float64 rescore: q=3 {report['device-q3']['checks']}, "
+          f"q=9 {report['device-q9']['checks']}; first {n_cmp} on the card "
+          f"equal the CPU's (max err/band {worst:.4g})", flush=True)
+    return recs, by_path, diam_recs
 
 
 class ShapeRecorder:
@@ -489,11 +676,12 @@ def attention_flops(b, s, h, hd, t=None, causal=True, window=None) -> float:
                                          window)
 
 
-def embed(args, report: dict) -> tuple[ShapeRecorder, int]:
+def embed(args, report: dict) -> tuple[ShapeRecorder, int, Recorder, int]:
     import numpy as np
     import torch
     from repro_torch import NKSEngine, flickr_like_dataset, random_queries
     from repro_torch.configs import get_config
+    from repro_torch.kernels import diameter as D
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_l2 as K
@@ -640,7 +828,42 @@ def embed(args, report: dict) -> tuple[ShapeRecorder, int]:
           f"launches {serve_joins}; K1 vs plain "
           f"{emb['serve'].get('k1_vs_plain')}; answers equal the numpy "
           f"backend's, which took {numpy_s:.3f}s", flush=True)
-    return rec, k7
+
+    rec_diam = Recorder(ops, "tuple_diameters", tuple_cells)
+    try:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        D.reset_launches()
+        ts = time.perf_counter()
+        dev_ans = engine.query_batch(queries, k=1, tier="device")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        k6 = D.launches["tuple_diameters"]
+        dev_joins = dict(K.launches)
+    finally:
+        rec_diam.restore()
+    st = engine.last_batch_stats
+    emb["device"] = device_report(engine.dataset, queries, wall, st,
+                                  rec_diam)
+    check(k6 == len(queries), f"embed-device: K6 launched {k6} times for "
+          f"{len(queries)} queries, want one per query")
+    check(not any(dev_joins.values()),
+          "embed-device: the device tier launched a join kernel")
+    emb["device"]["checks"] = check_device_answers(
+        engine.dataset, queries, dev_ans, "embed-device", 1,
+        [r.candidates[0].diameter for r in answers])
+    emb["device"]["profile"] = profile_window(
+        lambda: engine.query_batch(queries, k=1, tier="device"),
+        ("tuple_diameters (K6)", "tuple_diameters_kernel"))
+    print(f"[embed] device tier over the {n_docs} x {cfg.d_model} corpus: "
+          f"{len(queries)} queries in {wall:.4f}s = {len(queries) / wall:.2f}"
+          f" QPS; phases {st.phases}; K6 launches {k6}, largest input "
+          f"{emb['device']['k6_largest']}; checks {emb['device']['checks']}"
+          f"; profiler (again, after the launches were read): busy "
+          f"{emb['device']['profile'].get('busy_share')}, kernel time by "
+          f"kind {emb['device']['profile'].get('share_of_kernel_time')}",
+          flush=True)
+    return rec, k7, rec_diam, k6
 
 
 def corpus_geometry(points, d: int, device) -> dict:
@@ -664,27 +887,9 @@ def corpus_geometry(points, d: int, device) -> dict:
             "pairs_within_slack": float((off <= slack).double().mean())}
 
 
-def profile_embed(api, params, batches) -> dict:
-    """Kernel time by kind over a few embed batches, from torch.profiler's
-    CUDA activity: K7 (``flash_fwd``), matrix products (cuBLAS/CUTLASS
-    kernels) and everything else (norms, RoPE, SwiGLU, casts, adds). Busy
-    share = summed kernel time / wall of the window. Runs after the embed
-    path's launches were read; returns ``{}`` if the profiler saw no device
-    time."""
-    import torch
+def kernel_seconds(prof) -> dict:
+    """Device seconds per kernel name from a finished torch.profiler run."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    dev = params["final_norm"]["w"].device
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.inference_mode(), profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        ts = time.perf_counter()
-        for b in batches:
-            api.embed(params, {"tokens": torch.as_tensor(b["tokens"],
-                                                         device=dev)})
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - ts
     kernels = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -693,21 +898,58 @@ def profile_embed(api, params, batches) -> dict:
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
         kernels[e.key] = kernels.get(e.key, 0.0) + us * 1e-6
+    return kernels
+
+
+def profile_window(fn, own: tuple[str, str]) -> dict:
+    """Run ``fn()`` once under torch.profiler (CPU and CUDA activity): its
+    wall, summed kernel time, busy share (kernel time / wall) and the share
+    of kernel time of the hand-written kernel ``own`` = (label, name mark),
+    of matrix products (cuBLAS/CUTLASS kernels) and of everything else.
+    Returns ``{}`` if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+    kernels = kernel_seconds(prof)
     total = sum(kernels.values())
     if total <= 0.0:
         return {}
+    label, mark = own
     matmul_marks = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
-    kinds = {"flash_attention (K7)": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = {label: 0.0, "matmul": 0.0, "other": 0.0}
     for name, sec in kernels.items():
-        kind = "flash_attention (K7)" if "flash_fwd" in name else "matmul" \
+        kind = label if mark in name else "matmul" \
             if any(m in name.lower() for m in matmul_marks) else "other"
         kinds[kind] += sec
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    return {"batches": len(batches), "wall_s": wall, "kernel_s": total,
-            "busy_share": total / wall,
+    return {"wall_s": wall, "kernel_s": total, "busy_share": total / wall,
             "share_of_kernel_time": {k: v / total for k, v in kinds.items()},
             "kernel_s_by_kind": kinds,
             "top_kernels_s": {k[:120]: v for k, v in top}}
+
+
+def profile_embed(api, params, batches) -> dict:
+    """Kernel time by kind over a few embed batches: K7 (``flash_fwd``),
+    matrix products and everything else (norms, RoPE, SwiGLU, casts, adds).
+    Runs after the embed path's launches were read."""
+    import torch
+
+    dev = params["final_norm"]["w"].device
+
+    def run():
+        with torch.inference_mode():
+            for b in batches:
+                api.embed(params, {"tokens": torch.as_tensor(
+                    b["tokens"], device=dev)})
+    prof = profile_window(run, ("flash_attention (K7)", "flash_fwd"))
+    return {"batches": len(batches), **prof} if prof else {}
 
 
 def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
@@ -819,6 +1061,68 @@ def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
                 library_ms=main_case["library_ms"], cases=rows)
 
 
+def diameter_row(cases: list, launches_by_path: dict) -> dict:
+    """K6 against its plain version at each recorded input (label, Recorder);
+    timings with CUDA events. The row's own numbers are those of the first
+    case (the largest input of the main device batch)."""
+    import torch
+    from repro_torch.kernels import diameter as D
+    from repro_torch.kernels import ref
+
+    rows = []
+    for label, rec in cases:
+        x = rec.best[0]
+        t, q, d = x.shape
+        got = D.tuple_diameters(x)
+        want = ref.tuple_diameters(x)
+        torch.cuda.synchronize()
+        band = ((64.0 + 4.0 * d) * EPS32
+                * x.double().square().sum(-1).amax(-1)).sqrt()
+        err = (got.double() - want.double()).abs()
+        over = float((err / band.clamp_min(1e-30)).max())
+        check(over <= 1.0, f"K6 {label} {tuple(x.shape)}: differs from the "
+              f"plain version by {float(err.max())} ({over} of the band)")
+        flops = 2.0 * t * q * q * d
+        nbytes = (t * q * d + t) * 4.0
+        b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        rows.append(dict(
+            case=label, shape=[t, q, d], max_abs_err=float(err.max()),
+            max_err_over_band=over,
+            ms=cuda_ms(lambda: D.tuple_diameters(x), 50),
+            device_ms=profiled_ms(lambda: D.tuple_diameters(x), 50,
+                                  "tuple_diameters_kernel"),
+            plain_ms=cuda_ms(lambda: ref.tuple_diameters(x), 20),
+            library_ms=cuda_ms(lambda: torch.cdist(x, x).amax(dim=(1, 2)),
+                               20),
+            bound_ms=b_ms, bound_by=b_by,
+            bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
+            ops_ms=flops / PEAK_FP32_FLOPS * 1e3))
+        r = rows[-1]
+        print(f"[kernel] tuple_diameters {label} {r['shape']}: "
+              f"{r['ms']:.4f} ms (profiler: {r['device_ms']} ms on the "
+              f"device; plain {r['plain_ms']:.4f} ms, cdist+amax "
+              f"{r['library_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}: "
+              f"bytes {r['bytes_ms']:.5f} ms, fp32 operations "
+              f"{r['ops_ms']:.5f} ms); max_abs_err {r['max_abs_err']}, "
+              f"err/band {over}", flush=True)
+    main_case = rows[0]
+    return dict(name="tuple_diameters", route="cuda",
+                source="src/repro_torch/kernels/csrc/diameter.cu",
+                replaces="src/repro/kernels/diameter.py:36",
+                launches=launches_by_path["device-q3"], path="device-q3",
+                launches_by_path=launches_by_path,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                max_err_over_band=max(r["max_err_over_band"] for r in rows),
+                shape=main_case["shape"], ms=main_case["ms"],
+                device_ms=main_case["device_ms"],
+                plain_ms=main_case["plain_ms"],
+                bound_ms=main_case["bound_ms"],
+                bound_by=main_case["bound_by"],
+                library_ms=main_case["library_ms"],
+                library="torch.cdist(pts, pts).amax(dim=(1, 2)): two calls",
+                cases=rows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -853,13 +1157,14 @@ def main() -> int:
         t0 = time.perf_counter()
         # one nvcc per source, all started together
         with concurrent.futures.ThreadPoolExecutor() as pool:
-            list(pool.map(build.build, ("pairwise_l2", "flash_attention")))
+            list(pool.map(build.build, ("pairwise_l2", "flash_attention",
+                                        "diameter")))
         report["build_s"] = time.perf_counter() - t0
         card = card_line()
         report["card"] = card
         print(f"[build] kernels built in {report['build_s']:.1f}s; card: "
               f"{card}", flush=True)
-        recs, by_path = serve(args, report)
+        recs, by_path, diam_recs = serve(args, report)
         rows = kernel_rows(*recs, by_path)
         report["kernels"] = rows
         for row in rows:
@@ -868,9 +1173,14 @@ def main() -> int:
                   f" ms by {row['bound_by']}, library {row['library_ms']}); "
                   f"max_abs_err {row['max_abs_err']}; launches "
                   f"{row['launches_by_path']}", flush=True)
-        rec, k7 = embed(args, report)
+        rec, k7, rec_diam, k6 = embed(args, report)
         rows.append(flash_row(rec, k7))
         del rec
+        k6_by_path = {p: c["tuple_diameters"] for p, c in by_path.items()}
+        k6_by_path["embed-device"] = k6
+        rows.append(diameter_row([("path", diam_recs["device-q3"]),
+                                  ("q9", diam_recs["device-q9"]),
+                                  ("d2304", rec_diam)], k6_by_path))
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -11,6 +11,8 @@ fallback from the card to the host.
   * :func:`pairwise_l2_join_batched_counts` — the bf16 coarse counts of the
     cascade's prune tier.
   * :func:`pairwise_l2_join` — one (M, d) x (N, d) join.
+  * :func:`tuple_diameters` — the diameters r(A) of a batch of candidate
+    tuples (the anchor-star device tier's ranking).
   * :func:`flash_attention` — causal or windowed attention forward (the LM
     embedder's self-attention).
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import diameter as _diameter
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import pairwise_l2 as _cuda
 from repro_torch.kernels import ref
@@ -64,6 +67,15 @@ def pairwise_l2_join(a: torch.Tensor, b: torch.Tensor,
     if _route(a) == "cuda":
         return _cuda.pairwise_join(a, b, r)
     return ref.pairwise_join(a, b, r)
+
+
+def tuple_diameters(pts: torch.Tensor) -> torch.Tensor:
+    """Largest pairwise L2 distance of each tuple: pts (T, q, d) fp32 ->
+    (T,) fp32, through the norms identity. On the card only contiguous fp32
+    with 1 <= q <= 9 is taken (anything else raises)."""
+    if _route(pts) == "cuda":
+        return _diameter.tuple_diameters(pts)
+    return ref.tuple_diameters(pts)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function computes what its CUDA kernel in ``csrc/pairwise_l2.cu`` (the
-threshold joins) or ``csrc/flash_attention.cu`` (attention) computes, with
-the same inputs and outputs; ``kernels.ops`` routes a CPU tensor here, and the
+threshold joins), ``csrc/diameter.cu`` (tuple diameters) or
+``csrc/flash_attention.cu`` (attention) computes, with the same inputs and
+outputs; ``kernels.ops`` routes a CPU tensor here, and the
 tests and ``chip_smoke.py`` hold the kernels against these. They transcribe
 the reference package's memory-lean formulations (the masked join and the
 bf16 coarse counts).
@@ -124,6 +125,23 @@ def pairwise_join(a: torch.Tensor, b: torch.Tensor,
     pad[:m, :n] = joined
     counts = pad.view(gm, tm, gn, tn).sum(dim=(1, 3), dtype=torch.int32)
     return sq, counts
+
+
+def tuple_diameters(pts: torch.Tensor) -> torch.Tensor:
+    """Diameters r(A) of a batch of candidate tuples (kernel
+    ``tuple_diameters`` in ``csrc/diameter.cu``): pts (T, q, d) -> (T,) fp32,
+    the largest pairwise L2 distance within each tuple.
+
+    The norms identity per tuple, in fp32, as the TPU kernel computes it:
+    ``sq = sum x^2``, ``gram = x x^T``, ``d2 = max(sq_i + sq_j - 2 gram_ij,
+    0)``, the result ``sqrt(max d2)``. A tuple padded by repeating a member
+    keeps its diameter (the duplicate adds only entries the tuple already
+    has)."""
+    x = pts.float()
+    sq = (x * x).sum(-1)                                        # (T, q)
+    gram = torch.bmm(x, x.transpose(1, 2))                      # (T, q, q)
+    d2 = (sq[:, :, None] + sq[:, None, :] - 2.0 * gram).clamp_min(0.0)
+    return d2.amax(dim=(1, 2)).sqrt()
 
 
 def _attention_numerators(q, k, v, causal, window):

@@ -1,14 +1,16 @@
 """Batched NKS serving engine over a static corpus.
 
 Production shape: a frontend batches keyword-set queries; the engine answers
-from a ProMiSH index over an embedding corpus, in two quality/latency tiers:
+from a ProMiSH index over an embedding corpus, in three quality/latency tiers:
 
   * ``exact``  — ProMiSH-E (100% accuracy, Lemma-2 guarantee);
-  * ``approx`` — ProMiSH-A (the paper's fast tier).
+  * ``approx`` — ProMiSH-A (the paper's fast tier);
+  * ``device`` — the anchor-star tier (``core.distributed``): the whole
+    search of one query on the device, within 2x of the optimum.
 
-``query_batch`` runs both tiers as a **staged batched pipeline**: per scale,
-bucket selection for the whole batch is amortised through
-``core.plan.plan_scale`` (shared per-query Algorithm-2 dedup), surviving
+``query_batch`` runs the exact and approx tiers as a **staged batched
+pipeline**: per scale, bucket selection for the whole batch is amortised
+through ``core.plan.plan_scale`` (shared per-query Algorithm-2 dedup), surviving
 subsets are packed on the device into a handful of size-binned fused
 threshold-join dispatches (``backend="torch"``, each emitting the packed join
 bitmask; subsets whose pruning radius is still infinite skip the device
@@ -21,7 +23,9 @@ and cache hits are recorded in :class:`PipelineStats`
 The engine runs on the card: it puts the corpus on the CUDA device once, at
 construction, and its ``"torch"`` backend launches the hand-written kernels.
 ``device="cpu"`` runs the same pipeline on the host through the kernels'
-plain PyTorch versions; with no CUDA device and no ``device`` it raises.
+plain PyTorch versions; with no CUDA device and no ``device`` it raises. The
+device tier gathers each query's keyword groups from that resident corpus
+and issues one anchor-star dispatch per query.
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ import torch
 from repro_torch.core import carry, plan, promish_a, promish_e
 from repro_torch.core.backend import (DistanceBackend, NumpyBackend,
                                       TorchBackend, resolve_device)
+from repro_torch.core.device_plane import gather_groups, pack_group_ids
+from repro_torch.core.distributed import nks_anchor_topk
 from repro_torch.core.index import PromishIndex, build_index
 from repro_torch.core.subset_search import enumerate_with_block, local_groups
 from repro_torch.core.types import (Candidate, KeywordDataset, TopK,
@@ -72,7 +78,10 @@ class PipelineStats:
     selection + keyword grouping), ``pack`` (tile packing, backend-side),
     ``dispatch`` (device dispatch + D2H readback, and host-routed bins),
     ``enumerate`` (host Alg. 4 over the join masks). Cache counters mirror
-    the backend's LRU.
+    the backend's LRU. The device tier fills ``pack`` (host id packing, the
+    ids' upload and the device gather, as enqueued), ``dispatch`` (the
+    anchor-star search and the readback that waits for it), the transfer
+    bytes and ``shard_dispatches`` (dispatches per device: one device here).
     """
 
     batch_size: int
@@ -106,6 +115,7 @@ class PipelineStats:
     host_routed_dispatches: int = 0
     host_routed_subsets: int = 0
     bin_occupancy: dict = dataclasses.field(default_factory=dict)
+    shard_dispatches: list[int] = dataclasses.field(default_factory=list)
 
     @property
     def dispatches_per_scale(self) -> list[int]:
@@ -182,7 +192,9 @@ class NKSEngine:
         ``device`` (the CUDA card unless the caller passes another; see
         :func:`repro_torch.core.backend.resolve_device`). The ``"torch"``
         backend is built here too, so its cost model is calibrated — and on
-        the card its kernels built — before the first batch."""
+        the card its kernels built — before the first batch; one device-tier
+        search on a dummy pack does the same for that tier (the matrix
+        product library's set-up and K6's build)."""
         self.device = resolve_device(device)
         self.dataset = dataset
         self.last_batch_stats: PipelineStats | None = None
@@ -196,6 +208,11 @@ class NKSEngine:
         self.backend = TorchBackend(device=self.device)
         self.backend.attach(dataset.points)
         self.backend.warmup(dataset.dim)
+        shape = (2, 128)
+        nks_anchor_topk(
+            torch.zeros((*shape, dataset.dim), device=self.device),
+            torch.ones(shape, dtype=torch.bool, device=self.device),
+            torch.zeros(shape, dtype=torch.int32, device=self.device), 1)
 
     @classmethod
     def from_arrays(cls, points: np.ndarray, kw_offsets: np.ndarray,
@@ -233,17 +250,47 @@ class NKSEngine:
 
     def query(self, keywords: Sequence[int], k: int = 1,
               tier: str = "approx") -> QueryResult:
-        """One query through the per-query search (float64 on the host)."""
+        """One query through the per-query search (float64 on the host), or
+        one anchor-star dispatch on the engine's device (``tier="device"``)."""
         t0 = time.perf_counter()
         self._validate_queries([keywords])
         if tier == "exact":
             pq = promish_e.search(self.dataset, self.index_e, keywords, k=k)
         elif tier == "approx":
             pq = promish_a.search(self.dataset, self.index_a, keywords, k=k)
+        elif tier == "device":
+            return QueryResult(list(keywords),
+                               self._device_topk(list(keywords), k),
+                               time.perf_counter() - t0, tier)
         else:
             raise ValueError(tier)
         return QueryResult(list(keywords), pq.items,
                            time.perf_counter() - t0, tier)
+
+    def _device_topk(self, keywords: list[int], k: int,
+                     stats: PipelineStats | None = None) -> list[Candidate]:
+        """One anchor-star dispatch, the device tier's unit of work. The
+        anchors are the points of ``keywords[0]`` as given. Only the (q, R)
+        ids and mask cross to the device, where the groups are gathered from
+        the resident corpus; diameters and ids come back in one readback.
+        Candidates are the anchor stars of finite diameter, ascending."""
+        t0 = time.perf_counter()
+        dev = self.device
+        pg = pack_group_ids(self.dataset, keywords)
+        mask = torch.from_numpy(pg.mask).to(dev)
+        ids = torch.from_numpy(pg.ids).to(dev)
+        groups = gather_groups(self.backend._points_dev, mask, ids)
+        t1 = time.perf_counter()
+        diams, cids = nks_anchor_topk(groups, mask, ids, k)
+        diams, cids = diams.cpu().numpy(), cids.cpu().numpy()
+        if stats is not None:
+            stats.shard_dispatches[0] += 1
+            stats.t_pack_s += t1 - t0
+            stats.t_dispatch_s += time.perf_counter() - t1
+            stats.h2d_bytes += pg.mask.nbytes + pg.ids.nbytes
+            stats.d2h_bytes += diams.nbytes + cids.nbytes
+        return [Candidate(tuple(sorted(set(int(x) for x in row))), float(dm))
+                for dm, row in zip(diams, cids) if np.isfinite(dm)]
 
     # ------------------------------------------------------------- batched path
     def _validate_queries(self, queries: Sequence[Sequence[int]]
@@ -364,9 +411,20 @@ class NKSEngine:
         on its device) each scale issues a few size-binned fused
         threshold-join dispatches covering all live subsets; ``"numpy"``
         loops float64 joins on the host; a :class:`DistanceBackend` instance
-        is used as given. Per-result latency is the batch wall time divided
-        by the batch size. Pipeline accounting lands in
-        ``self.last_batch_stats``."""
+        is used as given. The ``device`` tier issues one anchor-star
+        dispatch per query on the engine's device (``backend`` is not used).
+        Per-result latency is the batch wall time divided by the batch size.
+        Pipeline accounting lands in ``self.last_batch_stats``."""
+        if tier == "device":
+            t0 = time.perf_counter()
+            self._validate_queries(queries)
+            stats = PipelineStats(batch_size=len(queries), tier=tier,
+                                  backend="anchor", shard_dispatches=[0])
+            out = [QueryResult(list(q), self._device_topk(list(q), k, stats),
+                               0.0, tier) for q in queries]
+            per_q = (time.perf_counter() - t0) / max(len(queries), 1)
+            self.last_batch_stats = stats
+            return [dataclasses.replace(r, latency_s=per_q) for r in out]
         if tier not in ("exact", "approx"):
             raise ValueError(tier)
         t0 = time.perf_counter()

@@ -6,7 +6,9 @@ nothing of JAX, so it runs on a machine without it. Tolerance of the
 threshold joins, as in ``test_torch_kernels.py``: masks identical except on
 cells whose float64 squared distance lies within ``(64 + 4d) * eps32 *
 max|x|^2`` of ``r^2``, counts within the number of such cells, ``sq`` within
-that band. Tolerance of the attention kernel: both versions round q*scale and
+that band. Tolerance of the tuple-diameter kernel K6: rtol 1e-5 plus the
+band of the norms identity over each tuple, ``sqrt((64 + 4d) eps32
+max|x|^2)``. Tolerance of the attention kernel: both versions round q*scale and
 the softmax numerators to bf16 and the output once; they normalise the
 numerators by different maxima (running against final), so each numerator
 may round differently (2^-9 relative), and the output may land one bf16 ulp
@@ -135,3 +137,104 @@ def test_flash_attention_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="multiple"):
         kv = torch.zeros((1, 16, 3, 64), dtype=torch.bfloat16, device="cuda")
         flash.flash_attention(ok, kv, kv)
+
+
+def _tuple_band(x: torch.Tensor) -> torch.Tensor:
+    """(T,) band of the norms identity over each tuple's own points."""
+    norm2 = (x.double() ** 2).sum(-1).amax(-1)
+    return ((64.0 + 4.0 * x.shape[-1]) * _EPS32 * norm2).sqrt()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 64, 2304])
+@pytest.mark.parametrize("q", range(1, 10))
+def test_tuple_diameters_matches_plain_version_on_card(q, d):
+    """K6 against its plain version and a float64 truth, within rtol 1e-5
+    plus the band of the norms identity; padding a tuple by repeating a
+    member keeps K6's diameter bit for bit (its norms are its Gram
+    diagonal), and a one-point tuple has diameter 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import diameter
+    gen = torch.Generator(device="cuda").manual_seed(q * 10_000 + d)
+    for t in (1, 31, 5000):
+        x = torch.randn((t, q, d), generator=gen, device="cuda") * 50 \
+            + torch.rand((t, 1, d), generator=gen, device="cuda") * 200
+        before = diameter.launches["tuple_diameters"]
+        got = diameter.tuple_diameters(x)
+        want = ref.tuple_diameters(x)
+        torch.cuda.synchronize()
+        assert diameter.launches["tuple_diameters"] == before + 1
+        assert got.dtype == torch.float32 and got.shape == (t,)
+        band = _tuple_band(x)
+        x64 = x.double()            # float64 truth (its rounding ~1e-16)
+        n2 = x64.square().sum(-1)
+        truth = (n2[:, :, None] + n2[:, None, :]
+                 - 2.0 * x64 @ x64.transpose(1, 2)).clamp_min(0.0) \
+            .amax(dim=(1, 2)).sqrt()
+        for other in (want.double(), truth):
+            assert bool(((got.double() - other).abs()
+                         <= 1e-5 * other.abs() + band).all())
+        if q == 1:
+            assert bool((got == 0).all())
+        else:
+            padded = torch.cat([x, x[:, -1:].expand(t, 9 - q, d)], 1) \
+                .contiguous()
+            assert torch.equal(diameter.tuple_diameters(padded), got)
+
+
+@pytest.mark.cuda
+def test_tuple_diameters_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import diameter
+    with pytest.raises(ValueError, match="tuples of 10"):
+        diameter.tuple_diameters(torch.zeros((4, 10, 8), device="cuda"))
+    with pytest.raises(ValueError, match="tuples of 0"):
+        diameter.tuple_diameters(torch.zeros((4, 0, 8), device="cuda"))
+    with pytest.raises(TypeError):
+        diameter.tuple_diameters(torch.zeros((4, 3, 8), device="cuda",
+                                             dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        diameter.tuple_diameters(torch.zeros((4, 8, 3), device="cuda")
+                                 .transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        diameter.tuple_diameters(torch.zeros((4, 3, 8)))
+
+
+@pytest.mark.cuda
+def test_device_tier_on_card_matches_cpu():
+    """The anchor-star tier on the card against ``device="cpu"`` (the plain
+    path end to end) on a small corpus: ids equal, diameters within the
+    band; K6 launches once per query and the card path reaches no plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch import NKSEngine, flickr_like_dataset, random_queries
+    from repro_torch.core.device_plane import pack_groups
+    from repro_torch.core.distributed import diameter_band
+    from repro_torch.kernels import diameter
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = flickr_like_dataset(n=3000, d=32, u=80, t=4, seed=5)
+    queries = random_queries(ds, 3, 12, seed=1) \
+        + random_queries(ds, 9, 6, seed=2)
+    card = NKSEngine(ds, device="cuda")
+    cpu = NKSEngine(ds, device="cpu")
+    called = []
+    plain = ref.tuple_diameters
+    ref.tuple_diameters = lambda pts: called.append(pts) or plain(pts)
+    try:
+        before = diameter.launches["tuple_diameters"]
+        got = card.query_batch(queries, k=4, tier="device")
+        assert diameter.launches["tuple_diameters"] == before + len(queries)
+        assert not called
+    finally:
+        ref.tuple_diameters = plain
+    want = cpu.query_batch(queries, k=4, tier="device")
+    for q, g, w in zip(queries, got, want):
+        pg = pack_groups(ds, q)
+        band = diameter_band(pg.groups, pg.mask)
+        assert [c.ids for c in g.candidates] == [c.ids for c in w.candidates]
+        assert g.candidates
+        for cg, cw in zip(g.candidates, w.candidates):
+            assert abs(cg.diameter - cw.diameter) <= band

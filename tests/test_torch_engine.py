@@ -262,9 +262,13 @@ def test_unknown_backend_and_tier_rejected():
     with pytest.raises(ValueError):
         engine.query_batch([[0, 1]], backend="pallas")
     with pytest.raises(ValueError):
-        engine.query_batch([[0, 1]], tier="device")
+        engine.query_batch([[0, 1]], tier="nope")
+    with pytest.raises(ValueError):
+        engine.query([0, 1], tier="nope")
     with pytest.raises(ValueError):
         engine.query_batch([[0, 99]])
+    # the device tier is served now (tests/test_torch_device_tier.py)
+    assert len(engine.query_batch([[0, 1]], tier="device")) == 1
     assert engine.query_batch([], tier="exact") == []
 
 

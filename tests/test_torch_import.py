@@ -11,7 +11,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def test_cpu_query_batch_runs_with_jax_blocked():
-    """A CPU query batch and a smoke embed-and-ingest, with JAX blocked."""
+    """A CPU query batch in every tier and a smoke embed-and-ingest, with
+    JAX blocked."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None          # any import of jax now fails
@@ -21,7 +22,7 @@ def test_cpu_query_batch_runs_with_jax_blocked():
         ds = flickr_like_dataset(n=300, d=8, u=20, t=3, seed=1)
         engine = NKSEngine(ds, device="cpu")
         queries = random_queries(ds, 3, 4, seed=2)
-        for tier in ("exact", "approx"):
+        for tier in ("exact", "approx", "device"):
             out = engine.query_batch(queries, k=2, tier=tier)
             assert len(out) == 4 and all(r.candidates for r in out)
         from repro_torch.configs import get_config
