@@ -2,15 +2,23 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one CUDA card, the full-size corpus
-    python3 chip_smoke.py --n 20000 --embed-docs 64 --embed-long-docs 2
+    python3 chip_smoke.py --n 20000 --embed-docs 64 --embed-long-docs 2 \
+        --stream-points 2000 --stream-deletes 200
                                      # a quick check of every phase
 
 Phases:
   1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and report
      the card (name and power limit, as nvidia-smi gives them).
-  2. Serve the main path at full size: a flickr-like corpus of 10^6 points
+  1b. [build] Build the engine over a flickr-like corpus of 10^6 points
      (Table III's largest real dataset: u=24,874 keywords, t=11 tags, at the
-     d=64 top of the paper's dimensionality grid; m=2, 5 scales). Four paths,
+     d=64 top of the paper's dimensionality grid; m=2, 5 scales, the hash
+     geometry pinned at the corpus's own w0 and table size): the host
+     projection, K5 (exactly 5 launches: one per scale for both indices),
+     the settlement of near-edge entries from the host product, hashing
+     and CSR assembly on the card and the copy back, each timed. Both
+     indices must equal ``core.index.build_index`` on the host array for
+     array, bit for bit.
+  2. Serve the main path at full size on that engine. Four paths,
      each driven with the launch counters set to 0 just before it and read
      just after: a batch of 64 random 3-keyword queries (k=1) in the exact
      tier and then in the approx tier through the engine's default torch
@@ -43,13 +51,25 @@ Phases:
      against the same packed groups on the CPU (the plain path end to end):
      equal id sets, diameters within the band.
 
+  3c. [stream] On the same engine: insert 10,000 flickr-like points
+     (another seed) in 8 batches (K5: exactly 5 launches per batch), delete
+     1,000 (half bulk, half delta), then the 64 queries in the exact and
+     approx tiers must answer as the numpy backend does on the same engine
+     (ids equal, diameters to 1e-9) and name no deleted point; ``compact()``
+     (K5: exactly 5 launches), after which the answers equal a fresh
+     engine's over the compacted corpus and the compacted indices equal the
+     host build with the pinned geometry. Prints insert points/s and the
+     delete and compaction seconds.
+
   4. Embed at full width: MiniCPM-2B (40 layers, d_model 2304, 36 heads of
      64; random weights from a seeded generator on the card) embeds 4,096
      documents of 512 tokens in batches of 32 and 8 documents of its 4,096
      context in batches of 2 through ``NKSEngine.ingest_embeddings``; every
      self-attention runs the hand-written kernel K7, which must launch 40
      times per batch. Tags come from the flickr-like sampler (u=1,000,
-     t=3). Every embedding must be finite and no two equal; 64 exact
+     t=3). The engine's build runs K5 at d=2304 (exactly 5 launches) and
+     both indices must equal the host build bit for bit. Every embedding
+     must be finite and no two equal; 64 exact
      3-keyword queries (k=1, m=2, 5 scales) over the embedded corpus must
      answer as the numpy backend does (ids equal, diameters to 1e-9).
      Prints embed wall time, tokens/s, the model-FLOP share of the embed
@@ -73,6 +93,14 @@ Phases:
      norms identity ``sqrt((64 + 4d) eps32 max|x|^2)`` at most 1. Time
      kernel, plain version and ``torch.cdist(pts, pts).amax(dim=(1, 2))``
      (two calls: no single PyTorch call computes r(A)) with CUDA events.
+
+  7. [K5] Hold K5 against its plain PyTorch version on the card on the
+     build's own inputs: (10^6, 64, m=2) at all 5 widths and the embedded
+     corpus (4,104, 2,304, m=2) at its 5: p within the dot-product bound
+     2 gamma_d |x|_2 of the plain p, bins equal except entries inside the
+     settlement margin, which may be 1 apart. Time K5, the plain version
+     and ``torch.matmul(x, z.T)`` followed by the two floor passes with CUDA
+     events.
 
 Prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when a
@@ -189,6 +217,77 @@ class Recorder:
 
     def restore(self) -> None:
         setattr(self.ops, self.name, self.fn)
+
+
+class FirstCall:
+    """Wraps ``kernels.ops.project_and_bin`` while a path runs: keeps the
+    arguments of its first call (references: the callers never write to
+    them afterwards) and the width of every call."""
+
+    def __init__(self, ops, name: str):
+        self.ops, self.name = ops, name
+        self.fn = getattr(ops, name)
+        self.first = None
+        self.widths: list[float] = []
+        setattr(ops, name, self)
+
+    def __call__(self, *args, **kw):
+        if self.first is None:
+            self.first = args
+        self.widths.append(args[2])
+        return self.fn(*args, **kw)
+
+    def restore(self) -> None:
+        setattr(self.ops, self.name, self.fn)
+
+
+def kernel_modules():
+    from repro_torch.kernels import diameter, pairwise_l2, project_bin
+    return pairwise_l2, diameter, project_bin
+
+
+def reset_all() -> None:
+    for mod in kernel_modules():
+        mod.reset_launches()
+
+
+def launch_counts() -> dict:
+    out = {}
+    for mod in kernel_modules():
+        out.update(mod.launches)
+    return out
+
+
+def drive_path(by_path: dict, path: str, fn):
+    """Run one path with the launch counters set to 0 just before it and
+    read just after (into ``by_path[path]``); returns (result, wall)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_all()
+    ts = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    by_path[path] = launch_counts()
+    return out, wall
+
+
+def index_equal(got, want, label: str) -> None:
+    """Two ProMiSH indices equal array for array, dtypes included."""
+    import numpy as np
+    check((got.w0, got.p_max, got.n_scales, got.exact)
+          == (want.w0, want.p_max, want.n_scales, want.exact),
+          f"{label}: w0/p_max/scales differ")
+    check(np.array_equal(got.z, want.z), f"{label}: z differs")
+    for a, b in zip(got.structures, want.structures):
+        check((a.width, a.n_buckets) == (b.width, b.n_buckets),
+              f"{label}: scale {a.scale} geometry differs")
+        for part in ("table", "khb"):
+            x, y = getattr(a, part), getattr(b, part)
+            for arr in ("offsets", "values"):
+                u, v = getattr(x, arr), getattr(y, arr)
+                check(u.dtype == v.dtype and np.array_equal(u, v),
+                      f"{label}: scale {a.scale} {part}.{arr} differs")
 
 
 def tuple_cells(pts, *_):
@@ -357,15 +456,46 @@ def check_answers(ds, queries, results, tier) -> None:
         check(set(q) <= covered, f"{tier}: answer {c.ids} does not cover {q}")
 
 
-def same_answers(a, b, rtol: float) -> bool:
+def answer_diff(a, b, rtol: float, ds=None, ties=None) -> str | None:
+    """The first query on which two batches of answers differ (ids, or
+    diameters beyond ``rtol``), described; None if they agree. With ``ds``
+    an answer whose ids differ is a tie when the diameters agree within
+    ``rtol`` and both sets cover the query with float64 diameters (by
+    coordinate differences) equal within ``rtol``: the numpy backend scores
+    through the norms identity, the torch backend through differences, and
+    the two may round two equally tight sets apart. Ties are appended to
+    ``ties``."""
+    if len(a) != len(b):
+        return f"{len(a)} answers against {len(b)}"
     for ra, rb in zip(a, b):
-        if [c.ids for c in ra.candidates] != [c.ids for c in rb.candidates]:
-            return False
-        for ca, cb in zip(ra.candidates, rb.candidates):
-            if abs(ca.diameter - cb.diameter) > rtol * max(abs(cb.diameter),
-                                                           1e-300):
-                return False
-    return len(a) == len(b)
+        ca = [(c.ids, c.diameter) for c in ra.candidates]
+        cb = [(c.ids, c.diameter) for c in rb.candidates]
+        if len(ca) == len(cb) and all(
+                abs(x[1] - y[1]) <= rtol * max(abs(y[1]), 1e-300)
+                for x, y in zip(ca, cb)):
+            if [c[0] for c in ca] == [c[0] for c in cb]:
+                continue
+            if ds is not None and all(
+                    covers(ds, ra.query, x[0]) and covers(ds, ra.query, y[0])
+                    and abs(rescore(ds, x[0]) - rescore(ds, y[0]))
+                    <= rtol * max(abs(y[1]), 1e-300)
+                    for x, y in zip(ca, cb)):
+                if ties is not None:
+                    ties.append({"query": ra.query, "a": ca, "b": cb})
+                continue
+        return f"query {ra.query}: {ca} against {cb}"
+    return None
+
+
+def covers(ds, query, ids) -> bool:
+    found = set()
+    for i in ids:
+        found.update(int(v) for v in ds.kw.row(i))
+    return set(query) <= found
+
+
+def same_answers(a, b, rtol: float) -> bool:
+    return answer_diff(a, b, rtol) is None
 
 
 def rescore(ds, ids) -> float:
@@ -444,22 +574,43 @@ def serve(args, report: dict) -> tuple:
     import numpy as np
     import torch
     from repro_torch import NKSEngine, flickr_like_dataset, random_queries
+    from repro_torch.core import projection as proj
     from repro_torch.core.backend import TorchBackend
     from repro_torch.core.device_plane import pack_groups
     from repro_torch.core.distributed import diameter_band, nks_anchor_topk
-    from repro_torch.kernels import diameter as D
+    from repro_torch.core.index import build_index, default_n_buckets
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_l2 as K
 
     t0 = time.perf_counter()
     ds = flickr_like_dataset(n=args.n, u=24_874, t=11, d=64, seed=args.seed)
     t1 = time.perf_counter()
-    engine = NKSEngine(ds, m=2, n_scales=5, seed=args.seed)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    # The streaming phase compacts this engine: pin its hash geometry
+    # (w0 = pMax / 2^L over the seed's projections, one bucket per point)
+    # so a fresh engine over the compacted corpus shares it.
+    z = proj.sample_unit_vectors(np.random.default_rng(args.seed), 2, ds.dim)
+    pinned = dict(m=2, n_scales=5, seed=args.seed,
+                  w0=proj.projection_span(proj.project(ds.points, z)) / 32,
+                  n_buckets=default_n_buckets(ds.n))
+    t1b = time.perf_counter()
+    rec_k5 = FirstCall(ops, "project_and_bin")
+    try:
+        torch.cuda.synchronize()
+        reset_all()
+        t2a = time.perf_counter()
+        engine = NKSEngine(ds, **pinned)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        rec_k5.restore()
+    build_launches = launch_counts()
     queries = random_queries(ds, 3, args.queries, seed=args.seed + 1)
+    bst = engine.build_stats
     report["setup"] = {"n": ds.n, "d": ds.dim, "u": ds.n_keywords,
-                       "dataset_s": t1 - t0, "engine_build_s": t2 - t1,
+                       "dataset_s": t1 - t0, "pin_probe_s": t1b - t1,
+                       "engine_build_s": t2 - t2a,
+                       "build_split": bst.as_dict(),
+                       "build_launches": build_launches,
                        "points_bytes": ds.points.nbytes,
                        "index_bytes": {"exact": engine.index_e.nbytes(),
                                        "approx": engine.index_a.nbytes()},
@@ -467,9 +618,27 @@ def serve(args, report: dict) -> tuple:
                            torch.cuda.memory_allocated(),
                        "cost_model": dataclasses.asdict(engine.backend._model)
                        if engine.backend._model is not None else None}
-    print(f"[serve] corpus n={ds.n} d={ds.dim} u={ds.n_keywords}: dataset "
-          f"{t1 - t0:.1f}s, indices + upload + calibration {t2 - t1:.1f}s",
-          flush=True)
+    rest = (t2 - t2a) - (bst.t_project_s + bst.t_bin_s + bst.t_settle_s
+                         + bst.t_assemble_s + bst.t_copy_s)
+    print(f"[build] corpus n={ds.n} d={ds.dim} u={ds.n_keywords}: dataset "
+          f"{t1 - t0:.1f}s; engine {t2 - t2a:.3f}s = host projection "
+          f"{bst.t_project_s:.3f}s + K5 {bst.t_bin_s:.4f}s ({bst.k5_launches}"
+          f" launches) + settlement {bst.t_settle_s:.3f}s (settled per scale "
+          f"{bst.settled}) + hash and CSR on the card {bst.t_assemble_s:.3f}s"
+          f" + copy back {bst.t_copy_s:.3f}s + upload, cost model and warm-up"
+          f" {rest:.3f}s; launches {build_launches}", flush=True)
+    check(build_launches["project_and_bin"] == 5,
+          f"the engine build launched K5 {build_launches['project_and_bin']}"
+          f" times, want 5 (one per scale for both indices)")
+    ts = time.perf_counter()
+    for index, exact in ((engine.index_e, True), (engine.index_a, False)):
+        index_equal(index, build_index(ds, m=2, n_scales=5, exact=exact,
+                                       seed=args.seed),
+                    f"10^6 {'exact' if exact else 'approx'} index")
+    report["setup"]["host_build_s"] = time.perf_counter() - ts
+    print(f"[build] both indices equal the host numpy build bit for bit "
+          f"(z, w0, p_max, every table and khb); the host build took "
+          f"{report['setup']['host_build_s']:.1f}s", flush=True)
 
     recs = (Recorder(ops, "pairwise_l2_join_batched_masked", batched_cells),
             Recorder(ops, "pairwise_l2_join_batched_counts", batched_cells),
@@ -477,17 +646,7 @@ def serve(args, report: dict) -> tuple:
     answers, by_path, diam_recs = {}, {}, {}
 
     def drive(path, fn):
-        """Run one path with the launch counters set to 0 just before it and
-        read just after."""
-        torch.cuda.synchronize()
-        K.reset_launches()
-        D.reset_launches()
-        ts = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - ts
-        by_path[path] = {**K.launches, **D.launches}
-        return out, wall
+        return drive_path(by_path, path, fn)
 
     def batch_report(wall, st):
         return {"wall_s": wall, "qps": len(queries) / wall,
@@ -558,6 +717,7 @@ def serve(args, report: dict) -> tuple:
     finally:
         for rec in recs:
             rec.restore()
+    by_path["build"] = build_launches
     report["launches_by_path"] = by_path
     report["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     report["recorded_shapes"] = {r.name: r.shapes for r in recs}
@@ -638,7 +798,212 @@ def serve(args, report: dict) -> tuple:
           f"of their float64 rescore: q=3 {report['device-q3']['checks']}, "
           f"q=9 {report['device-q9']['checks']}; first {n_cmp} on the card "
           f"equal the CPU's (max err/band {worst:.4g})", flush=True)
-    return recs, by_path, diam_recs
+    return recs, by_path, diam_recs, (engine, ds, queries, pinned, rec_k5)
+
+
+def stream(args, report: dict, served, by_path: dict) -> None:
+    """Inserts, deletes and a compaction on the served engine, each a path
+    of its own: K5 must launch 5 times per insert batch and per compaction;
+    answers on the dirty corpus equal the numpy backend's on the same
+    engine, and after compaction a fresh engine's over the compacted corpus;
+    the compacted indices equal the host build with the pinned geometry."""
+    import numpy as np
+    import torch
+    from repro_torch import NKSEngine, flickr_like_dataset
+    from repro_torch.core.index import build_index
+
+    engine, ds, queries, pinned, _ = served
+    more = flickr_like_dataset(n=args.stream_points, u=24_874, t=11, d=64,
+                               seed=args.seed + 7)
+    n_batches = 8
+    bounds = np.linspace(0, more.n, n_batches + 1).astype(int)
+    inserted, insert_s = [], 0.0
+    total = {}
+    for b in range(n_batches):
+        lo, hi = bounds[b], bounds[b + 1]
+        kws = [more.kw.row(i).tolist() for i in range(lo, hi)]
+        ext, wall = drive_path(by_path, f"insert-{b}", lambda: engine.insert(
+            more.points[lo:hi], kws))
+        check(by_path[f"insert-{b}"]["project_and_bin"] == 5,
+              f"insert batch {b} launched K5 "
+              f"{by_path[f'insert-{b}']['project_and_bin']} times, want 5")
+        inserted += ext.tolist()
+        insert_s += wall
+        for name, c in by_path.pop(f"insert-{b}").items():
+            total[name] = total.get(name, 0) + c
+    by_path["insert"] = total
+    rng = np.random.default_rng(args.seed + 8)
+    doomed = sorted(rng.choice(ds.n, args.stream_deletes // 2,
+                               replace=False).tolist()
+                    + rng.choice(inserted, args.stream_deletes
+                                 - args.stream_deletes // 2,
+                                 replace=False).tolist())
+    _, delete_s = drive_path(by_path, "delete",
+                             lambda: engine.delete(doomed))
+    st = {"inserted": len(inserted), "batches": n_batches,
+          "insert_s": insert_s, "insert_points_per_s": len(inserted)
+          / insert_s, "deleted": len(doomed), "delete_s": delete_s,
+          "delta_points": engine.delta_points,
+          "tombstones": engine.tombstone_count}
+    print(f"[stream] inserted {len(inserted)} points in {n_batches} batches "
+          f"in {insert_s:.3f}s = {len(inserted) / insert_s:.0f} points/s "
+          f"(launches {by_path['insert']}); deleted {len(doomed)} (half bulk, "
+          f"half delta) in {delete_s:.4f}s (launches {by_path['delete']})",
+          flush=True)
+    dead = set(doomed)
+    # A delete may take the last live holder of a rare keyword: such a
+    # query has no covering set, so no answer.
+    live = [all(len(engine.dataset.points_with(v)) for v in q)
+            for q in queries]
+    st["queries_without_live_cover"] = live.count(False)
+    for tier in ("exact", "approx"):
+        got, wall = drive_path(by_path, f"stream-{tier}",
+                               lambda: engine.query_batch(queries, k=1,
+                                                          tier=tier))
+        ts = time.perf_counter()
+        want = engine.query_batch(queries, k=1, tier=tier, backend="numpy")
+        numpy_s = time.perf_counter() - ts
+        check_answers(engine.dataset,
+                      [q for q, ok in zip(queries, live) if ok],
+                      [r for r, ok in zip(got, live) if ok], f"stream-{tier}")
+        check(not any(r.candidates for r, ok in zip(got, live) if not ok),
+              f"stream-{tier}: an answer for a query with no live cover")
+        ties = []
+        diff = answer_diff(got, want, 1e-9, engine.dataset, ties)
+        check(diff is None, f"stream-{tier}: torch and numpy backends "
+              f"disagree on the dirty corpus: {diff}")
+        check(not any(set(c.ids) & dead for r in got for c in r.candidates),
+              f"stream-{tier}: a deleted point answered")
+        st[tier] = {"wall_s": wall, "qps": len(queries) / wall,
+                    "numpy_backend_s": numpy_s, "ties": ties,
+                    "stats": engine.last_batch_stats.ingest}
+        print(f"[stream] {tier} on the dirty corpus: {wall:.3f}s = "
+              f"{len(queries) / wall:.2f} QPS, equal to the numpy backend "
+              f"({numpy_s:.3f}s) but for {len(ties)} exact ties {ties}; "
+              f"{engine.last_batch_stats.ingest}", flush=True)
+    done, compact_s = drive_path(by_path, "compact", engine.compact)
+    check(done and engine.corpus_generation == 1, "compaction did not run")
+    check(by_path["compact"]["project_and_bin"] == 5,
+          f"the compaction launched K5 {by_path['compact']['project_and_bin']}"
+          f" times, want 5")
+    st["compact_s"] = compact_s
+    st["compact_build_split"] = engine.build_stats.as_dict()
+    ts = time.perf_counter()
+    fresh = NKSEngine(engine.dataset, **pinned)
+    st["fresh_engine_s"] = time.perf_counter() - ts
+    ext = engine._ext_of
+    for tier in ("exact", "approx"):
+        got = engine.query_batch(queries, k=1, tier=tier)
+        want = fresh.query_batch(queries, k=1, tier=tier)
+        check([[(c.ids, c.diameter) for c in r.candidates] for r in got]
+              == [[(tuple(int(ext[i]) for i in c.ids), c.diameter)
+                   for c in r.candidates] for r in want],
+              f"after compaction the {tier} answers differ from a fresh "
+              f"engine's")
+    del fresh
+    torch.cuda.empty_cache()
+    ts = time.perf_counter()
+    for index, exact in ((engine.index_e, True), (engine.index_a, False)):
+        index_equal(index, build_index(engine.dataset, exact=exact, **pinned),
+                    f"compacted {'exact' if exact else 'approx'} index")
+    st["host_build_s"] = time.perf_counter() - ts
+    report["stream"] = st
+    print(f"[stream] compaction of {engine.dataset.n} live points in "
+          f"{compact_s:.3f}s (launches {by_path['compact']}; split "
+          f"{st['compact_build_split']}); answers equal a fresh engine's "
+          f"over the compacted corpus ({st['fresh_engine_s']:.2f}s to "
+          f"build); compacted indices equal the pinned host build "
+          f"({st['host_build_s']:.1f}s)", flush=True)
+
+
+def k5_row(cases, launches_by_path: dict) -> dict:
+    """K5 against its plain version on the path's inputs (label, x, z,
+    widths): p within 2 gamma_d |x|_2 of the plain p, bins equal except
+    inside the settlement margin, where they may be 1 apart. Timings with
+    CUDA events at the first width; the row's numbers are the first case's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import index_build
+    from repro_torch.core.projection import DEFAULT_C
+    from repro_torch.kernels import project_bin as P
+    from repro_torch.kernels import ref
+
+    rows = []
+    for label, x, z, widths in cases:
+        n, d = x.shape
+        m = z.shape[0]
+        err = over = 0.0
+        differ = near_edge = 0
+        for w in widths:
+            got = P.project_and_bin(x, z, w, DEFAULT_C)
+            want = ref.project_and_bin(x, z, w, DEFAULT_C)
+            torch.cuda.synchronize()
+            margin = index_build.margin_scale(x)[:, None] \
+                / float(np.float32(w))
+            dp = (got[2] - want[2]).abs()
+            err = max(err, float(dp.max()))
+            over = max(over, float((dp / (margin * w)).max()))
+            check(bool((dp <= margin * w).all()),
+                  f"K5 {label} w={w}: p differs from the plain version "
+                  f"beyond the dot-product bound")
+            inv_w, half_w, _ = (torch.tensor(c, device=x.device)
+                                for c in ref.bin_constants(w, DEFAULT_C))
+            for g, e, v in ((got[0], want[0], want[2] * inv_w),
+                            (got[1], want[1], (want[2] - half_w) * inv_w)):
+                off = g != e
+                near = (v - v.round()).abs() <= margin + 8 * 2.0 ** -24 \
+                    * (v.abs() + 1)
+                check(int((g.long() - e.long()).abs().max()) <= 1
+                      and not bool((off & ~near).any()),
+                      f"K5 {label} w={w}: bins differ outside the margin")
+                differ += int(off.sum())
+                near_edge += int(near.sum())
+        w = widths[0]
+        inv_w, half_w, _ = (torch.tensor(c, device=x.device)
+                            for c in ref.bin_constants(w, DEFAULT_C))
+
+        def library():
+            p = torch.matmul(x, z.T)
+            return torch.floor(p * inv_w), torch.floor((p - half_w) * inv_w)
+        nbytes = (n * d + m * d + 3 * n * m) * 4.0
+        flops = 2.0 * n * m * d
+        b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        rows.append(dict(
+            case=label, shape=[n, d, m], widths=list(widths),
+            max_abs_err=err, max_err_over_bound=over, bins_differ=differ,
+            entries_in_margin=near_edge,
+            ms=cuda_ms(lambda: P.project_and_bin(x, z, w, DEFAULT_C), 20),
+            device_ms=profiled_ms(lambda: P.project_and_bin(
+                x, z, w, DEFAULT_C), 20, "project_bin_kernel"),
+            plain_ms=cuda_ms(lambda: ref.project_and_bin(x, z, w, DEFAULT_C),
+                             20),
+            library_ms=cuda_ms(library, 20), bound_ms=b_ms, bound_by=b_by,
+            bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
+            ops_ms=flops / PEAK_FP32_FLOPS * 1e3))
+        r = rows[-1]
+        print(f"[K5] project_and_bin {label} {r['shape']} at {len(widths)} "
+              f"widths: {r['ms']:.4f} ms (profiler: {r['device_ms']} ms on "
+              f"the device; plain {r['plain_ms']:.4f} ms, "
+              f"matmul + two floors {r['library_ms']:.4f} ms, bound "
+              f"{b_ms:.5f} ms by {b_by}: bytes {r['bytes_ms']:.5f} ms, fp32 "
+              f"operations {r['ops_ms']:.5f} ms); max |p - plain| {err} "
+              f"({over:.3g} of the bound); bins differing {differ} of "
+              f"{near_edge} entries in the margin", flush=True)
+    main_case = rows[0]
+    return dict(name="project_and_bin", route="cuda",
+                source="src/repro_torch/kernels/csrc/project_bin.cu",
+                replaces="src/repro/kernels/project_bin.py:52",
+                launches=launches_by_path["build"], path="build",
+                launches_by_path=launches_by_path,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                shape=main_case["shape"], ms=main_case["ms"],
+                device_ms=main_case["device_ms"],
+                plain_ms=main_case["plain_ms"],
+                bound_ms=main_case["bound_ms"],
+                bound_by=main_case["bound_by"],
+                library_ms=main_case["library_ms"],
+                library="torch.matmul(x, z.T) then the two floor passes",
+                cases=rows)
 
 
 class ShapeRecorder:
@@ -676,7 +1041,7 @@ def attention_flops(b, s, h, hd, t=None, causal=True, window=None) -> float:
                                          window)
 
 
-def embed(args, report: dict) -> tuple[ShapeRecorder, int, Recorder, int]:
+def embed(args, report: dict) -> tuple:
     import numpy as np
     import torch
     from repro_torch import NKSEngine, flickr_like_dataset, random_queries
@@ -684,7 +1049,9 @@ def embed(args, report: dict) -> tuple[ShapeRecorder, int, Recorder, int]:
     from repro_torch.kernels import diameter as D
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
+    from repro_torch.core.index import build_index
     from repro_torch.kernels import pairwise_l2 as K
+    from repro_torch.kernels import project_bin as P
     from repro_torch.kernels import ref
     from repro_torch.models.api import model_api
 
@@ -725,11 +1092,12 @@ def embed(args, report: dict) -> tuple[ShapeRecorder, int, Recorder, int]:
         return out
 
     rec = ShapeRecorder(ops)
+    rec_k5 = FirstCall(ops, "project_and_bin")
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         FA.reset_launches()
-        K.reset_launches()
+        reset_all()
         ts = time.perf_counter()
         engine = NKSEngine.ingest_embeddings(
             dataclasses.replace(api, embed=timed_embed), params, batches,
@@ -738,8 +1106,10 @@ def embed(args, report: dict) -> tuple[ShapeRecorder, int, Recorder, int]:
         ingest_s = time.perf_counter() - ts
         k7 = FA.launches["flash_attention"]
         ingest_joins = dict(K.launches)
+        k5 = P.launches["project_and_bin"]
     finally:
         rec.restore()
+        rec_k5.restore()
     peak = torch.cuda.max_memory_allocated()
     mfu = model_flops / embed_s[0] / PEAK_BF16_FLOPS
     points = engine.dataset.points
@@ -770,6 +1140,17 @@ def embed(args, report: dict) -> tuple[ShapeRecorder, int, Recorder, int]:
 
     check(k7 == cfg.n_layers * len(batches),
           f"K7 launched {k7} times, want {cfg.n_layers} x {len(batches)}")
+    check(k5 == 5, f"the embedded corpus's build launched K5 {k5} times, "
+          f"want 5")
+    for index, exact in ((engine.index_e, True), (engine.index_a, False)):
+        index_equal(index, build_index(engine.dataset, m=2, n_scales=5,
+                                       exact=exact, seed=args.seed),
+                    f"embedded {'exact' if exact else 'approx'} index")
+    emb["k5_launches"] = k5
+    emb["build_split"] = engine.build_stats.as_dict()
+    print(f"[build] embedded corpus {points.shape}: K5 launched {k5} times "
+          f"(d={cfg.d_model}); build split {emb['build_split']}; both "
+          f"indices equal the host numpy build bit for bit", flush=True)
     check(points.shape == (n_docs, cfg.d_model), f"points {points.shape}")
     check(bool(np.isfinite(points).all()), "non-finite embedding")
     distinct = len(np.unique(points, axis=0))
@@ -863,7 +1244,7 @@ def embed(args, report: dict) -> tuple[ShapeRecorder, int, Recorder, int]:
           f"{emb['device']['profile'].get('busy_share')}, kernel time by "
           f"kind {emb['device']['profile'].get('share_of_kernel_time')}",
           flush=True)
-    return rec, k7, rec_diam, k6
+    return rec, k7, rec_diam, k6, rec_k5, k5
 
 
 def corpus_geometry(points, d: int, device) -> dict:
@@ -1134,6 +1515,10 @@ def main() -> int:
                     help="documents of 512 tokens to embed (batches of 32)")
     ap.add_argument("--embed-long-docs", type=int, default=8,
                     help="documents of 4096 tokens to embed (batches of 2)")
+    ap.add_argument("--stream-points", type=int, default=10_000,
+                    help="points inserted in the streaming phase (8 batches)")
+    ap.add_argument("--stream-deletes", type=int, default=1_000,
+                    help="points deleted there, half bulk and half delta")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                           / "chip_smoke.json"))
@@ -1158,13 +1543,14 @@ def main() -> int:
         # one nvcc per source, all started together
         with concurrent.futures.ThreadPoolExecutor() as pool:
             list(pool.map(build.build, ("pairwise_l2", "flash_attention",
-                                        "diameter")))
+                                        "diameter", "project_bin")))
         report["build_s"] = time.perf_counter() - t0
         card = card_line()
         report["card"] = card
         print(f"[build] kernels built in {report['build_s']:.1f}s; card: "
               f"{card}", flush=True)
-        recs, by_path, diam_recs = serve(args, report)
+        recs, by_path, diam_recs, served = serve(args, report)
+        stream(args, report, served, by_path)
         rows = kernel_rows(*recs, by_path)
         report["kernels"] = rows
         for row in rows:
@@ -1173,7 +1559,7 @@ def main() -> int:
                   f" ms by {row['bound_by']}, library {row['library_ms']}); "
                   f"max_abs_err {row['max_abs_err']}; launches "
                   f"{row['launches_by_path']}", flush=True)
-        rec, k7, rec_diam, k6 = embed(args, report)
+        rec, k7, rec_diam, k6, rec_k5_embed, k5_embed = embed(args, report)
         rows.append(flash_row(rec, k7))
         del rec
         k6_by_path = {p: c["tuple_diameters"] for p, c in by_path.items()}
@@ -1181,6 +1567,13 @@ def main() -> int:
         rows.append(diameter_row([("path", diam_recs["device-q3"]),
                                   ("q9", diam_recs["device-q9"]),
                                   ("d2304", rec_diam)], k6_by_path))
+        k5_by_path = {p: c["project_and_bin"] for p, c in by_path.items()}
+        k5_by_path["embed-build"] = k5_embed
+        rec_k5 = served[4]
+        rows.append(k5_row([
+            ("path", *rec_k5.first[:2], rec_k5.widths),
+            ("d2304", *rec_k5_embed.first[:2], rec_k5_embed.widths)],
+            k5_by_path))
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -107,6 +107,7 @@ class BackendStats:
     host_routed_subsets: int = 0           # subsets served by host routing
     t_host_s: float = 0.0                  # wall inside host-routed bins
     bin_points: dict = dataclasses.field(default_factory=dict)
+    generation_purges: int = 0  # cache invalidations on corpus-generation bump
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,14 +156,19 @@ class DistanceBackend(abc.ABC):
     def self_join_blocks(self, points: np.ndarray,
                          id_lists: Sequence[np.ndarray],
                          radii: Sequence[float],
-                         keys: Sequence[bytes] | None = None
+                         keys: Sequence[bytes] | None = None,
+                         generation: int | None = None
                          ) -> list[DistanceBlock]:
         """Self-join blocks for a batch of subsets at per-subset radii.
 
         ``points`` is the full corpus; each ``id_lists[i]`` selects one
         subset's rows (sorted unique ids). ``keys`` are the Algorithm-2
         subset hashes (sorted-id bytes) used as cache keys; pass None to
-        bypass caching."""
+        bypass caching. ``generation`` is the caller's corpus-generation
+        token: calls under the same token may share cache entries even if
+        the ``points`` array object changed (streaming absorbs are
+        append-only, so existing rows are immutable within a generation);
+        a token change invalidates everything (compaction remapped ids)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,7 +354,8 @@ class NumpyBackend(DistanceBackend):
     def self_join_blocks(self, points: np.ndarray,
                          id_lists: Sequence[np.ndarray],
                          radii: Sequence[float],
-                         keys: Sequence[bytes] | None = None
+                         keys: Sequence[bytes] | None = None,
+                         generation: int | None = None
                          ) -> list[DistanceBlock]:
         t0 = time.perf_counter()
         out = []
@@ -374,8 +381,9 @@ class TorchBackend(DistanceBackend):
     """Fused device backend: one batched threshold-join dispatch per bin.
 
     The corpus lives on ``device`` as an (n, d) fp32 tensor, uploaded once
-    per corpus (:meth:`attach`); per-point float64 squared norms stay on the
-    host for the slack. Subset counts and pad widths are rounded up
+    per corpus generation (:meth:`attach`); a streaming corpus's inserted
+    rows are appended to it (capacity doubling), each uploaded once.
+    Per-point float64 squared norms stay on the host for the slack. Subset counts and pad widths are rounded up
     (``QUANTUM``) so repeated scales reuse tile shapes. A call whose packed
     (S, P, P) join block would exceed ``MAX_BLOCK_BYTES`` is split into
     size-bounded chunks — still one dispatch per chunk.
@@ -425,26 +433,77 @@ class TorchBackend(DistanceBackend):
         self._edge_cache: dict[bytes, np.ndarray] = {}
         # LRU over device-committed dispatch tiles and host distance tables;
         # values are (nbytes, payload). Entries are valid for one corpus
-        # (subset keys are id bytes): attach() clears them.
+        # *generation* (subset keys are id bytes): within a generation the
+        # id space is append-only (streaming absorbs and tombstones), so
+        # entries survive corpus growth; a new generation clears them.
         self._cache: OrderedDict[tuple, tuple[int, object]] = OrderedDict()
         self._cache_nbytes = 0
         self._corpus: np.ndarray | None = None
-        self._points_dev: torch.Tensor | None = None
-        self._norm2: np.ndarray | None = None
+        self._generation: int | None = None
+        # Resident corpus: rows [0, n) of a capacity-doubled device buffer,
+        # and their float64 squared norms in a host buffer of the same
+        # capacity. ``_points_dev`` is the (n, d) view.
+        self._buf: torch.Tensor | None = None
+        self._norm_buf: np.ndarray | None = None
+        self._n = 0
 
     # --------------------------------------------------------------- corpus
-    def attach(self, points: np.ndarray) -> None:
-        """Put the corpus on the device (once per corpus) and drop every
-        cache entry of the previous one."""
+    @property
+    def _points_dev(self) -> torch.Tensor | None:
+        return None if self._buf is None else self._buf[:self._n]
+
+    @property
+    def _norm2(self) -> np.ndarray | None:
+        return None if self._norm_buf is None else self._norm_buf[:self._n]
+
+    def attach(self, points: np.ndarray, generation: int | None = None,
+               points_dev: torch.Tensor | None = None) -> None:
+        """Make ``points`` the resident corpus.
+
+        Under the current ``generation`` token the corpus only grows: rows
+        past the resident ones are appended (each uploaded once). A new
+        token, or none (array identity decides), replaces the corpus: every
+        cache entry goes, and the rows are uploaded, or taken from
+        ``points_dev`` when the caller already holds them on the device."""
+        same = points is self._corpus if generation is None \
+            else generation == self._generation
+        if same and self._buf is not None and len(points) >= self._n:
+            if len(points) > self._n:
+                self._append(points[self._n:])
+            self._corpus = points
+            return
+        if self._cache and generation is not None \
+                and self._generation is not None:
+            self.stats.generation_purges += 1
         self._cache.clear()
         self._cache_nbytes = 0
         self._edge_cache.clear()
+        self._generation = generation
         pts32 = np.ascontiguousarray(points, dtype=np.float32)
-        self._points_dev = torch.from_numpy(pts32).to(self.device)
+        self._buf = points_dev.contiguous() if points_dev is not None \
+            else torch.from_numpy(pts32).to(self.device)
         # float64 squared norms of the fp32 rows: the slack of any subset is
         # a max over these, bit-identical to recomputing it from the rows.
-        self._norm2 = (pts32.astype(np.float64) ** 2).sum(axis=1)
+        self._norm_buf = (pts32.astype(np.float64) ** 2).sum(axis=1)
+        self._n = len(pts32)
         self._corpus = points
+
+    def _append(self, rows: np.ndarray) -> None:
+        """Append rows to the resident corpus, doubling its capacity when
+        full."""
+        rows = np.ascontiguousarray(rows, dtype=np.float32)
+        need = self._n + len(rows)
+        if need > len(self._buf):
+            cap = max(2 * len(self._buf), need)
+            buf = torch.empty((cap, self._buf.shape[1]), dtype=torch.float32,
+                              device=self.device)
+            buf[:self._n] = self._buf[:self._n]
+            norms = np.empty(cap, dtype=np.float64)
+            norms[:self._n] = self._norm_buf[:self._n]
+            self._buf, self._norm_buf = buf, norms
+        self._buf[self._n:need] = torch.from_numpy(rows).to(self.device)
+        self._norm_buf[self._n:need] = (rows.astype(np.float64) ** 2).sum(1)
+        self._n = need
 
     # ------------------------------------------------------------------ cache
     def _cache_get(self, key: tuple):
@@ -553,14 +612,14 @@ class TorchBackend(DistanceBackend):
     def self_join_blocks(self, points: np.ndarray,
                          id_lists: Sequence[np.ndarray],
                          radii: Sequence[float],
-                         keys: Sequence[bytes] | None = None
+                         keys: Sequence[bytes] | None = None,
+                         generation: int | None = None
                          ) -> list[DistanceBlock]:
         if not len(id_lists):
             return []
         if keys is None:
             keys = [None] * len(id_lists)
-        if points is not self._corpus:
-            self.attach(points)
+        self.attach(points, generation)
         # Size-binned dispatch: padding every subset of a scale to the batch
         # max wastes quadratically. Size-class edges are fitted to this
         # call's lengths (:meth:`_quantile_edges`); within a class, chunk so one dispatch's (S, P, P) join

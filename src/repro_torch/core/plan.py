@@ -106,7 +106,8 @@ def plan_scale(index: PromishIndex, scale: int,
                active: Sequence[int],
                explored: dict[int, set[bytes]] | None,
                stats: PlanStats | None = None,
-               ctx: BatchPlanContext | None = None) -> list[SubsetTask]:
+               ctx: BatchPlanContext | None = None,
+               delta=None) -> list[SubsetTask]:
     """Collect every subset to search at ``scale`` for the active queries.
 
     ``explored`` maps query index -> Algorithm-2 hash set (exact set-hash on
@@ -114,13 +115,30 @@ def plan_scale(index: PromishIndex, scale: int,
     within-scale subsets distinct, and the paper does not dedup across
     scales). Task order is (query, bucket) — identical to the per-query loop,
     so a batch of one reproduces the classic search exactly.
+
+    ``delta`` (a :class:`repro_torch.core.index.IndexDelta`) switches the
+    plan to the streaming bulk ∪ delta view: coverage comes from the merged
+    live corpus (bulk khb minus dead buckets, plus delta postings) and each
+    covering bucket's subset is the bulk members (tombstones already cleared
+    from the bitset) concatenated with the live relevant delta members.
+    Delta ids all exceed bulk ids, so the concatenation stays sorted.
     """
     hi = index.structures[scale]
     tasks: list[SubsetTask] = []
+    if delta is not None and len(active):
+        # Resolve suspect (keyword, bucket) coverage once for the whole
+        # batch: every query sharing a keyword reuses the same pass.
+        delta.verify_suspects(
+            scale, {int(v) for qidx in active for v in queries[qidx]})
     for qidx in active:
         bs = bitsets[qidx]
-        cover = ctx.covering(hi, scale, queries[qidx]) if ctx is not None \
-            else covering_buckets(hi, queries[qidx])
+        if delta is None:
+            cover = ctx.covering(hi, scale, queries[qidx]) \
+                if ctx is not None else covering_buckets(hi, queries[qidx])
+            d_buckets = d_ids = None
+        else:
+            cover = delta.covering_buckets(scale, queries[qidx])
+            d_buckets, d_ids = delta.scale_pairs(scale, bs)
         for b in cover:
             if stats is not None:
                 stats.buckets_selected += 1
@@ -128,6 +146,10 @@ def plan_scale(index: PromishIndex, scale: int,
             # table rows are sorted unique point ids (CSR contract), so the
             # bitset filter preserves that — no np.unique on the hot path.
             f = np.ascontiguousarray(pts[bs[pts]], dtype=np.int64)
+            if d_buckets is not None and len(d_buckets):
+                dlo, dhi = np.searchsorted(d_buckets, [b, b + 1])
+                if dhi > dlo:
+                    f = np.concatenate([f, d_ids[dlo:dhi]])
             if len(f) == 0:
                 continue
             if explored is not None:

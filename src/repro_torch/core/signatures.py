@@ -7,10 +7,15 @@ ProMiSH-A: one key per projection -> one signature per point.
 A signature is reduced to a hashtable bucket id with a fixed multiplicative
 hash. The multipliers are constants (not data-dependent) so that distributed
 shards agree on bucket ids.
+
+The ``*_torch`` functions compute the same ids from int64 torch tensors on
+any device (the index build on the card): int64 arithmetic wraps exactly as
+the numpy uint64 arithmetic does, so the bits agree.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Fixed odd 64-bit multipliers (splitmix64 outputs), one per projection slot.
 _MULTIPLIERS = np.array(
@@ -69,3 +74,44 @@ def bucket_ids_overlapping(keys2: np.ndarray, n_buckets: int) -> np.ndarray:
 def bucket_ids_disjoint(keys: np.ndarray, n_buckets: int) -> np.ndarray:
     """(N, m) -> (N,) bucket ids (ProMiSH-A: one bucket per point)."""
     return hash_signatures(keys, n_buckets)
+
+
+# The same constants as signed int64 (two's complement: the same bits).
+_MULTIPLIERS_I64 = _MULTIPLIERS.view(np.int64)
+_FINALIZER_I64 = int(np.array([0xFF51AFD7ED558CCD], np.uint64)
+                     .view(np.int64)[0])
+_LOW31 = (1 << 31) - 1
+
+
+def _shr33(a: torch.Tensor) -> torch.Tensor:
+    """Logical ``a >> 33`` of the uint64 bits held in int64 ``a`` (torch
+    shifts int64 arithmetically)."""
+    return (a >> 33) & _LOW31
+
+
+def hash_signatures_torch(sigs: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """:func:`hash_signatures` on int64 tensors: (..., m) -> (...,) int64.
+
+    ``n_buckets`` must be a power of two (the modulus is a mask of the low
+    bits; every table size the index build derives is one)."""
+    m = sigs.shape[-1]
+    if m > len(_MULTIPLIERS):
+        raise ValueError(f"m={m} exceeds supported projections {len(_MULTIPLIERS)}")
+    if n_buckets < 1 or n_buckets & (n_buckets - 1):
+        raise ValueError(f"n_buckets={n_buckets} is not a power of two")
+    mult = torch.from_numpy(_MULTIPLIERS_I64[:m].copy()).to(sigs.device)
+    acc = (sigs.to(torch.int64) * mult).sum(dim=-1)
+    acc = acc ^ _shr33(acc)
+    acc = acc * _FINALIZER_I64
+    acc = acc ^ _shr33(acc)
+    return acc & (n_buckets - 1)
+
+
+def bucket_ids_overlapping_torch(h1: torch.Tensor, h2: torch.Tensor,
+                                 n_buckets: int) -> torch.Tensor:
+    """:func:`bucket_ids_overlapping` from the two key planes: h1, h2 (N, m)
+    int64 (h2 already offset by C) -> (N, 2^m) bucket ids."""
+    m = h1.shape[1]
+    sel = torch.from_numpy(signature_table(m).astype(bool)).to(h1.device)
+    sigs = torch.where(sel[None], h2[:, None, :], h1[:, None, :])
+    return hash_signatures_torch(sigs, n_buckets)

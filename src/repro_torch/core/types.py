@@ -2,7 +2,9 @@
 
 A :class:`KeywordDataset` is the paper's ``D``: ``N`` points in ``R^d``, each
 tagged with a keyword set drawn from a dictionary of size ``U``. Keywords are
-integer ids; the mapping to strings lives in the application layer.
+integer ids; the mapping to strings lives in the application layer. A
+:class:`StreamingCorpus` is the mutable view a streaming engine serves:
+frozen bulk + append-only delta - tombstones.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch.utils.csr import CSR, csr_from_lists, invert_csr
+from repro_torch.utils.csr import (CSR, csr_from_lists, invert_csr,
+                                   ragged_arange, sorted_member)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +67,232 @@ def dataset_from_csr(points: np.ndarray, kw: CSR,
     return KeywordDataset(points=np.ascontiguousarray(points, np.float32),
                           kw=kw, ikp=invert_csr(kw, n_keywords),
                           n_keywords=int(n_keywords))
+
+
+class _MergedKw:
+    """``kw`` adapter of a :class:`StreamingCorpus`: point -> keyword ids."""
+
+    def __init__(self, view: "StreamingCorpus"):
+        self._view = view
+
+    def row(self, i: int) -> np.ndarray:
+        v = self._view
+        if i < v.bulk.n:
+            return v.bulk.kw.row(i)
+        return v._kw[i - v.bulk.n]
+
+
+class _MergedIkp:
+    """``ikp`` adapter of a :class:`StreamingCorpus`: keyword -> point ids.
+
+    Rows are the *union* of the bulk CSR row and the delta postings —
+    tombstoned points are NOT filtered here (the engine clears them from the
+    query bitset once per batch, which is cheaper than filtering every
+    lookup); :meth:`StreamingCorpus.points_with` is the live-filtered variant
+    the device tier packs from. Delta ids are assigned in increasing order
+    and all exceed bulk ids, so the concatenated row stays sorted — the
+    searchsorted membership tests in ``subset_search`` rely on that.
+    """
+
+    def __init__(self, view: "StreamingCorpus"):
+        self._view = view
+
+    def row(self, v_kw: int) -> np.ndarray:
+        view = self._view
+        base = view.bulk.ikp.row(v_kw)
+        extra = view._delta_postings(v_kw)
+        if not len(extra):
+            return base
+        return np.concatenate([base.astype(np.int64), extra])
+
+
+class StreamingCorpus:
+    """Mutable merged corpus: immutable bulk + append-only delta - tombstones.
+
+    Duck-types the :class:`KeywordDataset` surface the search pipeline
+    touches (``points``, ``kw.row``, ``ikp.row``, ``n``, ``dim``,
+    ``n_keywords``, ``points_with``) so the plan/backend/enumeration stages
+    run unchanged over a streaming corpus. Internal point ids are bulk rows
+    ``[0, bulk.n)`` followed by delta rows in absorption order; deletes are
+    tombstones (ids stay allocated until the engine compacts into a fresh
+    bulk). The point buffer grows by capacity doubling, so absorbing a batch
+    is amortised O(batch), not O(corpus). Attribute columns and tenants
+    (the reference's filtered streams) are not ported yet (ROADMAP Queue A
+    8): :meth:`absorb` raises ``NotImplementedError`` for them.
+    """
+
+    def __init__(self, bulk: KeywordDataset):
+        self.bulk = bulk
+        self.n_keywords = bulk.n_keywords
+        self.n_delta = 0
+        self._kw: list[np.ndarray] = []            # per delta point, sorted kws
+        self._ikp: dict[int, list[int]] = {}       # kw -> delta ids (ascending)
+        self._ikp_memo: dict[int, np.ndarray] = {}
+        self._tomb: set[int] = set()
+        self._tomb_sorted = np.empty(0, dtype=np.int64)
+        self._buf: np.ndarray | None = None        # growable point storage
+        self._filled = 0
+
+    # ------------------------------------------------------------- geometry
+    @property
+    def n(self) -> int:
+        return self.bulk.n + self.n_delta
+
+    @property
+    def dim(self) -> int:
+        return self.bulk.dim
+
+    @property
+    def kw(self) -> _MergedKw:
+        return _MergedKw(self)
+
+    @property
+    def ikp(self) -> _MergedIkp:
+        return _MergedIkp(self)
+
+    def _ensure_capacity(self, need: int) -> None:
+        """Grow the point buffer to hold ``need`` rows (capacity doubling)."""
+        if self._buf is None:
+            cap = max(1024, 2 * need)
+            self._buf = np.empty((cap, self.dim), dtype=np.float32)
+            self._buf[: self.bulk.n] = self.bulk.points
+            self._filled = self.bulk.n
+        elif len(self._buf) < need:
+            cap = max(2 * len(self._buf), need)
+            grown = np.empty((cap, self.dim), dtype=np.float32)
+            grown[: self._filled] = self._buf[: self._filled]
+            self._buf = grown
+
+    @property
+    def points(self) -> np.ndarray:
+        """(n, d) float32 view over the merged corpus (bulk rows first).
+        Delete-only streams never copy the bulk: the buffer materialises on
+        the first absorb, not here."""
+        if self.n_delta == 0:
+            return self.bulk.points
+        self._ensure_capacity(self.n)
+        return self._buf[: self.n]
+
+    # ------------------------------------------------------------ mutation
+    def absorb(self, points: np.ndarray,
+               keywords: Sequence[Sequence[int]],
+               attrs: dict | None = None, tenant=None) -> np.ndarray:
+        """Append a batch; returns the assigned internal ids (ascending).
+        The whole batch is validated before anything changes: queries see
+        all of a batch or none of it."""
+        if attrs is not None or tenant is not None:
+            raise NotImplementedError(
+                "attribute columns and tenants on a streaming corpus are "
+                "not ported yet (ROADMAP Queue A 8)")
+        points = np.ascontiguousarray(points, dtype=np.float32)
+        if points.ndim != 2 or points.shape[1] != self.dim:
+            raise ValueError(f"expected (*, {self.dim}) points, got {points.shape}")
+        if len(points) != len(keywords):
+            raise ValueError(f"{len(points)} points but {len(keywords)} keyword sets")
+        norm = [sorted(set(int(v) for v in ks)) for ks in keywords]
+        for ks in norm:
+            if ks and (ks[0] < 0 or ks[-1] >= self.n_keywords):
+                raise ValueError("keyword outside dictionary")
+        start = self.n
+        need = start + len(points)
+        self._ensure_capacity(need)
+        self._buf[start:need] = points
+        self._filled = need
+        for j, ks in enumerate(norm):
+            self._kw.append(np.asarray(ks, dtype=np.int32))
+            for v in ks:
+                self._ikp.setdefault(v, []).append(start + j)
+                self._ikp_memo.pop(v, None)
+        self.n_delta += len(points)
+        return np.arange(start, start + len(points), dtype=np.int64)
+
+    def delete(self, ids: np.ndarray) -> None:
+        """Tombstone internal ids (bulk or delta); idempotence is the
+        caller's job — the engine validates liveness before calling."""
+        self._tomb.update(int(i) for i in ids)
+        # True merge: O(T + b log b) — sort only the small batch and splice
+        # it into the already-sorted array.
+        new = np.asarray(sorted(set(int(i) for i in ids)), dtype=np.int64)
+        pos = np.searchsorted(self._tomb_sorted, new)
+        self._tomb_sorted = np.insert(self._tomb_sorted, pos, new)
+
+    # -------------------------------------------------------------- queries
+    @property
+    def dirty(self) -> bool:
+        return self.n_delta > 0 or bool(self._tomb)
+
+    @property
+    def n_tombstones(self) -> int:
+        return len(self._tomb)
+
+    def tombstoned(self, ids: np.ndarray) -> np.ndarray:
+        """Boolean mask: which of ``ids`` are deleted."""
+        return sorted_member(np.asarray(ids, dtype=np.int64),
+                             self._tomb_sorted)
+
+    def mask_tombstones(self, bitset: np.ndarray) -> None:
+        """Clear deleted points from a query bitset (plan + fallback see only
+        live points; this is where tombstones filter enumeration)."""
+        if len(self._tomb_sorted):
+            bitset[self._tomb_sorted] = False
+
+    def live_internal_ids(self) -> np.ndarray:
+        """Sorted internal ids of every live point (compaction order)."""
+        alive = np.ones(self.n, dtype=bool)
+        if len(self._tomb_sorted):
+            alive[self._tomb_sorted] = False
+        return np.flatnonzero(alive).astype(np.int64)
+
+    def _delta_postings(self, v_kw: int) -> np.ndarray:
+        lst = self._ikp.get(int(v_kw))
+        if not lst:
+            return np.empty(0, dtype=np.int64)
+        arr = self._ikp_memo.get(int(v_kw))
+        if arr is None or len(arr) != len(lst):
+            arr = np.asarray(lst, dtype=np.int64)
+            self._ikp_memo[int(v_kw)] = arr
+        return arr
+
+    def delta_ids_with(self, v_kw: int) -> np.ndarray:
+        """Live delta ids tagged with ``v_kw`` (sorted)."""
+        ids = self._delta_postings(v_kw)
+        if not len(ids):
+            return ids
+        return ids[~self.tombstoned(ids)]
+
+    def points_with(self, keyword: int) -> np.ndarray:
+        """Live merged I_kp lookup (the device tier packs from this)."""
+        merged = self.ikp.row(keyword)
+        dead = self.tombstoned(merged)
+        return merged[~dead] if dead.any() else merged
+
+    def compacted_dataset(self) -> KeywordDataset:
+        """The live corpus as a fresh frozen :class:`KeywordDataset`
+        (compaction's rebuild input), points and keyword rows in internal-id
+        order. Keyword rows are sliced vectorised from the bulk CSR plus the
+        delta arrays — every row is already sorted unique, so the result is
+        identical to ``make_dataset`` over the same rows without the
+        per-point Python pass."""
+        live = self.live_internal_ids()
+        points = np.ascontiguousarray(self.points[live])
+        live_bulk = live[live < self.bulk.n]
+        live_delta = live[live >= self.bulk.n] - self.bulk.n
+        kwcsr = self.bulk.kw
+        counts = np.diff(kwcsr.offsets)[live_bulk]
+        idx = np.repeat(kwcsr.offsets[live_bulk], counts) + \
+            ragged_arange(counts)
+        delta_rows = [self._kw[i] for i in live_delta]
+        values = np.concatenate(
+            [kwcsr.values[idx].astype(np.int32)]
+            + [r.astype(np.int32) for r in delta_rows]) if len(live) else \
+            np.empty(0, dtype=np.int32)
+        lens = np.concatenate(
+            [counts, np.fromiter((len(r) for r in delta_rows), np.int64,
+                                 count=len(delta_rows))])
+        offsets = np.zeros(len(live) + 1, dtype=np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        return dataset_from_csr(points, CSR(offsets=offsets, values=values),
+                                self.n_keywords)
 
 
 @dataclasses.dataclass(frozen=True)

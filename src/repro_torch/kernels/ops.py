@@ -15,6 +15,8 @@ fallback from the card to the host.
     tuples (the anchor-star device tier's ranking).
   * :func:`flash_attention` — causal or windowed attention forward (the LM
     embedder's self-attention).
+  * :func:`project_and_bin` — the random projections and both bin keys of
+    every point (the index build, inserts and deletes).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.kernels import diameter as _diameter
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import pairwise_l2 as _cuda
+from repro_torch.kernels import project_bin as _project
 from repro_torch.kernels import ref
 
 
@@ -87,3 +90,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _route(q) == "cuda":
         return _flash.flash_attention(q, k, v, causal=causal, window=window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def project_and_bin(x: torch.Tensor, z: torch.Tensor, w: float, c: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projections p = x z^T and the bin keys h1 = floor(p / w), h2 =
+    floor((p - w/2) / w) + c, each (N, m), with the TPU kernel's rounding
+    points (``kernels.ref.project_and_bin``). On the card only contiguous
+    fp32 or bf16 x with 1 <= m <= 8 is taken (anything else raises)."""
+    if _route(x) == "cuda":
+        return _project.project_and_bin(x, z, w, c)
+    return ref.project_and_bin(x, z, w, c)

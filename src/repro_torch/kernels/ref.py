@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function computes what its CUDA kernel in ``csrc/pairwise_l2.cu`` (the
-threshold joins), ``csrc/diameter.cu`` (tuple diameters) or
-``csrc/flash_attention.cu`` (attention) computes, with the same inputs and
+threshold joins), ``csrc/diameter.cu`` (tuple diameters),
+``csrc/flash_attention.cu`` (attention) or ``csrc/project_bin.cu``
+(projection and binning) computes, with the same inputs and
 outputs; ``kernels.ops`` routes a CPU tensor here, and the
 tests and ``chip_smoke.py`` hold the kernels against these. They transcribe
 the reference package's memory-lean formulations (the masked join and the
@@ -19,6 +20,7 @@ False (PyTorch's default).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # The CUDA kernels' block tile (rows, columns): ``pairwise_join`` reports one
@@ -125,6 +127,27 @@ def pairwise_join(a: torch.Tensor, b: torch.Tensor,
     pad[:m, :n] = joined
     counts = pad.view(gm, tm, gn, tn).sum(dim=(1, 3), dtype=torch.int32)
     return sq, counts
+
+
+def bin_constants(w: float, c: int) -> tuple[float, float, float]:
+    """The binning constants as the TPU kernel rounds them: ``fp32(1 / w)``
+    (the division in double), ``fp32(w / 2)`` and ``fp32(c)``."""
+    return (float(np.float32(1.0 / w)), float(np.float32(w / 2.0)),
+            float(np.float32(c)))
+
+
+def project_and_bin(x: torch.Tensor, z: torch.Tensor, w: float, c: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projection onto m unit vectors and both bin keys (paper eqs. 1-2):
+    x (N, d), z (m, d) -> (h1, h2, p), each (N, m), with the TPU kernel's
+    rounding points: p in fp32, ``h1 = floor(p * inv_w)``, ``h2 =
+    floor((p - half_w) * inv_w) + c`` (the add in fp32), int32 keys."""
+    inv_w, half_w, cf = (torch.tensor(v, dtype=torch.float32, device=x.device)
+                         for v in bin_constants(w, c))
+    p = x.to(torch.float32) @ z.to(torch.float32).T
+    h1 = torch.floor(p * inv_w).to(torch.int32)
+    h2 = (torch.floor((p - half_w) * inv_w) + cf).to(torch.int32)
+    return h1, h2, p
 
 
 def tuple_diameters(pts: torch.Tensor) -> torch.Tensor:

@@ -21,15 +21,33 @@ and cache hits are recorded in :class:`PipelineStats`
 (``engine.last_batch_stats``).
 
 The engine runs on the card: it puts the corpus on the CUDA device once, at
-construction, and its ``"torch"`` backend launches the hand-written kernels.
-``device="cpu"`` runs the same pipeline on the host through the kernels'
-plain PyTorch versions; with no CUDA device and no ``device`` it raises. The
-device tier gathers each query's keyword groups from that resident corpus
-and issues one anchor-star dispatch per query.
+construction, builds both indices there (``core.index_build``: binning in
+K5, hashing and CSR assembly in PyTorch), and its ``"torch"`` backend
+launches the hand-written kernels. ``device="cpu"`` runs the same pipeline
+on the host through the kernels' plain PyTorch versions; with no CUDA device
+and no ``device`` it raises. The device tier gathers each query's keyword
+groups from that resident corpus and issues one anchor-star dispatch per
+query.
+
+**Streaming ingest** (``insert`` / ``delete`` / ``compact``): the engine
+serves while the corpus changes. Inserts land in an append-only delta
+(:class:`~repro_torch.core.types.StreamingCorpus` +
+:class:`~repro_torch.core.index.IndexDelta` per index flavour) binned through
+K5 with the bulk index's hash geometry, and their rows join the resident
+corpus on the device (each uploaded once); deletes are tombstones; a
+size/ratio-triggered compaction (``compact_ratio``/``compact_min``) rebuilds
+both indices on the device over the live corpus and swaps them in, bumping
+``corpus_generation`` — the token the backend caches are scoped to (absorbs
+keep caches warm, only compaction invalidates). A query issued after an
+ingest call returns sees all of that call's batch and every earlier one;
+results carry *external* ids that stay stable across compactions.
+``PipelineStats`` records generation/delta/tombstone state per batch,
+``engine.ingest`` the lifetime counters.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Sequence
 
@@ -41,10 +59,18 @@ from repro_torch.core.backend import (DistanceBackend, NumpyBackend,
                                       TorchBackend, resolve_device)
 from repro_torch.core.device_plane import gather_groups, pack_group_ids
 from repro_torch.core.distributed import nks_anchor_topk
-from repro_torch.core.index import PromishIndex, build_index
+from repro_torch.core.index import (IndexDelta, PromishIndex, absorb_into,
+                                    retire_from)
+from repro_torch.core.index_build import BuildStats, build_indices
 from repro_torch.core.subset_search import enumerate_with_block, local_groups
-from repro_torch.core.types import (Candidate, KeywordDataset, TopK,
-                                    make_dataset)
+from repro_torch.core.types import (Candidate, KeywordDataset,
+                                    StreamingCorpus, TopK, make_dataset)
+
+# Process-global corpus-generation tokens: every (engine, compaction) pair
+# gets a unique token, so a DistanceBackend shared across engines can never
+# serve one engine's cached rows to another (generation numbers restart at 0
+# per engine; tokens do not).
+_CORPUS_TOKENS = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -116,6 +142,13 @@ class PipelineStats:
     host_routed_subsets: int = 0
     bin_occupancy: dict = dataclasses.field(default_factory=dict)
     shard_dispatches: list[int] = dataclasses.field(default_factory=list)
+    # Streaming-ingest accounting: the corpus generation the batch ran
+    # against (bumped by compaction only), the delta/tombstone sizes at
+    # batch time, and the engine's lifetime compaction count.
+    corpus_generation: int = 0
+    delta_points: int = 0
+    tombstones: int = 0
+    compactions: int = 0
 
     @property
     def dispatches_per_scale(self) -> list[int]:
@@ -176,6 +209,52 @@ class PipelineStats:
                      for k, v in sorted(self.bin_occupancy.items())},
         }
 
+    @property
+    def ingest(self) -> dict:
+        """JSON-ready streaming state at batch time."""
+        return {"generation": self.corpus_generation,
+                "delta_points": self.delta_points,
+                "tombstones": self.tombstones,
+                "compactions": self.compactions}
+
+
+@dataclasses.dataclass
+class IngestStats:
+    """Lifetime streaming counters for one engine (``engine.ingest``)."""
+
+    inserts: int = 0            # insert calls absorbed
+    points_inserted: int = 0
+    deletes: int = 0            # delete calls absorbed
+    points_deleted: int = 0
+    compactions: int = 0
+    generation: int = 0         # == engine.corpus_generation
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+class StaleCompactionError(RuntimeError):
+    """A prepared compaction no longer matches the live streaming state —
+    an ingest op slipped in between prepare and commit; the commit refuses
+    rather than swap in a bulk that silently drops the interleaved ops."""
+
+
+@dataclasses.dataclass
+class PreparedCompaction:
+    """The O(N) half of a compaction: the folded bulk dataset, its rows on
+    the device, the indices built there, and the external-id remap.
+    ``version`` pins the streaming state it was prepared against; commit
+    re-checks it."""
+
+    version: tuple[int, int]            # (corpus rows, tombstones) at prepare
+    bulk: KeywordDataset
+    points_dev: torch.Tensor
+    index_e: PromishIndex
+    index_a: PromishIndex
+    live: np.ndarray
+    ext: np.ndarray
+    build_stats: BuildStats
+
 
 _DELTA_FIELDS = ("t_pack_s", "t_dispatch_s", "cache_hits", "cache_misses",
                  "h2d_bytes", "d2h_bytes", "valid_cells", "total_cells",
@@ -186,33 +265,255 @@ _DELTA_FIELDS = ("t_pack_s", "t_dispatch_s", "cache_hits", "cache_misses",
 class NKSEngine:
     def __init__(self, dataset: KeywordDataset, *, m: int = 2,
                  n_scales: int = 5, seed: int = 0,
+                 w0: float | None = None, n_buckets: int | None = None,
+                 compact_ratio: float = 0.25, compact_min: int = 4096,
+                 auto_compact: bool = True,
                  device: str | torch.device | None = None,
                  _indices: tuple[PromishIndex, PromishIndex] | None = None):
-        """Build both indices over ``dataset`` and put the corpus on
-        ``device`` (the CUDA card unless the caller passes another; see
-        :func:`repro_torch.core.backend.resolve_device`). The ``"torch"``
-        backend is built here too, so its cost model is calibrated — and on
-        the card its kernels built — before the first batch; one device-tier
-        search on a dummy pack does the same for that tier (the matrix
-        product library's set-up and K6's build)."""
+        """Put the corpus on ``device`` (the CUDA card unless the caller
+        passes another; see :func:`repro_torch.core.backend.resolve_device`)
+        and build both indices there (:func:`core.index_build.build_indices`;
+        phase walls in ``self.build_stats``). The ``"torch"`` backend is
+        built here too, so its cost model is calibrated — and on the card
+        its kernels built — before the first batch; one device-tier search
+        on a dummy pack does the same for that tier (the matrix product
+        library's set-up and K6's build).
+
+        Streaming knobs: ``w0``/``n_buckets`` pin the hash geometry across
+        compactions (None derives both from the corpus, per the paper;
+        ``n_buckets`` must be a power of two); after an insert or delete,
+        the delta is folded into a fresh bulk index once ``delta_points +
+        tombstones >= max(compact_min, compact_ratio * N)``
+        (``auto_compact=False`` leaves compaction to :meth:`compact`)."""
         self.device = resolve_device(device)
-        self.dataset = dataset
+        self._bulk = dataset
         self.last_batch_stats: PipelineStats | None = None
+        self._build_params = dict(m=m, n_scales=n_scales, seed=seed,
+                                  w0=w0, n_buckets=n_buckets)
+        self._corpus_token = next(_CORPUS_TOKENS)
+        self.backend = TorchBackend(device=self.device)
+        self.backend.attach(dataset.points, self._corpus_token)
+        self.build_stats = BuildStats()
         if _indices is not None:
             self.index_e, self.index_a = _indices
         else:
-            self.index_e = build_index(dataset, exact=True, m=m,
-                                       n_scales=n_scales, seed=seed)
-            self.index_a = build_index(dataset, exact=False, m=m,
-                                       n_scales=n_scales, seed=seed)
-        self.backend = TorchBackend(device=self.device)
-        self.backend.attach(dataset.points)
+            self.index_e, self.index_a = build_indices(
+                dataset, self.backend._points_dev, stats=self.build_stats,
+                **self._build_params)
+        # Streaming-ingest state: lazy — a never-mutated engine keeps the
+        # frozen KeywordDataset and the classic single-corpus code paths.
+        self._view: StreamingCorpus | None = None
+        self._deltas: dict[str, IndexDelta] = {}
+        # internal -> external id map, stored in a capacity-doubled buffer so
+        # absorbing a batch appends in O(batch), not O(corpus).
+        self._ext_buf = np.arange(dataset.n, dtype=np.int64)
+        self._ext_len = dataset.n
+        self._next_ext = dataset.n
+        self._identity_ids = True
+        self.corpus_generation = 0
+        self.compact_ratio = float(compact_ratio)
+        self.compact_min = int(compact_min)
+        self.auto_compact = bool(auto_compact)
+        self.ingest = IngestStats()
         self.backend.warmup(dataset.dim)
         shape = (2, 128)
         nks_anchor_topk(
             torch.zeros((*shape, dataset.dim), device=self.device),
             torch.ones(shape, dtype=torch.bool, device=self.device),
             torch.zeros(shape, dtype=torch.int32, device=self.device), 1)
+
+    # ------------------------------------------------------------- streaming
+    @property
+    def dataset(self):
+        """The corpus the engine currently serves: the merged streaming view
+        while a delta/tombstone set is live, the frozen bulk otherwise."""
+        return self._view if self._view is not None else self._bulk
+
+    @property
+    def delta_points(self) -> int:
+        return self._view.n_delta if self._view is not None else 0
+
+    @property
+    def tombstone_count(self) -> int:
+        return self._view.n_tombstones if self._view is not None else 0
+
+    def _streaming_dirty(self) -> bool:
+        return self._view is not None and self._view.dirty
+
+    @property
+    def next_external_id(self) -> int:
+        """The id the next inserted point will receive (ids are assigned
+        strictly sequentially)."""
+        return int(self._next_ext)
+
+    @property
+    def _ext_of(self) -> np.ndarray:
+        return self._ext_buf[: self._ext_len]
+
+    def _ext_append(self, ext: np.ndarray) -> None:
+        need = self._ext_len + len(ext)
+        if len(self._ext_buf) < need:
+            grown = np.empty(max(2 * len(self._ext_buf), need), dtype=np.int64)
+            grown[: self._ext_len] = self._ext_buf[: self._ext_len]
+            self._ext_buf = grown
+        self._ext_buf[self._ext_len:need] = ext
+        self._ext_len = need
+
+    def _streaming_state(self) -> tuple[StreamingCorpus, dict[str, IndexDelta]]:
+        """The live streaming state, or a freshly built (uncommitted) one —
+        callers assign it back only after the mutation succeeded, so a
+        rejected op leaves the engine on the frozen bulk path."""
+        if self._view is not None:
+            return self._view, self._deltas
+        view = StreamingCorpus(self._bulk)
+        return view, {"e": IndexDelta(self.index_e, view),
+                      "a": IndexDelta(self.index_a, view)}
+
+    def insert(self, points: np.ndarray,
+               keywords: Sequence[Sequence[int]]) -> np.ndarray:
+        """Absorb a batch of tagged points; returns their external ids.
+
+        The batch is visible to every query issued after this call returns
+        (absorbed atomically: a rejected batch changes nothing). Its rows
+        are uploaded once, into the resident corpus on the device, where K5
+        bins them at every scale (one launch per scale for both indices);
+        the bulk index is untouched until compaction folds the delta in."""
+        view, deltas = self._streaming_state()
+        ids = view.absorb(points, keywords)   # validates before any mutation
+        self.backend.attach(view.points, self._corpus_token)
+        rows_dev = self.backend._points_dev[view.n - len(ids):]
+        absorb_into(deltas.values(), view.points[ids], rows_dev)
+        self._view, self._deltas = view, deltas
+        ext = np.arange(self._next_ext, self._next_ext + len(ids),
+                        dtype=np.int64)
+        self._next_ext += len(ids)
+        self._ext_append(ext)
+        self.ingest.inserts += 1
+        self.ingest.points_inserted += len(ids)
+        self._maybe_compact()
+        return ext
+
+    def delete(self, external_ids: Sequence[int]) -> int:
+        """Tombstone points by external id; returns the number deleted.
+        Unknown, duplicate, or already-deleted ids raise without applying
+        anything (the caller's view of the corpus is stale)."""
+        ext = np.asarray(list(external_ids), dtype=np.int64)
+        if not len(ext):
+            return 0
+        if len(np.unique(ext)) != len(ext):
+            raise KeyError(f"duplicate ids in delete batch: {ext.tolist()}")
+        internal = np.searchsorted(self._ext_of, ext)
+        bad = (internal >= len(self._ext_of)) | (self._ext_of[np.minimum(
+            internal, len(self._ext_of) - 1)] != ext)
+        if bad.any():
+            raise KeyError(f"unknown external ids: {ext[bad].tolist()}")
+        view, deltas = self._streaming_state()
+        dead = view.tombstoned(internal)
+        if dead.any():
+            raise KeyError(f"already deleted: {ext[dead].tolist()}")
+        retire_from(deltas.values(), internal, self.backend._points_dev)
+        view.delete(internal)
+        self._view, self._deltas = view, deltas
+        self.ingest.deletes += 1
+        self.ingest.points_deleted += len(ext)
+        self._maybe_compact()
+        return len(ext)
+
+    def compact_prepare(self) -> PreparedCompaction | None:
+        """The O(N) half of :meth:`compact`: folds bulk ∪ delta into a fresh
+        frozen dataset, gathers its rows on the device from the resident
+        corpus, and builds the new indices there with the constructor's
+        build params. Reads (never mutates) the live streaming view; the
+        swap is :meth:`compact_commit`. The caller must hold ingest still
+        between the two (commit verifies). Returns None when nothing is
+        dirty."""
+        if not self._streaming_dirty():
+            return None
+        view = self._view
+        live = view.live_internal_ids()
+        if not len(live):
+            # An all-deleted corpus has no projection span to rebuild from;
+            # keep serving from tombstones until something is inserted.
+            raise ValueError("compact: corpus would be empty — insert points "
+                             "before compacting away the last live one")
+        version = (view.n, view.n_tombstones)
+        bulk = view.compacted_dataset()
+        points_dev = self.backend._points_dev.index_select(
+            0, torch.from_numpy(live).to(self.device))
+        stats = BuildStats()
+        index_e, index_a = build_indices(bulk, points_dev, stats=stats,
+                                         **self._build_params)
+        return PreparedCompaction(
+            version=version, bulk=bulk, points_dev=points_dev,
+            index_e=index_e, index_a=index_a, live=live,
+            ext=np.ascontiguousarray(self._ext_of[live]), build_stats=stats)
+
+    def compact_commit(self, prep: PreparedCompaction | None) -> bool:
+        """Atomically swap a prepared compaction in: pointer swaps, the
+        prepared rows become the resident corpus, and the generation bump
+        scopes the backend caches. Raises :class:`StaleCompactionError` when
+        the streaming state moved since prepare."""
+        if prep is None:
+            return False
+        if self._view is None or \
+                (self._view.n, self._view.n_tombstones) != prep.version:
+            raise StaleCompactionError(
+                f"streaming state moved since prepare (prepared @ "
+                f"rows,tombstones={prep.version}, live="
+                f"{(self._view.n, self._view.n_tombstones) if self._view is not None else None})")
+        self._bulk = prep.bulk
+        self.index_e, self.index_a = prep.index_e, prep.index_a
+        self.build_stats = prep.build_stats
+        self._ext_buf = prep.ext
+        self._ext_len = len(prep.live)
+        # The map is identity iff no id was ever retired: ext values are
+        # strictly increasing in [0, _next_ext), so full size == identity
+        # (a compaction that trimmed only trailing ids still needs the map:
+        # the next insert gets external id _next_ext).
+        self._identity_ids = self._ext_len == self._next_ext
+        self._view = None
+        self._deltas = {}
+        self.corpus_generation += 1
+        self._corpus_token = next(_CORPUS_TOKENS)
+        self.backend.attach(prep.bulk.points, self._corpus_token,
+                            points_dev=prep.points_dev)
+        self.ingest.compactions += 1
+        self.ingest.generation = self.corpus_generation
+        return True
+
+    def compact(self) -> bool:
+        """Fold the delta into a fresh immutable bulk index (atomic swap):
+        rebuild over the live points in external-id order, remap internal
+        ids, bump ``corpus_generation`` (invalidating backend caches), reset
+        the delta. No-op (returns False) when nothing is dirty."""
+        return self.compact_commit(self.compact_prepare())
+
+    def _maybe_compact(self) -> None:
+        if not self.auto_compact or self._view is None:
+            return
+        if self._view.n_tombstones >= self._view.n:
+            # Everything is dead: nothing to rebuild from. The delete that
+            # got us here already succeeded — stay on tombstones until an
+            # insert brings the corpus back (explicit compact() still raises).
+            return
+        churn = self._view.n_delta + self._view.n_tombstones
+        if churn >= max(self.compact_min, self.compact_ratio * self._bulk.n):
+            self.compact()
+
+    def _externalize(self, cands: list[Candidate]) -> list[Candidate]:
+        """Map internal candidate ids to stable external ids (identity until
+        a compaction leaves holes in the id space)."""
+        if self._identity_ids:
+            return cands
+        return [dataclasses.replace(
+                    c, ids=tuple(int(self._ext_of[i]) for i in c.ids))
+                for c in cands]
+
+    def _record_ingest(self, stats: PipelineStats) -> None:
+        stats.corpus_generation = self.corpus_generation
+        stats.delta_points = self.delta_points
+        stats.tombstones = self.tombstone_count
+        stats.compactions = self.ingest.compactions
 
     @classmethod
     def from_arrays(cls, points: np.ndarray, kw_offsets: np.ndarray,
@@ -254,17 +555,25 @@ class NKSEngine:
         one anchor-star dispatch on the engine's device (``tier="device"``)."""
         t0 = time.perf_counter()
         self._validate_queries([keywords])
+        if tier in ("exact", "approx") and self._streaming_dirty():
+            # The per-query searches walk a frozen index; with a live delta
+            # the batched pipeline (a batch of one reproduces them exactly)
+            # is the delta-aware path.
+            res = self.query_batch([keywords], k=k, tier=tier,
+                                   backend="numpy")[0]
+            return dataclasses.replace(res, latency_s=time.perf_counter() - t0)
         if tier == "exact":
             pq = promish_e.search(self.dataset, self.index_e, keywords, k=k)
         elif tier == "approx":
             pq = promish_a.search(self.dataset, self.index_a, keywords, k=k)
         elif tier == "device":
-            return QueryResult(list(keywords),
-                               self._device_topk(list(keywords), k),
-                               time.perf_counter() - t0, tier)
+            return QueryResult(
+                list(keywords),
+                self._externalize(self._device_topk(list(keywords), k)),
+                time.perf_counter() - t0, tier)
         else:
             raise ValueError(tier)
-        return QueryResult(list(keywords), pq.items,
+        return QueryResult(list(keywords), self._externalize(pq.items),
                            time.perf_counter() - t0, tier)
 
     def _device_topk(self, keywords: list[int], k: int,
@@ -324,7 +633,8 @@ class NKSEngine:
             self.dataset.points,
             [t.f_ids for t, _ in prepared],
             [pqs[t.qidx].kth_diameter() for t, _ in prepared],
-            keys=[t.f_ids.tobytes() for t, _ in prepared])
+            keys=[t.f_ids.tobytes() for t, _ in prepared],
+            generation=self._corpus_token)
         t1 = time.perf_counter()
         join_pairs = 0
         for (t, gl), db in zip(prepared, blocks):
@@ -350,6 +660,14 @@ class NKSEngine:
         # selections are memoized for the batch's lifetime.
         pctx = plan.BatchPlanContext(self.dataset)
         bitsets = [pctx.query_bitset(q) for q in queries]
+        # Streaming: plan over bulk ∪ delta, tombstones cleared from every
+        # bitset (the subsets the backend packs and the enumeration walks
+        # then contain live points only).
+        delta = None
+        if self._streaming_dirty():
+            delta = self._deltas["e" if exact else "a"]
+            for bs in bitsets:
+                self._view.mask_tombstones(bs)
         stats.t_plan_s += time.perf_counter() - t0
         explored = {i: set() for i in range(len(queries))} if exact else None
         active = list(range(len(queries)))
@@ -362,7 +680,7 @@ class NKSEngine:
             pstats = plan.PlanStats()
             t0 = time.perf_counter()
             tasks = plan.plan_scale(index, s, queries, bitsets, active,
-                                    explored, pstats, ctx=pctx)
+                                    explored, pstats, ctx=pctx, delta=delta)
             stats.t_plan_s += time.perf_counter() - t0
             sstats.buckets_selected = pstats.buckets_selected
             sstats.duplicate_subsets = pstats.duplicate_subsets
@@ -420,9 +738,11 @@ class NKSEngine:
             self._validate_queries(queries)
             stats = PipelineStats(batch_size=len(queries), tier=tier,
                                   backend="anchor", shard_dispatches=[0])
-            out = [QueryResult(list(q), self._device_topk(list(q), k, stats),
-                               0.0, tier) for q in queries]
+            out = [QueryResult(list(q), self._externalize(
+                       self._device_topk(list(q), k, stats)), 0.0, tier)
+                   for q in queries]
             per_q = (time.perf_counter() - t0) / max(len(queries), 1)
+            self._record_ingest(stats)
             self.last_batch_stats = stats
             return [dataclasses.replace(r, latency_s=per_q) for r in out]
         if tier not in ("exact", "approx"):
@@ -431,10 +751,11 @@ class NKSEngine:
         qlists = self._validate_queries(queries)
         pqs, stats = self._batch_search(qlists, k, tier,
                                         self._resolve_backend(backend))
+        self._record_ingest(stats)
         self.last_batch_stats = stats
         per_q = (time.perf_counter() - t0) / max(len(qlists), 1)
         # results echo the caller's keyword lists verbatim
-        return [QueryResult(list(q), pq.items, per_q, tier)
+        return [QueryResult(list(q), self._externalize(pq.items), per_q, tier)
                 for q, pq in zip(queries, pqs)]
 
     def _resolve_backend(self, backend: str | DistanceBackend

@@ -10,6 +10,7 @@ import dataclasses
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +70,35 @@ def csr_from_pairs(rows: np.ndarray, vals: np.ndarray, n_rows: int, dedup: bool 
     offsets = np.zeros(n_rows + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
     return CSR(offsets=offsets, values=np.ascontiguousarray(vals_s))
+
+
+def csr_from_pairs_torch(rows: torch.Tensor, vals: torch.Tensor, n_rows: int,
+                         dedup: bool = False
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`csr_from_pairs` on torch tensors of any device: the same
+    (offsets int64, values in ``vals``' dtype), rows ascending, values
+    ascending within a row under ``dedup`` and in input order otherwise.
+    Ids must be non-negative."""
+    if dedup and rows.numel():
+        span = int(vals.max()) + 1
+        key = torch.unique(rows.to(torch.int64) * span + vals.to(torch.int64),
+                           sorted=True)
+        rows_s, vals_s = key // span, (key % span).to(vals.dtype)
+    else:
+        rows_s, order = torch.sort(rows.to(torch.int64), stable=True)
+        vals_s = vals[order]
+    counts = torch.bincount(rows_s, minlength=n_rows)
+    offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=rows.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return offsets, vals_s.contiguous()
+
+
+def ragged_arange_torch(counts: torch.Tensor) -> torch.Tensor:
+    """:func:`ragged_arange` on an int64 torch tensor of any device."""
+    total = int(counts.sum()) if counts.numel() else 0
+    starts = torch.cumsum(counts, 0) - counts
+    return torch.arange(total, dtype=torch.int64, device=counts.device) \
+        - torch.repeat_interleave(starts, counts, output_size=total)
 
 
 def invert_csr(csr: CSR, n_values: int) -> CSR:

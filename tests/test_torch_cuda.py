@@ -238,3 +238,136 @@ def test_device_tier_on_card_matches_cpu():
         assert g.candidates
         for cg, cw in zip(g.candidates, w.candidates):
             assert abs(cg.diameter - cw.diameter) <= band
+
+
+def _k5_margin(x, w):
+    """Settlement margin of the index build for K5 against its plain
+    version, in bin units: 2 gamma_d |x|_2 / w plus a few ulps."""
+    from repro_torch.core import index_build
+    return index_build.margin_scale(x.float())[:, None] / float(
+        np.float32(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [33, 64, 2304])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_project_and_bin_matches_plain_version_on_card(m, d):
+    """K5 against its plain version at N not a multiple of any block: p
+    within the dot-product bound 2 gamma_d |x|_2, bins equal except inside
+    the settlement margin, where they may be 1 apart; bf16 input too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import project_bin
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(m * 1000 + d)
+    n = 1237
+    x = torch.from_numpy(rng.uniform(-500, 1000, (n, d)).astype(np.float32))
+    z = rng.standard_normal((m, d)).astype(np.float32)
+    z = torch.from_numpy(z / np.linalg.norm(z, axis=1, keepdims=True))
+    w, c = 37.5, 1 << 20
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype).cuda()
+        before = project_bin.launches["project_and_bin"]
+        got = project_bin.project_and_bin(xd, z.cuda(), w, c)
+        torch.cuda.synchronize()
+        assert project_bin.launches["project_and_bin"] == before + 1
+        want = ref.project_and_bin(xd, z.cuda(), w, c)
+        margin = _k5_margin(xd, w)
+        assert bool(((got[2] - want[2]).abs() <= margin * w).all())
+        p = want[2]
+        for g, e, v in ((got[0], want[0], p / w),
+                        (got[1], want[1], (p - w / 2) / w)):
+            off = g != e
+            near = (v - v.round()).abs() <= margin + 8 * 2.0 ** -24 \
+                * (v.abs() + 1)
+            assert int((g.long() - e.long()).abs().max()) <= 1
+            assert not bool((off & ~near).any())
+
+
+@pytest.mark.cuda
+def test_project_and_bin_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import project_bin
+    x = torch.zeros((8, 16), device="cuda")
+    with pytest.raises(ValueError, match="m=9"):
+        project_bin.project_and_bin(x, torch.zeros((9, 16), device="cuda"),
+                                    1.0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        project_bin.project_and_bin(torch.zeros((16, 8), device="cuda").T,
+                                    torch.zeros((2, 16), device="cuda"),
+                                    1.0, 0)
+    with pytest.raises(TypeError):
+        project_bin.project_and_bin(x.double(),
+                                    torch.zeros((2, 16), device="cuda"),
+                                    1.0, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        project_bin.project_and_bin(torch.zeros((8, 16)),
+                                    torch.zeros((2, 16)), 1.0, 0)
+
+
+def _assert_index_equal(got, want):
+    assert (got.w0, got.p_max, got.n_scales, got.exact) == \
+        (want.w0, want.p_max, want.n_scales, want.exact)
+    np.testing.assert_array_equal(got.z, want.z)
+    for a, b in zip(got.structures, want.structures):
+        assert (a.width, a.n_buckets) == (b.width, b.n_buckets)
+        for x, y in ((a.table, b.table), (a.khb, b.khb)):
+            for u, v in ((x.offsets, y.offsets), (x.values, y.values)):
+                assert u.dtype == v.dtype
+                np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+def test_card_build_equals_host_build():
+    """The engine's build on the card (K5, settlement, hashing and CSRs on
+    the card) equals the numpy host build bit for bit at n = 20,000."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch import NKSEngine, flickr_like_dataset
+    from repro_torch.core.index import build_index
+    from repro_torch.kernels import project_bin
+    ds = flickr_like_dataset(n=20_000, d=64, u=2000, t=11, seed=3)
+    before = project_bin.launches["project_and_bin"]
+    engine = NKSEngine(ds, device="cuda")
+    assert project_bin.launches["project_and_bin"] == before + 5
+    _assert_index_equal(engine.index_e, build_index(ds, exact=True))
+    _assert_index_equal(engine.index_a, build_index(ds, exact=False))
+
+
+@pytest.mark.cuda
+def test_streaming_on_card_matches_cpu():
+    """Inserts, deletes and a compaction on the card against the same ops
+    with ``device="cpu"``: identical delta bucket matrices, answers and
+    compacted indices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch import NKSEngine, flickr_like_dataset, random_queries
+    from repro_torch.kernels import project_bin
+    ds = flickr_like_dataset(n=4000, d=64, u=300, t=5, seed=6)
+    more = flickr_like_dataset(n=600, d=64, u=300, t=5, seed=7)
+    queries = random_queries(ds, 3, 10, seed=2)
+    engines = [NKSEngine(ds, device=dev, auto_compact=False)
+               for dev in ("cuda", "cpu")]
+    for lo in range(0, more.n, 200):
+        batch = (more.points[lo:lo + 200],
+                 [more.kw.row(i).tolist() for i in range(lo, lo + 200)])
+        before = project_bin.launches["project_and_bin"]
+        ids = [e.insert(*batch).tolist() for e in engines]
+        assert project_bin.launches["project_and_bin"] == before + 5
+        assert ids[0] == ids[1]
+    for e in engines:
+        e.delete([5, 17, 4001, 4300])
+    card, cpu = engines
+    for key in ("e", "a"):
+        for s in range(5):
+            np.testing.assert_array_equal(card._deltas[key].bucket_matrix(s),
+                                          cpu._deltas[key].bucket_matrix(s))
+    for tier in ("exact", "approx"):
+        got, want = (e.query_batch(queries, k=2, tier=tier, backend="numpy")
+                     for e in engines)
+        assert [[(c.ids, c.diameter) for c in r.candidates] for r in got] \
+            == [[(c.ids, c.diameter) for c in r.candidates] for r in want]
+    assert card.compact() and cpu.compact()
+    _assert_index_equal(card.index_e, cpu.index_e)
+    _assert_index_equal(card.index_a, cpu.index_a)

@@ -25,6 +25,13 @@ def test_cpu_query_batch_runs_with_jax_blocked():
         for tier in ("exact", "approx", "device"):
             out = engine.query_batch(queries, k=2, tier=tier)
             assert len(out) == 4 and all(r.candidates for r in out)
+        assert engine.build_stats.k5_launches == 5
+        more = flickr_like_dataset(n=40, d=8, u=20, t=3, seed=3)
+        ext = engine.insert(more.points, [more.kw.row(i).tolist()
+                                          for i in range(more.n)])
+        engine.delete([0, int(ext[0])])
+        assert engine.query_batch(queries, k=2, tier="exact")[0].candidates
+        assert engine.compact() and engine.corpus_generation == 1
         from repro_torch.configs import get_config
         from repro_torch.models.api import model_api
         cfg = get_config("minicpm-2b").smoke()
