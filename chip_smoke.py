@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # one CUDA card, the full-size corpus
     python3 chip_smoke.py --n 20000 --embed-docs 64 --embed-long-docs 2 \
-        --stream-points 2000 --stream-deletes 200
+        --stream-points 2000 --stream-deletes 200 --tenant-points 5000
                                      # a quick check of every phase
 
 Phases:
@@ -11,7 +11,9 @@ Phases:
      the card (name and power limit, as nvidia-smi gives them).
   1b. [build] Build the engine over a flickr-like corpus of 10^6 points
      (Table III's largest real dataset: u=24,874 keywords, t=11 tags, at the
-     d=64 top of the paper's dimensionality grid; m=2, 5 scales, the hash
+     d=64 top of the paper's dimensionality grid; attribute columns price,
+     uniform in [0, 100), and 8 categories, which do not enter the index;
+     m=2, 5 scales, the hash
      geometry pinned at the corpus's own w0 and table size): the host
      projection, K5 (exactly 5 launches: one per scale for both indices),
      the settlement of near-edge entries from the host product, hashing
@@ -35,7 +37,11 @@ Phases:
      may differ only on cells whose float64 squared distance lies within the
      fp32 error band of the threshold, counts by at most that many cells, sq
      by at most the band. Time kernel, plain version and (K3) torch.cdist
-     with CUDA events.
+     with CUDA events. [K4] The same on K1's largest input for K4 (the
+     dense block and 128 x 128 tile counts, which no served path launches,
+     as in the reference: only ``ops.pairwise_l2_join_batched`` calls it),
+     timed with CUDA events and the profiler beside ``torch.cdist`` and a
+     count.
   3b. The anchor-star device tier on the same engine (no second build), each
      batch a path of its own: (a) the same 64 queries at k=1 on
      ``tier="device"``; (b) 64 random 9-keyword queries (the paper's largest
@@ -51,15 +57,40 @@ Phases:
      against the same packed groups on the CPU (the plain path end to end):
      equal id sets, diameters within the band.
 
-  3c. [stream] On the same engine: insert 10,000 flickr-like points
-     (another seed) in 8 batches (K5: exactly 5 launches per batch), delete
-     1,000 (half bulk, half delta), then the 64 queries in the exact and
-     approx tiers must answer as the numpy backend does on the same engine
-     (ids equal, diameters to 1e-9) and name no deleted point; ``compact()``
+  3c. [filter] On the same engine, the 64 queries at k=1 under four
+     filters — price < 50 (fold mode: eligibility words into K1, and K2 on
+     the prune tier), price < 10 and price < 1 (below the 0.25 threshold:
+     eligible-dense packing), category == 3 with price in [20, 70] — each
+     through the exact tier (default backend, and forced onto the device
+     with the prune tier armed), the approx tier and the device tier, every
+     batch a path of its own. Answers equal the numpy backend's under the
+     same filter (ids, diameters to 1e-9, the narrow tie acceptance of the
+     stream phase), hold only eligible points, exist iff every keyword has
+     an eligible point, the forced run equals the default bit for bit, and
+     the device tier's pass the checks of 3b (a) against the filtered exact
+     optimum (bands of the eligible groups). A filter keeping nothing gives
+     empty answers. K1 must take eligibility words and K2 too in the forced
+     run (counted per call). No new D2H: the phase's largest backend call,
+     unfiltered and then under price < 50 on one fold-mode backend, reads
+     back the same bytes and ships only radii and eligibility words.
+
+  3d. [stream] On the same engine: insert 10,000 flickr-like points
+     (another seed) with attribute columns in 8 batches (K5: exactly 5
+     launches per batch), delete 1,000 (half bulk, half delta), then the 64
+     queries in the exact and approx tiers must answer as the numpy backend
+     does on the same engine (ids equal, diameters to 1e-9) and name no
+     deleted point, and so must the exact tier under price < 50 (eligible,
+     live points only); ``compact()``
      (K5: exactly 5 launches), after which the answers equal a fresh
      engine's over the compacted corpus and the compacted indices equal the
      host build with the pinned geometry. Prints insert points/s and the
      delete and compaction seconds.
+  3e. [tenant] At a reduced size (two tenants of 50,000 synthetic points,
+     d=64, 1,000 local keywords each): 16 tenant-local 3-keyword queries
+     per tenant in the exact, approx and device tiers; results echo the
+     local ids, cover the resolved keywords, never reach the other tenant,
+     and the torch and numpy backends agree; an id outside the tenant's
+     dictionary raises.
 
   4. Embed at full width: MiniCPM-2B (40 layers, d_model 2304, 36 heads of
      64; random weights from a seeded generator on the card) embeds 4,096
@@ -101,6 +132,13 @@ Phases:
      settlement margin, which may be 1 apart. Time K5, the plain version
      and ``torch.matmul(x, z.T)`` followed by the two floor passes with CUDA
      events.
+
+Profiler figures (device time per kernel, busy shares) are kept only where
+the profiler's events of the kernel equal its launch counter over the same
+calls; otherwise they print as None beside both counts. The kernels' device
+times (K4, K5, K6) are measured at the end, in a fresh child process
+(``--profile-jobs``, given the saved inputs): in this process, after the
+served phases' profiler windows, the profiler misses launches.
 
 Prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when a
@@ -159,23 +197,125 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_ms(fn, reps: int, marker: str) -> float | None:
-    """Mean device time (ms) of the CUDA kernels whose name holds ``marker``
-    per call of ``fn``, from torch.profiler over ``reps`` calls: the kernel
-    alone, without the host's launch gaps that CUDA events between
-    back-to-back calls also count. None if the profiler saw no such
-    kernel."""
+def profiled(fn, reps: int) -> tuple[dict, float]:
+    """Run ``fn`` ``reps`` times under torch.profiler (CPU and CUDA
+    activity): one profiling context with ``acc_events=True`` (events kept
+    across cycles) where the installed torch takes it, else one context per
+    call, summed. Returns ({kernel name: (device seconds, events)}, the
+    host wall of the calls, each ending in a device sync). Callers count
+    the events against the launch counters."""
+    import inspect
     import torch
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if "acc_events" in inspect.signature(profile).parameters:
+        with profile(activities=acts, acc_events=True) as prof:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - ts
+        return kernel_table(prof), wall
+    table, wall = {}, 0.0
+    for _ in range(reps):
+        with profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - ts
+        for name, (sec, n) in kernel_table(prof).items():
+            s0, n0 = table.get(name, (0.0, 0))
+            table[name] = (s0 + sec, n0 + n)
+    return table, wall
+
+
+class KernelProfiles:
+    """Kernel device times by torch.profiler, measured in a fresh child
+    process (``--profile-jobs``). In this script's own process, after the
+    profiler windows of the served phases, the profiler has seen as few as
+    3 of 20 back-to-back launches of a kernel (an H100 run at full size); a
+    process whose first profiling sessions these are saw every one.
+    :meth:`add` registers a call (a wrapper of ``repro_torch.kernels`` by
+    "module.function", its arguments) and the result dicts to fill;
+    :meth:`run` saves the arguments under ``build/``, profiles every call in
+    one child and writes ``device`` ({ms, events, launches}) and
+    ``device_ms`` into each of them."""
+
+    def __init__(self):
+        self.jobs: dict = {}
+        self.targets: dict = {}
+
+    def add(self, label: str, fn: str, args: tuple, mark: str, counter: str,
+            reps: int, *targets: dict, **kw) -> None:
+        self.jobs[label] = dict(fn=fn, args=args, kw=kw, mark=mark,
+                                counter=counter, reps=reps)
+        self.targets[label] = targets
+
+    def run(self) -> dict:
+        import torch
+        path = ROOT / "build" / "profile_jobs.pt"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(self.jobs, path)
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--profile-jobs", str(path)],
+                             capture_output=True, text=True, timeout=600)
+        path.unlink()
+        check(out.returncode == 0, f"the profiling child failed: "
+              f"{out.stderr.strip()[-2000:]}")
+        results = json.loads(out.stdout.strip().splitlines()[-1])
+        for label, res in results.items():
+            for target in self.targets[label]:
+                target["device"] = res
+                target["device_ms"] = res["ms"]
+            print(f"[profiler] {label}: {res['ms']} ms of device time per "
+                  f"launch ({res['events']} kernel events for "
+                  f"{res['launches']} launches, in a fresh process)",
+                  flush=True)
+        return results
+
+
+def run_profile_jobs(path: str) -> int:
+    """The child of :class:`KernelProfiles`: profiles each saved call and
+    prints the results as one JSON line."""
+    import importlib
+    import torch
+    jobs = torch.load(path, weights_only=False)
+    out = {}
+    for label, job in jobs.items():
+        mod, name = job["fn"].rsplit(".", 1)
+        fn = getattr(importlib.import_module(f"repro_torch.kernels.{mod}"),
+                     name)
+        out[label] = profiled_ms(lambda: fn(*job["args"], **job["kw"]),
+                                 job["reps"], job["mark"], job["counter"])
+    print(json.dumps(out))
+    return 0
+
+
+def marked(table: dict, mark: str) -> tuple[float, int]:
+    """(device seconds, events) of the kernels whose name holds ``mark``."""
+    sec = sum(v[0] for k, v in table.items() if mark in k)
+    return sec, sum(v[1] for k, v in table.items() if mark in k)
+
+
+def profiled_ms(fn, reps: int, mark: str, counter: str) -> dict:
+    """Mean device time (ms) per call of ``fn`` of the CUDA kernels whose
+    name holds ``mark``, from torch.profiler over ``reps`` calls: the kernel
+    alone, without the host's launch gaps that CUDA events between
+    back-to-back calls also count. The profiler's kernel events are counted
+    against the wrapper's launch counter ``counter`` over the same calls;
+    where the two differ (the profiler lost launches) ``ms`` is None and
+    both counts are reported."""
+    import torch
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    sec = sum(v for k, v in kernel_seconds(prof).items() if marker in k)
-    return sec * 1e3 / reps if sec > 0 else None
+    before = launch_counts()[counter]
+    table, _ = profiled(fn, reps)
+    launches = launch_counts()[counter] - before
+    sec, events = marked(table, mark)
+    return {"ms": sec * 1e3 / reps if events == launches > 0 else None,
+            "events": events, "launches": launches}
 
 
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
@@ -242,8 +382,9 @@ class FirstCall:
 
 
 def kernel_modules():
-    from repro_torch.kernels import diameter, pairwise_l2, project_bin
-    return pairwise_l2, diameter, project_bin
+    from repro_torch.kernels import (diameter, flash_attention, pairwise_l2,
+                                     project_bin)
+    return pairwise_l2, diameter, project_bin, flash_attention
 
 
 def reset_all() -> None:
@@ -506,12 +647,13 @@ def rescore(ds, ids) -> float:
 
 
 def check_device_answers(ds, queries, results, label: str, k: int,
-                         opts=None) -> dict:
+                         opts=None, eligible=None) -> dict:
     """Every answer covering, finite, ascending, and within the query's band
     of its float64 rescore; with ``opts`` (the exact tier's diameters) the
-    first answer in [opt - band, 2 opt + band]. Returns the largest
-    |rescore - reported| / band and the device/opt ratios (float64 rescore
-    over opt, where opt > 0)."""
+    first answer in [opt - band, 2 opt + band]. Under a filter the band is
+    that of the eligible groups. Returns the largest |rescore - reported| /
+    band and the device/opt ratios (float64 rescore over opt, where opt >
+    0)."""
     import numpy as np
     from repro_torch.core.device_plane import pack_groups
     from repro_torch.core.distributed import diameter_band
@@ -522,7 +664,7 @@ def check_device_answers(ds, queries, results, label: str, k: int,
               f"answers, want 1..{k}")
         diams = [c.diameter for c in cands]
         check(diams == sorted(diams), f"{label}: query {q} not ascending")
-        pg = pack_groups(ds, q)
+        pg = pack_groups(ds, q, eligible=eligible)
         band = diameter_band(pg.groups, pg.mask)
         for c in cands:
             check(np.isfinite(c.diameter), f"{label}: query {q} diameter "
@@ -579,11 +721,15 @@ def serve(args, report: dict) -> tuple:
     from repro_torch.core.device_plane import pack_groups
     from repro_torch.core.distributed import diameter_band, nks_anchor_topk
     from repro_torch.core.index import build_index, default_n_buckets
+    from repro_torch.data.synthetic import attach_attrs
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_l2 as K
 
     t0 = time.perf_counter()
-    ds = flickr_like_dataset(n=args.n, u=24_874, t=11, d=64, seed=args.seed)
+    # Attribute columns (price uniform in [0, 100), 8 categories) for the
+    # filter phase; they do not enter the index.
+    ds = attach_attrs(flickr_like_dataset(n=args.n, u=24_874, t=11, d=64,
+                                          seed=args.seed), seed=1)
     t1 = time.perf_counter()
     # The streaming phase compacts this engine: pin its hash geometry
     # (w0 = pMax / 2^L over the seed's projections, one bucket per point)
@@ -787,12 +933,14 @@ def serve(args, report: dict) -> tuple:
                         ("device-q9", queries9, 10)):
         report[path]["profile"] = profile_window(
             lambda: engine.query_batch(qs, k=k, tier="device"),
-            ("tuple_diameters (K6)", "tuple_diameters_kernel"))
+            ("tuple_diameters (K6)", "tuple_diameters_kernel",
+             "tuple_diameters"))
         prof = report[path]["profile"]
         print(f"[device] profiler, {path} again after its launches were "
-              f"read: device busy {prof.get('busy_share')} of "
-              f"{prof.get('wall_s')}s; kernel time by kind "
-              f"{prof.get('share_of_kernel_time')}; top kernels "
+              f"read: K6 events {prof.get('own_events')} for "
+              f"{prof.get('own_launches')} launches; device busy "
+              f"{prof.get('busy_share')} of {prof.get('wall_s')}s; kernel "
+              f"time by kind {prof.get('share_of_kernel_time')}; top kernels "
               f"{prof.get('top_kernels_s')}", flush=True)
     print(f"[device] answers covering, finite, ascending and within the band "
           f"of their float64 rescore: q=3 {report['device-q3']['checks']}, "
@@ -810,11 +958,14 @@ def stream(args, report: dict, served, by_path: dict) -> None:
     import numpy as np
     import torch
     from repro_torch import NKSEngine, flickr_like_dataset
+    from repro_torch.core.filters import where
     from repro_torch.core.index import build_index
+    from repro_torch.data.synthetic import synthetic_attrs
 
     engine, ds, queries, pinned, _ = served
     more = flickr_like_dataset(n=args.stream_points, u=24_874, t=11, d=64,
                                seed=args.seed + 7)
+    more_attrs = synthetic_attrs(more.n, seed=7)
     n_batches = 8
     bounds = np.linspace(0, more.n, n_batches + 1).astype(int)
     inserted, insert_s = [], 0.0
@@ -823,7 +974,8 @@ def stream(args, report: dict, served, by_path: dict) -> None:
         lo, hi = bounds[b], bounds[b + 1]
         kws = [more.kw.row(i).tolist() for i in range(lo, hi)]
         ext, wall = drive_path(by_path, f"insert-{b}", lambda: engine.insert(
-            more.points[lo:hi], kws))
+            more.points[lo:hi], kws,
+            attrs={k: v[lo:hi] for k, v in more_attrs.items()}))
         check(by_path[f"insert-{b}"]["project_and_bin"] == 5,
               f"insert batch {b} launched K5 "
               f"{by_path[f'insert-{b}']['project_and_bin']} times, want 5")
@@ -881,6 +1033,33 @@ def stream(args, report: dict, served, by_path: dict) -> None:
               f"{len(queries) / wall:.2f} QPS, equal to the numpy backend "
               f"({numpy_s:.3f}s) but for {len(ties)} exact ties {ties}; "
               f"{engine.last_batch_stats.ingest}", flush=True)
+    flt = where(("price", "<", 50.0))
+    eligible = flt.evaluate(engine.dataset)
+    engine.dataset.mask_tombstones(eligible)
+    got, wall = drive_path(by_path, "stream-filter-exact",
+                           lambda: engine.query_batch(queries, k=1,
+                                                      tier="exact",
+                                                      filter=flt))
+    filt_st = engine.last_batch_stats.filtering
+    want = engine.query_batch(queries, k=1, tier="exact", backend="numpy",
+                              filter=flt)
+    ties = []
+    diff = answer_diff(got, want, 1e-9, engine.dataset, ties)
+    check(diff is None, f"stream-filter-exact: torch and numpy backends "
+          f"disagree on the dirty corpus: {diff}")
+    answered = check_filtered_answers(engine.dataset, queries, got, eligible,
+                                      "stream-filter-exact")
+    check(filt_st["eligible_points"] == int(eligible.sum()),
+          "stream-filter-exact: eligible points differ from the live mask")
+    st["filter_exact"] = {"wall_s": wall, "qps": len(queries) / wall,
+                          "answered": answered, "filtering": filt_st,
+                          "ties": ties,
+                          "launches": by_path["stream-filter-exact"]}
+    print(f"[stream] exact under price<50 on the dirty corpus (inserts "
+          f"carry attributes): {wall:.3f}s = {len(queries) / wall:.2f} QPS, "
+          f"answered {answered}, equal to the numpy backend but for "
+          f"{len(ties)} ties; filtering {filt_st}; launches "
+          f"{by_path['stream-filter-exact']}", flush=True)
     done, compact_s = drive_path(by_path, "compact", engine.compact)
     check(done and engine.corpus_generation == 1, "compaction did not run")
     check(by_path["compact"]["project_and_bin"] == 5,
@@ -916,7 +1095,388 @@ def stream(args, report: dict, served, by_path: dict) -> None:
           f"({st['host_build_s']:.1f}s)", flush=True)
 
 
-def k5_row(cases, launches_by_path: dict) -> dict:
+class EligTally:
+    """Wraps the two ``kernels.ops`` join entry points the backend calls and
+    counts, per entry point, the calls given eligibility words and those
+    not (the launch counters cannot tell them apart)."""
+
+    NAMES = {"pairwise_l2_join_batched_masked": "K1",
+             "pairwise_l2_join_batched_counts": "K2"}
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.fns = {name: getattr(ops, name) for name in self.NAMES}
+        self.reset()
+        for name in self.NAMES:
+            setattr(ops, name, self._wrap(name))
+
+    def _wrap(self, name):
+        fn, kernel = self.fns[name], self.NAMES[name]
+
+        def call(x, lengths, r, elig=None, **kw):
+            key = "with_words" if elig is not None else "without"
+            self.counts[kernel][key] += 1
+            return fn(x, lengths, r, elig, **kw)
+        return call
+
+    def reset(self) -> None:
+        self.counts = {k: {"with_words": 0, "without": 0}
+                       for k in self.NAMES.values()}
+
+    def read(self) -> dict:
+        return {k: dict(v) for k, v in self.counts.items()}
+
+    def restore(self) -> None:
+        for name, fn in self.fns.items():
+            setattr(self.ops, name, fn)
+
+
+class LargestCall:
+    """Wraps a backend's ``self_join_blocks`` and keeps the arguments of the
+    call with the most points in finite-radius subsets (the ones the card
+    joins)."""
+
+    def __init__(self, backend):
+        self.backend, self.fn = backend, backend.self_join_blocks
+        self.best, self.best_points = None, 0
+        backend.self_join_blocks = self
+
+    def __call__(self, points, id_lists, radii, **kw):
+        import math
+        n = sum(len(ids) for ids, r in zip(id_lists, radii)
+                if math.isfinite(r))
+        if n > self.best_points:
+            self.best_points = n
+            self.best = ([ids.copy() for ids in id_lists], list(radii))
+        return self.fn(points, id_lists, radii, **kw)
+
+    def restore(self) -> None:
+        del self.backend.self_join_blocks
+
+
+def check_filtered_answers(ds, queries, results, eligible, label: str
+                           ) -> int:
+    """Each query has one answer iff every keyword has an eligible point;
+    every answer covers the query with eligible points at a finite
+    diameter. Returns the number of answered queries."""
+    import math
+    answered = 0
+    for q, res in zip(queries, results):
+        feasible = all(eligible[ds.points_with(v)].any() for v in q)
+        check(len(res.candidates) == int(feasible),
+              f"{label}: query {q} has {len(res.candidates)} answers, want "
+              f"{int(feasible)}")
+        for c in res.candidates:
+            check(math.isfinite(c.diameter) and c.diameter >= 0.0,
+                  f"{label}: query {q} diameter {c.diameter}")
+            check(covers(ds, q, c.ids), f"{label}: answer {c.ids} does not "
+                  f"cover {q}")
+            check(bool(eligible[list(c.ids)].all()),
+                  f"{label}: answer {c.ids} holds an ineligible point")
+        answered += int(feasible)
+    return answered
+
+
+def filtered(args, report: dict, served, by_path: dict) -> None:
+    """[filter] The 64 queries on the served engine under four filters: the
+    exact tier (default backend, and forced onto the device with the prune
+    tier), the approx tier and the device tier, each a path of its own.
+    Answers equal the numpy backend's under the same filter (ids; float64
+    diameters to 1e-9, the stream phase's narrow tie acceptance), hold only
+    eligible points, and the device tier's pass the covering/band checks
+    against the filtered exact answers; a filter that keeps nothing gives
+    empty answers. K1 must take eligibility words in fold mode, K2 in the
+    forced run; a filtered repeat of an unfiltered dispatch reads back the
+    same bytes."""
+    import numpy as np
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.filters import where
+    from repro_torch.kernels import ops
+
+    engine, ds, queries, _, _ = served
+    filters = {
+        "price<50": where(("price", "<", 50.0)),
+        "price<10": where(("price", "<", 10.0)),
+        "price<1": where(("price", "<", 1.0)),
+        "cat3,price20-70": where(("category", "==", 3),
+                                 ("price", "between", (20.0, 70.0))),
+    }
+    forced = TorchBackend(route="device", prune_tier="on")
+    forced.attach(ds.points)                    # upload outside the timing
+    tally = EligTally(ops)
+    largest = LargestCall(engine.backend)
+    out, words = {}, {}
+    try:
+        for name, flt in filters.items():
+            eligible = flt.evaluate(ds)
+            rep = out[name] = {"eligible_points": int(eligible.sum())}
+            answers = {}
+            for tier, t, b in (("exact", "exact", "torch"),
+                               ("exact-forced", "exact", forced),
+                               ("approx", "approx", "torch"),
+                               ("device", "device", "torch")):
+                path = f"filter:{name}:{tier}"
+                tally.reset()
+                answers[tier], wall = drive_path(
+                    by_path, path, lambda: engine.query_batch(
+                        queries, k=1, tier=t, backend=b, filter=flt))
+                words[path] = tally.read()
+                st = engine.last_batch_stats
+                rep[tier] = {"wall_s": wall, "qps": len(queries) / wall,
+                             "filtering": st.filtering, "phases": st.phases,
+                             "launches": by_path[path],
+                             "k1_k2_calls": words[path]}
+                if t != "device":
+                    rep[tier]["cascade"] = st.cascade
+                rep[tier]["answered"] = check_filtered_answers(
+                    ds, queries, answers[tier], eligible, f"{path}")
+                print(f"[filter] {name} {tier}: {wall:.3f}s = "
+                      f"{len(queries) / wall:.2f} QPS; answered "
+                      f"{rep[tier]['answered']} of {len(queries)}; filtering "
+                      f"{st.filtering}; launches {by_path[path]}; K1/K2 "
+                      f"calls with and without eligibility words "
+                      f"{words[path]}", flush=True)
+            check([[(c.ids, c.diameter) for c in r.candidates]
+                   for r in answers["exact-forced"]]
+                  == [[(c.ids, c.diameter) for c in r.candidates]
+                      for r in answers["exact"]],
+                  f"filter {name}: the forced run differs from the default")
+            for tier in ("exact", "approx"):
+                ts = time.perf_counter()
+                want = engine.query_batch(queries, k=1, tier=tier,
+                                          backend="numpy", filter=flt)
+                ties = []
+                diff = answer_diff(answers[tier], want, 1e-9, ds, ties)
+                check(diff is None, f"filter {name} {tier}: torch and numpy "
+                      f"backends disagree: {diff}")
+                rep[tier]["numpy_backend_s"] = time.perf_counter() - ts
+                rep[tier]["ties"] = ties
+            opts, fq, fres = [], [], []
+            for q, ex, dv in zip(queries, answers["exact"],
+                                 answers["device"]):
+                if ex.candidates:
+                    opts.append(ex.candidates[0].diameter)
+                    fq.append(q)
+                    fres.append(dv)
+            rep["device"]["checks"] = check_device_answers(
+                ds, fq, fres, f"filter {name} device", 1, opts, eligible)
+            check(by_path[f"filter:{name}:device"]["tuple_diameters"]
+                  == len(fq), f"filter {name}: K6 launched "
+                  f"{by_path[f'filter:{name}:device']['tuple_diameters']} "
+                  f"times for {len(fq)} feasible queries")
+            print(f"[filter] {name}: exact and approx equal the numpy "
+                  f"backend ({rep['exact']['numpy_backend_s']:.2f}s, "
+                  f"{rep['approx']['numpy_backend_s']:.2f}s; ties "
+                  f"{len(rep['exact']['ties'])}, "
+                  f"{len(rep['approx']['ties'])}); forced equals default; "
+                  f"device answers {rep['device']['checks']}", flush=True)
+        nothing = where(("price", "<", -1.0))
+        for tier in ("exact", "approx", "device"):
+            res = engine.query_batch(queries, k=1, tier=tier, filter=nothing)
+            check(all(not r.candidates for r in res),
+                  f"filter price<-1 {tier}: an answer from an empty filter")
+        print("[filter] price<-1 (keeps nothing): every tier answers "
+              "nothing", flush=True)
+    finally:
+        tally.restore()
+        largest.restore()
+    check(words["filter:price<50:exact"]["K1"]["with_words"]
+          + words["filter:price<50:exact-forced"]["K1"]["with_words"] > 0,
+          "fold mode (price<50) gave K1 no eligibility words")
+    check(words["filter:price<50:exact-forced"]["K2"]["with_words"] > 0,
+          "the forced run gave K2 no eligibility words")
+
+    # No new D2H: the largest call (most points at finite radii) the
+    # phase's default-backend batches made, unfiltered and then filtered
+    # with price<50, on one fresh fold-mode backend.
+    ids, radii = largest.best
+    keys = [i.tobytes() for i in ids]
+    be = TorchBackend(route="device", prune_tier="off",
+                      elig_pack_threshold=0.0)
+    be.attach(ds.points)
+    be.self_join_blocks(ds.points, ids, radii, keys=keys)
+    h2d0, d2h0 = be.stats.h2d_bytes, be.stats.d2h_bytes
+    be.self_join_blocks(ds.points, ids, radii, keys=keys,
+                        eligible=filters["price<50"].evaluate(ds))
+    h2d1, d2h1 = be.stats.h2d_bytes - h2d0, be.stats.d2h_bytes - d2h0
+    d2h = {"subsets": len(ids), "points": largest.best_points,
+           "dispatches": be.stats.dispatches // 2,
+           "unfiltered": {"h2d_bytes": h2d0, "d2h_bytes": d2h0},
+           "filtered_repeat": {"h2d_bytes": h2d1, "d2h_bytes": d2h1}}
+    check(d2h0 > 0 and d2h1 == d2h0,
+          f"eligibility fold changed the readback: {d2h}")
+    check(0 < h2d1 < h2d0, f"the filtered repeat re-shipped the tiles: {d2h}")
+    report["filter"] = {"filters": {k: v.as_json() for k, v in
+                                    filters.items()},
+                        "results": out, "no_new_d2h": d2h}
+    print(f"[filter] no new D2H: {len(ids)} subsets ({largest.best_points} "
+          f"points at finite radii) of the phase's largest backend call, "
+          f"unfiltered then with price<50 on one fold-mode backend: D2H "
+          f"{d2h0} then {d2h1} bytes; H2D {h2d0} then {h2d1} (radii and "
+          f"eligibility words only)", flush=True)
+
+
+def tenants(args, report: dict, by_path: dict) -> None:
+    """[tenant] A tenant-scoped engine at a reduced size: two tenants of
+    ``args.tenant_points`` synthetic points each (d=64, 1,000 local
+    keywords, 3 per point). Tenant-local keyword ids resolve, no answer
+    reaches another tenant's points, the torch and numpy backends agree,
+    and an id outside a tenant's dictionary raises."""
+    import numpy as np
+    from repro_torch import NKSEngine
+    from repro_torch.core.filters import Filter
+    from repro_torch.data.synthetic import synthetic_tenants
+
+    sizes = {"acme": args.tenant_points, "globex": args.tenant_points}
+    mt = synthetic_tenants(sizes, d=64, u=1_000, t=3, seed=args.seed)
+    ts = time.perf_counter()
+    eng = NKSEngine(mt, m=2, n_scales=5, seed=args.seed)
+    build_s = time.perf_counter() - ts
+    ns = mt.tenants
+    rng = np.random.default_rng(args.seed + 11)
+    out = {"tenants": sizes, "d": 64, "local_keywords": 1_000,
+           "engine_build_s": build_s,
+           "reduced": f"two tenants of {args.tenant_points:,} points each, "
+                      f"not the 10^6-point served corpus"}
+    for name in sizes:
+        tid = ns.id_of(name)
+        lo = int(ns.kw_offsets[tid])
+        populated = [v - lo for v in range(lo, int(ns.kw_offsets[tid + 1]))
+                     if len(mt.points_with(v))]
+        qs = [sorted(rng.choice(populated, 3, replace=False).tolist())
+              for _ in range(16)]
+        flt = Filter(tenant=name)
+        res = {}
+        for tier in ("exact", "approx", "device"):
+            path = f"tenant:{name}:{tier}"
+            res[tier], wall = drive_path(by_path, path, lambda: eng.query_batch(
+                qs, k=1, tier=tier, filter=flt))
+            out[path] = {"wall_s": wall, "qps": len(qs) / wall,
+                         "launches": by_path[path]}
+            for q, r in zip(qs, res[tier]):
+                check(r.query == q, f"{path}: result echoes {r.query}, "
+                      f"not the tenant-local query {q}")
+                check(len(r.candidates) == 1, f"{path}: query {q} has "
+                      f"{len(r.candidates)} answers")
+                for c in r.candidates:
+                    check(bool((mt.tenant_of[list(c.ids)] == tid).all()),
+                          f"{path}: answer {c.ids} reaches another tenant")
+                    check(covers(mt, ns.resolve(name, q), c.ids),
+                          f"{path}: answer {c.ids} does not cover {q}")
+        for tier in ("exact", "approx"):
+            want = eng.query_batch(qs, k=1, tier=tier, backend="numpy",
+                                   filter=flt)
+            ties = []
+            # ties are judged on the global keyword slots
+            glob = [dataclasses.replace(r, query=ns.resolve(name, r.query))
+                    for r in res[tier]]
+            diff = answer_diff(glob, want, 1e-9, mt, ties)
+            check(diff is None, f"tenant {name} {tier}: torch and numpy "
+                  f"backends disagree: {diff}")
+            out[f"tenant:{name}:{tier}"]["ties"] = ties
+        print(f"[tenant] {name}: 16 tenant-local queries; exact "
+              f"{out[f'tenant:{name}:exact']['qps']:.2f} QPS, approx "
+              f"{out[f'tenant:{name}:approx']['qps']:.2f}, device "
+              f"{out[f'tenant:{name}:device']['qps']:.2f}; every answer in "
+              f"the tenant; torch equals numpy; launches "
+              f"{by_path[f'tenant:{name}:exact']}", flush=True)
+    try:
+        eng.query_batch([[1_000]], tier="exact", filter=Filter(tenant="acme"))
+    except ValueError:
+        pass
+    else:
+        raise SmokeError("a keyword id outside the tenant's dictionary was "
+                         "served")
+    report["tenant"] = out
+    print(f"[tenant] cut: {out['reduced']} (engine build {build_s:.2f}s); a "
+          f"local id outside the tenant's dictionary raises", flush=True)
+
+
+def k4_row(rec_mask, by_path: dict, profiles: KernelProfiles) -> dict:
+    """K4 against its plain version on K1's largest path input (x, lengths,
+    r): sq within the fp32 band on every valid cell and fp32 max elsewhere,
+    tile counts (128 x 128) equal but for cells within the band of r^2.
+    No served path launches it (only ``ops.pairwise_l2_join_batched``)."""
+    import torch
+    from repro_torch.kernels import pairwise_l2 as K
+    from repro_torch.kernels import ref
+
+    x, lengths, r = rec_mask.best[:3]
+    s, p, d = x.shape
+    bm = bn = 128
+    sq_k, c_k = K.join_batched_tiles(x, lengths, r, bm=bm, bn=bn)
+    sq_p, c_p = ref.join_batched_dense(x, lengths, r, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    fmax = torch.finfo(torch.float32).max
+    gm, gn = -(-p // bm), -(-p // bn)
+    err = over = 0.0
+    count_diff = band_total = 0
+    for si in range(s):
+        n = int(lengths[si])
+        valid = torch.arange(p, device=x.device) < n
+        cell = valid[:, None] & valid[None, :]
+        check(bool(((sq_k[si] == fmax) == ~cell).all())
+              and bool(((sq_p[si] == fmax) == ~cell).all()),
+              "K4: fp32 max outside the valid square differs")
+        d2, n2 = self_sq64(x[si:si + 1])
+        norm2 = float(n2[0, :n].max()) if n else 0.0
+        tol = (64.0 + 4.0 * d) * EPS32 * norm2
+        e = float((sq_k[si] - sq_p[si]).abs()[cell].max()) if n else 0.0
+        err, over = max(err, e), max(over, e / tol if tol else 0.0)
+        check(e <= tol, f"K4: sq differs by {e} beyond the fp32 band {tol}")
+        band = cell & ((d2[0] - float(r[si]) ** 2).abs() <= tol)
+        pad = torch.zeros((gm * bm, gn * bn), dtype=torch.int64,
+                          device=x.device)
+        pad[:p, :p] = band
+        band_cells = pad.view(gm, bm, gn, bn).sum(dim=(1, 3))
+        diff = (c_k[si].long() - c_p[si].long()).abs()
+        check(bool((diff <= band_cells).all()),
+              f"K4: subset {si} tile counts differ beyond the band")
+        count_diff = max(count_diff, int(diff.max()))
+        band_total += int(band.sum())
+    for path, counts in by_path.items():
+        check(counts["join_batched_tiles"] == 0,
+              f"K4 launched on the served path {path}")
+    lens = lengths.double()
+    flops = 2.0 * d * float((lens * lens).sum())
+    nbytes = s * p * p * 4.0 + float(lens.sum()) * d * 4 + c_k.numel() * 4
+    b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    r2 = r.float() * r.float()
+
+    def library():
+        return (torch.cdist(x, x).square() <= r2[:, None, None]).sum((1, 2))
+    row = dict(name="join_batched_tiles", route="cuda",
+               source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
+               replaces="src/repro/kernels/pairwise_l2.py:175",
+               launches=0, path=None,
+               launches_by_path={p_: c["join_batched_tiles"]
+                                 for p_, c in by_path.items()},
+               max_abs_err=err, max_err_over_band=over,
+               max_tile_count_diff=count_diff, band_cells=band_total,
+               shape=[s, p, d], tile=[bm, bn],
+               ms=cuda_ms(lambda: K.join_batched_tiles(x, lengths, r), 20),
+               plain_ms=cuda_ms(lambda: ref.join_batched_dense(
+                   x, lengths, r), 3, warmup=1),
+               library_ms=cuda_ms(library, 20),
+               library="torch.cdist(x, x).square() then a count",
+               bound_ms=b_ms, bound_by=b_by,
+               bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
+               ops_ms=flops / PEAK_FP32_FLOPS * 1e3)
+    profiles.add("K4", "pairwise_l2.join_batched_tiles", (x, lengths, r),
+                 "batched_tiles_kernel", "join_batched_tiles", 20, row,
+                 bm=bm, bn=bn)
+    print(f"[K4] join_batched_tiles {row['shape']} tiles {bm}x{bn}: "
+          f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
+          f"cdist + count {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}: bytes {row['bytes_ms']:.4f} ms, fp32 operations "
+          f"{row['ops_ms']:.4f} ms); max |sq - plain| {err} ({over:.3g} of "
+          f"the band); tile counts differ by at most {count_diff} ({band_total}"
+          f" cells in the band); launches on every served path 0 (no engine "
+          f"path calls it, as in the reference)", flush=True)
+    return row
+
+
+def k5_row(cases, launches_by_path: dict, profiles: KernelProfiles) -> dict:
     """K5 against its plain version on the path's inputs (label, x, z,
     widths): p within 2 gamma_d |x|_2 of the plain p, bins equal except
     inside the settlement margin, where they may be 1 apart. Timings with
@@ -973,8 +1533,6 @@ def k5_row(cases, launches_by_path: dict) -> dict:
             max_abs_err=err, max_err_over_bound=over, bins_differ=differ,
             entries_in_margin=near_edge,
             ms=cuda_ms(lambda: P.project_and_bin(x, z, w, DEFAULT_C), 20),
-            device_ms=profiled_ms(lambda: P.project_and_bin(
-                x, z, w, DEFAULT_C), 20, "project_bin_kernel"),
             plain_ms=cuda_ms(lambda: ref.project_and_bin(x, z, w, DEFAULT_C),
                              20),
             library_ms=cuda_ms(library, 20), bound_ms=b_ms, bound_by=b_by,
@@ -982,28 +1540,32 @@ def k5_row(cases, launches_by_path: dict) -> dict:
             ops_ms=flops / PEAK_FP32_FLOPS * 1e3))
         r = rows[-1]
         print(f"[K5] project_and_bin {label} {r['shape']} at {len(widths)} "
-              f"widths: {r['ms']:.4f} ms (profiler: {r['device_ms']} ms on "
-              f"the device; plain {r['plain_ms']:.4f} ms, "
+              f"widths: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"matmul + two floors {r['library_ms']:.4f} ms, bound "
               f"{b_ms:.5f} ms by {b_by}: bytes {r['bytes_ms']:.5f} ms, fp32 "
               f"operations {r['ops_ms']:.5f} ms); max |p - plain| {err} "
               f"({over:.3g} of the bound); bins differing {differ} of "
               f"{near_edge} entries in the margin", flush=True)
     main_case = rows[0]
-    return dict(name="project_and_bin", route="cuda",
-                source="src/repro_torch/kernels/csrc/project_bin.cu",
-                replaces="src/repro/kernels/project_bin.py:52",
-                launches=launches_by_path["build"], path="build",
-                launches_by_path=launches_by_path,
-                max_abs_err=max(r["max_abs_err"] for r in rows),
-                shape=main_case["shape"], ms=main_case["ms"],
-                device_ms=main_case["device_ms"],
-                plain_ms=main_case["plain_ms"],
-                bound_ms=main_case["bound_ms"],
-                bound_by=main_case["bound_by"],
-                library_ms=main_case["library_ms"],
-                library="torch.matmul(x, z.T) then the two floor passes",
-                cases=rows)
+    row = dict(name="project_and_bin", route="cuda",
+               source="src/repro_torch/kernels/csrc/project_bin.cu",
+               replaces="src/repro/kernels/project_bin.py:52",
+               launches=launches_by_path["build"], path="build",
+               launches_by_path=launches_by_path,
+               max_abs_err=max(r["max_abs_err"] for r in rows),
+               shape=main_case["shape"], ms=main_case["ms"],
+               plain_ms=main_case["plain_ms"],
+               bound_ms=main_case["bound_ms"],
+               bound_by=main_case["bound_by"],
+               library_ms=main_case["library_ms"],
+               library="torch.matmul(x, z.T) then the two floor passes",
+               cases=rows)
+    for (label, x, z, widths), case in zip(cases, rows):
+        targets = (case, row) if case is main_case else (case,)
+        profiles.add(f"K5 {label}", "project_bin.project_and_bin",
+                     (x, z, widths[0], DEFAULT_C), "project_bin_kernel",
+                     "project_and_bin", 20, *targets)
+    return row
 
 
 class ShapeRecorder:
@@ -1160,10 +1722,11 @@ def embed(args, report: dict) -> tuple:
     prof = profile_embed(api, params, batches[:4])
     emb["profile"] = prof
     if prof:
-        print(f"[embed] profiler, {prof['batches']} batches of 32x512: "
-              f"device busy {prof['busy_share']:.4f} of {prof['wall_s']:.3f}s;"
-              f" kernel time by kind {prof['share_of_kernel_time']}",
-              flush=True)
+        print(f"[embed] profiler, {prof['batches']} batches of 32x512: K7 "
+              f"events {prof['own_events']} for {prof['own_launches']} "
+              f"launches; device busy {prof['busy_share']} of "
+              f"{prof['wall_s']:.3f}s; kernel time by kind "
+              f"{prof['share_of_kernel_time']}", flush=True)
     else:
         print("[embed] profiler saw no device time", flush=True)
     emb["geometry"] = corpus_geometry(points, cfg.d_model,
@@ -1235,7 +1798,8 @@ def embed(args, report: dict) -> tuple:
         [r.candidates[0].diameter for r in answers])
     emb["device"]["profile"] = profile_window(
         lambda: engine.query_batch(queries, k=1, tier="device"),
-        ("tuple_diameters (K6)", "tuple_diameters_kernel"))
+        ("tuple_diameters (K6)", "tuple_diameters_kernel",
+         "tuple_diameters"))
     print(f"[embed] device tier over the {n_docs} x {cfg.d_model} corpus: "
           f"{len(queries)} queries in {wall:.4f}s = {len(queries) / wall:.2f}"
           f" QPS; phases {st.phases}; K6 launches {k6}, largest input "
@@ -1268,8 +1832,9 @@ def corpus_geometry(points, d: int, device) -> dict:
             "pairs_within_slack": float((off <= slack).double().mean())}
 
 
-def kernel_seconds(prof) -> dict:
-    """Device seconds per kernel name from a finished torch.profiler run."""
+def kernel_table(prof) -> dict:
+    """{kernel name: (device seconds, events)} from a finished
+    torch.profiler run."""
     from torch.autograd import DeviceType
     kernels = {}
     for e in prof.key_averages():
@@ -1278,42 +1843,43 @@ def kernel_seconds(prof) -> dict:
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
-        kernels[e.key] = kernels.get(e.key, 0.0) + us * 1e-6
+        sec, n = kernels.get(e.key, (0.0, 0))
+        kernels[e.key] = (sec + us * 1e-6, n + e.count)
     return kernels
 
 
-def profile_window(fn, own: tuple[str, str]) -> dict:
-    """Run ``fn()`` once under torch.profiler (CPU and CUDA activity): its
-    wall, summed kernel time, busy share (kernel time / wall) and the share
-    of kernel time of the hand-written kernel ``own`` = (label, name mark),
-    of matrix products (cuBLAS/CUTLASS kernels) and of everything else.
-    Returns ``{}`` if the profiler saw no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        ts = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - ts
-    kernels = kernel_seconds(prof)
-    total = sum(kernels.values())
+def profile_window(fn, own: tuple[str, str, str]) -> dict:
+    """Run ``fn()`` once under torch.profiler (CPU and CUDA activity,
+    every event kept): its wall, summed kernel time, busy share (kernel
+    time / wall) and the share of kernel time of the hand-written kernel
+    ``own`` = (label, name mark, launch counter), of matrix products
+    (cuBLAS/CUTLASS kernels) and of everything else. The profiler's events
+    of ``own`` are counted against its launch counter over the window: where
+    they differ, the figures are None beside both counts, since the
+    profiler lost events. Returns ``{}`` if it saw no device time."""
+    label, mark, counter = own
+    before = launch_counts()[counter]
+    kernels, wall = profiled(fn, 1)
+    launches = launch_counts()[counter] - before
+    _, events = marked(kernels, mark)
+    total = sum(v[0] for v in kernels.values())
     if total <= 0.0:
         return {}
-    label, mark = own
+    counts = {"own_events": events, "own_launches": launches}
+    if events != launches:
+        return {"wall_s": wall, "kernel_s": None, "busy_share": None,
+                "share_of_kernel_time": None, **counts}
     matmul_marks = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
     kinds = {label: 0.0, "matmul": 0.0, "other": 0.0}
-    for name, sec in kernels.items():
+    for name, (sec, _) in kernels.items():
         kind = label if mark in name else "matmul" \
             if any(m in name.lower() for m in matmul_marks) else "other"
         kinds[kind] += sec
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_s": wall, "kernel_s": total, "busy_share": total / wall,
             "share_of_kernel_time": {k: v / total for k, v in kinds.items()},
             "kernel_s_by_kind": kinds,
-            "top_kernels_s": {k[:120]: v for k, v in top}}
+            "top_kernels_s": {k[:120]: v[0] for k, v in top}, **counts}
 
 
 def profile_embed(api, params, batches) -> dict:
@@ -1329,7 +1895,8 @@ def profile_embed(api, params, batches) -> dict:
             for b in batches:
                 api.embed(params, {"tokens": torch.as_tensor(
                     b["tokens"], device=dev)})
-    prof = profile_window(run, ("flash_attention (K7)", "flash_fwd"))
+    prof = profile_window(run, ("flash_attention (K7)", "flash_fwd",
+                                "flash_attention"))
     return {"batches": len(batches), **prof} if prof else {}
 
 
@@ -1442,7 +2009,8 @@ def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
                 library_ms=main_case["library_ms"], cases=rows)
 
 
-def diameter_row(cases: list, launches_by_path: dict) -> dict:
+def diameter_row(cases: list, launches_by_path: dict,
+                 profiles: KernelProfiles) -> dict:
     """K6 against its plain version at each recorded input (label, Recorder);
     timings with CUDA events. The row's own numbers are those of the first
     case (the largest input of the main device batch)."""
@@ -1470,8 +2038,6 @@ def diameter_row(cases: list, launches_by_path: dict) -> dict:
             case=label, shape=[t, q, d], max_abs_err=float(err.max()),
             max_err_over_band=over,
             ms=cuda_ms(lambda: D.tuple_diameters(x), 50),
-            device_ms=profiled_ms(lambda: D.tuple_diameters(x), 50,
-                                  "tuple_diameters_kernel"),
             plain_ms=cuda_ms(lambda: ref.tuple_diameters(x), 20),
             library_ms=cuda_ms(lambda: torch.cdist(x, x).amax(dim=(1, 2)),
                                20),
@@ -1480,28 +2046,32 @@ def diameter_row(cases: list, launches_by_path: dict) -> dict:
             ops_ms=flops / PEAK_FP32_FLOPS * 1e3))
         r = rows[-1]
         print(f"[kernel] tuple_diameters {label} {r['shape']}: "
-              f"{r['ms']:.4f} ms (profiler: {r['device_ms']} ms on the "
-              f"device; plain {r['plain_ms']:.4f} ms, cdist+amax "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, cdist+amax "
               f"{r['library_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by}: "
               f"bytes {r['bytes_ms']:.5f} ms, fp32 operations "
               f"{r['ops_ms']:.5f} ms); max_abs_err {r['max_abs_err']}, "
               f"err/band {over}", flush=True)
     main_case = rows[0]
-    return dict(name="tuple_diameters", route="cuda",
-                source="src/repro_torch/kernels/csrc/diameter.cu",
-                replaces="src/repro/kernels/diameter.py:36",
-                launches=launches_by_path["device-q3"], path="device-q3",
-                launches_by_path=launches_by_path,
-                max_abs_err=max(r["max_abs_err"] for r in rows),
-                max_err_over_band=max(r["max_err_over_band"] for r in rows),
-                shape=main_case["shape"], ms=main_case["ms"],
-                device_ms=main_case["device_ms"],
-                plain_ms=main_case["plain_ms"],
-                bound_ms=main_case["bound_ms"],
-                bound_by=main_case["bound_by"],
-                library_ms=main_case["library_ms"],
-                library="torch.cdist(pts, pts).amax(dim=(1, 2)): two calls",
-                cases=rows)
+    row = dict(name="tuple_diameters", route="cuda",
+               source="src/repro_torch/kernels/csrc/diameter.cu",
+               replaces="src/repro/kernels/diameter.py:36",
+               launches=launches_by_path["device-q3"], path="device-q3",
+               launches_by_path=launches_by_path,
+               max_abs_err=max(r["max_abs_err"] for r in rows),
+               max_err_over_band=max(r["max_err_over_band"] for r in rows),
+               shape=main_case["shape"], ms=main_case["ms"],
+               plain_ms=main_case["plain_ms"],
+               bound_ms=main_case["bound_ms"],
+               bound_by=main_case["bound_by"],
+               library_ms=main_case["library_ms"],
+               library="torch.cdist(pts, pts).amax(dim=(1, 2)): two calls",
+               cases=rows)
+    for (label, rec), case in zip(cases, rows):
+        targets = (case, row) if case is main_case else (case,)
+        profiles.add(f"K6 {label}", "diameter.tuple_diameters",
+                     (rec.best[0],), "tuple_diameters_kernel",
+                     "tuple_diameters", 50, *targets)
+    return row
 
 
 def main() -> int:
@@ -1519,9 +2089,12 @@ def main() -> int:
                     help="points inserted in the streaming phase (8 batches)")
     ap.add_argument("--stream-deletes", type=int, default=1_000,
                     help="points deleted there, half bulk and half delta")
+    ap.add_argument("--tenant-points", type=int, default=50_000,
+                    help="points per tenant of the tenant-scoped check")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                           / "chip_smoke.json"))
+    ap.add_argument("--profile-jobs", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1535,6 +2108,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.profile_jobs:
+        return run_profile_jobs(args.profile_jobs)
     from repro_torch.kernels import build
 
     report: dict = {}
@@ -1550,8 +2125,12 @@ def main() -> int:
         print(f"[build] kernels built in {report['build_s']:.1f}s; card: "
               f"{card}", flush=True)
         recs, by_path, diam_recs, served = serve(args, report)
+        filtered(args, report, served, by_path)
         stream(args, report, served, by_path)
+        tenants(args, report, by_path)
+        profiles = KernelProfiles()
         rows = kernel_rows(*recs, by_path)
+        rows.append(k4_row(recs[0], by_path, profiles))
         report["kernels"] = rows
         for row in rows:
             print(f"[kernel] {row['name']} {row['shape']}: {row['ms']:.4f} ms "
@@ -1566,14 +2145,16 @@ def main() -> int:
         k6_by_path["embed-device"] = k6
         rows.append(diameter_row([("path", diam_recs["device-q3"]),
                                   ("q9", diam_recs["device-q9"]),
-                                  ("d2304", rec_diam)], k6_by_path))
+                                  ("d2304", rec_diam)], k6_by_path,
+                                 profiles))
         k5_by_path = {p: c["project_and_bin"] for p, c in by_path.items()}
         k5_by_path["embed-build"] = k5_embed
         rec_k5 = served[4]
         rows.append(k5_row([
             ("path", *rec_k5.first[:2], rec_k5.widths),
             ("d2304", *rec_k5_embed.first[:2], rec_k5_embed.widths)],
-            k5_by_path))
+            k5_by_path, profiles))
+        report["kernel_profiles"] = profiles.run()
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -32,6 +32,13 @@ work (the adaptive-radii feedback loop).
 subset hashes (the sorted-id bytes): whole packed tiles already on the
 device, and host float64 distance tables of host-routed subsets —
 steady-state repeated subsets skip gather and packing entirely.
+
+A filtered call (``eligible``, a point mask) leaves tiles and cache keys
+filter-independent: the mask reaches the card as packed eligibility words
+that K1 folds into its mask and counts (and K2 into its coarse counts), so
+the readback is the unfiltered dispatch's bytes. Where the eligible share of
+a call's subset points is below ``elig_pack_threshold``, tiles instead pack
+only the eligible rows (uncached), and each block carries its row map.
 """
 from __future__ import annotations
 
@@ -44,7 +51,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.subset_search import _sq_dists_f64, pairwise_l2_numpy
+from repro_torch.core.subset_search import (_sq_dists_f64, pack_join_mask,
+                                            pairwise_l2_numpy)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import JOIN_TILE
 
@@ -88,8 +96,10 @@ class BackendStats:
     cache_misses: int = 0
     cache_evictions: int = 0
     # Transfer accounting (device backend): host->device bytes shipped (id
-    # lists, lengths, radii) and device->host bytes read back (packed masks
-    # and join counts). The corpus itself moves once, at attach.
+    # lists, lengths, radii, packed eligibility words) and device->host bytes
+    # read back (packed masks and join counts). The corpus itself moves
+    # once, at attach. The filtered contract — eligibility folds into the
+    # existing packed mask, adding no new D2H — is asserted on these.
     h2d_bytes: int = 0
     d2h_bytes: int = 0
     # Join-block cells dispatched to the device: valid (sum of length^2) and
@@ -130,6 +140,17 @@ class DistanceBlock:
     join_count : #{pairs joining at the pruning radius}, diagonal included —
                  ``join_count <= n`` proves the inner join empty, letting the
                  enumeration stage skip the subset (adaptive radii).
+    n_eligible : number of subset points satisfying the query's predicate
+                 mask, or None on an unfiltered call. When set, ``mask`` and
+                 ``join_count`` cover eligible pairs only (the eligibility
+                 fold), so the empty-join test becomes
+                 ``join_count <= n_eligible``.
+    rows       : eligible-dense packing (low-selectivity filtered dispatch):
+                 sorted subset-local row positions actually packed into the
+                 device tile. ``mask`` then covers only those rows — the
+                 enumeration stage remaps its keyword groups into the packed
+                 row space (``subset_search.enumerate_with_block``). None on
+                 the standard full-subset pack.
     """
 
     n: int
@@ -138,6 +159,8 @@ class DistanceBlock:
     join_count: int
     dist: np.ndarray | None = None
     mask: np.ndarray | None = None
+    n_eligible: int | None = None
+    rows: np.ndarray | None = None
 
 
 class DistanceBackend(abc.ABC):
@@ -157,7 +180,8 @@ class DistanceBackend(abc.ABC):
                          id_lists: Sequence[np.ndarray],
                          radii: Sequence[float],
                          keys: Sequence[bytes] | None = None,
-                         generation: int | None = None
+                         generation: int | None = None,
+                         eligible: np.ndarray | None = None
                          ) -> list[DistanceBlock]:
         """Self-join blocks for a batch of subsets at per-subset radii.
 
@@ -168,7 +192,10 @@ class DistanceBackend(abc.ABC):
         token: calls under the same token may share cache entries even if
         the ``points`` array object changed (streaming absorbs are
         append-only, so existing rows are immutable within a generation);
-        a token change invalidates everything (compaction remapped ids)."""
+        a token change invalidates everything (compaction remapped ids).
+        ``eligible`` (an (N,) bool point mask of a filtered query) scopes
+        each block's counts, and a device block's mask, to eligible pairs
+        (``DistanceBlock.n_eligible``)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -355,19 +382,31 @@ class NumpyBackend(DistanceBackend):
                          id_lists: Sequence[np.ndarray],
                          radii: Sequence[float],
                          keys: Sequence[bytes] | None = None,
-                         generation: int | None = None
+                         generation: int | None = None,
+                         eligible: np.ndarray | None = None
                          ) -> list[DistanceBlock]:
         t0 = time.perf_counter()
         out = []
         for ids, r in zip(id_lists, radii):
             pts = points[ids]
             dist = self.pairwise(pts, pts)
-            count = int((dist <= r).sum()) if np.isfinite(r) else dist.size
+            n_elig = None
+            if eligible is None:
+                count = int((dist <= r).sum()) if np.isfinite(r) else dist.size
+            else:
+                # Mirror the device fold: counts cover eligible pairs only,
+                # so the empty-join signal fires at the filtered selectivity.
+                el = eligible[ids]
+                n_elig = int(el.sum())
+                pair_ok = el[:, None] & el[None, :]
+                count = int(((dist <= r) & pair_ok).sum()) \
+                    if np.isfinite(r) else int(pair_ok.sum())
             self.stats.subsets += 1
             self.stats.points_packed += len(ids)
             self.stats.join_pairs += count
             out.append(DistanceBlock(n=len(ids), dist=dist, slack=0.0,
-                                     rescore=False, join_count=count))
+                                     rescore=False, join_count=count,
+                                     n_eligible=n_elig))
         self.stats.t_dispatch_s += time.perf_counter() - t0
         return out
 
@@ -409,6 +448,7 @@ class TorchBackend(DistanceBackend):
     def __init__(self, *, device: str | torch.device | None = None,
                  route: str = "auto",
                  prune_tier: str = "auto",
+                 elig_pack_threshold: float = 0.25,
                  cost_model: DispatchCostModel | None = None) -> None:
         super().__init__()
         # route: "auto" sends bins below the measured device break-even to
@@ -417,6 +457,9 @@ class TorchBackend(DistanceBackend):
         # prune_tier: "on"/"off"/"auto" — the coarse bf16 counts pass ahead
         #   of the fp32 masked join; "auto" enables it only where the
         #   calibrated model shows the coarse pass is cheaper.
+        # elig_pack_threshold: below this filter selectivity (eligible share
+        #   of a call's subset points), tiles pack the eligible rows densely
+        #   instead of folding eligibility words into full-width tiles.
         # cost_model: a fixed routing model in place of the calibrated one.
         if route not in ("auto", "device"):
             raise ValueError(f"unknown route: {route!r}")
@@ -425,6 +468,7 @@ class TorchBackend(DistanceBackend):
         self.device = resolve_device(device)
         self.route = route
         self.prune_tier = prune_tier
+        self.elig_pack_threshold = float(elig_pack_threshold)
         self._model = cost_model
         # The class floor is the kernel's row tile on the card (every block
         # computes whole tiles anyway); the plain version uses exact shapes.
@@ -613,7 +657,8 @@ class TorchBackend(DistanceBackend):
                          id_lists: Sequence[np.ndarray],
                          radii: Sequence[float],
                          keys: Sequence[bytes] | None = None,
-                         generation: int | None = None
+                         generation: int | None = None,
+                         eligible: np.ndarray | None = None
                          ) -> list[DistanceBlock]:
         if not len(id_lists):
             return []
@@ -622,11 +667,11 @@ class TorchBackend(DistanceBackend):
         self.attach(points, generation)
         # Size-binned dispatch: padding every subset of a scale to the batch
         # max wastes quadratically. Size-class edges are fitted to this
-        # call's lengths (:meth:`_quantile_edges`); within a class, chunk so one dispatch's (S, P, P) join
-        # block stays under the memory budget, then route each chunk: bins
-        # whose estimated device cost exceeds the measured host cost go to
-        # the exact numpy path (route="auto"), the rest dispatch on the
-        # device. Result order matches the task order.
+        # call's lengths (:meth:`_quantile_edges`); within a class, chunk so
+        # one dispatch's (S, P, P) join block stays under the memory budget,
+        # then route each chunk: bins whose estimated device cost exceeds the
+        # measured host cost go to the exact numpy path (route="auto"), the
+        # rest dispatch on the device. Result order matches the task order.
         blocks: list[DistanceBlock | None] = [None] * len(id_lists)
         finite: list[int] = []
         for i, ids in enumerate(id_lists):
@@ -634,19 +679,39 @@ class TorchBackend(DistanceBackend):
                 # An infinite pruning radius joins every pair by construction
                 # (fresh queues at scale 0): the mask is all-ones, so skip the
                 # device round-trip and synthesize the trivial block. The
-                # enumeration stage prunes with its live r_k instead.
+                # enumeration stage prunes with its live r_k instead. Under a
+                # filter the all-ones adjacency covers eligible pairs only —
+                # the same contract as the device fold.
                 n = len(ids)
+                n_elig = None if eligible is None else int(eligible[ids].sum())
+                pairs = n * n if n_elig is None else n_elig * n_elig
                 self.stats.subsets += 1
                 self.stats.points_packed += n
-                self.stats.join_pairs += n * n
+                self.stats.join_pairs += pairs
                 blocks[i] = DistanceBlock(n=n, slack=0.0, rescore=True,
-                                          join_count=n * n)
+                                          join_count=pairs, n_eligible=n_elig)
                 continue
             finite.append(i)
         if not finite:
             return blocks
         sizes = np.fromiter((len(id_lists[i]) for i in finite), np.int64,
                             count=len(finite))
+        # Eligible-dense packing: when a filter keeps only a thin slice of
+        # each subset, folding eligibility words into a full-width tile
+        # wastes ~1/selectivity^2 of the join cells. Below the threshold the
+        # tiles pack eligible rows densely instead — sized by eligible
+        # counts, uncached (the pack is filter-dependent), blocks carrying
+        # the packed row map for the enumeration stage.
+        elig_dense = False
+        if eligible is not None:
+            el_counts = np.fromiter(
+                (int(eligible[id_lists[i]].sum()) for i in finite), np.int64,
+                count=len(finite))
+            tot = int(sizes.sum())
+            elig_dense = tot > 0 and \
+                int(el_counts.sum()) < self.elig_pack_threshold * tot
+            if elig_dense:
+                sizes = el_counts
         edges = self._quantile_edges(sizes)
         cls = edges[np.searchsorted(edges, np.maximum(sizes, 1))]
         classes: dict[int, list[int]] = {}
@@ -678,11 +743,12 @@ class TorchBackend(DistanceBackend):
                             < model.device_cost(padded_cells, valid_cells,
                                                 len(chunk)):
                         out = self._host_dispatch(points, sub_ids, sub_r,
-                                                  sub_keys)
+                                                  sub_keys, eligible)
                         for i, b in zip(idxs, out):
                             blocks[i] = b
                         continue
-                out = self._dispatch(sub_ids, sub_r, sub_keys, p_pad)
+                out = self._dispatch(sub_ids, sub_r, sub_keys, p_pad,
+                                     eligible, elig_dense)
                 for i, b in zip(idxs, out):
                     blocks[i] = b
         return blocks
@@ -690,7 +756,8 @@ class TorchBackend(DistanceBackend):
     def _host_dispatch(self, points: np.ndarray,
                        id_lists: Sequence[np.ndarray],
                        radii: Sequence[float],
-                       keys: Sequence[bytes | None]) -> list[DistanceBlock]:
+                       keys: Sequence[bytes | None],
+                       eligible: np.ndarray | None) -> list[DistanceBlock]:
         """Cost-model host route: one bin served by the exact float64 path.
 
         Blocks carry dense float64 distances (no slack, no rescore) computed
@@ -701,8 +768,8 @@ class TorchBackend(DistanceBackend):
         output: a bin served here yields bitwise the same diameters the
         device route's rescore would have produced. The whole bin counts as
         one dispatch. Distance tables are LRU-cached per subset key
-        (radius-independent), so a steady-state host-routed bin recomputes
-        nothing but the threshold count."""
+        (radius- and filter-independent), so a steady-state host-routed bin
+        recomputes nothing but the threshold count."""
         t0 = time.perf_counter()
         out = []
         for ids, r, key in zip(id_lists, radii, keys):
@@ -716,12 +783,19 @@ class TorchBackend(DistanceBackend):
                     self._cache_put(ck, dist, dist.nbytes)
             else:
                 self.stats.cache_hits += 1
-            count = int((dist <= r).sum())
+            n_elig = None
+            if eligible is None:
+                count = int((dist <= r).sum())
+            else:
+                el = eligible[ids]
+                n_elig = int(el.sum())
+                count = int(((dist <= r) & el[:, None] & el[None, :]).sum())
             self.stats.subsets += 1
             self.stats.points_packed += len(ids)
             self.stats.join_pairs += count
             out.append(DistanceBlock(n=len(ids), dist=dist, slack=0.0,
-                                     rescore=False, join_count=count))
+                                     rescore=False, join_count=count,
+                                     n_eligible=n_elig))
         dt = time.perf_counter() - t0
         self.stats.dispatches += 1
         self.stats.host_routed_dispatches += 1
@@ -755,31 +829,41 @@ class TorchBackend(DistanceBackend):
 
     def _dispatch(self, id_lists: Sequence[np.ndarray],
                   radii: Sequence[float], keys: Sequence[bytes | None],
-                  p_pad: int) -> list[DistanceBlock]:
+                  p_pad: int, eligible: np.ndarray | None = None,
+                  elig_dense: bool = False) -> list[DistanceBlock]:
         t0 = time.perf_counter()
         dev = self.device
         n_subsets = len(id_lists)
         d = int(self._points_dev.shape[1])
-        lengths = np.fromiter((len(ids) for ids in id_lists), np.int32,
+        # Eligible-dense packing: tiles hold only the eligible rows and the
+        # blocks carry the packed row map. The pack is filter-dependent, so
+        # the tile cache is bypassed.
+        row_lists = None
+        pack_ids = id_lists
+        if elig_dense:
+            row_lists = [np.flatnonzero(eligible[ids]) for ids in id_lists]
+            pack_ids = [ids[rw] for ids, rw in zip(id_lists, row_lists)]
+        lengths = np.fromiter((len(ids) for ids in pack_ids), np.int32,
                               count=n_subsets)
         s_pad = self._round(n_subsets)
         if s_pad * p_pad * p_pad > self.MAX_BLOCK_BYTES // 4:
             # Shape-reuse rounding must not blow the budget.
             s_pad = n_subsets
         tile_key = None
-        if not any(k is None for k in keys):
+        if not elig_dense and not any(k is None for k in keys):
             tile_key = ("tile", tuple(keys), s_pad, p_pad)
         cached_tile = self._cache_get(tile_key) if tile_key else None
         if cached_tile is not None:
             # Packed tile already on the device: skip gather and packing;
-            # only the radii change between calls. Hit counters are per
-            # *subset* (a tile hit serves every subset it packs).
+            # only the radii (and eligibility words) change between calls.
+            # Hit counters are per *subset* (a tile hit serves every subset
+            # it packs).
             self.stats.cache_hits += n_subsets
             x_dev, lens_dev, slacks = cached_tile
         else:
-            slacks = np.array([self._slack(ids, d) for ids in id_lists],
+            slacks = np.array([self._slack(ids, d) for ids in pack_ids],
                               np.float64)
-            x_dev = self._pack_tile(id_lists, s_pad, p_pad)
+            x_dev = self._pack_tile(pack_ids, s_pad, p_pad)
             lens_pad = np.zeros(s_pad, np.int32)
             lens_pad[:n_subsets] = lengths
             lens_dev = torch.from_numpy(lens_pad).to(dev)
@@ -797,8 +881,27 @@ class TorchBackend(DistanceBackend):
             r_pad[:n_subsets] = np.nextafter(r_mask.astype(np.float32),
                                              np.float32(np.inf))
         r_pad[:n_subsets][~np.isfinite(r_mask)] = np.float32(np.inf)
+        # Filtered dispatch (fold mode): pack each subset's eligibility bits
+        # into the mask word layout. These words are the *only* extra traffic
+        # a filter adds — the tile (cached or not) is filter-independent, and
+        # the readback stays the same packed mask. Eligible-dense tiles skip
+        # the fold (every packed row is eligible by construction).
+        elig_words = el_counts = None
+        if eligible is not None and not elig_dense:
+            el = np.zeros((s_pad, p_pad), dtype=bool)
+            el_counts = np.zeros(n_subsets, np.int64)
+            for i, ids in enumerate(id_lists):
+                eli = eligible[ids]
+                el[i, :len(ids)] = eli
+                el_counts[i] = int(eli.sum())
+            words = pack_join_mask(el).view(np.int32)   # (s_pad, p_pad/32)
+            elig_words = torch.from_numpy(words).to(dev)
+            self.stats.h2d_bytes += words.nbytes
         self.stats.t_pack_s += time.perf_counter() - t0
         self.stats.h2d_bytes += r_pad.nbytes
+        # The diagonal bound of the empty-join test: eligible counts under a
+        # fold, packed lengths otherwise.
+        n_live = lengths.astype(np.int64) if el_counts is None else el_counts
 
         # ---- tier 0: coarse bf16 prune (counts only) ----
         pruned = None
@@ -813,7 +916,8 @@ class TorchBackend(DistanceBackend):
             # Any pair the fp32 tier could join is therefore inside the
             # coarse radius: coarse count <= diagonal bound proves the fp32
             # join empty, and results stay bit-identical whether or not the
-            # fp32 tier ran.
+            # fp32 tier ran. Under a fold the coarse pass takes the same
+            # eligibility words, so its counts bound K1's eligible counts.
             eps16 = 2.0 ** -8
             rtnorm = slacks / np.sqrt((64.0 + 4.0 * d) * _EPS32)
             r_c = (r_mask + slacks + 2.0 * eps16 * rtnorm) \
@@ -824,7 +928,7 @@ class TorchBackend(DistanceBackend):
                     r_c.astype(np.float32), np.float32(np.inf))
             t_p = time.perf_counter()
             cnt_c = ops.pairwise_l2_join_batched_counts(
-                x_dev, lens_dev, torch.from_numpy(rc_pad).to(dev))
+                x_dev, lens_dev, torch.from_numpy(rc_pad).to(dev), elig_words)
             counts_c = cnt_c.cpu().numpy()
             dtp = time.perf_counter() - t_p
             self.stats.t_prune_s += dtp
@@ -833,7 +937,7 @@ class TorchBackend(DistanceBackend):
             self.stats.h2d_bytes += rc_pad.nbytes
             self.stats.d2h_bytes += counts_c.nbytes
             cc = counts_c[:n_subsets]
-            pruned = cc <= lengths
+            pruned = cc <= n_live
             self.stats.cells_pruned += int(pruned.sum()) * p_pad * p_pad
 
         # ---- tier 1: fp32 masked join on surviving subsets ----
@@ -855,14 +959,18 @@ class TorchBackend(DistanceBackend):
                 r_sub[:n_surv] = r_pad[surv]
                 self.stats.h2d_bytes += idx_pad.nbytes + lens_sub.nbytes \
                     + r_sub.nbytes
-                x_sub = x_dev.index_select(0, torch.from_numpy(idx_pad).to(dev))
+                idx_dev = torch.from_numpy(idx_pad).to(dev)
+                x_sub = x_dev.index_select(0, idx_dev)
+                elig_sub = None if elig_words is None \
+                    else elig_words.index_select(0, idx_dev)
                 m, c = ops.pairwise_l2_join_batched_masked(
                     x_sub, torch.from_numpy(lens_sub).to(dev),
-                    torch.from_numpy(r_sub).to(dev))
+                    torch.from_numpy(r_sub).to(dev), elig_sub)
                 sub_rows = {int(i): j for j, i in enumerate(surv)}
             else:
                 m, c = ops.pairwise_l2_join_batched_masked(
-                    x_dev, lens_dev, torch.from_numpy(r_pad).to(dev))
+                    x_dev, lens_dev, torch.from_numpy(r_pad).to(dev),
+                    elig_words)
             mask = _to_uint32(m)
             counts = c.cpu().numpy()
             self.stats.t_dispatch_s += time.perf_counter() - t1
@@ -881,20 +989,24 @@ class TorchBackend(DistanceBackend):
 
         out = []
         for i in range(n_subsets):
-            n = int(lengths[i])
+            n = len(id_lists[i])
+            n_elig = None if eligible is None else int(n_live[i])
+            rows_i = None if row_lists is None else row_lists[i]
             if pruned is not None and pruned[i]:
                 # Coarse count at or below the diagonal bound: the fp32 join
                 # is provably empty off-diagonal, emit the mask-free block
                 # (the enumeration stage's singleton path never unpacks it).
                 self.stats.join_pairs += int(cc[i])
-                out.append(DistanceBlock(n=n, slack=float(slacks[i]),
-                                         rescore=True, join_count=int(cc[i])))
+                out.append(DistanceBlock(
+                    n=n, slack=float(slacks[i]), rescore=True,
+                    join_count=int(cc[i]), n_eligible=n_elig, rows=rows_i))
                 continue
             row = i if sub_rows is None else sub_rows[i]
-            words = (n + 31) // 32
+            npk = int(lengths[i])
+            words = (npk + 31) // 32
             self.stats.join_pairs += int(counts[row])
             out.append(DistanceBlock(
-                n=n, mask=mask[row, :n, :words], slack=float(slacks[i]),
-                rescore=True, join_count=int(counts[row])))
+                n=n, mask=mask[row, :npk, :words], slack=float(slacks[i]),
+                rescore=True, join_count=int(counts[row]),
+                n_eligible=n_elig, rows=rows_i))
         return out
-

@@ -9,8 +9,9 @@ On the engine's path the points need not cross the bus: :func:`pack_group_ids`
 packs only the (q, R) ids and mask on the host, and :func:`gather_groups`
 builds the (q, R, d) block on the device from the corpus already resident
 there. ``pack_groups`` is the two together on the host, kept for the tests.
-Eligibility filters, the multi-device plane, its top-k merge and shard
-placement come with later slices.
+A filtered query's eligibility mask restricts the groups before packing. The
+multi-device plane, its top-k merge and shard placement come with later
+slices.
 """
 from __future__ import annotations
 
@@ -41,15 +42,21 @@ class PackedGroups:
 
 
 def pack_group_ids(dataset, query, r_max: int | None = None, *,
-                   strict: bool = False, align: int = 128) -> PackedGroups:
+                   strict: bool = False, align: int = 128,
+                   eligible: np.ndarray | None = None) -> PackedGroups:
     """Host packing of the per-keyword relevant ids, without the points.
 
     R defaults to the largest group size rounded up to ``align``. A group
     larger than an explicit ``r_max`` is truncated to its first ``r_max``
     points — counted in ``PackedGroups.truncated`` and fatal under
     ``strict=True``. Slot ``[j, i]`` holds the i-th point of keyword
-    ``query[j]``'s group; padding slots are masked off with id 0."""
+    ``query[j]``'s group; padding slots are masked off with id 0.
+    ``eligible`` (a filtered query's (N,) point mask) restricts each group
+    before packing, so the anchor-star tier never ships an ineligible
+    point."""
     groups = [dataset.points_with(v) for v in query]
+    if eligible is not None:
+        groups = [g[eligible[g]] for g in groups]
     sizes = [len(g) for g in groups]
     if r_max is None:
         r_max = max(align, int(np.ceil(max(max(sizes), 1) / align)) * align)
@@ -69,11 +76,13 @@ def pack_group_ids(dataset, query, r_max: int | None = None, *,
 
 
 def pack_groups(dataset, query, r_max: int | None = None, *,
-                strict: bool = False, align: int = 128) -> PackedGroups:
+                strict: bool = False, align: int = 128,
+                eligible: np.ndarray | None = None) -> PackedGroups:
     """Host packing of per-keyword relevant groups (see
     :func:`pack_group_ids`): the ids' points at their slots, zeros in the
     padding."""
-    pg = pack_group_ids(dataset, query, r_max, strict=strict, align=align)
+    pg = pack_group_ids(dataset, query, r_max, strict=strict, align=align,
+                        eligible=eligible)
     out = np.zeros((*pg.ids.shape, dataset.dim), np.float32)
     out[pg.mask] = dataset.points[pg.ids[pg.mask]]
     return dataclasses.replace(pg, groups=out)

@@ -217,7 +217,7 @@ def build_indices(dataset: KeywordDataset, points_dev: torch.Tensor, *,
     for array to :func:`repro_torch.core.index.build_index` with the same
     arguments, built on the device ``points_dev`` (the corpus's rows, (n, d)
     fp32) lies on: one K5 launch per scale. ``w0``/``n_buckets`` pin the
-    hash geometry as there; ``n_buckets`` must be a power of two. Phase
+    hash geometry as there (``n_buckets`` a power of two or below 2^31). Phase
     walls, K5 launches and settled entries accumulate in ``stats``."""
     st = stats if stats is not None else BuildStats()
     dev = points_dev.device

@@ -29,6 +29,7 @@ class PlanStats:
 
     buckets_selected: int = 0
     duplicate_subsets: int = 0
+    filtered_subsets: int = 0      # pruned: no point satisfied the predicate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +108,8 @@ def plan_scale(index: PromishIndex, scale: int,
                explored: dict[int, set[bytes]] | None,
                stats: PlanStats | None = None,
                ctx: BatchPlanContext | None = None,
-               delta=None) -> list[SubsetTask]:
+               delta=None,
+               eligible: np.ndarray | None = None) -> list[SubsetTask]:
     """Collect every subset to search at ``scale`` for the active queries.
 
     ``explored`` maps query index -> Algorithm-2 hash set (exact set-hash on
@@ -122,6 +124,16 @@ def plan_scale(index: PromishIndex, scale: int,
     covering bucket's subset is the bulk members (tombstones already cleared
     from the bitset) concatenated with the live relevant delta members.
     Delta ids all exceed bulk ids, so the concatenation stays sorted.
+
+    ``eligible`` (an (N,) bool point-eligibility mask from
+    ``core.filters.Filter.evaluate``) makes the plan *selectivity-aware*:
+    subsets stay **unfiltered** — so Algorithm-2 keys and the backend's
+    tile LRU entries are shared across filters — but a subset with no
+    eligible member is pruned here, before any pack or dispatch (counted in
+    ``PlanStats.filtered_subsets``). Pruning runs after the Algorithm-2
+    dedup, so a fully-ineligible subset is checked once per query, not once
+    per covering bucket. (The reference's zone-map pruning, ``zone=``,
+    belongs to its out-of-core store, which the port does not have.)
     """
     hi = index.structures[scale]
     tasks: list[SubsetTask] = []
@@ -159,13 +171,27 @@ def plan_scale(index: PromishIndex, scale: int,
                         stats.duplicate_subsets += 1
                     continue
                 explored[qidx].add(key)
+            if eligible is not None and not eligible[f].any():
+                if stats is not None:
+                    stats.filtered_subsets += 1
+                continue
             tasks.append(SubsetTask(qidx=qidx, f_ids=f))
     return tasks
 
 
 def fallback_tasks(bitsets: Sequence[np.ndarray],
-                   active: Sequence[int]) -> list[SubsetTask]:
-    """Alg. 1 steps 33-39: the full relevant-point subset per unfinished query."""
-    return [SubsetTask(qidx=qidx,
-                       f_ids=np.flatnonzero(bitsets[qidx]).astype(np.int64))
-            for qidx in active]
+                   active: Sequence[int],
+                   eligible: np.ndarray | None = None) -> list[SubsetTask]:
+    """Alg. 1 steps 33-39: the full relevant-point subset per unfinished query.
+
+    Unlike the per-scale plan, the fallback filters ``eligible`` directly
+    into the subset: fallback subsets are near-corpus-sized and unique to the
+    query, so there is no cache-sharing argument for keeping ineligible
+    points — shrinking the pack dominates."""
+    tasks = []
+    for qidx in active:
+        f = np.flatnonzero(bitsets[qidx]).astype(np.int64)
+        if eligible is not None:
+            f = f[eligible[f]]
+        tasks.append(SubsetTask(qidx=qidx, f_ids=f))
+    return tasks

@@ -81,6 +81,8 @@ _MULTIPLIERS_I64 = _MULTIPLIERS.view(np.int64)
 _FINALIZER_I64 = int(np.array([0xFF51AFD7ED558CCD], np.uint64)
                      .view(np.int64)[0])
 _LOW31 = (1 << 31) - 1
+_LOW32 = (1 << 32) - 1
+_MAX_BUCKETS = 1 << 31
 
 
 def _shr33(a: torch.Tensor) -> torch.Tensor:
@@ -92,19 +94,29 @@ def _shr33(a: torch.Tensor) -> torch.Tensor:
 def hash_signatures_torch(sigs: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """:func:`hash_signatures` on int64 tensors: (..., m) -> (...,) int64.
 
-    ``n_buckets`` must be a power of two (the modulus is a mask of the low
-    bits; every table size the index build derives is one)."""
+    ``n_buckets`` may be any power of two, or any other value in [1, 2^31).
+    A power of two takes the low bits as a mask; any other modulus reduces
+    the uint64 accumulator
+    (held in int64, and torch has no unsigned 64-bit modulo) through its two
+    32-bit halves: ``((hi mod n) (2^32 mod n) + lo) mod n``, each term below
+    2^62, so the int64 arithmetic never wraps."""
     m = sigs.shape[-1]
     if m > len(_MULTIPLIERS):
         raise ValueError(f"m={m} exceeds supported projections {len(_MULTIPLIERS)}")
-    if n_buckets < 1 or n_buckets & (n_buckets - 1):
-        raise ValueError(f"n_buckets={n_buckets} is not a power of two")
+    pow2 = n_buckets >= 1 and n_buckets & (n_buckets - 1) == 0
+    if not (pow2 or 1 <= n_buckets < _MAX_BUCKETS):
+        raise ValueError(f"n_buckets={n_buckets} must be a power of two or "
+                         f"lie in [1, 2^31)")
     mult = torch.from_numpy(_MULTIPLIERS_I64[:m].copy()).to(sigs.device)
     acc = (sigs.to(torch.int64) * mult).sum(dim=-1)
     acc = acc ^ _shr33(acc)
     acc = acc * _FINALIZER_I64
     acc = acc ^ _shr33(acc)
-    return acc & (n_buckets - 1)
+    if pow2:
+        return acc & (n_buckets - 1)
+    hi = (acc >> 32) & _LOW32
+    lo = acc & _LOW32
+    return (hi % n_buckets * ((1 << 32) % n_buckets) + lo) % n_buckets
 
 
 def bucket_ids_overlapping_torch(h1: torch.Tensor, h2: torch.Tensor,

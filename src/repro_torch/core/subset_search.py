@@ -85,22 +85,35 @@ def group_by_keyword(f_ids: np.ndarray, query: Sequence[int],
 
 def local_groups(f_ids: np.ndarray, query: Sequence[int],
                  dataset: KeywordDataset,
+                 eligible: np.ndarray | None = None,
                  ctx=None) -> list[np.ndarray] | None:
     """Keyword groups as *row indices into f_ids* (Alg. 3 steps 2-5), or None
     when some query keyword has no representative in the subset (no candidate
     can exist — Alg. 3 bails before any distance work). Row indices come from
     ``np.searchsorted`` over the already-sorted ``f_ids``, or directly from
     the batch context's keyword masks when one is supplied (same rows, no
-    per-task searchsorted)."""
+    per-task searchsorted).
+
+    ``eligible`` (the (N,) predicate mask of a filtered query) restricts each
+    group to eligible points. Enumeration only ever indexes adjacency rows
+    through the groups, so this single restriction is what makes the whole
+    Alg. 3/4 stage respect the mask: ineligible points can sit in the subset
+    (keeping pack/cache keys filter-independent) yet never enter a
+    candidate. A group emptied by the filter bails exactly like a missing
+    keyword."""
     if ctx is not None:
         groups = []
         for v in query:
             rows = np.flatnonzero(ctx.kw_mask(v)[f_ids])
+            if eligible is not None:
+                rows = rows[eligible[f_ids[rows]]]
             if len(rows) == 0:
                 return None
             groups.append(rows)
         return groups
     groups = group_by_keyword(f_ids, query, dataset)
+    if eligible is not None:
+        groups = [g[eligible[g]] for g in groups]
     if any(len(g) == 0 for g in groups):
         return None
     return [np.searchsorted(f_ids, g) for g in groups]
@@ -440,8 +453,13 @@ def enumerate_with_block(f_ids: np.ndarray, gl: list[np.ndarray],
     off-diagonal pair at the dispatch radius short-circuits to the singleton
     scan — the adaptive-radii feedback that skips host enumeration for
     subsets the kernel already proved empty (the coarse bf16 prune tier
-    lands here too: a pruned block carries ``join_count <= n`` and is never
-    unpacked). Mutates ``pq``; returns N_p.
+    lands here too: a pruned block carries ``join_count <= n_live`` and is
+    never unpacked). Mutates ``pq``; returns N_p.
+
+    ``block.rows`` marks an eligible-dense device block (low-selectivity
+    packing): the mask covers only the subset-local eligible row positions
+    in ``rows``, so groups — already restricted to eligible points — are
+    remapped into that packed row space before the adjacency is consumed.
 
     ``timers`` (optional dict) accumulates ``rescore_s``: wall time in the
     float64 settlement of surviving tuples (table build + refine/recursion),
@@ -457,16 +475,26 @@ def enumerate_with_block(f_ids: np.ndarray, gl: list[np.ndarray],
         return _offer_singletons(gl[0], f_ids, query, dataset, pq,
                                   gate=False)
 
-    if block.join_count <= block.n:
+    n_live = block.n if block.n_eligible is None else block.n_eligible
+    if block.join_count <= n_live:
         # Only diagonal (self) pairs join: the multi-way join can only emit
         # single repeated points, i.e. points present in every keyword group.
+        # With an eligibility mask folded into the block, counts cover only
+        # eligible pairs, so the diagonal bound is the eligible point count.
         common = gl[0]
         for g in gl[1:]:
             common = common[sorted_member(common, g)]
         return _offer_singletons(common, f_ids, query, dataset, pq,
                                   gate=True)
 
-    n_adj = block.n
+    rows = block.rows
+    if rows is not None:
+        # Eligible-dense block: translate groups (subset-local rows, all
+        # eligible by construction) into the packed eligible-row space and
+        # restrict the id view to the packed rows.
+        gl = [np.searchsorted(rows, g) for g in gl]
+        f_ids = f_ids[rows]
+    n_adj = block.n if rows is None else len(rows)
     # mask=None marks an infinite-radius block (all pairs join by
     # construction; the backend skipped the device round-trip).
     adj = np.ones((n_adj, n_adj), dtype=np.uint8) if block.mask is None \

@@ -18,6 +18,70 @@ from repro_torch.utils.csr import (CSR, csr_from_lists, invert_csr,
 
 
 @dataclasses.dataclass(frozen=True)
+class TenantNamespace:
+    """Per-tenant keyword namespaces over one shared global dictionary.
+
+    Tenant ``t`` owns the contiguous global keyword slots
+    ``[kw_offsets[t], kw_offsets[t+1])``; its *local* dictionary is
+    ``[0, kw_offsets[t+1] - kw_offsets[t])``. :meth:`resolve` maps a tenant's
+    local keyword ids into global slots — the serving layer runs it before
+    planning, so the whole search pipeline stays namespace-oblivious (global
+    ids only) while tenants can never name each other's keywords.
+    """
+
+    names: tuple[str, ...]
+    kw_offsets: np.ndarray        # (T + 1,) int64, ascending
+
+    @property
+    def n_tenants(self) -> int:
+        return len(self.names)
+
+    def id_of(self, tenant: str | int) -> int:
+        if isinstance(tenant, str):
+            try:
+                return self.names.index(tenant)
+            except ValueError:
+                raise KeyError(f"unknown tenant {tenant!r} "
+                               f"(known: {list(self.names)})") from None
+        t = int(tenant)
+        if not 0 <= t < self.n_tenants:
+            raise KeyError(f"tenant id {t} out of range [0, {self.n_tenants})")
+        return t
+
+    def dict_size(self, tenant: str | int) -> int:
+        t = self.id_of(tenant)
+        return int(self.kw_offsets[t + 1] - self.kw_offsets[t])
+
+    def resolve(self, tenant: str | int, local_kws) -> list[int]:
+        """Tenant-local keyword ids -> global dictionary slots (validated)."""
+        t = self.id_of(tenant)
+        size = self.dict_size(t)
+        out = []
+        for v in local_kws:
+            v = int(v)
+            if not 0 <= v < size:
+                raise ValueError(
+                    f"keyword {v} outside tenant {self.names[t]!r} dictionary "
+                    f"(size {size})")
+            out.append(int(self.kw_offsets[t]) + v)
+        return out
+
+
+def _check_attrs(attrs: "dict[str, np.ndarray] | None", n: int
+                 ) -> "dict[str, np.ndarray] | None":
+    if attrs is None:
+        return None
+    out = {}
+    for name, col in attrs.items():
+        col = np.ascontiguousarray(col)
+        if col.shape != (n,):
+            raise ValueError(f"attribute {name!r} must be ({n},), "
+                             f"got {col.shape}")
+        out[str(name)] = col
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
 class KeywordDataset:
     """The paper's tagged multi-dimensional dataset.
 
@@ -25,12 +89,20 @@ class KeywordDataset:
     kw         : CSR point -> sorted keyword ids (the paper's sigma(o)).
     ikp        : CSR keyword -> sorted point ids (the paper's I_kp inverted index).
     n_keywords : dictionary size U.
+    attrs      : optional per-point attribute columns (name -> (N,) array;
+                 numeric dtypes take the ordered predicate ops, any dtype the
+                 equality/set ops — see ``core.filters``).
+    tenant_of  : optional (N,) int tenant id per point (multi-tenant corpora).
+    tenants    : optional per-tenant keyword namespace over the dictionary.
     """
 
     points: np.ndarray
     kw: CSR
     ikp: CSR
     n_keywords: int
+    attrs: dict | None = None
+    tenant_of: np.ndarray | None = None
+    tenants: TenantNamespace | None = None
 
     @property
     def n(self) -> int:
@@ -44,19 +116,41 @@ class KeywordDataset:
         """I_kp lookup: ids of points tagged with ``keyword``."""
         return self.ikp.row(keyword)
 
+    def attr_column(self, name: str) -> np.ndarray:
+        """(N,) attribute column for predicate evaluation."""
+        if not self.attrs or name not in self.attrs:
+            have = sorted(self.attrs) if self.attrs else []
+            raise KeyError(f"unknown attribute {name!r} (corpus has: {have})")
+        return self.attrs[name]
+
+    @property
+    def tenant_ids(self) -> np.ndarray | None:
+        """(N,) tenant id per point, or None on a single-tenant corpus."""
+        return self.tenant_of
+
 
 def make_dataset(points: np.ndarray, keywords: Sequence[Sequence[int]],
-                 n_keywords: int | None = None) -> KeywordDataset:
+                 n_keywords: int | None = None, *,
+                 attrs: dict | None = None,
+                 tenant_of: np.ndarray | None = None,
+                 tenants: TenantNamespace | None = None) -> KeywordDataset:
     points = np.ascontiguousarray(points, dtype=np.float32)
     keywords = [sorted(set(int(v) for v in ks)) for ks in keywords]
     if len(keywords) != len(points):
         raise ValueError(f"{len(points)} points but {len(keywords)} keyword sets")
     if n_keywords is None:
         n_keywords = 1 + max((max(ks) for ks in keywords if ks), default=-1)
+    attrs = _check_attrs(attrs, len(points))
+    if tenant_of is not None:
+        tenant_of = np.ascontiguousarray(tenant_of, dtype=np.int32)
+        if tenant_of.shape != (len(points),):
+            raise ValueError(f"tenant_of must be ({len(points)},), "
+                             f"got {tenant_of.shape}")
     kw = csr_from_lists(keywords)
     ikp = invert_csr(kw, n_keywords)
     return KeywordDataset(points=points, kw=kw, ikp=ikp,
-                          n_keywords=int(n_keywords))
+                          n_keywords=int(n_keywords), attrs=attrs,
+                          tenant_of=tenant_of, tenants=tenants)
 
 
 def dataset_from_csr(points: np.ndarray, kw: CSR,
@@ -67,6 +161,57 @@ def dataset_from_csr(points: np.ndarray, kw: CSR,
     return KeywordDataset(points=np.ascontiguousarray(points, np.float32),
                           kw=kw, ikp=invert_csr(kw, n_keywords),
                           n_keywords=int(n_keywords))
+
+
+def merge_tenants(corpora: "dict[str, dict]") -> KeywordDataset:
+    """Pack per-tenant corpora into one multi-tenant :class:`KeywordDataset`.
+
+    ``corpora`` maps tenant name -> ``{"points": (n_t, d), "keywords":
+    [[local ids...]], "n_keywords": local dict size, "attrs": optional
+    per-tenant columns}``. Each tenant keeps a private keyword namespace:
+    local id ``v`` of tenant ``t`` lands in global slot ``offset[t] + v``, so
+    identical local ids of different tenants never collide and a
+    tenant-scoped query can only ever reach its own postings. Attribute
+    schemas must agree across tenants (or be absent everywhere).
+    """
+    if not corpora:
+        raise ValueError("merge_tenants: no tenants")
+    names = tuple(corpora)
+    sizes = []
+    for name in names:
+        spec = corpora[name]
+        nk = spec.get("n_keywords")
+        if nk is None:
+            nk = 1 + max((max(ks) for ks in spec["keywords"] if ks), default=-1)
+        sizes.append(int(nk))
+    offsets = np.zeros(len(names) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+    ns = TenantNamespace(names=names, kw_offsets=offsets)
+
+    points, keywords, tenant_of = [], [], []
+    schemas = [frozenset(corpora[name].get("attrs") or ()) for name in names]
+    if len(set(schemas)) > 1:
+        raise ValueError(f"attribute schemas differ across tenants: "
+                         f"{[sorted(s) for s in set(schemas)]}")
+    attr_chunks: dict[str, list] = {k: [] for k in schemas[0]}
+    for t, name in enumerate(names):
+        spec = corpora[name]
+        pts = np.asarray(spec["points"], dtype=np.float32)
+        if pts.ndim != 2 or (points and pts.shape[1] != points[0].shape[1]):
+            raise ValueError(f"tenant {name!r}: inconsistent point dims")
+        points.append(pts)
+        keywords.extend(ns.resolve(t, ks) for ks in spec["keywords"])
+        tenant_of.append(np.full(len(pts), t, dtype=np.int32))
+        for k in attr_chunks:
+            col = np.asarray(spec["attrs"][k])
+            if col.shape != (len(pts),):
+                raise ValueError(f"tenant {name!r}: attribute {k!r} must be "
+                                 f"({len(pts)},), got {col.shape}")
+            attr_chunks[k].append(col)
+    attrs = {k: np.concatenate(v) for k, v in attr_chunks.items()} or None
+    return make_dataset(np.concatenate(points, axis=0), keywords,
+                        n_keywords=int(offsets[-1]), attrs=attrs,
+                        tenant_of=np.concatenate(tenant_of), tenants=ns)
 
 
 class _MergedKw:
@@ -116,9 +261,9 @@ class StreamingCorpus:
     ``[0, bulk.n)`` followed by delta rows in absorption order; deletes are
     tombstones (ids stay allocated until the engine compacts into a fresh
     bulk). The point buffer grows by capacity doubling, so absorbing a batch
-    is amortised O(batch), not O(corpus). Attribute columns and tenants
-    (the reference's filtered streams) are not ported yet (ROADMAP Queue A
-    8): :meth:`absorb` raises ``NotImplementedError`` for them.
+    is amortised O(batch), not O(corpus). Attribute columns and the tenant
+    column of the delta are kept per absorbed batch; merged columns are
+    memoised until the next absorb.
     """
 
     def __init__(self, bulk: KeywordDataset):
@@ -132,6 +277,10 @@ class StreamingCorpus:
         self._tomb_sorted = np.empty(0, dtype=np.int64)
         self._buf: np.ndarray | None = None        # growable point storage
         self._filled = 0
+        self._attr_chunks: dict[str, list[np.ndarray]] = \
+            {k: [] for k in (bulk.attrs or {})}
+        self._tenant_chunks: list[np.ndarray] = []
+        self._col_memo: dict[str, np.ndarray] = {}
 
     # ------------------------------------------------------------- geometry
     @property
@@ -176,14 +325,17 @@ class StreamingCorpus:
     # ------------------------------------------------------------ mutation
     def absorb(self, points: np.ndarray,
                keywords: Sequence[Sequence[int]],
-               attrs: dict | None = None, tenant=None) -> np.ndarray:
+               attrs: dict | None = None,
+               tenant: "int | str | np.ndarray | None" = None) -> np.ndarray:
         """Append a batch; returns the assigned internal ids (ascending).
         The whole batch is validated before anything changes: queries see
-        all of a batch or none of it."""
-        if attrs is not None or tenant is not None:
-            raise NotImplementedError(
-                "attribute columns and tenants on a streaming corpus are "
-                "not ported yet (ROADMAP Queue A 8)")
+        all of a batch or none of it.
+
+        ``attrs``/``tenant`` must match the bulk corpus schema: a corpus with
+        attribute columns requires the same columns on every batch (length =
+        batch size); a multi-tenant corpus requires a tenant (one scalar for
+        the whole batch, or a per-point array). Tenant names resolve through
+        the corpus namespace. A schema-less corpus rejects both."""
         points = np.ascontiguousarray(points, dtype=np.float32)
         if points.ndim != 2 or points.shape[1] != self.dim:
             raise ValueError(f"expected (*, {self.dim}) points, got {points.shape}")
@@ -193,6 +345,8 @@ class StreamingCorpus:
         for ks in norm:
             if ks and (ks[0] < 0 or ks[-1] >= self.n_keywords):
                 raise ValueError("keyword outside dictionary")
+        attr_cols = self._check_batch_attrs(attrs, len(points))
+        tenant_col = self._check_batch_tenant(tenant, len(points))
         start = self.n
         need = start + len(points)
         self._ensure_capacity(need)
@@ -203,8 +357,47 @@ class StreamingCorpus:
             for v in ks:
                 self._ikp.setdefault(v, []).append(start + j)
                 self._ikp_memo.pop(v, None)
+        for name, col in attr_cols.items():
+            self._attr_chunks[name].append(col)
+        if tenant_col is not None:
+            self._tenant_chunks.append(tenant_col)
+        self._col_memo.clear()
         self.n_delta += len(points)
         return np.arange(start, start + len(points), dtype=np.int64)
+    def _check_batch_attrs(self, attrs: dict | None, batch: int) -> dict:
+        schema = set(self._attr_chunks)
+        got = set(attrs or ())
+        if got != schema:
+            raise ValueError(f"attribute batch keys {sorted(got)} != corpus "
+                             f"schema {sorted(schema)}")
+        out = {}
+        for name in schema:
+            col = np.ascontiguousarray(attrs[name])
+            if col.shape != (batch,):
+                raise ValueError(f"attribute {name!r} must be ({batch},), "
+                                 f"got {col.shape}")
+            out[name] = col.astype(self.bulk.attrs[name].dtype, copy=False)
+        return out
+
+    def _check_batch_tenant(self, tenant, batch: int) -> np.ndarray | None:
+        if self.bulk.tenant_of is None:
+            if tenant is not None:
+                raise ValueError("tenant given but the corpus has no tenant "
+                                 "column")
+            return None
+        if tenant is None:
+            raise ValueError("multi-tenant corpus: every absorbed batch "
+                             "needs a tenant")
+        ns = self.bulk.tenants
+        if isinstance(tenant, (str, int, np.integer)):
+            tid = ns.id_of(tenant) if ns is not None else int(tenant)
+            return np.full(batch, tid, dtype=np.int32)
+        col = np.asarray([ns.id_of(t) if ns is not None else int(t)
+                          for t in tenant], dtype=np.int32)
+        if col.shape != (batch,):
+            raise ValueError(f"tenant column must be ({batch},), got {col.shape}")
+        return col
+
 
     def delete(self, ids: np.ndarray) -> None:
         """Tombstone internal ids (bulk or delta); idempotence is the
@@ -266,6 +459,43 @@ class StreamingCorpus:
         dead = self.tombstoned(merged)
         return merged[~dead] if dead.any() else merged
 
+    # --------------------------------------------------- attribute surface
+    @property
+    def attrs(self) -> dict | None:
+        """Attribute schema marker (duck-types ``KeywordDataset.attrs`` for
+        presence checks; columns come from :meth:`attr_column`)."""
+        return self.bulk.attrs
+
+    @property
+    def tenants(self) -> "TenantNamespace | None":
+        return self.bulk.tenants
+
+    def attr_column(self, name: str) -> np.ndarray:
+        """Merged (n,) attribute column: bulk rows then delta rows.
+        Tombstoned rows keep their values — eligibility is ANDed with
+        liveness downstream, never consulted for dead points."""
+        if name not in self._attr_chunks and (
+                not self.bulk.attrs or name not in self.bulk.attrs):
+            return self.bulk.attr_column(name)      # raises the KeyError
+        col = self._col_memo.get(name)
+        if col is None:
+            col = np.concatenate([self.bulk.attr_column(name)]
+                                 + self._attr_chunks[name]) \
+                if self._attr_chunks[name] else self.bulk.attr_column(name)
+            self._col_memo[name] = col
+        return col
+
+    @property
+    def tenant_ids(self) -> np.ndarray | None:
+        if self.bulk.tenant_of is None:
+            return None
+        col = self._col_memo.get("__tenant__")
+        if col is None:
+            col = np.concatenate([self.bulk.tenant_of] + self._tenant_chunks) \
+                if self._tenant_chunks else self.bulk.tenant_of
+            self._col_memo["__tenant__"] = col
+        return col
+
     def compacted_dataset(self) -> KeywordDataset:
         """The live corpus as a fresh frozen :class:`KeywordDataset`
         (compaction's rebuild input), points and keyword rows in internal-id
@@ -291,8 +521,15 @@ class StreamingCorpus:
                                  count=len(delta_rows))])
         offsets = np.zeros(len(live) + 1, dtype=np.int64)
         np.cumsum(lens, out=offsets[1:])
-        return dataset_from_csr(points, CSR(offsets=offsets, values=values),
-                                self.n_keywords)
+        attrs = {name: np.ascontiguousarray(self.attr_column(name)[live])
+                 for name in (self.bulk.attrs or {})} or None
+        tenant_of = None
+        if self.bulk.tenant_of is not None:
+            tenant_of = np.ascontiguousarray(self.tenant_ids[live])
+        return dataclasses.replace(
+            dataset_from_csr(points, CSR(offsets=offsets, values=values),
+                             self.n_keywords),
+            attrs=attrs, tenant_of=tenant_of, tenants=self.bulk.tenants)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,18 +1,21 @@
 // Threshold-join kernels for Hopper (sm_90a): the batched fp32 self-join with
-// a packed adjacency mask (K1), its bf16 coarse-count twin (K2), and the
-// single (M, d) x (N, d) join (K3).
+// a packed adjacency mask (K1), its bf16 coarse-count twin (K2), the single
+// (M, d) x (N, d) join (K3), and the batched self-join with the dense block
+// and per-tile counts (K4).
 //
 // Replaces the Pallas TPU kernels of the reference package's
 // kernels/pairwise_l2.py:
 //   join_batched_masked  <- pairwise_l2_join_batched_masked (+ the
 //                           ops._fold_eligibility epilogue)
-//   join_batched_prune   <- pairwise_l2_join_batched_prune
+//   join_batched_prune   <- pairwise_l2_join_batched_prune (its dense 0/1
+//                           eligibility row arrives as K1's packed words)
 //   pairwise_join        <- pairwise_l2_join
+//   join_batched_tiles   <- pairwise_l2_join_batched
 //
-// Contract (all three): sq = max(|a|^2 + |b|^2 - 2 a.b, 0) in fp32, a pair
-// joins iff sq <= r*r (r squared in fp32). Mask words are LSB-first: bit
-// j % 32 of word j / 32 of row i is the pair (i, j). Counts include the
-// diagonal.
+// Contract (all four): sq = max(|a|^2 + |b|^2 - 2 a.b, 0) in fp32, a pair
+// joins iff sq <= r*r (r squared in fp32). Mask and eligibility words are
+// LSB-first: bit j % 32 of word j / 32 of row i is the pair (i, j). Counts
+// include the diagonal.
 //
 // Design. One block of 256 threads (8 warps) owns a 32-row x 128-column tile
 // of one subset. It stages 32-feature slices of the row and column points in
@@ -41,6 +44,18 @@
 // FMAs read five shared-memory words (four float4 row broadcasts and one
 // column value). Register tiling over columns too, half the tiles by
 // symmetry, and wgmma for the bf16 tier are later work.
+//
+// K4 is K1's body without the mask: it always writes the dense sq block and
+// counts joined pairs per tile of the *caller's* (bm, bn) grid, which need
+// not match the kernel's 32 x 128 block. A row's ballot word spans 32
+// columns and may straddle a bn boundary, so it is split by shifts into the
+// grid cells it touches; a block sums its cells in shared memory (at most
+// 32 x 128 of them, for bm = bn = 1) and adds each nonzero cell to the
+// output once. Per valid cell it needs 2d fp32 flops (1.9 ps at d = 64 and
+// 67 TFLOP/s) against 4 written bytes (1.2 ps at 3.35 TB/s), so a block full
+// of valid cells is bound by operations; at K1's path input most cells lie
+// past the subsets' lengths and cost bytes only, and the S P^2 4-byte sq
+// write bounds it. This version computes both halves of the symmetric block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -203,6 +218,80 @@ batched_join_kernel(const float* __restrict__ x, const int* __restrict__ lengths
   if (threadIdx.x == 0 && sm.count) atomicAdd(counts + s, sm.count);
 }
 
+// K4. Grid (S, ceil(P/TM), ceil(P/TN)); counts (S, ceil(P/bm), ceil(P/bn)).
+__global__ void __launch_bounds__(THREADS)
+batched_tiles_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                     const float* __restrict__ radii, int P, int d, int bm,
+                     int bn, float* __restrict__ sq_out,
+                     int* __restrict__ counts) {
+  __shared__ Smem sm;
+  __shared__ int cells[TM * TN];
+  const int s = blockIdx.x;
+  const int row0 = blockIdx.y * TM;
+  const int col0 = blockIdx.z * TN;
+  const int L = min(max(lengths[s], 0), P);
+  const float* xs = x + (size_t)s * P * d;
+  const int gm = (P + bm - 1) / bm, gn = (P + bn - 1) / bn;
+  // This block's cells: rows [cr0, cr1], columns [cc0, cc1] of the grid.
+  const int cr0 = row0 / bm, cr1 = min(row0 + TM, P) - 1;
+  const int cc0 = col0 / bn, cc1 = min(col0 + TN, P) - 1;
+  const int ncc = cc1 / bn - cc0 + 1;
+  const int ncells = (cr1 / bm - cr0 + 1) * ncc;
+  for (int e = threadIdx.x; e < ncells; e += THREADS) cells[e] = 0;
+  float acc[RPW];
+  const bool live = row0 < L && col0 < L;     // block-uniform
+  if (live) {
+    gram_tile<false>(sm, xs, L, row0, xs, L, col0, d, acc);
+  } else {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
+    __syncthreads();
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wl = warp % WPB;
+  const int rbase = (warp / WPB) * RPW;
+  const int c = wl * 32 + lane;
+  const int col = col0 + c;
+  const int wc0 = col0 + wl * 32;              // this warp's first column
+  const float r = radii[s];
+  const float r2 = r * r;
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int row = row0 + rbase + i;
+    float v = FLT_MAX;
+    bool joined = false;
+    if (row < L && col < L) {
+      v = fmaxf(sm.an[rbase + i] + sm.bn[c] - 2.0f * acc[i], 0.0f);
+      joined = v <= r2;
+    }
+    if (row < P && col < P) sq_out[((size_t)s * P + row) * P + col] = v;
+    const unsigned bits = __ballot_sync(0xffffffffu, joined);
+    if (lane == 0 && bits) {
+      const int base = (row / bm - cr0) * ncc;
+      // Split the word at every bn boundary it crosses.
+      for (int lo = wc0; lo < wc0 + 32;) {
+        const int cell = lo / bn;
+        const int hi = min((cell + 1) * bn, wc0 + 32);
+        const int w = hi - lo;
+        const unsigned part = (bits >> (lo - wc0))
+            & (w == 32 ? 0xffffffffu : ((1u << w) - 1u));
+        if (part) atomicAdd(&cells[base + cell - cc0], __popc(part));
+        lo = hi;
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < ncells; e += THREADS) {
+    const int v = cells[e];
+    if (v) {
+      const int gr = cr0 + e / ncc, gc = cc0 + e % ncc;
+      atomicAdd(counts + ((size_t)s * gm + gr) * gn + gc, v);
+    }
+  }
+}
+
 // K3. Grid (ceil(N/TN), ceil(M/TM)); counts[(by, bx)] is the block's join size.
 __global__ void __launch_bounds__(THREADS)
 pairwise_join_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -242,8 +331,8 @@ pairwise_join_kernel(const float* __restrict__ a, const float* __restrict__ b,
 }  // namespace
 
 // Plain C interface (bound with ctypes). Each returns cudaGetLastError() after
-// its launch; 0 is success. Pointers are device pointers; elig and sq may be
-// null. The caller zeroes counts for the two batched kernels.
+// its launch; 0 is success. Pointers are device pointers; elig and (K1) sq
+// may be null. The caller zeroes counts for the batched kernels.
 extern "C" {
 
 int join_batched_masked(const float* x, const int* lengths, const float* radii,
@@ -257,11 +346,22 @@ int join_batched_masked(const float* x, const int* lengths, const float* radii,
 }
 
 int join_batched_prune(const float* x, const int* lengths, const float* radii,
-                       int S, int P, int d, int* counts, void* stream) {
+                       const int* elig, int S, int P, int d, int* counts,
+                       void* stream) {
   const int W = (P + 31) / 32;
   const dim3 grid(S, (P + TM - 1) / TM, (P + TN - 1) / TN);
   batched_join_kernel<true, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, lengths, radii, nullptr, P, d, W, nullptr, counts, nullptr);
+      x, lengths, radii, elig, P, d, W, nullptr, counts, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The caller zeroes counts (S, ceil(P/bm), ceil(P/bn)); bm, bn >= 1.
+int join_batched_tiles(const float* x, const int* lengths, const float* radii,
+                       int S, int P, int d, int bm, int bn, float* sq,
+                       int* counts, void* stream) {
+  const dim3 grid(S, (P + TM - 1) / TM, (P + TN - 1) / TN);
+  batched_tiles_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      x, lengths, radii, P, d, bm, bn, sq, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,6 +11,9 @@ fallback from the card to the host.
   * :func:`pairwise_l2_join_batched_counts` — the bf16 coarse counts of the
     cascade's prune tier.
   * :func:`pairwise_l2_join` — one (M, d) x (N, d) join.
+  * :func:`pairwise_l2_join_batched` — the batched self-join with the dense
+    block and per-tile counts (K4; no serving path calls it, as in the
+    reference).
   * :func:`tuple_diameters` — the diameters r(A) of a batch of candidate
     tuples (the anchor-star device tier's ranking).
   * :func:`flash_attention` — causal or windowed attention forward (the LM
@@ -52,14 +55,37 @@ def pairwise_l2_join_batched_masked(x: torch.Tensor, lengths: torch.Tensor,
 
 
 def pairwise_l2_join_batched_counts(x: torch.Tensor, lengths: torch.Tensor,
-                                    r: torch.Tensor) -> torch.Tensor:
+                                    r: torch.Tensor,
+                                    elig: torch.Tensor | None = None
+                                    ) -> torch.Tensor:
     """Coarse bf16 threshold-join counts (the cascade's tier 0): same batching
-    contract as the masked join, counts (S,) int32 only. Call with the
-    error-widened coarse radii; a subset whose count stays at or below its
-    diagonal provably has no off-diagonal fp32 pair."""
+    and eligibility contract as the masked join, counts (S,) int32 only.
+    Call with the error-widened coarse radii; a subset whose count stays at
+    or below its (eligible) diagonal provably has no off-diagonal fp32
+    pair."""
     if _route(x) == "cuda":
-        return _cuda.join_batched_prune(x, lengths, r)
-    return ref.join_batched_counts(x, lengths, r)
+        return _cuda.join_batched_prune(x, lengths, r, elig)
+    return ref.join_batched_counts(x, lengths, r, elig)
+
+
+def pairwise_l2_join_batched(x: torch.Tensor, lengths,
+                             r: torch.Tensor | float = float("inf"), *,
+                             bm: int = 128, bn: int = 128
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One self-join over a batch of padded subsets: x (S, P, d) fp32,
+    ``lengths`` (S,) valid points per subset, ``r`` a radius per subset or
+    one for all. Returns sq (S, P, P) fp32 (fp32-max outside each subset's
+    valid square) and counts (S, ceil(P/bm), ceil(P/bn)) int32, the valid
+    pairs with ``sq <= r^2`` per bm x bn tile (``counts.sum((1, 2))`` is each
+    subset's join size)."""
+    s = x.shape[0]
+    lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                              device=x.device).reshape(s)
+    r = torch.as_tensor(r, dtype=torch.float32,
+                        device=x.device).expand(s).contiguous()
+    if _route(x) == "cuda":
+        return _cuda.join_batched_tiles(x, lengths, r, bm=bm, bn=bn)
+    return ref.join_batched_dense(x, lengths, r, bm=bm, bn=bn)
 
 
 def pairwise_l2_join(a: torch.Tensor, b: torch.Tensor,

@@ -19,7 +19,7 @@ from repro_torch.kernels.ref import JOIN_TILE
 
 # Launches per kernel since the last reset_launches().
 launches = {"join_batched_masked": 0, "join_batched_prune": 0,
-            "pairwise_join": 0}
+            "pairwise_join": 0, "join_batched_tiles": 0}
 
 _LIB: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
@@ -38,11 +38,15 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build.build("pairwise_l2")))
         lib.join_batched_masked.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
                                             _P, _P, _P]
-        lib.join_batched_prune.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P]
+        lib.join_batched_prune.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
+                                           _P]
         lib.pairwise_join.argtypes = [_P, _P, _I, _I, _I, ctypes.c_float, _P,
                                       _P, _P]
+        lib.join_batched_tiles.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
+                                           _P, _P, _P]
         for fn in (lib.join_batched_masked, lib.join_batched_prune,
-                   lib.pairwise_join, lib.join_tile_rows, lib.join_tile_cols):
+                   lib.pairwise_join, lib.join_batched_tiles,
+                   lib.join_tile_rows, lib.join_tile_cols):
             fn.restype = _I
         lib.join_tile_rows.argtypes = []
         lib.join_tile_cols.argtypes = []
@@ -117,20 +121,44 @@ def join_batched_masked(x: torch.Tensor, lengths: torch.Tensor,
 
 
 def join_batched_prune(x: torch.Tensor, lengths: torch.Tensor,
-                       r: torch.Tensor) -> torch.Tensor:
+                       r: torch.Tensor,
+                       elig: torch.Tensor | None = None) -> torch.Tensor:
     """CUDA kernel K2 — see ``kernels.ref.join_batched_counts``. Takes the
-    fp32 tile and rounds coordinates to bf16 as it loads them."""
-    s, p, d = _check_batched(x, lengths, r)
+    fp32 tile and rounds coordinates to bf16 as it loads them; ``elig`` is
+    K1's packed eligibility words."""
+    s, p, d = _check_batched(x, lengths, r, elig)
     counts = torch.zeros(s, dtype=torch.int32, device=x.device)
     if s and p and d:
         with torch.cuda.device(x.device):
             err = library().join_batched_prune(
-                _ptr(x), _ptr(lengths), _ptr(r), s, p, d, _ptr(counts),
-                torch.cuda.current_stream(x.device).cuda_stream)
+                _ptr(x), _ptr(lengths), _ptr(r), _ptr(elig), s, p, d,
+                _ptr(counts), torch.cuda.current_stream(x.device).cuda_stream)
         _launched("join_batched_prune", err)
     elif d == 0:
         raise ValueError("x must have at least one feature")
     return counts
+
+
+def join_batched_tiles(x: torch.Tensor, lengths: torch.Tensor,
+                       r: torch.Tensor, *, bm: int = 128, bn: int = 128
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA kernel K4 — see ``kernels.ref.join_batched_dense``. Returns sq
+    (S, P, P) fp32 and counts (S, ceil(P/bm), ceil(P/bn)) int32."""
+    s, p, d = _check_batched(x, lengths, r)
+    if bm < 1 or bn < 1:
+        raise ValueError(f"tile sizes must be positive, got ({bm}, {bn})")
+    sq = torch.empty((s, p, p), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((s, -(-p // bm), -(-p // bn)), dtype=torch.int32,
+                         device=x.device)
+    if s and p and d:
+        with torch.cuda.device(x.device):
+            err = library().join_batched_tiles(
+                _ptr(x), _ptr(lengths), _ptr(r), s, p, d, bm, bn, _ptr(sq),
+                _ptr(counts), torch.cuda.current_stream(x.device).cuda_stream)
+        _launched("join_batched_tiles", err)
+    elif d == 0:
+        raise ValueError("x must have at least one feature")
+    return sq, counts
 
 
 def pairwise_join(a: torch.Tensor, b: torch.Tensor,

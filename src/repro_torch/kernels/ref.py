@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function computes what its CUDA kernel in ``csrc/pairwise_l2.cu`` (the
-threshold joins), ``csrc/diameter.cu`` (tuple diameters),
+threshold joins K1-K4), ``csrc/diameter.cu`` (tuple diameters),
 ``csrc/flash_attention.cu`` (attention) or ``csrc/project_bin.cu``
 (projection and binning) computes, with the same inputs and
 outputs; ``kernels.ops`` routes a CPU tensor here, and the
@@ -93,20 +93,45 @@ def join_batched_masked(x: torch.Tensor, lengths: torch.Tensor,
 
 
 def join_batched_counts(x: torch.Tensor, lengths: torch.Tensor,
-                        r: torch.Tensor) -> torch.Tensor:
+                        r: torch.Tensor,
+                        elig: torch.Tensor | None = None) -> torch.Tensor:
     """Coarse bf16 join counts (kernel ``join_batched_prune``).
 
     Coordinates round to bfloat16 (round to nearest even); norms and the Gram
     term are taken from the rounded values in fp32 — a product of two bf16
     values is exact in fp32, so only the fp32 accumulation order differs from
-    a tensor-core product. Same x, lengths and r as
-    :func:`join_batched_masked`; returns counts (S,) int32."""
+    a tensor-core product. Same x, lengths, r and eligibility words as
+    :func:`join_batched_masked` (ineligible points drop out of the counts);
+    returns counts (S,) int32."""
     p = x.shape[1]
     sq = _self_sq(x.to(torch.bfloat16).float())
-    valid, _ = _live_rows(lengths, p, None)
+    _, live = _live_rows(lengths, p, elig)
     r2 = r.float() * r.float()
-    joined = (sq <= r2[:, None, None]) & valid[:, :, None] & valid[:, None, :]
+    joined = (sq <= r2[:, None, None]) & live[:, :, None] & live[:, None, :]
     return joined.sum(dim=(1, 2), dtype=torch.int32)
+
+
+def join_batched_dense(x: torch.Tensor, lengths: torch.Tensor,
+                       r: torch.Tensor, *, bm: int = 128, bn: int = 128
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched self-join with the dense block and per-tile counts (kernel
+    ``join_batched_tiles``). Same x, lengths and r as
+    :func:`join_batched_masked`; returns sq (S, P, P) fp32 with fp32-max
+    outside the valid square, and counts (S, ceil(P/bm), ceil(P/bn)) int32:
+    the valid pairs with ``sq <= r^2`` in each bm x bn tile."""
+    s, p = x.shape[:2]
+    sq = _self_sq(x.float())
+    valid, _ = _live_rows(lengths, p, None)
+    cell = valid[:, :, None] & valid[:, None, :]
+    sq = torch.where(cell, sq, torch.full_like(sq, _FMAX))
+    r2 = r.float() * r.float()
+    joined = (sq <= r2[:, None, None]) & cell
+    gm, gn = -(-p // bm), -(-p // bn)
+    pad = torch.zeros(s, gm * bm, gn * bn, dtype=torch.int32,
+                      device=x.device)
+    pad[:, :p, :p] = joined
+    counts = pad.view(s, gm, bm, gn, bn).sum(dim=(2, 4), dtype=torch.int32)
+    return sq, counts
 
 
 def pairwise_join(a: torch.Tensor, b: torch.Tensor,

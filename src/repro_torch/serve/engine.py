@@ -43,6 +43,16 @@ ingest call returns sees all of that call's batch and every earlier one;
 results carry *external* ids that stay stable across compactions.
 ``PipelineStats`` records generation/delta/tombstone state per batch,
 ``engine.ingest`` the lifetime counters.
+
+**Filtered and tenant-scoped serving** (``filter=`` on ``query`` and
+``query_batch``, a :class:`~repro_torch.core.filters.Filter` or its JSON
+form): the predicate and tenant mask is evaluated once per batch and ANDed
+with the tombstones; planning prunes subsets with no eligible member,
+keyword groups restrict to eligible points, and the device join takes the
+mask as eligibility words (K1's fold, K2's on the prune tier) or, at low
+selectivity, packs only the eligible rows — the readback is the unfiltered
+dispatch's packed mask either way. On a multi-tenant corpus a
+tenant-scoped query speaks tenant-local keyword ids.
 """
 from __future__ import annotations
 
@@ -59,6 +69,7 @@ from repro_torch.core.backend import (DistanceBackend, NumpyBackend,
                                       TorchBackend, resolve_device)
 from repro_torch.core.device_plane import gather_groups, pack_group_ids
 from repro_torch.core.distributed import nks_anchor_topk
+from repro_torch.core.filters import Filter
 from repro_torch.core.index import (IndexDelta, PromishIndex, absorb_into,
                                     retire_from)
 from repro_torch.core.index_build import BuildStats, build_indices
@@ -89,6 +100,7 @@ class ScaleStats:
     active_queries: int = 0
     buckets_selected: int = 0
     duplicate_subsets: int = 0
+    filtered_subsets: int = 0    # predicate-pruned before pack/dispatch
     tasks_planned: int = 0
     tasks_searched: int = 0      # tasks with all keyword groups non-empty
     dispatches: int = 0          # device/loop distance dispatches this scale
@@ -149,6 +161,13 @@ class PipelineStats:
     delta_points: int = 0
     tombstones: int = 0
     compactions: int = 0
+    # Filtered accounting: eligible_points/selectivity describe the batch's
+    # predicate mask (None on an unfiltered batch); filtered_subsets counts
+    # planned subsets pruned because no member satisfied the predicate. The
+    # "no new D2H" contract of the eligibility fold reads d2h_bytes.
+    eligible_points: int | None = None
+    filter_selectivity: float | None = None
+    filtered_subsets: int = 0
 
     @property
     def dispatches_per_scale(self) -> list[int]:
@@ -208,6 +227,15 @@ class PipelineStats:
             "bins": {str(k): {"points": v[0], "padded": v[1]}
                      for k, v in sorted(self.bin_occupancy.items())},
         }
+
+    @property
+    def filtering(self) -> dict:
+        """JSON-ready filtered-serving summary."""
+        return {"eligible_points": self.eligible_points,
+                "selectivity": self.filter_selectivity,
+                "filtered_subsets": self.filtered_subsets,
+                "h2d_bytes": self.h2d_bytes,
+                "d2h_bytes": self.d2h_bytes}
 
     @property
     def ingest(self) -> dict:
@@ -281,9 +309,9 @@ class NKSEngine:
 
         Streaming knobs: ``w0``/``n_buckets`` pin the hash geometry across
         compactions (None derives both from the corpus, per the paper;
-        ``n_buckets`` must be a power of two); after an insert or delete,
-        the delta is folded into a fresh bulk index once ``delta_points +
-        tombstones >= max(compact_min, compact_ratio * N)``
+        ``n_buckets`` is a power of two or below 2^31); after an insert or
+        delete, the delta is folded into a fresh bulk index once
+        ``delta_points + tombstones >= max(compact_min, compact_ratio * N)``
         (``auto_compact=False`` leaves compaction to :meth:`compact`)."""
         self.device = resolve_device(device)
         self._bulk = dataset
@@ -370,16 +398,25 @@ class NKSEngine:
                       "a": IndexDelta(self.index_a, view)}
 
     def insert(self, points: np.ndarray,
-               keywords: Sequence[Sequence[int]]) -> np.ndarray:
+               keywords: Sequence[Sequence[int]],
+               attrs: dict | None = None, tenant=None) -> np.ndarray:
         """Absorb a batch of tagged points; returns their external ids.
 
         The batch is visible to every query issued after this call returns
         (absorbed atomically: a rejected batch changes nothing). Its rows
         are uploaded once, into the resident corpus on the device, where K5
         bins them at every scale (one launch per scale for both indices);
-        the bulk index is untouched until compaction folds the delta in."""
+        the bulk index is untouched until compaction folds the delta in.
+
+        ``attrs``/``tenant`` carry the batch's attribute columns and tenant
+        (a name, an id, or one per point): a corpus built with attributes
+        (or tenants) requires them on every insert, and a corpus without
+        rejects them. ``keywords`` are *global* dictionary ids here; a
+        tenant's local ids resolve through ``dataset.tenants.resolve``."""
         view, deltas = self._streaming_state()
-        ids = view.absorb(points, keywords)   # validates before any mutation
+        # validates keywords and the attribute/tenant schema before any
+        # mutation
+        ids = view.absorb(points, keywords, attrs=attrs, tenant=tenant)
         self.backend.attach(view.points, self._corpus_token)
         rows_dev = self.backend._points_dev[view.n - len(ids):]
         absorb_into(deltas.values(), view.points[ids], rows_dev)
@@ -550,42 +587,82 @@ class NKSEngine:
         return cls(make_dataset(points, keywords), device=device, **kw)
 
     def query(self, keywords: Sequence[int], k: int = 1,
-              tier: str = "approx") -> QueryResult:
+              tier: str = "approx", filter=None,
+              semantics=None) -> QueryResult:
         """One query through the per-query search (float64 on the host), or
-        one anchor-star dispatch on the engine's device (``tier="device"``)."""
+        one anchor-star dispatch on the engine's device (``tier="device"``).
+        A filtered exact or approx query runs the batched pipeline (a batch
+        of one), which threads the eligibility mask through every stage.
+        ``semantics`` (flexible m-of-k semantics) is not ported."""
         t0 = time.perf_counter()
+        _refuse_semantics(semantics)
         self._validate_queries([keywords])
-        if tier in ("exact", "approx") and self._streaming_dirty():
+        flt = Filter.coerce(filter)
+        if tier in ("exact", "approx") and (self._streaming_dirty()
+                                            or flt is not None):
             # The per-query searches walk a frozen index; with a live delta
             # the batched pipeline (a batch of one reproduces them exactly)
-            # is the delta-aware path.
+            # is the delta-aware path — and the filtered path.
             res = self.query_batch([keywords], k=k, tier=tier,
-                                   backend="numpy")[0]
+                                   backend="numpy", filter=flt)[0]
             return dataclasses.replace(res, latency_s=time.perf_counter() - t0)
         if tier == "exact":
             pq = promish_e.search(self.dataset, self.index_e, keywords, k=k)
         elif tier == "approx":
             pq = promish_a.search(self.dataset, self.index_a, keywords, k=k)
         elif tier == "device":
+            resolved = self._resolve_namespace([keywords], flt)[0]
+            eligible = self._eligible(flt)
             return QueryResult(
                 list(keywords),
-                self._externalize(self._device_topk(list(keywords), k)),
+                self._externalize(self._device_topk(resolved, k,
+                                                    eligible=eligible)),
                 time.perf_counter() - t0, tier)
         else:
             raise ValueError(tier)
         return QueryResult(list(keywords), self._externalize(pq.items),
                            time.perf_counter() - t0, tier)
 
+    def _resolve_namespace(self, queries: Sequence[Sequence[int]],
+                           flt: Filter | None) -> list[list[int]]:
+        """Per-tenant dictionary resolution, run before planning: a
+        tenant-scoped query on a namespaced corpus speaks *tenant-local*
+        keyword ids, mapped into the tenant's global dictionary slots here
+        (out-of-range local ids raise — the tenant cannot name, let alone
+        reach, another tenant's keywords)."""
+        if flt is None or flt.tenant is None or self.dataset.tenants is None:
+            return [list(q) for q in queries]
+        ns = self.dataset.tenants
+        return [ns.resolve(flt.tenant, q) for q in queries]
+
+    def _eligible(self, flt: Filter | None) -> np.ndarray | None:
+        """The batch's (N,) point-eligibility mask, evaluated once and ANDed
+        with the tombstones (eligibility implies liveness); None unfiltered."""
+        if flt is None:
+            return None
+        eligible = flt.evaluate(self.dataset)
+        if self._view is not None:
+            self._view.mask_tombstones(eligible)
+        return eligible
+
     def _device_topk(self, keywords: list[int], k: int,
-                     stats: PipelineStats | None = None) -> list[Candidate]:
+                     stats: PipelineStats | None = None,
+                     eligible: np.ndarray | None = None) -> list[Candidate]:
         """One anchor-star dispatch, the device tier's unit of work. The
         anchors are the points of ``keywords[0]`` as given. Only the (q, R)
         ids and mask cross to the device, where the groups are gathered from
         the resident corpus; diameters and ids come back in one readback.
-        Candidates are the anchor stars of finite diameter, ascending."""
+        Candidates are the anchor stars of finite diameter, ascending.
+        ``eligible`` (a filtered query's point mask) restricts the packed
+        groups; a group the filter empties means no feasible candidate, so
+        the dispatch is skipped."""
+        if eligible is not None and any(
+                not eligible[self.dataset.points_with(v)].any()
+                for v in keywords):
+            return []
         t0 = time.perf_counter()
         dev = self.device
-        pg = pack_group_ids(self.dataset, keywords)
+        pg = pack_group_ids(self.dataset, keywords, eligible=eligible)
         mask = torch.from_numpy(pg.mask).to(dev)
         ids = torch.from_numpy(pg.ids).to(dev)
         groups = gather_groups(self.backend._points_dev, mask, ids)
@@ -615,14 +692,19 @@ class NKSEngine:
     def _run_tasks(self, tasks: list[plan.SubsetTask],
                    queries: list[list[int]], pqs: list[TopK],
                    backend: DistanceBackend, stats: PipelineStats,
-                   ctx: plan.BatchPlanContext, timers: dict
+                   ctx: plan.BatchPlanContext, timers: dict,
+                   eligible: np.ndarray | None = None
                    ) -> tuple[int, int, int]:
         """Distance stage + enumeration stage for one batch of subset tasks.
+        ``eligible`` is the batch's predicate mask: keyword groups restrict
+        to eligible rows (a task whose filtered groups lose a keyword is
+        dropped before any pack), and the backend scopes its joins to it.
         Returns (tasks_searched, dispatches_issued, join_pairs)."""
         t0 = time.perf_counter()
         prepared = []
         for t in tasks:
-            gl = local_groups(t.f_ids, queries[t.qidx], self.dataset, ctx=ctx)
+            gl = local_groups(t.f_ids, queries[t.qidx], self.dataset,
+                              eligible=eligible, ctx=ctx)
             if gl is not None:
                 prepared.append((t, gl))
         stats.t_plan_s += time.perf_counter() - t0
@@ -634,7 +716,7 @@ class NKSEngine:
             [t.f_ids for t, _ in prepared],
             [pqs[t.qidx].kth_diameter() for t, _ in prepared],
             keys=[t.f_ids.tobytes() for t, _ in prepared],
-            generation=self._corpus_token)
+            generation=self._corpus_token, eligible=eligible)
         t1 = time.perf_counter()
         join_pairs = 0
         for (t, gl), db in zip(prepared, blocks):
@@ -646,7 +728,7 @@ class NKSEngine:
         return len(prepared), backend.stats.dispatches - d0, join_pairs
 
     def _batch_search(self, queries: list[list[int]], k: int, tier: str,
-                      backend: DistanceBackend
+                      backend: DistanceBackend, flt: Filter | None = None
                       ) -> tuple[list[TopK], PipelineStats]:
         exact = tier == "exact"
         index = self.index_e if exact else self.index_a
@@ -668,6 +750,15 @@ class NKSEngine:
             delta = self._deltas["e" if exact else "a"]
             for bs in bitsets:
                 self._view.mask_tombstones(bs)
+        # Filtered batch: the predicate/tenant mask, evaluated once here;
+        # plan pruning, group restriction and the device join all consume
+        # this same array.
+        eligible = self._eligible(flt)
+        if eligible is not None:
+            stats.eligible_points = int(eligible.sum())
+            live = self.dataset.n - self.tombstone_count
+            stats.filter_selectivity = round(
+                stats.eligible_points / live, 6) if live else 0.0
         stats.t_plan_s += time.perf_counter() - t0
         explored = {i: set() for i in range(len(queries))} if exact else None
         active = list(range(len(queries)))
@@ -680,13 +771,16 @@ class NKSEngine:
             pstats = plan.PlanStats()
             t0 = time.perf_counter()
             tasks = plan.plan_scale(index, s, queries, bitsets, active,
-                                    explored, pstats, ctx=pctx, delta=delta)
+                                    explored, pstats, ctx=pctx, delta=delta,
+                                    eligible=eligible)
             stats.t_plan_s += time.perf_counter() - t0
             sstats.buckets_selected = pstats.buckets_selected
             sstats.duplicate_subsets = pstats.duplicate_subsets
+            sstats.filtered_subsets = pstats.filtered_subsets
+            stats.filtered_subsets += pstats.filtered_subsets
             sstats.tasks_planned = len(tasks)
             searched, dispatches, pairs = self._run_tasks(
-                tasks, queries, pqs, backend, stats, pctx, timers)
+                tasks, queries, pqs, backend, stats, pctx, timers, eligible)
             sstats.tasks_searched = searched
             sstats.dispatches = dispatches
             sstats.join_pairs = pairs
@@ -705,9 +799,9 @@ class NKSEngine:
 
         if active:
             stats.fallback_queries = len(active)
-            tasks = plan.fallback_tasks(bitsets, active)
+            tasks = plan.fallback_tasks(bitsets, active, eligible)
             _, stats.fallback_dispatches, _ = self._run_tasks(
-                tasks, queries, pqs, backend, stats, pctx, timers)
+                tasks, queries, pqs, backend, stats, pctx, timers, eligible)
         stats.t_rescore_s = timers["rescore_s"]
         for f in _DELTA_FIELDS:
             setattr(stats, f, getattr(backend.stats, f) - getattr(b0, f))
@@ -720,8 +814,8 @@ class NKSEngine:
 
     def query_batch(self, queries: Sequence[Sequence[int]], k: int = 1,
                     tier: str = "approx",
-                    backend: str | DistanceBackend = "torch"
-                    ) -> list[QueryResult]:
+                    backend: str | DistanceBackend = "torch",
+                    filter=None, semantics=None) -> list[QueryResult]:
         """Answer a batch of queries through the staged pipeline.
 
         Bucket selection, Algorithm-2 dedup and device dispatch are amortised
@@ -732,15 +826,30 @@ class NKSEngine:
         is used as given. The ``device`` tier issues one anchor-star
         dispatch per query on the engine's device (``backend`` is not used).
         Per-result latency is the batch wall time divided by the batch size.
-        Pipeline accounting lands in ``self.last_batch_stats``."""
+        Pipeline accounting lands in ``self.last_batch_stats``.
+
+        ``filter`` (a :class:`~repro_torch.core.filters.Filter` or its JSON
+        form) applies attribute predicates and tenant scoping to the whole
+        batch: the mask is evaluated once, planning prunes fully-ineligible
+        subsets, the device join is scoped to eligible points (no new D2H),
+        and every candidate is drawn from eligible points only. On a
+        namespaced multi-tenant corpus a tenant-scoped batch speaks
+        tenant-local keyword ids; results echo them. ``semantics`` (flexible
+        m-of-k semantics) is not ported."""
+        _refuse_semantics(semantics)
+        flt = Filter.coerce(filter)
         if tier == "device":
             t0 = time.perf_counter()
             self._validate_queries(queries)
             stats = PipelineStats(batch_size=len(queries), tier=tier,
                                   backend="anchor", shard_dispatches=[0])
+            resolved = self._resolve_namespace(queries, flt)
+            eligible = self._eligible(flt)
+            if eligible is not None:
+                stats.eligible_points = int(eligible.sum())
             out = [QueryResult(list(q), self._externalize(
-                       self._device_topk(list(q), k, stats)), 0.0, tier)
-                   for q in queries]
+                       self._device_topk(rq, k, stats, eligible)), 0.0, tier)
+                   for q, rq in zip(queries, resolved)]
             per_q = (time.perf_counter() - t0) / max(len(queries), 1)
             self._record_ingest(stats)
             self.last_batch_stats = stats
@@ -748,13 +857,14 @@ class NKSEngine:
         if tier not in ("exact", "approx"):
             raise ValueError(tier)
         t0 = time.perf_counter()
-        qlists = self._validate_queries(queries)
+        qlists = self._validate_queries(self._resolve_namespace(queries, flt))
         pqs, stats = self._batch_search(qlists, k, tier,
-                                        self._resolve_backend(backend))
+                                        self._resolve_backend(backend), flt)
         self._record_ingest(stats)
         self.last_batch_stats = stats
         per_q = (time.perf_counter() - t0) / max(len(qlists), 1)
-        # results echo the caller's keyword lists verbatim
+        # results echo the caller's keyword lists verbatim (tenant-local on
+        # a namespaced corpus)
         return [QueryResult(list(q), self._externalize(pq.items), per_q, tier)
                 for q, pq in zip(queries, pqs)]
 
@@ -770,3 +880,10 @@ class NKSEngine:
         if backend == "numpy":
             return NumpyBackend()
         raise ValueError(f"unknown distance backend: {backend!r}")
+
+
+def _refuse_semantics(semantics) -> None:
+    if semantics is not None:
+        raise NotImplementedError(
+            "flexible query semantics (m-of-k coverage, keyword weights, "
+            "scored ranking) are not ported")

@@ -371,3 +371,134 @@ def test_streaming_on_card_matches_cpu():
     assert card.compact() and cpu.compact()
     _assert_index_equal(card.index_e, cpu.index_e)
     _assert_index_equal(card.index_a, cpu.index_a)
+
+
+# (S, P, d, bm, bn): tiles that divide a 32-column word, straddle one, and
+# the reference's own grids.
+K4_CASES = [(3, 10, 8, 16, 16), (5, 37, 9, 16, 16), (2, 200, 12, 128, 128),
+            (9, 7, 33, 128, 128), (4, 130, 64, 8, 8), (3, 300, 16, 5, 48),
+            (8, 700, 64, 128, 128), (2, 97, 3, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,p,d,bm,bn", K4_CASES)
+def test_join_batched_tiles_matches_plain_version_on_card(s, p, d, bm, bn):
+    """K4 against ``ref.join_batched_dense``: sq within the fp32 band (fp32
+    max at the same cells), per-tile counts equal except by the band cells
+    inside each tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(s * p + bm)
+    x = rng.uniform(0, 100, (s, p, d)).astype(np.float32)
+    lens = rng.integers(0, p + 1, size=s).astype(np.int32)
+    lens[0], lens[-1] = p, 0
+    radii = rng.uniform(0, 150, size=s).astype(np.float32)
+    radii[min(1, s - 1)] = np.inf
+    args = [torch.from_numpy(a).to(dev) for a in (x, lens, radii)]
+    before = pairwise_l2.launches["join_batched_tiles"]
+    sq_k, c_k = pairwise_l2.join_batched_tiles(*args, bm=bm, bn=bn)
+    sq_p, c_p = ref.join_batched_dense(*args, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert pairwise_l2.launches["join_batched_tiles"] == before + 1
+    assert sq_k.shape == sq_p.shape and c_k.shape == c_p.shape
+    fmax = np.finfo(np.float32).max
+    sq_k, sq_p = sq_k.cpu().numpy(), sq_p.cpu().numpy()
+    np.testing.assert_array_equal(sq_k == fmax, sq_p == fmax)
+    gm, gn = -(-p // bm), -(-p // bn)
+    for si, band in enumerate(_band(x, lens, radii, np.ones((s, p), bool))):
+        n = int(lens[si])
+        norm2 = (x[si, :n].astype(np.float64) ** 2).sum(-1).max() if n else 0
+        tol = (64 + 4 * d) * _EPS32 * norm2
+        assert float(np.abs(sq_k[si, :n, :n] - sq_p[si, :n, :n]).max(
+            initial=0.0)) <= tol
+        pad = np.zeros((gm * bm, gn * bn), np.int64)
+        pad[:p, :p] = band
+        band_cells = pad.reshape(gm, bm, gn, bn).sum(axis=(1, 3))
+        diff = np.abs(c_k[si].cpu().numpy().astype(np.int64)
+                      - c_p[si].cpu().numpy())
+        assert (diff <= band_cells).all(), f"subset {si}"
+        if not np.isfinite(radii[si]):
+            assert int(c_k[si].sum()) == n * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,p,d", CASES)
+def test_prune_with_eligibility_matches_plain_version_on_card(s, p, d):
+    """K2 with and without eligibility words against its plain version, and
+    the coarse counts never below K1's eligible counts at the fp32 radius."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(s + 3 * p + d)
+    x = rng.uniform(0, 100, (s, p, d)).astype(np.float32)
+    lens = rng.integers(0, p + 1, size=s).astype(np.int32)
+    lens[0] = p
+    radii = rng.uniform(0, 150, size=s).astype(np.float32)
+    el = rng.random((s, p)) < 0.3
+    norms = np.sqrt((x.astype(np.float64) ** 2).sum(-1)).max()
+    rc = ((radii + 2 * 2.0 ** -8 * norms) * 1.05).astype(np.float32)
+    elig = torch.from_numpy(pack_join_mask(el).view(np.int32)).to(dev)
+    args = [torch.from_numpy(a).to(dev) for a in (x, lens, rc)]
+    for words, live in ((None, np.ones_like(el)), (elig, el)):
+        k_k = pairwise_l2.join_batched_prune(*args, words).cpu().numpy()
+        k_p = ref.join_batched_counts(*args, words).cpu().numpy()
+        for si, band in enumerate(_band(x, lens, rc, live, bf16=True)):
+            assert abs(int(k_k[si]) - int(k_p[si])) <= int(band.sum())
+        _, c1 = pairwise_l2.join_batched_masked(
+            args[0], args[1], torch.from_numpy(radii).to(dev), words)
+        assert (k_k >= c1.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_filtered_engine_on_card_matches_cpu():
+    """Filtered exact and approx batches on the card (fold mode, eligible-
+    dense packing, the prune tier forced on) against the same backend with
+    ``device="cpu"``: identical answers (both settle in float64), the
+    engine's default backend too; K1 launches with eligibility words and K2
+    with eligibility."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch import NKSEngine, flickr_like_dataset, random_queries
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.filters import where
+    from repro_torch.data.synthetic import attach_attrs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = attach_attrs(flickr_like_dataset(n=6000, d=32, u=150, t=4, seed=4),
+                      seed=1)
+    queries = random_queries(ds, 3, 12, seed=3)
+    card = NKSEngine(ds, device="cuda")
+    cpu = NKSEngine(ds, device="cpu")
+    seen = []
+    masked = pairwise_l2.join_batched_masked
+    pairwise_l2.join_batched_masked = \
+        lambda x, l, r, elig=None, **kw: seen.append(elig is not None) \
+        or masked(x, l, r, elig, **kw)
+    try:
+        for sel in (0.5, 0.1):
+            flt = where(("price", "<", 100.0 * sel))
+            before = pairwise_l2.launches["join_batched_prune"]
+            for tier in ("exact", "approx"):
+                got = card.query_batch(
+                    queries, k=2, tier=tier, filter=flt,
+                    backend=TorchBackend(route="device", prune_tier="on"))
+                if tier == "exact":     # approx at k=2 may dispatch nothing
+                    assert pairwise_l2.launches["join_batched_prune"] > before
+                want = cpu.query_batch(
+                    queries, k=2, tier=tier, filter=flt,
+                    backend=TorchBackend(device="cpu", route="device",
+                                         prune_tier="on"))
+                assert [[(c.ids, c.diameter) for c in r.candidates]
+                        for r in got] == \
+                    [[(c.ids, c.diameter) for c in r.candidates]
+                     for r in want]
+                default = card.query_batch(queries, k=2, tier=tier,
+                                           filter=flt)
+                assert [[(c.ids, c.diameter) for c in r.candidates]
+                        for r in default] == \
+                    [[(c.ids, c.diameter) for c in r.candidates]
+                     for r in got]
+    finally:
+        pairwise_l2.join_batched_masked = masked
+    assert True in seen, "no masked join took eligibility words"

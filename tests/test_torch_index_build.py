@@ -20,9 +20,11 @@ import jax.numpy as jnp
 from repro.core.index import build_index as ref_build_index
 from repro.core.types import make_dataset as ref_make_dataset
 from repro.data.flickr_like import flickr_like_dataset as ref_flickr
+from repro.data.synthetic import random_queries as ref_queries
 from repro.data.synthetic import synthetic_dataset as ref_synth
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
+from repro.serve.engine import NKSEngine as RefEngine
 from repro_torch import NKSEngine
 from repro_torch.core import index_build as ib
 from repro_torch.core import projection as proj
@@ -108,7 +110,7 @@ def test_int64_hash_matches_uint64(m):
     keys[:50] = rng.integers(-40, 40, (50, m))
     keys[50] = np.iinfo(np.int64).min
     keys[51] = np.iinfo(np.int64).max
-    for nb in (1, 64, 1 << 20, 1 << 40):
+    for nb in (1, 64, 100, 12_289, 1 << 20, (1 << 31) - 1, 1 << 40):
         np.testing.assert_array_equal(
             sig.hash_signatures_torch(torch.from_numpy(keys), nb).numpy(),
             sig.hash_signatures(keys, nb))
@@ -119,8 +121,20 @@ def test_int64_hash_matches_uint64(m):
         sig.bucket_ids_overlapping_torch(torch.from_numpy(h1),
                                          torch.from_numpy(h2), 4096).numpy(),
         sig.bucket_ids_overlapping(keys2, 4096))
-    with pytest.raises(ValueError):
-        sig.hash_signatures_torch(torch.from_numpy(keys), 100)
+    with pytest.raises(ValueError, match="2\\^31"):
+        sig.hash_signatures_torch(torch.from_numpy(keys), (1 << 31) + 1)
+
+
+@pytest.mark.parametrize("nb", [3, 1000, 12_289, 65_521, 999_983,
+                                (1 << 31) - 1])
+def test_int64_hash_any_modulus_matches_uint64(nb):
+    """Moduli that are not powers of two, on 10^5 random signatures."""
+    rng = np.random.default_rng(nb)
+    keys = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                        (100_000, 2), dtype=np.int64)
+    np.testing.assert_array_equal(
+        sig.hash_signatures_torch(torch.from_numpy(keys), nb).numpy(),
+        sig.hash_signatures(keys, nb))
 
 
 @pytest.mark.parametrize("dedup", [True, False])
@@ -171,16 +185,35 @@ def test_card_build_route_matches_reference(corpus, m):
         assert_index_equal(build_index(tds, m=m, exact=exact), want)
 
 
-def test_card_build_route_pinned_geometry():
-    """w0 and n_buckets pinned (the streaming engine's compaction build)."""
+@pytest.mark.parametrize("n_buckets", [1 << 12, 1000, 12_289])
+def test_card_build_route_pinned_geometry(n_buckets):
+    """w0 and n_buckets pinned (the streaming engine's compaction build),
+    with table sizes that are and are not powers of two."""
     rds = ref_flickr(n=800, d=64, u=40, t=4, seed=6)
     tds = _port_dataset(rds)
-    pinned = dict(m=2, n_scales=4, seed=3, w0=3.75, n_buckets=1 << 12)
+    pinned = dict(m=2, n_scales=4, seed=3, w0=3.75, n_buckets=n_buckets)
     got = ib.build_indices(tds, torch.from_numpy(tds.points), **pinned)
     for index, exact in zip(got, (True, False)):
         assert_index_equal(index, ref_build_index(rds, exact=exact, **pinned))
-    with pytest.raises(ValueError):
-        ib.build_indices(tds, torch.from_numpy(tds.points), n_buckets=1000)
+
+
+def test_engine_with_table_size_not_a_power_of_two_matches_reference():
+    """``NKSEngine(ds, n_buckets=1000)`` builds and serves as the
+    reference's engine does with the same table size."""
+    rds = ref_synth(n=600, d=8, u=20, t=2, seed=4)
+    tds = _port_dataset(rds)
+    ref_engine = RefEngine(rds, n_buckets=1000)
+    engine = NKSEngine(tds, n_buckets=1000, device="cpu")
+    for got, want in ((engine.index_e, ref_engine.index_e),
+                      (engine.index_a, ref_engine.index_a)):
+        assert_index_equal(got, want)
+    queries = ref_queries(rds, 2, 6, seed=1)
+    for tier in ("exact", "approx"):
+        got = engine.query_batch(queries, k=2, tier=tier, backend="numpy")
+        want = ref_engine.query_batch(queries, k=2, tier=tier,
+                                      backend="numpy")
+        assert [[(c.ids, c.diameter) for c in r.candidates] for r in got] \
+            == [[(c.ids, c.diameter) for c in r.candidates] for r in want]
 
 
 def test_engine_builds_through_the_card_route():

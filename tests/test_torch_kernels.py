@@ -240,6 +240,106 @@ def test_join_batched_counts_adversarial_boundary():
         assert got >= exact, f"seed={seed} r={r}: {got} < {exact}"
 
 
+@pytest.mark.parametrize("s,p,d", COUNT_CASES)
+def test_join_batched_counts_eligibility_matches_reference(s, p, d):
+    """K2 with eligibility words: the port's bf16 counts equal the
+    reference's (its dense eligibility row built from the same words) and
+    are never below the float64 eligible-pair join at the base radius — the
+    coarse tier stays a superset of K1's eligible counts."""
+    rng = np.random.default_rng(s * 7 + p + d)
+    x = rng.uniform(-20, 20, (s, p, d)).astype(np.float32)
+    lens = rng.integers(1, p + 1, size=s).astype(np.int32)
+    lens[-1] = 0
+    radii = rng.uniform(1.0, 25.0, size=s).astype(np.float32)
+    el = rng.random((s, p)) < 0.4
+    elig = ref_pack_join_mask(el.reshape(-1, p)).reshape(s, -1)
+    rc = _coarse_radii(x, radii)
+    want = np.asarray(jops.pairwise_l2_join_batched_counts(
+        jnp.asarray(x), lens, rc, jnp.asarray(elig), dtype="bf16",
+        impl="xla"))
+    got = ops.pairwise_l2_join_batched_counts(
+        _t(x), _t(lens), _t(rc), _t(elig.view(np.int32))).numpy()
+    np.testing.assert_array_equal(got, want)
+    _, c_fp32 = ops.pairwise_l2_join_batched_masked(
+        _t(x), _t(lens), _t(radii), _t(elig.view(np.int32)))
+    for si, (exact, _) in enumerate(_band(x, lens, radii, el)):
+        assert got[si] >= int(exact.sum()), f"subset {si}"
+        assert got[si] >= int(c_fp32[si]), f"subset {si}"
+    unfiltered = ops.pairwise_l2_join_batched_counts(
+        _t(x), _t(lens), _t(rc)).numpy()
+    assert (got <= unfiltered).all()
+
+
+# ------------------------------------------------ dense self-join tiles (K4)
+@pytest.mark.parametrize("s,p,d,bm", [(3, 10, 8, 16), (5, 37, 9, 16),
+                                      (2, 200, 12, 128), (9, 7, 33, 128)])
+def test_join_batched_dense_matches_pallas_interpret(s, p, d, bm):
+    """K4's plain version against the reference's Pallas program (interpret
+    mode) on the reference's own cases: sq to rtol 1e-4 / atol 0.5 (fp32
+    sums in another order), the caller's tile grid, and per-subset join
+    sizes equal."""
+    rng = np.random.default_rng(s * 100 + p)
+    x = rng.uniform(0, 100, (s, p, d)).astype(np.float32)
+    lens = rng.integers(1, p + 1, size=s).astype(np.int32)
+    radii = rng.uniform(0, 150, size=s).astype(np.float32)
+    radii[0] = np.inf
+    sq_j, cnt_j = jops.pairwise_l2_join_batched(
+        jnp.asarray(x), jnp.asarray(lens), jnp.asarray(radii), bm=bm, bn=bm,
+        interpret=True)
+    sq_t, cnt_t = ops.pairwise_l2_join_batched(_t(x), _t(lens), _t(radii),
+                                               bm=bm, bn=bm)
+    assert sq_t.dtype == torch.float32 and tuple(sq_t.shape) == (s, p, p)
+    assert cnt_t.dtype == torch.int32
+    assert tuple(cnt_t.shape) == np.asarray(cnt_j).shape
+    np.testing.assert_allclose(sq_t.numpy(), np.asarray(sq_j), rtol=1e-4,
+                               atol=0.5)
+    np.testing.assert_array_equal(cnt_t.numpy().sum(axis=(1, 2)),
+                                  np.asarray(cnt_j).sum(axis=(1, 2)))
+    assert int(cnt_t[0].sum()) == int(lens[0]) ** 2      # r = inf
+
+
+def test_join_batched_dense_masks_padding():
+    """The reference's padding case: rows/cols past each subset's length
+    are fmax and never counted; a scalar radius serves every subset."""
+    x = np.ones((2, 8, 4), np.float32)
+    lens = np.array([3, 0], np.int32)
+    sq, cnt = ops.pairwise_l2_join_batched(_t(x), _t(lens), 1.0, bm=8, bn=8)
+    sq_j, cnt_j = jops.pairwise_l2_join_batched(
+        jnp.asarray(x), jnp.asarray(lens), 1.0, bm=8, bn=8, interpret=True)
+    sq = sq.numpy()
+    fmax = np.finfo(np.float32).max
+    assert np.all(sq[0, :3, :3] == 0.0)
+    assert np.all(sq[0, 3:, :] == fmax) and np.all(sq[0, :, 3:] == fmax)
+    assert np.all(sq[1] == fmax)
+    np.testing.assert_array_equal(sq, np.asarray(sq_j))
+    assert cnt.sum(dim=(1, 2)).tolist() == [9, 0]
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j))
+
+
+@pytest.mark.parametrize("bm,bn", [(8, 8), (16, 48), (5, 3), (128, 128)])
+def test_join_batched_dense_tile_counts(bm, bn):
+    """Per-tile counts are the joined cells of each bm x bn tile of the
+    plain version's own sq block, for tiles that do and do not divide a
+    32-column mask word."""
+    rng = np.random.default_rng(bm * 31 + bn)
+    s, p, d = 3, 70, 6
+    x = rng.uniform(0, 20, (s, p, d)).astype(np.float32)
+    lens = np.array([70, 41, 1], np.int32)
+    radii = np.array([15.0, np.inf, 3.0], np.float32)
+    sq, cnt = ops.pairwise_l2_join_batched(_t(x), _t(lens), _t(radii),
+                                           bm=bm, bn=bn)
+    sq = sq.numpy()
+    fmax = np.finfo(np.float32).max
+    gm, gn = -(-p // bm), -(-p // bn)
+    assert tuple(cnt.shape) == (s, gm, gn)
+    for si in range(s):
+        joined = (sq[si] <= np.float32(radii[si]) ** 2) & (sq[si] != fmax)
+        pad = np.zeros((gm * bm, gn * bn), bool)
+        pad[:p, :p] = joined
+        want = pad.reshape(gm, bm, gn, bn).sum(axis=(1, 3))
+        np.testing.assert_array_equal(cnt[si].numpy(), want)
+
+
 # ---------------------------------------------------------- single join (K3)
 @pytest.mark.parametrize("m,n,d", [(8, 8, 4), (130, 70, 33), (257, 129, 64),
                                    (64, 300, 8)])
@@ -277,5 +377,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pairwise_l2.join_batched_prune(x, lens, r)
     with pytest.raises(ValueError, match="CUDA"):
         pairwise_l2.pairwise_join(x[0], x[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_l2.join_batched_tiles(x, lens, r)
     assert all(v == 0 for v in pairwise_l2.launches.values())
 

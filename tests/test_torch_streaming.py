@@ -315,9 +315,13 @@ def test_ingest_validation(base, pinned):
     with pytest.raises(KeyError):
         eng.delete([6, 6])
     assert eng.tombstone_count == 1 and eng.delete([]) == 0
-    with pytest.raises(NotImplementedError):
-        eng._view.absorb(np.zeros((1, 6), np.float32), [[1]],
-                         attrs={"a": np.zeros(1)})
+    # a corpus built without attribute or tenant columns rejects both
+    with pytest.raises(ValueError, match="schema"):
+        eng.insert(np.zeros((1, 6), np.float32), [[1]],
+                   attrs={"a": np.zeros(1)})
+    with pytest.raises(ValueError, match="tenant"):
+        eng.insert(np.zeros((1, 6), np.float32), [[1]], tenant=0)
+    assert eng.delta_points == 0
 
 
 def test_delete_everything_does_not_autocompact(base, pinned):
