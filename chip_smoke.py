@@ -60,19 +60,26 @@ Phases:
   3c. [filter] On the same engine, the 64 queries at k=1 under four
      filters — price < 50 (fold mode: eligibility words into K1, and K2 on
      the prune tier), price < 10 and price < 1 (below the 0.25 threshold:
-     eligible-dense packing), category == 3 with price in [20, 70] — each
-     through the exact tier (default backend, and forced onto the device
-     with the prune tier armed), the approx tier and the device tier, every
-     batch a path of its own. Answers equal the numpy backend's under the
-     same filter (ids, diameters to 1e-9, the narrow tie acceptance of the
-     stream phase), hold only eligible points, exist iff every keyword has
-     an eligible point, the forced run equals the default bit for bit, and
-     the device tier's pass the checks of 3b (a) against the filtered exact
-     optimum (bands of the eligible groups). A filter keeping nothing gives
-     empty answers. K1 must take eligibility words and K2 too in the forced
-     run (counted per call). No new D2H: the phase's largest backend call,
-     unfiltered and then under price < 50 on one fold-mode backend, reads
-     back the same bytes and ships only radii and eligibility words.
+     eligible-dense packing), category == 3 with price in [20, 70] — and,
+     per filter, 64 more drawn from the keywords holding 4 to 16 eligible
+     points (every one answerable), each set through the exact tier
+     (default backend, and forced onto the device with the prune tier
+     armed), the approx tier and the device tier, every batch a path of its
+     own. The forced run over the second set must dispatch in the
+     filter's packing mode (counted per dispatch by the backend). Answers
+     equal the numpy backend's under the same filter (ids, diameters to
+     1e-9, the narrow tie acceptance of the stream phase), hold only
+     eligible points, exist iff every keyword has an eligible point, the
+     forced run equals the default bit for bit, and the device tier's pass
+     the checks of 3b (a) against the filtered exact optimum (bands of the
+     eligible groups). A filter keeping nothing gives
+     empty answers. K1 must launch with eligibility words and K2 too in
+     the forced run (counted per launch by the wrappers); K1 and K2 are
+     held to their plain versions at the forced price < 50 run's largest
+     input, eligibility words included. No new D2H: the phase's largest
+     backend call whose tiles the cache holds, unfiltered and then under
+     price < 50 on one fold-mode backend, reads back the same bytes and
+     ships only radii and eligibility words.
 
   3d. [stream] On the same engine: insert 10,000 flickr-like points
      (another seed) with attribute columns in 8 batches (K5: exactly 5
@@ -453,13 +460,15 @@ def self_sq64(x):
 
 
 def band_check_batched(x, lengths, r, got_counts, want_counts,
-                       got_mask=None, want_mask=None, bf16=False):
+                       got_mask=None, want_mask=None, bf16=False, elig=None):
     """Masks equal off the fp32 boundary band; counts within the band size.
+    With eligibility words ``elig`` the band holds eligible pairs only.
     Returns (max |count diff|, differing mask bits)."""
     import torch
     from repro_torch.kernels import ref
     s, p, d = x.shape
     xx = x.to(torch.bfloat16).float() if bf16 else x
+    el = None if elig is None else ref.unpack_bits(elig, p)     # (S, P)
     diff_counts = (got_counts.long() - want_counts.long()).abs()
     bits = 0
     step = max(1, (1 << 26) // max(p * p, 1))      # bound the float64 block
@@ -474,6 +483,8 @@ def band_check_batched(x, lengths, r, got_counts, want_counts,
         r2 = r[sl].double() ** 2
         band = sq_live & ((d2 - r2[:, None, None]).abs()
                           <= tol[:, None, None])
+        if el is not None:
+            band &= el[sl][:, :, None] & el[sl][:, None, :]
         band_n = band.sum(dim=(1, 2))
         check(bool((diff_counts[sl] <= band_n).all()),
               "counts differ beyond the boundary band")
@@ -505,56 +516,84 @@ def launch_path(name: str, by_path: dict) -> str:
     raise SmokeError(f"kernel {name} launched on no path")
 
 
+def row_launches(name: str, by_path: dict) -> dict:
+    path = launch_path(name, by_path)
+    return dict(launches=by_path[path][name], path=path,
+                launches_by_path={p: c[name] for p, c in by_path.items()})
+
+
+def masked_row(rec, by_path: dict, elig: bool = False) -> dict:
+    """K1 at the recorded input (with its eligibility words when ``elig``)
+    against its plain version: masks equal off the fp32 band, counts within
+    it."""
+    import torch
+    from repro_torch.kernels import pairwise_l2 as K
+    from repro_torch.kernels import ref
+    x, lengths, r = rec.best[:3]
+    words = rec.best[3] if elig else None
+    check(not elig or words is not None,
+          "the recorded K1 input carries no eligibility words")
+    s, p, d = x.shape
+    m_k, c_k = K.join_batched_masked(x, lengths, r, words)
+    m_p, c_p = ref.join_batched_masked(x, lengths, r, words)
+    torch.cuda.synchronize()
+    err, bits = band_check_batched(x, lengths, r, c_k, c_p, m_k, m_p,
+                                   elig=words)
+    flops, in_bytes = self_join_work(x, lengths)
+    extra = words.numel() * 4 if elig else 0
+    b_ms, b_by = bound(flops, in_bytes + extra + m_k.numel() * 4 + s * 4,
+                       PEAK_FP32_FLOPS)
+    name = "join_batched_masked"
+    return dict(
+        name=name + (" (elig)" if elig else ""), route="cuda",
+        source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        replaces="src/repro/kernels/pairwise_l2.py:368",
+        **row_launches(name + ("_elig" if elig else ""), by_path),
+        max_abs_err=err, mask_bits_in_band=bits, shape=[s, p, d],
+        ms=cuda_ms(lambda: K.join_batched_masked(x, lengths, r, words), 20),
+        plain_ms=cuda_ms(lambda: ref.join_batched_masked(x, lengths, r,
+                                                         words), 3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def prune_row(rec, by_path: dict, elig: bool = False) -> dict:
+    """K2 at the recorded input (with its eligibility words when ``elig``)
+    against its plain version: counts within the bf16 tile's band."""
+    import torch
+    from repro_torch.kernels import pairwise_l2 as K
+    from repro_torch.kernels import ref
+    x, lengths, r = rec.best[:3]
+    words = rec.best[3] if elig else None
+    check(not elig or words is not None,
+          "the recorded K2 input carries no eligibility words")
+    s, p, d = x.shape
+    k_k = K.join_batched_prune(x, lengths, r, words)
+    k_p = ref.join_batched_counts(x, lengths, r, words)
+    torch.cuda.synchronize()
+    err, _ = band_check_batched(x, lengths, r, k_k, k_p, bf16=True,
+                                elig=words)
+    # bf16 x bf16 products accumulated in fp32: the tensor cores' contract
+    flops, in_bytes = self_join_work(x, lengths)
+    extra = words.numel() * 4 if elig else 0
+    b_ms, b_by = bound(flops, in_bytes + extra + s * 4, PEAK_BF16_FLOPS)
+    name = "join_batched_prune"
+    return dict(
+        name=name + (" (elig)" if elig else ""), route="cuda",
+        source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        replaces="src/repro/kernels/pairwise_l2.py:262",
+        **row_launches(name + ("_elig" if elig else ""), by_path),
+        max_abs_err=err, shape=[s, p, d],
+        ms=cuda_ms(lambda: K.join_batched_prune(x, lengths, r, words), 20),
+        plain_ms=cuda_ms(lambda: ref.join_batched_counts(x, lengths, r,
+                                                         words), 3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def kernel_rows(rec_mask, rec_prune, rec_pair, by_path) -> list[dict]:
     import torch
     from repro_torch.kernels import pairwise_l2 as K
     from repro_torch.kernels import ref
-    rows = []
-
-    def launches(name):
-        path = launch_path(name, by_path)
-        return dict(launches=by_path[path][name], path=path,
-                    launches_by_path={p: c[name] for p, c in by_path.items()})
-
-    x, lengths, r = rec_mask.best[:3]
-    s, p, d = x.shape
-    m_k, c_k = K.join_batched_masked(x, lengths, r)
-    m_p, c_p = ref.join_batched_masked(x, lengths, r)
-    torch.cuda.synchronize()
-    err, bits = band_check_batched(x, lengths, r, c_k, c_p, m_k, m_p)
-    flops, in_bytes = self_join_work(x, lengths)
-    b_ms, b_by = bound(flops, in_bytes + m_k.numel() * 4 + s * 4,
-                       PEAK_FP32_FLOPS)
-    rows.append(dict(
-        name="join_batched_masked", route="cuda",
-        source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
-        replaces="src/repro/kernels/pairwise_l2.py:368",
-        **launches("join_batched_masked"), max_abs_err=err,
-        mask_bits_in_band=bits, shape=[s, p, d],
-        ms=cuda_ms(lambda: K.join_batched_masked(x, lengths, r), 20),
-        plain_ms=cuda_ms(lambda: ref.join_batched_masked(x, lengths, r), 3,
-                         warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-
-    x, lengths, r = rec_prune.best[:3]
-    s, p, d = x.shape
-    k_k = K.join_batched_prune(x, lengths, r)
-    k_p = ref.join_batched_counts(x, lengths, r)
-    torch.cuda.synchronize()
-    err, _ = band_check_batched(x, lengths, r, k_k, k_p, bf16=True)
-    # bf16 x bf16 products accumulated in fp32: the tensor cores' contract
-    flops, in_bytes = self_join_work(x, lengths)
-    b_ms, b_by = bound(flops, in_bytes + s * 4, PEAK_BF16_FLOPS)
-    rows.append(dict(
-        name="join_batched_prune", route="cuda",
-        source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
-        replaces="src/repro/kernels/pairwise_l2.py:262",
-        **launches("join_batched_prune"), max_abs_err=err,
-        shape=[s, p, d],
-        ms=cuda_ms(lambda: K.join_batched_prune(x, lengths, r), 20),
-        plain_ms=cuda_ms(lambda: ref.join_batched_counts(x, lengths, r), 3,
-                         warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    rows = [masked_row(rec_mask, by_path), prune_row(rec_prune, by_path)]
 
     a, b = rec_pair.best[:2]
     (m, d), n = a.shape, b.shape[0]
@@ -575,7 +614,8 @@ def kernel_rows(rec_mask, rec_prune, rec_pair, by_path) -> list[dict]:
         name="pairwise_join", route="cuda",
         source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
         replaces="src/repro/kernels/pairwise_l2.py:111",
-        **launches("pairwise_join"), max_abs_err=err, shape=[m, n, d],
+        **row_launches("pairwise_join", by_path), max_abs_err=err,
+        shape=[m, n, d],
         ms=cuda_ms(lambda: K.pairwise_join(a, b), 20),
         plain_ms=cuda_ms(lambda: ref.pairwise_join(a, b), 5),
         bound_ms=b_ms, bound_by=b_by,
@@ -1095,59 +1135,27 @@ def stream(args, report: dict, served, by_path: dict) -> None:
           f"({st['host_build_s']:.1f}s)", flush=True)
 
 
-class EligTally:
-    """Wraps the two ``kernels.ops`` join entry points the backend calls and
-    counts, per entry point, the calls given eligibility words and those
-    not (the launch counters cannot tell them apart)."""
-
-    NAMES = {"pairwise_l2_join_batched_masked": "K1",
-             "pairwise_l2_join_batched_counts": "K2"}
-
-    def __init__(self, ops):
-        self.ops = ops
-        self.fns = {name: getattr(ops, name) for name in self.NAMES}
-        self.reset()
-        for name in self.NAMES:
-            setattr(ops, name, self._wrap(name))
-
-    def _wrap(self, name):
-        fn, kernel = self.fns[name], self.NAMES[name]
-
-        def call(x, lengths, r, elig=None, **kw):
-            key = "with_words" if elig is not None else "without"
-            self.counts[kernel][key] += 1
-            return fn(x, lengths, r, elig, **kw)
-        return call
-
-    def reset(self) -> None:
-        self.counts = {k: {"with_words": 0, "without": 0}
-                       for k in self.NAMES.values()}
-
-    def read(self) -> dict:
-        return {k: dict(v) for k, v in self.counts.items()}
-
-    def restore(self) -> None:
-        for name, fn in self.fns.items():
-            setattr(self.ops, name, fn)
-
-
-class LargestCall:
+class LargestCalls:
     """Wraps a backend's ``self_join_blocks`` and keeps the arguments of the
-    call with the most points in finite-radius subsets (the ones the card
-    joins)."""
+    ``KEEP`` calls with the most points in finite-radius subsets (the ones
+    the card joins), largest first."""
+
+    KEEP = 8
 
     def __init__(self, backend):
         self.backend, self.fn = backend, backend.self_join_blocks
-        self.best, self.best_points = None, 0
+        self.calls: list[tuple[int, list, list]] = []
         backend.self_join_blocks = self
 
     def __call__(self, points, id_lists, radii, **kw):
         import math
         n = sum(len(ids) for ids, r in zip(id_lists, radii)
                 if math.isfinite(r))
-        if n > self.best_points:
-            self.best_points = n
-            self.best = ([ids.copy() for ids in id_lists], list(radii))
+        if n and (len(self.calls) < self.KEEP or n > self.calls[-1][0]):
+            self.calls.append((n, [ids.copy() for ids in id_lists],
+                               list(radii)))
+            self.calls.sort(key=lambda c: -c[0])
+            del self.calls[self.KEEP:]
         return self.fn(points, id_lists, radii, **kw)
 
     def restore(self) -> None:
@@ -1177,99 +1185,147 @@ def check_filtered_answers(ds, queries, results, eligible, label: str
     return answered
 
 
-def filtered(args, report: dict, served, by_path: dict) -> None:
-    """[filter] The 64 queries on the served engine under four filters: the
-    exact tier (default backend, and forced onto the device with the prune
-    tier), the approx tier and the device tier, each a path of its own.
-    Answers equal the numpy backend's under the same filter (ids; float64
-    diameters to 1e-9, the stream phase's narrow tie acceptance), hold only
-    eligible points, and the device tier's pass the covering/band checks
-    against the filtered exact answers; a filter that keeps nothing gives
-    empty answers. K1 must take eligibility words in fold mode, K2 in the
-    forced run; a filtered repeat of an unfiltered dispatch reads back the
-    same bytes."""
+def feasible_queries(ds, eligible, n: int, seed: int, lo: int = 4,
+                     hi: int = 16) -> tuple[list[list[int]], int]:
+    """``n`` three-keyword queries drawn from the keywords that hold ``lo``
+    to ``hi`` eligible points: every one has an answer under the filter,
+    and the eligible work per keyword stays alike across selectivities."""
     import numpy as np
+    off, vals = ds.ikp.offsets, ds.ikp.values
+    c = np.concatenate([[0], np.cumsum(eligible[vals], dtype=np.int64)])
+    per_kw = c[off[1:]] - c[off[:-1]]
+    pool = np.flatnonzero((per_kw >= lo) & (per_kw <= hi))
+    check(len(pool) >= 3, f"only {len(pool)} keywords hold {lo}..{hi} "
+          f"eligible points")
+    rng = np.random.default_rng(seed)
+    return [sorted(rng.choice(pool, size=3, replace=False).tolist())
+            for _ in range(n)], len(pool)
+
+
+def filtered(args, report: dict, served, by_path: dict) -> tuple:
+    """[filter] The 64 queries, and per filter 64 more drawn from keywords
+    with 4 to 16 eligible points (all feasible), on the served engine under
+    four filters: the exact tier (default backend, and forced onto the
+    device with the prune tier), the approx tier and the device tier, each
+    a path of its own. Answers equal the numpy backend's under the same
+    filter (ids; float64 diameters to 1e-9, the stream phase's narrow tie
+    acceptance), hold only eligible points, and the device tier's pass the
+    covering/band checks against the filtered exact answers; a filter that
+    keeps nothing gives empty answers. K1 must launch with eligibility words
+    in fold mode, K2 in the forced run; the forced run over the feasible
+    queries must dispatch in the filter's packing mode (fold for price<50,
+    eligible-dense for the others); a filtered repeat of an unfiltered
+    dispatch reads back the same bytes. Returns the Recorders of K1 and K2
+    from the forced price<50 run (inputs with their eligibility words)."""
     from repro_torch.core.backend import TorchBackend
     from repro_torch.core.filters import where
     from repro_torch.kernels import ops
 
     engine, ds, queries, _, _ = served
-    filters = {
-        "price<50": where(("price", "<", 50.0)),
-        "price<10": where(("price", "<", 10.0)),
-        "price<1": where(("price", "<", 1.0)),
-        "cat3,price20-70": where(("category", "==", 3),
-                                 ("price", "between", (20.0, 70.0))),
+    filters = {                                 # filter, packing mode
+        "price<50": (where(("price", "<", 50.0)), "fold"),
+        "price<10": (where(("price", "<", 10.0)), "dense"),
+        "price<1": (where(("price", "<", 1.0)), "dense"),
+        "cat3,price20-70": (where(("category", "==", 3),
+                                  ("price", "between", (20.0, 70.0))),
+                            "dense"),
     }
     forced = TorchBackend(route="device", prune_tier="on")
     forced.attach(ds.points)                    # upload outside the timing
-    tally = EligTally(ops)
-    largest = LargestCall(engine.backend)
-    out, words = {}, {}
-    try:
-        for name, flt in filters.items():
-            eligible = flt.evaluate(ds)
-            rep = out[name] = {"eligible_points": int(eligible.sum())}
-            answers = {}
-            for tier, t, b in (("exact", "exact", "torch"),
-                               ("exact-forced", "exact", forced),
-                               ("approx", "approx", "torch"),
-                               ("device", "device", "torch")):
-                path = f"filter:{name}:{tier}"
-                tally.reset()
+    largest = LargestCalls(engine.backend)
+    recs = None
+    out = {}
+
+    def run_set(name, flt, eligible, qs, prefix):
+        nonlocal recs
+        rep, answers = {}, {}
+        for tier, t, b in (("exact", "exact", "torch"),
+                           ("exact-forced", "exact", forced),
+                           ("approx", "approx", "torch"),
+                           ("device", "device", "torch")):
+            path = f"{prefix}:{tier}"
+            record = path == "filter:price<50:exact-forced"
+            if record:
+                recs = (Recorder(ops, "pairwise_l2_join_batched_masked",
+                                 batched_cells),
+                        Recorder(ops, "pairwise_l2_join_batched_counts",
+                                 batched_cells))
+            try:
                 answers[tier], wall = drive_path(
                     by_path, path, lambda: engine.query_batch(
-                        queries, k=1, tier=t, backend=b, filter=flt))
-                words[path] = tally.read()
-                st = engine.last_batch_stats
-                rep[tier] = {"wall_s": wall, "qps": len(queries) / wall,
-                             "filtering": st.filtering, "phases": st.phases,
-                             "launches": by_path[path],
-                             "k1_k2_calls": words[path]}
-                if t != "device":
-                    rep[tier]["cascade"] = st.cascade
-                rep[tier]["answered"] = check_filtered_answers(
-                    ds, queries, answers[tier], eligible, f"{path}")
-                print(f"[filter] {name} {tier}: {wall:.3f}s = "
-                      f"{len(queries) / wall:.2f} QPS; answered "
-                      f"{rep[tier]['answered']} of {len(queries)}; filtering "
-                      f"{st.filtering}; launches {by_path[path]}; K1/K2 "
-                      f"calls with and without eligibility words "
-                      f"{words[path]}", flush=True)
-            check([[(c.ids, c.diameter) for c in r.candidates]
-                   for r in answers["exact-forced"]]
-                  == [[(c.ids, c.diameter) for c in r.candidates]
-                      for r in answers["exact"]],
-                  f"filter {name}: the forced run differs from the default")
-            for tier in ("exact", "approx"):
-                ts = time.perf_counter()
-                want = engine.query_batch(queries, k=1, tier=tier,
-                                          backend="numpy", filter=flt)
-                ties = []
-                diff = answer_diff(answers[tier], want, 1e-9, ds, ties)
-                check(diff is None, f"filter {name} {tier}: torch and numpy "
-                      f"backends disagree: {diff}")
-                rep[tier]["numpy_backend_s"] = time.perf_counter() - ts
-                rep[tier]["ties"] = ties
-            opts, fq, fres = [], [], []
-            for q, ex, dv in zip(queries, answers["exact"],
-                                 answers["device"]):
-                if ex.candidates:
-                    opts.append(ex.candidates[0].diameter)
-                    fq.append(q)
-                    fres.append(dv)
-            rep["device"]["checks"] = check_device_answers(
-                ds, fq, fres, f"filter {name} device", 1, opts, eligible)
-            check(by_path[f"filter:{name}:device"]["tuple_diameters"]
-                  == len(fq), f"filter {name}: K6 launched "
-                  f"{by_path[f'filter:{name}:device']['tuple_diameters']} "
-                  f"times for {len(fq)} feasible queries")
-            print(f"[filter] {name}: exact and approx equal the numpy "
-                  f"backend ({rep['exact']['numpy_backend_s']:.2f}s, "
-                  f"{rep['approx']['numpy_backend_s']:.2f}s; ties "
-                  f"{len(rep['exact']['ties'])}, "
-                  f"{len(rep['approx']['ties'])}); forced equals default; "
-                  f"device answers {rep['device']['checks']}", flush=True)
+                        qs, k=1, tier=t, backend=b, filter=flt))
+            finally:
+                if record:
+                    for rec in recs:
+                        rec.restore()
+            st = engine.last_batch_stats
+            rep[tier] = {"wall_s": wall, "qps": len(qs) / wall,
+                         "filtering": st.filtering, "phases": st.phases,
+                         "launches": by_path[path]}
+            if t != "device":
+                rep[tier]["cascade"] = st.cascade
+            rep[tier]["answered"] = check_filtered_answers(
+                ds, qs, answers[tier], eligible, path)
+            print(f"[filter] {prefix[7:]} {tier}: {wall:.3f}s = "
+                  f"{len(qs) / wall:.2f} QPS; answered "
+                  f"{rep[tier]['answered']} of {len(qs)}; filtering "
+                  f"{st.filtering}; launches {by_path[path]}", flush=True)
+        check([[(c.ids, c.diameter) for c in r.candidates]
+               for r in answers["exact-forced"]]
+              == [[(c.ids, c.diameter) for c in r.candidates]
+                  for r in answers["exact"]],
+              f"{prefix}: the forced run differs from the default")
+        for tier in ("exact", "approx"):
+            ts = time.perf_counter()
+            want = engine.query_batch(qs, k=1, tier=tier, backend="numpy",
+                                      filter=flt)
+            ties = []
+            diff = answer_diff(answers[tier], want, 1e-9, ds, ties)
+            check(diff is None, f"{prefix} {tier}: torch and numpy "
+                  f"backends disagree: {diff}")
+            rep[tier]["numpy_backend_s"] = time.perf_counter() - ts
+            rep[tier]["ties"] = ties
+        opts, fq, fres = [], [], []
+        for q, ex, dv in zip(qs, answers["exact"], answers["device"]):
+            if ex.candidates:
+                opts.append(ex.candidates[0].diameter)
+                fq.append(q)
+                fres.append(dv)
+        rep["device"]["checks"] = check_device_answers(
+            ds, fq, fres, f"{prefix} device", 1, opts, eligible)
+        k6 = by_path[f"{prefix}:device"]["tuple_diameters"]
+        check(k6 == len(fq), f"{prefix}: K6 launched {k6} times for "
+              f"{len(fq)} feasible queries")
+        print(f"[filter] {prefix[7:]}: exact and approx equal the numpy "
+              f"backend ({rep['exact']['numpy_backend_s']:.2f}s, "
+              f"{rep['approx']['numpy_backend_s']:.2f}s; ties "
+              f"{len(rep['exact']['ties'])}, {len(rep['approx']['ties'])}); "
+              f"forced equals default; device answers "
+              f"{rep['device']['checks']}", flush=True)
+        return rep
+
+    try:
+        for name, (flt, mode) in filters.items():
+            eligible = flt.evaluate(ds)
+            fq, pool = feasible_queries(ds, eligible, len(queries),
+                                        args.seed + 3)
+            rep = out[name] = {"eligible_points": int(eligible.sum()),
+                               "mode": mode, "feasible_pool": pool}
+            rep["random"] = run_set(name, flt, eligible, queries,
+                                    f"filter:{name}")
+            rep["feasible"] = run_set(name, flt, eligible, fq,
+                                      f"filter:{name}:feasible")
+            check(rep["feasible"]["exact"]["answered"] == len(fq),
+                  f"filter {name}: a feasible query went unanswered")
+            fst = rep["feasible"]["exact-forced"]["filtering"]
+            check(fst[f"{mode}_dispatches"] > 0,
+                  f"filter {name}: the forced run over the feasible queries "
+                  f"made no {mode} dispatch: {fst}")
+            print(f"[filter] {name}: {pool} keywords hold 4..16 eligible "
+                  f"points; forced run over the feasible queries: "
+                  f"{fst['fold_dispatches']} fold and "
+                  f"{fst['dense_dispatches']} eligible-dense dispatches on "
+                  f"the card (want {mode})", flush=True)
         nothing = where(("price", "<", -1.0))
         for tier in ("exact", "approx", "device"):
             res = engine.query_batch(queries, k=1, tier=tier, filter=nothing)
@@ -1278,42 +1334,61 @@ def filtered(args, report: dict, served, by_path: dict) -> None:
         print("[filter] price<-1 (keeps nothing): every tier answers "
               "nothing", flush=True)
     finally:
-        tally.restore()
         largest.restore()
-    check(words["filter:price<50:exact"]["K1"]["with_words"]
-          + words["filter:price<50:exact-forced"]["K1"]["with_words"] > 0,
-          "fold mode (price<50) gave K1 no eligibility words")
-    check(words["filter:price<50:exact-forced"]["K2"]["with_words"] > 0,
-          "the forced run gave K2 no eligibility words")
+    words = {p: {k: c[k] for k in ("join_batched_masked_elig",
+                                   "join_batched_prune_elig")}
+             for p, c in by_path.items() if p.startswith("filter:")}
+    check(words["filter:price<50:exact"]["join_batched_masked_elig"]
+          + words["filter:price<50:exact-forced"]["join_batched_masked_elig"]
+          > 0, "fold mode (price<50) launched K1 with no eligibility words")
+    check(words["filter:price<50:exact-forced"]["join_batched_prune_elig"]
+          > 0, "the forced run launched K2 with no eligibility words")
+    print(f"[filter] K1/K2 launches with eligibility words (paths with "
+          f"any): {({p: w for p, w in words.items() if any(w.values())})}",
+          flush=True)
 
-    # No new D2H: the largest call (most points at finite radii) the
-    # phase's default-backend batches made, unfiltered and then filtered
-    # with price<50, on one fresh fold-mode backend.
-    ids, radii = largest.best
-    keys = [i.tobytes() for i in ids]
-    be = TorchBackend(route="device", prune_tier="off",
-                      elig_pack_threshold=0.0)
-    be.attach(ds.points)
-    be.self_join_blocks(ds.points, ids, radii, keys=keys)
-    h2d0, d2h0 = be.stats.h2d_bytes, be.stats.d2h_bytes
-    be.self_join_blocks(ds.points, ids, radii, keys=keys,
-                        eligible=filters["price<50"].evaluate(ds))
-    h2d1, d2h1 = be.stats.h2d_bytes - h2d0, be.stats.d2h_bytes - d2h0
-    d2h = {"subsets": len(ids), "points": largest.best_points,
+    # No new D2H: the largest call (most points at finite radii) of the
+    # phase's default-backend batches whose tiles the backend's cache holds
+    # (no eviction in the unfiltered run: the contract is about a repeat of
+    # a cached dispatch), unfiltered and then filtered with price<50, on one
+    # fresh fold-mode backend.
+    evicted = []
+    for points, ids, radii in largest.calls:
+        keys = [i.tobytes() for i in ids]
+        be = TorchBackend(route="device", prune_tier="off",
+                          elig_pack_threshold=0.0)
+        be.attach(ds.points)
+        be.self_join_blocks(ds.points, ids, radii, keys=keys)
+        if be.stats.cache_evictions:
+            evicted.append(points)
+            continue
+        h2d0, d2h0 = be.stats.h2d_bytes, be.stats.d2h_bytes
+        be.self_join_blocks(ds.points, ids, radii, keys=keys,
+                            eligible=filters["price<50"][0].evaluate(ds))
+        h2d1, d2h1 = be.stats.h2d_bytes - h2d0, be.stats.d2h_bytes - d2h0
+        break
+    else:
+        raise SmokeError(f"no call of the phase fits the tile cache "
+                         f"(points at finite radii {evicted})")
+    d2h = {"subsets": len(ids), "points": points,
            "dispatches": be.stats.dispatches // 2,
+           "larger_calls_evicted": evicted,
            "unfiltered": {"h2d_bytes": h2d0, "d2h_bytes": d2h0},
            "filtered_repeat": {"h2d_bytes": h2d1, "d2h_bytes": d2h1}}
     check(d2h0 > 0 and d2h1 == d2h0,
           f"eligibility fold changed the readback: {d2h}")
     check(0 < h2d1 < h2d0, f"the filtered repeat re-shipped the tiles: {d2h}")
-    report["filter"] = {"filters": {k: v.as_json() for k, v in
+    report["filter"] = {"filters": {k: v[0].as_json() for k, v in
                                     filters.items()},
-                        "results": out, "no_new_d2h": d2h}
-    print(f"[filter] no new D2H: {len(ids)} subsets ({largest.best_points} "
-          f"points at finite radii) of the phase's largest backend call, "
-          f"unfiltered then with price<50 on one fold-mode backend: D2H "
+                        "results": out, "elig_launches": words,
+                        "no_new_d2h": d2h}
+    print(f"[filter] no new D2H: {len(ids)} subsets ({points} points at "
+          f"finite radii) of the phase's largest backend call whose tiles "
+          f"the cache holds (larger ones evicted: {evicted}), unfiltered "
+          f"then with price<50 on one fold-mode backend: D2H "
           f"{d2h0} then {d2h1} bytes; H2D {h2d0} then {h2d1} (radii and "
           f"eligibility words only)", flush=True)
+    return recs
 
 
 def tenants(args, report: dict, by_path: dict) -> None:
@@ -2125,14 +2200,19 @@ def main() -> int:
         print(f"[build] kernels built in {report['build_s']:.1f}s; card: "
               f"{card}", flush=True)
         recs, by_path, diam_recs, served = serve(args, report)
-        filtered(args, report, served, by_path)
+        elig_recs = filtered(args, report, served, by_path)
         stream(args, report, served, by_path)
         tenants(args, report, by_path)
         profiles = KernelProfiles()
         rows = kernel_rows(*recs, by_path)
         rows.append(k4_row(recs[0], by_path, profiles))
         report["kernels"] = rows
-        for row in rows:
+        # K1 and K2 at the forced price<50 run's input, eligibility words
+        # included (printed beside the rows above, not another kernel)
+        elig_rows = [masked_row(elig_recs[0], by_path, elig=True),
+                     prune_row(elig_recs[1], by_path, elig=True)]
+        report["kernels_elig"] = elig_rows
+        for row in rows + elig_rows:
             print(f"[kernel] {row['name']} {row['shape']}: {row['ms']:.4f} ms "
                   f"(plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
                   f" ms by {row['bound_by']}, library {row['library_ms']}); "

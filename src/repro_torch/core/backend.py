@@ -118,6 +118,10 @@ class BackendStats:
     t_host_s: float = 0.0                  # wall inside host-routed bins
     bin_points: dict = dataclasses.field(default_factory=dict)
     generation_purges: int = 0  # cache invalidations on corpus-generation bump
+    # Filtered device dispatches by packing mode: eligibility words folded
+    # into full-width tiles, or eligible rows packed densely.
+    elig_fold_dispatches: int = 0
+    elig_dense_dispatches: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -978,6 +982,10 @@ class TorchBackend(DistanceBackend):
 
         valid = int(lengths.sum())
         self.stats.dispatches += 1
+        if elig_dense:
+            self.stats.elig_dense_dispatches += 1
+        elif eligible is not None:
+            self.stats.elig_fold_dispatches += 1
         self.stats.subsets += n_subsets
         self.stats.points_packed += valid
         self.stats.points_padded += s_pad * p_pad - valid

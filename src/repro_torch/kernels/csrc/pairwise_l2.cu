@@ -158,6 +158,37 @@ __device__ __forceinline__ bool elig_bit(const int* __restrict__ words, int i) {
   return (static_cast<unsigned>(words[i >> 5]) >> (i & 31)) & 1u;
 }
 
+// The body K1, K2 and K4 share: the Gram tile of block (s, blockIdx.y,
+// blockIdx.z) over a subset of L valid points, then for each of this
+// thread's RPW rows epi(row, col, v, valid) with v = the cell's sq (FLT_MAX
+// where row or col is at or past L). Tiles wholly past L skip the Gram loop.
+template <bool BF16, class Epi>
+__device__ __forceinline__ void self_join_rows(Smem& sm, const float* xs,
+                                               int L, int d, Epi&& epi) {
+  const int row0 = blockIdx.y * TM;
+  const int col0 = blockIdx.z * TN;
+  float acc[RPW];
+  if (row0 < L && col0 < L) {                 // block-uniform
+    gram_tile<BF16>(sm, xs, L, row0, xs, L, col0, d, acc);
+  } else {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
+    __syncthreads();
+  }
+  const int warp = threadIdx.x >> 5;
+  const int rbase = (warp / WPB) * RPW;
+  const int c = (warp % WPB) * 32 + (threadIdx.x & 31);
+  const int col = col0 + c;
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int row = row0 + rbase + i;
+    const bool valid = row < L && col < L;
+    const float v = valid
+        ? fmaxf(sm.an[rbase + i] + sm.bn[c] - 2.0f * acc[i], 0.0f) : FLT_MAX;
+    epi(row, col, v, valid);
+  }
+}
+
 // K1 (MASK) and K2 (!MASK, BF16). Grid (S, ceil(P/TM), ceil(P/TN)).
 template <bool BF16, bool MASK>
 __global__ void __launch_bounds__(THREADS)
@@ -167,43 +198,18 @@ batched_join_kernel(const float* __restrict__ x, const int* __restrict__ lengths
                     int* __restrict__ counts, float* __restrict__ sq_out) {
   __shared__ Smem sm;
   const int s = blockIdx.x;
-  const int row0 = blockIdx.y * TM;
-  const int col0 = blockIdx.z * TN;
   const int L = min(max(lengths[s], 0), P);
-  const float* xs = x + (size_t)s * P * d;
   const int* es = elig ? elig + (size_t)s * W : nullptr;
-  float acc[RPW];
   if (threadIdx.x == 0) sm.count = 0;
-  const bool live = row0 < L && col0 < L;     // block-uniform
-  if (live) {
-    gram_tile<BF16>(sm, xs, L, row0, xs, L, col0, d, acc);
-  } else {
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-    __syncthreads();
-  }
-
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wl = warp % WPB;
-  const int rbase = (warp / WPB) * RPW;
-  const int c = wl * 32 + lane;
-  const int col = col0 + c;
-  const int word = blockIdx.z * WPB + wl;
+  const int word = blockIdx.z * WPB + (threadIdx.x >> 5) % WPB;
   const float r = radii[s];
   const float r2 = r * r;
-  const bool col_ok = col < L && (es == nullptr || elig_bit(es, col));
   int cnt = 0;
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = row0 + rbase + i;
-    const bool valid = row < L && col < L;
-    float v = FLT_MAX;
-    bool joined = false;
-    if (valid) {
-      v = fmaxf(sm.an[rbase + i] + sm.bn[c] - 2.0f * acc[i], 0.0f);
-      joined = v <= r2 && col_ok && (es == nullptr || elig_bit(es, row));
-    }
+  self_join_rows<BF16>(sm, x + (size_t)s * P * d, L, d,
+                       [&](int row, int col, float v, bool valid) {
+    const bool joined = valid && v <= r2
+        && (es == nullptr || (elig_bit(es, col) && elig_bit(es, row)));
     const unsigned bits = __ballot_sync(0xffffffffu, joined);
     if (MASK) {
       if (sq_out != nullptr && row < P && col < P)
@@ -212,13 +218,15 @@ batched_join_kernel(const float* __restrict__ x, const int* __restrict__ lengths
         mask[((size_t)s * P + row) * W + word] = static_cast<int>(bits);
     }
     if (lane == 0) cnt += __popc(bits);
-  }
+  });
   if (lane == 0 && cnt) atomicAdd(&sm.count, cnt);
   __syncthreads();
   if (threadIdx.x == 0 && sm.count) atomicAdd(counts + s, sm.count);
 }
 
-// K4. Grid (S, ceil(P/TM), ceil(P/TN)); counts (S, ceil(P/bm), ceil(P/bn)).
+// K4: K1's body with per-tile counts of the caller's (bm, bn) grid in place
+// of the mask. Grid (S, ceil(P/TM), ceil(P/TN)); counts (S, ceil(P/bm),
+// ceil(P/bn)).
 __global__ void __launch_bounds__(THREADS)
 batched_tiles_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                      const float* __restrict__ radii, int P, int d, int bm,
@@ -230,7 +238,6 @@ batched_tiles_kernel(const float* __restrict__ x, const int* __restrict__ length
   const int row0 = blockIdx.y * TM;
   const int col0 = blockIdx.z * TN;
   const int L = min(max(lengths[s], 0), P);
-  const float* xs = x + (size_t)s * P * d;
   const int gm = (P + bm - 1) / bm, gn = (P + bn - 1) / bn;
   // This block's cells: rows [cr0, cr1], columns [cc0, cc1] of the grid.
   const int cr0 = row0 / bm, cr1 = min(row0 + TM, P) - 1;
@@ -238,36 +245,14 @@ batched_tiles_kernel(const float* __restrict__ x, const int* __restrict__ length
   const int ncc = cc1 / bn - cc0 + 1;
   const int ncells = (cr1 / bm - cr0 + 1) * ncc;
   for (int e = threadIdx.x; e < ncells; e += THREADS) cells[e] = 0;
-  float acc[RPW];
-  const bool live = row0 < L && col0 < L;     // block-uniform
-  if (live) {
-    gram_tile<false>(sm, xs, L, row0, xs, L, col0, d, acc);
-  } else {
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-    __syncthreads();
-  }
-
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wl = warp % WPB;
-  const int rbase = (warp / WPB) * RPW;
-  const int c = wl * 32 + lane;
-  const int col = col0 + c;
-  const int wc0 = col0 + wl * 32;              // this warp's first column
+  const int wc0 = col0 + ((threadIdx.x >> 5) % WPB) * 32;  // warp's 1st column
   const float r = radii[s];
   const float r2 = r * r;
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = row0 + rbase + i;
-    float v = FLT_MAX;
-    bool joined = false;
-    if (row < L && col < L) {
-      v = fmaxf(sm.an[rbase + i] + sm.bn[c] - 2.0f * acc[i], 0.0f);
-      joined = v <= r2;
-    }
+  self_join_rows<false>(sm, x + (size_t)s * P * d, L, d,
+                        [&](int row, int col, float v, bool valid) {
     if (row < P && col < P) sq_out[((size_t)s * P + row) * P + col] = v;
-    const unsigned bits = __ballot_sync(0xffffffffu, joined);
+    const unsigned bits = __ballot_sync(0xffffffffu, valid && v <= r2);
     if (lane == 0 && bits) {
       const int base = (row / bm - cr0) * ncc;
       // Split the word at every bn boundary it crosses.
@@ -281,7 +266,7 @@ batched_tiles_kernel(const float* __restrict__ x, const int* __restrict__ length
         lo = hi;
       }
     }
-  }
+  });
   __syncthreads();
   for (int e = threadIdx.x; e < ncells; e += THREADS) {
     const int v = cells[e];

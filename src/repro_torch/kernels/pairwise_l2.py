@@ -4,7 +4,9 @@ The library builds at the first call (``kernels.build``) and binds through
 ``ctypes``. Every wrapper checks device, dtype, shape and contiguity,
 allocates its outputs, launches on the current stream, raises on a launch
 error, and adds one to its entry of :data:`launches` for each launch — the
-count a run reads to show that its path went through the kernel. There is no
+count a run reads to show that its path went through the kernel (K1 and K2
+also add one to ``<name>_elig`` for a launch given eligibility words). There
+is no
 fallback: these take CUDA tensors only (``kernels.ops`` routes CPU tensors to
 the plain versions in ``kernels.ref``).
 """
@@ -19,7 +21,8 @@ from repro_torch.kernels.ref import JOIN_TILE
 
 # Launches per kernel since the last reset_launches().
 launches = {"join_batched_masked": 0, "join_batched_prune": 0,
-            "pairwise_join": 0, "join_batched_tiles": 0}
+            "pairwise_join": 0, "join_batched_tiles": 0,
+            "join_batched_masked_elig": 0, "join_batched_prune_elig": 0}
 
 _LIB: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
@@ -74,11 +77,13 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, err: int, elig: torch.Tensor | None = None) -> None:
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     launches[name] += 1
+    if elig is not None:
+        launches[name + "_elig"] += 1
 
 
 _MAX_GRID_Y = 65535
@@ -114,7 +119,7 @@ def join_batched_masked(x: torch.Tensor, lengths: torch.Tensor,
                 _ptr(x), _ptr(lengths), _ptr(r), _ptr(elig), s, p, d,
                 _ptr(mask), _ptr(counts), _ptr(sq),
                 torch.cuda.current_stream(dev).cuda_stream)
-        _launched("join_batched_masked", err)
+        _launched("join_batched_masked", err, elig)
     elif d == 0:
         raise ValueError("x must have at least one feature")
     return (mask, counts, sq) if with_sq else (mask, counts)
@@ -133,7 +138,7 @@ def join_batched_prune(x: torch.Tensor, lengths: torch.Tensor,
             err = library().join_batched_prune(
                 _ptr(x), _ptr(lengths), _ptr(r), _ptr(elig), s, p, d,
                 _ptr(counts), torch.cuda.current_stream(x.device).cuda_stream)
-        _launched("join_batched_prune", err)
+        _launched("join_batched_prune", err, elig)
     elif d == 0:
         raise ValueError("x must have at least one feature")
     return counts

@@ -163,11 +163,14 @@ class PipelineStats:
     compactions: int = 0
     # Filtered accounting: eligible_points/selectivity describe the batch's
     # predicate mask (None on an unfiltered batch); filtered_subsets counts
-    # planned subsets pruned because no member satisfied the predicate. The
-    # "no new D2H" contract of the eligibility fold reads d2h_bytes.
+    # planned subsets pruned because no member satisfied the predicate;
+    # elig_fold/dense_dispatches count the device dispatches of each packing
+    # mode. The "no new D2H" contract of the eligibility fold reads d2h_bytes.
     eligible_points: int | None = None
     filter_selectivity: float | None = None
     filtered_subsets: int = 0
+    elig_fold_dispatches: int = 0
+    elig_dense_dispatches: int = 0
 
     @property
     def dispatches_per_scale(self) -> list[int]:
@@ -234,6 +237,8 @@ class PipelineStats:
         return {"eligible_points": self.eligible_points,
                 "selectivity": self.filter_selectivity,
                 "filtered_subsets": self.filtered_subsets,
+                "fold_dispatches": self.elig_fold_dispatches,
+                "dense_dispatches": self.elig_dense_dispatches,
                 "h2d_bytes": self.h2d_bytes,
                 "d2h_bytes": self.d2h_bytes}
 
@@ -287,7 +292,8 @@ class PreparedCompaction:
 _DELTA_FIELDS = ("t_pack_s", "t_dispatch_s", "cache_hits", "cache_misses",
                  "h2d_bytes", "d2h_bytes", "valid_cells", "total_cells",
                  "prune_tier_dispatches", "cells_pruned", "t_prune_s",
-                 "t_host_s", "host_routed_dispatches", "host_routed_subsets")
+                 "t_host_s", "host_routed_dispatches", "host_routed_subsets",
+                 "elig_fold_dispatches", "elig_dense_dispatches")
 
 
 class NKSEngine:

@@ -470,35 +470,31 @@ def test_filtered_engine_on_card_matches_cpu():
     queries = random_queries(ds, 3, 12, seed=3)
     card = NKSEngine(ds, device="cuda")
     cpu = NKSEngine(ds, device="cpu")
-    seen = []
-    masked = pairwise_l2.join_batched_masked
-    pairwise_l2.join_batched_masked = \
-        lambda x, l, r, elig=None, **kw: seen.append(elig is not None) \
-        or masked(x, l, r, elig, **kw)
-    try:
-        for sel in (0.5, 0.1):
-            flt = where(("price", "<", 100.0 * sel))
-            before = pairwise_l2.launches["join_batched_prune"]
-            for tier in ("exact", "approx"):
-                got = card.query_batch(
-                    queries, k=2, tier=tier, filter=flt,
-                    backend=TorchBackend(route="device", prune_tier="on"))
-                if tier == "exact":     # approx at k=2 may dispatch nothing
-                    assert pairwise_l2.launches["join_batched_prune"] > before
-                want = cpu.query_batch(
-                    queries, k=2, tier=tier, filter=flt,
-                    backend=TorchBackend(device="cpu", route="device",
-                                         prune_tier="on"))
-                assert [[(c.ids, c.diameter) for c in r.candidates]
-                        for r in got] == \
-                    [[(c.ids, c.diameter) for c in r.candidates]
-                     for r in want]
-                default = card.query_batch(queries, k=2, tier=tier,
-                                           filter=flt)
-                assert [[(c.ids, c.diameter) for c in r.candidates]
-                        for r in default] == \
-                    [[(c.ids, c.diameter) for c in r.candidates]
-                     for r in got]
-    finally:
-        pairwise_l2.join_batched_masked = masked
-    assert True in seen, "no masked join took eligibility words"
+    words = {k: pairwise_l2.launches[k] for k in
+             ("join_batched_masked_elig", "join_batched_prune_elig")}
+    for sel in (0.5, 0.1):
+        flt = where(("price", "<", 100.0 * sel))
+        before = pairwise_l2.launches["join_batched_prune"]
+        for tier in ("exact", "approx"):
+            got = card.query_batch(
+                queries, k=2, tier=tier, filter=flt,
+                backend=TorchBackend(route="device", prune_tier="on"))
+            if tier == "exact":     # approx at k=2 may dispatch nothing
+                assert pairwise_l2.launches["join_batched_prune"] > before
+            want = cpu.query_batch(
+                queries, k=2, tier=tier, filter=flt,
+                backend=TorchBackend(device="cpu", route="device",
+                                     prune_tier="on"))
+            assert [[(c.ids, c.diameter) for c in r.candidates]
+                    for r in got] == \
+                [[(c.ids, c.diameter) for c in r.candidates]
+                 for r in want]
+            default = card.query_batch(queries, k=2, tier=tier,
+                                       filter=flt)
+            assert [[(c.ids, c.diameter) for c in r.candidates]
+                    for r in default] == \
+                [[(c.ids, c.diameter) for c in r.candidates]
+                 for r in got]
+    for k, before in words.items():
+        assert pairwise_l2.launches[k] > before, f"{k}: no launch took " \
+            f"eligibility words"

@@ -148,6 +148,7 @@ def test_torch_backend_matches_pallas(engines, queries, sel, mode, prune,
     flt = _price(sel)
     threshold = 0.0 if mode == "fold" else 1.01
     spy = _EligSpy(monkeypatch)
+    dispatched = {"fold": 0, "dense": 0}
     for tier in ("exact", "approx"):
         want = ref_engine.query_batch(
             queries, k=2, tier=tier, filter=flt.as_json(),
@@ -160,6 +161,14 @@ def test_torch_backend_matches_pallas(engines, queries, sel, mode, prune,
         assert _cands(got) == _cands(want), tier
         assert engine.last_batch_stats.filtered_subsets == \
             ref_engine.last_batch_stats.filtered_subsets
+        for m in dispatched:
+            dispatched[m] += \
+                engine.last_batch_stats.filtering[f"{m}_dispatches"]
+    # every filtered device dispatch is counted under the forced mode
+    other = "dense" if mode == "fold" else "fold"
+    assert dispatched[other] == 0
+    assert (dispatched[mode] > 0) == bool(spy.calls["masked"]
+                                          or spy.calls["counts"])
     if sel >= 0.1:
         assert spy.calls["masked"], "no masked join was dispatched"
     # fold mode hands K1 (and K2) the words; dense packing never does
@@ -265,6 +274,8 @@ def test_eligibility_fold_no_new_d2h(prune):
         assert d2h1 <= d2h0
     assert 0 < h2d1 < h2d0
     assert be.stats.cache_hits > 0
+    assert be.stats.elig_fold_dispatches > 0
+    assert be.stats.elig_dense_dispatches == 0
 
     for i, (p, f) in enumerate(zip(plain, filt)):
         el = eligible[id_lists[i]]
@@ -297,6 +308,8 @@ def test_eligible_dense_blocks_carry_row_maps():
                                  eligible=eligible)
     full = NumpyBackend().self_join_blocks(points, id_lists, [3.0, 2.5],
                                            eligible=eligible)
+    assert (be.stats.elig_dense_dispatches, be.stats.elig_fold_dispatches) \
+        == (be.stats.dispatches, 0)
     for ids, b, nb in zip(id_lists, blocks, full):
         rows = np.flatnonzero(eligible[ids])
         np.testing.assert_array_equal(b.rows, rows)
