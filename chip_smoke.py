@@ -8,7 +8,9 @@
 
 Phases:
   1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and report
-     the card (name and power limit, as nvidia-smi gives them).
+     the card (name and power limit, as nvidia-smi gives them) and the
+     ``-Xptxas -v`` lines (registers, shared memory, spills) of the K7 and
+     K1-K4 kernels.
   1b. [build] Build the engine over a flickr-like corpus of 10^6 points
      (Table III's largest real dataset: u=24,874 keywords, t=11 tags, at the
      d=64 top of the paper's dimensionality grid; attribute columns price,
@@ -36,8 +38,10 @@ Phases:
      largest input the main path gave it (recorded during phase 2): masks
      may differ only on cells whose float64 squared distance lies within the
      fp32 error band of the threshold, counts by at most that many cells, sq
-     by at most the band. Time kernel, plain version and (K3) torch.cdist
-     with CUDA events. [K4] The same on K1's largest input for K4 (the
+     by at most the band; K1's mask must be symmetric bit for bit (it
+     computes the upper triangle of tiles and mirrors it). Time kernel,
+     plain version and (K3) torch.cdist with CUDA events, and K1-K3 by the
+     fresh-process profiler. [K4] The same on K1's largest input for K4 (the
      dense block and 128 x 128 tile counts, which no served path launches,
      as in the reference: only ``ops.pairwise_l2_join_batched`` calls it),
      timed with CUDA events and the profiler beside ``torch.cdist`` and a
@@ -124,7 +128,9 @@ Phases:
      a bound that scales with each row's own rounding noise. A planted
      fault (the last query tile skipping the key tile before its diagonal)
      must lie outside it. Time kernel, plain version and
-     ``F.scaled_dot_product_attention`` with CUDA events.
+     ``F.scaled_dot_product_attention`` with CUDA events (kernel and SDPA in
+     turns, kernel, SDPA, SDPA, kernel; each the mean of its two runs), and
+     the kernel by the fresh-process profiler; print kernel/SDPA per case.
   6. Hold K6 against its plain PyTorch version on the card at the largest
      (T, q, d) of 3b (a), of 3b (b) (q=9) and of the embed corpus's device
      batch (d=2304): max |kernel - plain| over the per-tuple band of the
@@ -143,7 +149,7 @@ Phases:
 Profiler figures (device time per kernel, busy shares) are kept only where
 the profiler's events of the kernel equal its launch counter over the same
 calls; otherwise they print as None beside both counts. The kernels' device
-times (K4, K5, K6) are measured at the end, in a fresh child process
+times (K1-K7) are measured at the end, in a fresh child process
 (``--profile-jobs``, given the saved inputs): in this process, after the
 served phases' profiler windows, the profiler misses launches.
 
@@ -522,10 +528,12 @@ def row_launches(name: str, by_path: dict) -> dict:
                 launches_by_path={p: c[name] for p, c in by_path.items()})
 
 
-def masked_row(rec, by_path: dict, elig: bool = False) -> dict:
+def masked_row(rec, by_path: dict, profiles: KernelProfiles,
+               elig: bool = False) -> dict:
     """K1 at the recorded input (with its eligibility words when ``elig``)
     against its plain version: masks equal off the fp32 band, counts within
-    it."""
+    it, and the mask symmetric bit for bit (the kernel computes the upper
+    triangle of tiles and mirrors it)."""
     import torch
     from repro_torch.kernels import pairwise_l2 as K
     from repro_torch.kernels import ref
@@ -539,24 +547,34 @@ def masked_row(rec, by_path: dict, elig: bool = False) -> dict:
     torch.cuda.synchronize()
     err, bits = band_check_batched(x, lengths, r, c_k, c_p, m_k, m_p,
                                    elig=words)
+    for si in range(s):
+        b = ref.unpack_bits(m_k[si], p)
+        check(bool((b == b.T).all()),
+              f"K1: the mask of subset {si} is not symmetric")
     flops, in_bytes = self_join_work(x, lengths)
     extra = words.numel() * 4 if elig else 0
     b_ms, b_by = bound(flops, in_bytes + extra + m_k.numel() * 4 + s * 4,
                        PEAK_FP32_FLOPS)
     name = "join_batched_masked"
-    return dict(
+    row = dict(
         name=name + (" (elig)" if elig else ""), route="cuda",
         source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
         replaces="src/repro/kernels/pairwise_l2.py:368",
         **row_launches(name + ("_elig" if elig else ""), by_path),
-        max_abs_err=err, mask_bits_in_band=bits, shape=[s, p, d],
+        max_abs_err=err, mask_bits_in_band=bits, symmetric=True,
+        shape=[s, p, d],
         ms=cuda_ms(lambda: K.join_batched_masked(x, lengths, r, words), 20),
         plain_ms=cuda_ms(lambda: ref.join_batched_masked(x, lengths, r,
                                                          words), 3, warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    profiles.add("K1" + (" (elig)" if elig else ""),
+                 "pairwise_l2.join_batched_masked", (x, lengths, r, words),
+                 "triangle_join_kernel", "join_batched_masked", 20, row)
+    return row
 
 
-def prune_row(rec, by_path: dict, elig: bool = False) -> dict:
+def prune_row(rec, by_path: dict, profiles: KernelProfiles,
+              elig: bool = False) -> dict:
     """K2 at the recorded input (with its eligibility words when ``elig``)
     against its plain version: counts within the bf16 tile's band."""
     import torch
@@ -577,7 +595,7 @@ def prune_row(rec, by_path: dict, elig: bool = False) -> dict:
     extra = words.numel() * 4 if elig else 0
     b_ms, b_by = bound(flops, in_bytes + extra + s * 4, PEAK_BF16_FLOPS)
     name = "join_batched_prune"
-    return dict(
+    row = dict(
         name=name + (" (elig)" if elig else ""), route="cuda",
         source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
         replaces="src/repro/kernels/pairwise_l2.py:262",
@@ -587,13 +605,19 @@ def prune_row(rec, by_path: dict, elig: bool = False) -> dict:
         plain_ms=cuda_ms(lambda: ref.join_batched_counts(x, lengths, r,
                                                          words), 3, warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    profiles.add("K2" + (" (elig)" if elig else ""),
+                 "pairwise_l2.join_batched_prune", (x, lengths, r, words),
+                 "triangle_join_kernel", "join_batched_prune", 20, row)
+    return row
 
 
-def kernel_rows(rec_mask, rec_prune, rec_pair, by_path) -> list[dict]:
+def kernel_rows(rec_mask, rec_prune, rec_pair, by_path,
+                profiles: KernelProfiles) -> list[dict]:
     import torch
     from repro_torch.kernels import pairwise_l2 as K
     from repro_torch.kernels import ref
-    rows = [masked_row(rec_mask, by_path), prune_row(rec_prune, by_path)]
+    rows = [masked_row(rec_mask, by_path, profiles),
+            prune_row(rec_prune, by_path, profiles)]
 
     a, b = rec_pair.best[:2]
     (m, d), n = a.shape, b.shape[0]
@@ -620,6 +644,8 @@ def kernel_rows(rec_mask, rec_prune, rec_pair, by_path) -> list[dict]:
         plain_ms=cuda_ms(lambda: ref.pairwise_join(a, b), 5),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.cdist(a, b).square(), 20)))
+    profiles.add("K3", "pairwise_l2.pairwise_join", (a, b),
+                 "pairwise_join_kernel", "pairwise_join", 20, rows[-1])
     return rows
 
 
@@ -1975,10 +2001,13 @@ def profile_embed(api, params, batches) -> dict:
     return {"batches": len(batches), **prof} if prof else {}
 
 
-def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
+def flash_row(rec: ShapeRecorder, k7_launches: int,
+              profiles: KernelProfiles) -> dict:
     """K7 against its plain version at the embed path's shapes and two
-    variants; timings with CUDA events. The row's own numbers are those of
-    the shape the path launched most."""
+    variants; timings with CUDA events beside ``F.scaled_dot_product_attention``
+    on the same inputs, and the kernel's device time from the fresh-process
+    profiler. The row's own numbers are those of the shape the path
+    launched most."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -2017,6 +2046,7 @@ def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
     cases.append(("path+window", rec.first[longest], 1024))
     cases.append(("gqa", gqa, None))
     rows = []
+    shared: dict = {}        # the row; the profiler fills its device_ms too
     for label, (q, k, v), window in cases:
         b, s, h, hd = q.shape
         got = FA.flash_attention(q, k, v, causal=True, window=window)
@@ -2048,26 +2078,38 @@ def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
                      max_err_over_tol=err_over_tol,
                      dropped_tile_err_over_tol=fault)
         del got, want, err, tol, plain_abs
+        # kernel and library in turns: kernel, sdpa, sdpa, kernel
+        ms_k = [cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True,
+                                                   window=window), 20)]
+        ms_l = [cuda_ms(lambda: sdpa(q, k, v, window), 20) for _ in range(2)]
+        ms_k.append(cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True,
+                                                       window=window), 20))
         rows.append(dict(
             case=label, shape=list(q.shape), kv_heads=k.shape[2],
             window=window, max_abs_err=max_err, **stats,
-            ms=cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True,
-                                                  window=window), 20),
+            ms=sum(ms_k) / 2, ms_runs=ms_k,
             plain_ms=cuda_ms(lambda: ref.flash_attention(
                 q, k, v, causal=True, window=window), 3, warmup=1),
-            library_ms=cuda_ms(lambda: sdpa(q, k, v, window), 20),
+            library_ms=sum(ms_l) / 2, library_ms_runs=ms_l,
+            ratio_to_library=sum(ms_k) / sum(ms_l),
             bound_ms=b_ms, bound_by=b_by))
+        targets = (rows[-1], shared) if len(rows) == 1 else (rows[-1],)
+        profiles.add(f"K7 {label} {tuple(q.shape)}",
+                     "flash_attention.flash_attention", (q, k, v), "flash_fwd",
+                     "flash_attention", 20, *targets, causal=True,
+                     window=window)
         torch.cuda.empty_cache()
         print(f"[kernel] flash_attention {label} {tuple(q.shape)} kv "
-              f"{k.shape[2]} window {window}: {rows[-1]['ms']:.4f} ms (plain "
-              f"{rows[-1]['plain_ms']:.4f} ms, sdpa "
-              f"{rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms by "
+              f"{k.shape[2]} window {window}: {rows[-1]['ms']:.4f} ms "
+              f"(runs {ms_k}; plain {rows[-1]['plain_ms']:.4f} ms, sdpa "
+              f"{rows[-1]['library_ms']:.4f} ms (runs {ms_l}), kernel/sdpa "
+              f"{rows[-1]['ratio_to_library']:.3f}, bound {b_ms:.4f} ms by "
               f"{b_by}); max_abs_err {rows[-1]['max_abs_err']}, max|plain| "
               f"{stats['max_abs_plain']}, rms(plain) {stats['rms_plain']}, "
               f"err/tol {err_over_tol}, dropped tile err/tol {fault}",
               flush=True)
     main_case = rows[0]
-    return dict(name="flash_attention", route="cuda",
+    shared.update(dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:99",
                 launches=k7_launches, path="embed",
@@ -2081,7 +2123,9 @@ def flash_row(rec: ShapeRecorder, k7_launches: int) -> dict:
                 plain_ms=main_case["plain_ms"],
                 bound_ms=main_case["bound_ms"],
                 bound_by=main_case["bound_by"],
-                library_ms=main_case["library_ms"], cases=rows)
+                library_ms=main_case["library_ms"],
+                ratio_to_library=main_case["ratio_to_library"], cases=rows))
+    return shared
 
 
 def diameter_row(cases: list, launches_by_path: dict,
@@ -2149,6 +2193,40 @@ def diameter_row(cases: list, launches_by_path: dict,
     return row
 
 
+def ptxas_report(name: str) -> list[str]:
+    """The register, shared-memory and spill lines nvcc's ``-Xptxas -v``
+    printed for the current build of ``csrc/<name>.cu``, each after the
+    kernel it belongs to."""
+    from repro_torch.kernels import build
+    log = build.library_path(name).with_suffix(".so.log")
+    lines, kernel = [], None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or "spill" in line:
+            lines.append(f"{kernel}: {line.strip()}")
+    return lines
+
+
+def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
+    """The redesigned kernels' numbers side by side, once the profiler has
+    filled in their device times: K7 at every case against
+    ``F.scaled_dot_product_attention``, K1 with and without eligibility
+    words."""
+    flash = next(r for r in rows if r["name"] == "flash_attention")
+    for case in flash["cases"]:
+        print(f"[K7] {case['case']} {case['shape']} kv {case['kv_heads']} "
+              f"window {case['window']}: {case['ms']:.4f} ms by events, "
+              f"{case.get('device_ms')} ms device, sdpa "
+              f"{case['library_ms']:.4f} ms, kernel/sdpa "
+              f"{case['ratio_to_library']:.3f}, bound {case['bound_ms']:.4f} "
+              f"ms ({case['bound_by']})", flush=True)
+    for r in [rows[0], elig_rows[0]]:
+        print(f"[K1] {r['name']} {r['shape']}: {r['ms']:.4f} ms by events, "
+              f"{r.get('device_ms')} ms device, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), symmetric {r['symmetric']}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -2199,18 +2277,23 @@ def main() -> int:
         report["card"] = card
         print(f"[build] kernels built in {report['build_s']:.1f}s; card: "
               f"{card}", flush=True)
+        report["ptxas"] = {n: ptxas_report(n)
+                           for n in ("flash_attention", "pairwise_l2")}
+        for n, lines in report["ptxas"].items():
+            for line in lines:
+                print(f"[ptxas] {n}: {line}", flush=True)
         recs, by_path, diam_recs, served = serve(args, report)
         elig_recs = filtered(args, report, served, by_path)
         stream(args, report, served, by_path)
         tenants(args, report, by_path)
         profiles = KernelProfiles()
-        rows = kernel_rows(*recs, by_path)
+        rows = kernel_rows(*recs, by_path, profiles)
         rows.append(k4_row(recs[0], by_path, profiles))
         report["kernels"] = rows
         # K1 and K2 at the forced price<50 run's input, eligibility words
         # included (printed beside the rows above, not another kernel)
-        elig_rows = [masked_row(elig_recs[0], by_path, elig=True),
-                     prune_row(elig_recs[1], by_path, elig=True)]
+        elig_rows = [masked_row(elig_recs[0], by_path, profiles, elig=True),
+                     prune_row(elig_recs[1], by_path, profiles, elig=True)]
         report["kernels_elig"] = elig_rows
         for row in rows + elig_rows:
             print(f"[kernel] {row['name']} {row['shape']}: {row['ms']:.4f} ms "
@@ -2219,7 +2302,7 @@ def main() -> int:
                   f"max_abs_err {row['max_abs_err']}; launches "
                   f"{row['launches_by_path']}", flush=True)
         rec, k7, rec_diam, k6, rec_k5_embed, k5_embed = embed(args, report)
-        rows.append(flash_row(rec, k7))
+        rows.append(flash_row(rec, k7, profiles))
         del rec
         k6_by_path = {p: c["tuple_diameters"] for p, c in by_path.items()}
         k6_by_path["embed-device"] = k6
@@ -2235,6 +2318,7 @@ def main() -> int:
             ("d2304", *rec_k5_embed.first[:2], rec_k5_embed.widths)],
             k5_by_path, profiles))
         report["kernel_profiles"] = profiles.run()
+        redesigned_summary(rows, elig_rows)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -54,7 +54,7 @@ import torch
 from repro_torch.core.subset_search import (_sq_dists_f64, pack_join_mask,
                                             pairwise_l2_numpy)
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import JOIN_TILE
+from repro_torch.kernels.ref import JOIN_SQUARE_TILE
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -474,9 +474,9 @@ class TorchBackend(DistanceBackend):
         self.prune_tier = prune_tier
         self.elig_pack_threshold = float(elig_pack_threshold)
         self._model = cost_model
-        # The class floor is the kernel's row tile on the card (every block
+        # The class floor is the masked join's tile on the card (every block
         # computes whole tiles anyway); the plain version uses exact shapes.
-        self._min_class = JOIN_TILE[0] if self.device.type == "cuda" \
+        self._min_class = JOIN_SQUARE_TILE if self.device.type == "cuda" \
             else self.QUANTUM
         self._edge_cache: dict[bytes, np.ndarray] = {}
         # LRU over device-committed dispatch tiles and host distance tables;

@@ -18,30 +18,55 @@
 // GQA: query head h reads kv head h / (H / Kv) in place (the reference
 // repeats K and V per query head first; the values are the same).
 //
-// Design. One block of 4 warps owns 64 query rows of one (batch, head); each
-// warp owns 16 rows and keeps them to the end: its Q fragments, its fp32
-// output accumulator and its softmax statistics live in registers. The block
-// walks the key/value tiles of 64 rows that the mask leaves live (in the
-// causal case the tiles wholly after the query tile are skipped, as the TPU
-// kernel skips them; with a window also the tiles wholly before it), staging
-// each in shared memory with cp.async, double-buffered so the next tile loads
-// while this one computes. Both products are warp-level mma.sync
-// m16n8k16 bf16 -> fp32: S = Q K^T with K fragments read by ldmatrix, then
-// the S accumulators are rescaled, exponentiated and repacked in registers as
-// the A fragments of P V (the m16n8 accumulator layout is the m16k16 operand
-// layout), with V fragments read by ldmatrix.trans. Shared-memory rows are
-// padded by 16 bytes so that ldmatrix's eight row addresses hit distinct
-// banks. Query tiles are issued heaviest first (reverse order), since causal
-// tiles near the end of the sequence see the most keys.
+// Design: a persistent, warp-specialised CTA of one consumer warpgroup and
+// one producer warp.
+//   * Work units are (64 query rows, batch x head). The query tiles of one
+//     head are adjacent in the unit order, so that the CTAs running at once
+//     share their K/V tiles in L2, and the heaviest come first. As many CTAs
+//     as fit on the card at once walk the units: round r gives CTA c unit
+//     rG + c, or rG + G - 1 - c in odd rounds, so two rounds pair a heavy
+//     causal tile with a light one.
+//   * The producer warp lowers its registers (setmaxnreg) and one of its
+//     threads issues every copy as TMA (cp.async.bulk.tensor) through 4-d
+//     tensor maps over (B, S, H, hd) and (B, T, Kv, hd) with boxes of
+//     (64, 1, 64, 1): each unit's Q tile into one of two buffers, its live
+//     K/V tiles into a ring of STAGES stages, all with full/empty mbarriers.
+//     It runs ahead into the next unit while the consumers finish this one.
+//     A box never crosses into the next batch or head, and rows past S or T
+//     arrive as zeros. Tiles are [rows][64] blocks of 128-byte rows,
+//     128-byte swizzled, so hd = 128 is two blocks.
+//   * The consumer warpgroup computes S = Q K^T by wgmma m64n64k16 with
+//     both operands K-major in shared memory; the online softmax in
+//     registers; O += P V by wgmma m64n64k16 with P from registers (the fp32
+//     S accumulator layout is the bf16 A-fragment layout once pairs are
+//     packed) and V read MN-major (the transpose bit). It releases a stage
+//     when its wgmma have retired.
+//   * The scale: at hd = 64, 1/sqrt(hd) = 1/8 is exact in bf16 and commutes
+//     with every fp32 rounding of the dot, so it is folded into the softmax
+//     (exp(s - m) = 2^((s - m) log2e / 8), one FFMA and one EX2 a score);
+//     otherwise Q is scaled and rounded in shared memory once per unit
+//     (fence.proxy.async before wgmma reads it).
+//   * The mask predicate runs only on tiles that hold a masked cell (the
+//     causal diagonal, the window's first tile, the tile holding key T);
+//     tiles wholly outside the causal or window range are not loaded.
+//
+// Occupancy, as measured on an H100 (PERF.md): three 160-thread CTAs per SM
+// at hd = 64 (128 registers a thread, no spills; 67 KB of shared memory
+// each: two Q tiles and 3 stages). Query tiles of 128 rows (two consumer
+// warpgroups) halve the K/V reads from L2 but leave 96 registers a thread at
+// two CTAs per SM and spill; one such CTA per SM leaves too few warps to
+// hide the per-tile latency. Key tiles of 128 double the score registers,
+// with the same effect. hd = 128 runs two CTAs per SM (168 registers).
 //
 // Bound on the card. 4 hd flops per live (query, key) pair (QK^T and PV) on
 // the bf16 tensor cores (989 TFLOP/s dense on an H100 SXM), and Q, K, V and O
 // read or written once (3.35 TB/s): at the embed path's (32, 512, 36, 64) the
 // 302 MB of bytes bound it (0.090 ms), at (2, 4096, 36, 64) the 1.55e11
-// flops (0.157 ms). This first version uses mma.sync, not wgmma, and no TMA;
-// its softmax runs on the CUDA cores between the two products of each tile,
-// with no overlap inside a warp: both are for a later version.
+// flops (0.157 ms). Each warpgroup runs S, the softmax and P V of a tile one
+// after the other; overlapping them (two warpgroups ping-ponging, or a
+// software pipeline within one) is not done here.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -52,67 +77,113 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 64;                  // query rows per block
-constexpr int BN = 64;                  // key/value rows per tile
-constexpr int WARPS = BM / 16;          // 16 query rows per warp
-constexpr int THREADS = 32 * WARPS;
+constexpr int BM = 64;                   // query rows per CTA (one warpgroup)
+constexpr int BN = 64;                   // keys per K/V tile
+constexpr int CONSUMERS = 128;
+constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int SMEM_BUDGET = 232448;      // bytes one CTA may use
 constexpr float MASKED = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
 template <int HD>
-struct Shape {
-  static constexpr int LD = HD + 8;                  // padded smem row
-  static constexpr int TILE = BN * LD;               // elements per tile
-  static constexpr int CHUNKS = HD / 8;              // 16-byte chunks per row
-  // Q, then two stages of K, then two stages of V
-  static constexpr size_t SMEM = 5 * TILE * sizeof(bf16);
-  static_assert(BM == BN, "Q and K/V tiles share one layout");
+struct Cfg {
+  // CTAs per SM: 3 x 5 warps leave 128 registers a thread at hd = 64; at
+  // hd = 128 the 64 output accumulators want 2 (168 registers).
+  static constexpr int MIN_BLOCKS = HD == 64 ? 3 : 2;
+  static constexpr int CHUNKS = HD / 64;              // 128-byte column blocks
+  static constexpr int Q_BYTES = BM * HD * 2;
+  static constexpr int KV_BYTES = BN * HD * 2;        // one of K or V
+  static constexpr int FIXED = 1024 + 2 * Q_BYTES + 128;  // slack, 2 Q, bars
+  static constexpr int FIT =
+      (SMEM_BUDGET / MIN_BLOCKS - 1024 - FIXED) / (2 * KV_BYTES);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int SMEM = FIXED + STAGES * 2 * KV_BYTES;
+  static_assert(STAGES >= 2, "the K/V ring needs two stages");
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, zero-filled when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity) : "memory");
+}
+
+// One TMA box of a 4-d tensor map into shared memory; completes `bar`'s
+// transaction bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar) : "memory");
+}
+
+// wgmma shared-memory descriptors of a tile of 128-byte rows, 128-byte
+// swizzled (the TMA layout), whose 8-row groups lie 1024 bytes apart (the
+// stride offset). K-major: the leading offset is unused (1). MN-major, 64
+// columns (one swizzle atom) wide: the leading offset would step to the next
+// atom; it is set to the group stride too.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(1) << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)
+         | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(1024 >> 4) << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)
+         | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of wgmma results above the wait.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -120,222 +191,401 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stage rows [0, BN) of a K or V tile (row stride `stride` elements); rows
-// at or past `valid` are zero-filled, so that masked keys multiply zeros.
-template <int HD>
-__device__ __forceinline__ void load_kv(bf16* dst, const bf16* src,
-                                        int64_t stride, int valid) {
-  using L = Shape<HD>;
-  for (int c = threadIdx.x; c < BN * L::CHUNKS; c += THREADS) {
-    const int r = c / L::CHUNKS, col = (c % L::CHUNKS) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * L::LD + col, ok ? src + r * stride + col : src, ok);
-  }
+// d (64 x 64 fp32) += A (64 x 16 bf16, shared) * B (64 x 16 bf16, shared),
+// both K-major; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 fp32) += A (64 x 16 bf16, registers) * B (16 x 64 bf16,
+// shared, MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, bf16* __restrict__ o, int S, int T,
-          int H, int KVH, int causal, int window, float scale) {
-  using L = Shape<HD>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + L::TILE;
-  bf16* sV = sK + 2 * L::TILE;
+__global__ void __launch_bounds__(THREADS, Cfg<HD>::MIN_BLOCKS)
+flash_fwd(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int B,
+          int S, int T, int H, int KVH, int causal, int window, float scale,
+          int pow2_scale) {
+  using C = Cfg<HD>;
+  // log2(e) times the factor the scores still need: exp(x) = 2^(x log2e).
+  const float l2e = pow2_scale ? LOG2E * scale : LOG2E;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // 128-byte swizzled tiles want 1024-byte alignment.
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sQ0 = (raw + 1023u) & ~1023u;      // 2 x CHUNKS x [BM][64]
+  const uint32_t sKV = sQ0 + 2 * C::Q_BYTES;        // stage s: K, then V
+  const uint32_t bars = sKV + C::STAGES * 2 * C::KV_BYTES;
+  // full[s], empty[s] of the K/V ring; qfull[q], qempty[q] of the two Q
+  // buffers.
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (C::STAGES + s); };
+  auto qfull = [&](int q) { return bars + 8 * (2 * C::STAGES + q); };
+  auto qempty = [&](int q) { return bars + 8 * (2 * C::STAGES + 2 + q); };
 
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int kvh = h / (H / KVH);
-  const int64_t q_stride = static_cast<int64_t>(H) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(KVH) * HD;
-  const bf16* gq = q + (static_cast<int64_t>(b) * S + m0) * q_stride + h * HD;
-  bf16* go = o + (static_cast<int64_t>(b) * S + m0) * q_stride + h * HD;
-  const int64_t kv_base = static_cast<int64_t>(b) * T * kv_stride + kvh * HD;
-  const bf16* gk = k + kv_base;
-  const bf16* gv = v + kv_base;
-
-  // Live key tiles [j0, j1): keys < T, <= the tile's last query when
-  // causal, > its first query - window with a window.
-  const int n_end = causal ? min(T, m0 + BM) : T;
-  const int n_begin = window > 0 ? max(0, m0 - window + 1) : 0;
-  const int j0 = n_begin / BN;
-  const int j1 = (n_end + BN - 1) / BN;
-
-  if (j0 < j1) {
-    load_kv<HD>(sK, gk + j0 * BN * kv_stride, kv_stride, T - j0 * BN);
-    load_kv<HD>(sV, gv + j0 * BN * kv_stride, kv_stride, T - j0 * BN);
-  }
-  cp_async_commit();
-
-  // Q tile, scaled in fp32 and rounded to bf16 (rows past S are zero).
-  for (int c = threadIdx.x; c < BM * L::CHUNKS; c += THREADS) {
-    const int r = c / L::CHUNKS, col = (c % L::CHUNKS) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < S)
-      raw = *reinterpret_cast<const uint4*>(gq + r * q_stride + col);
-    __nv_bfloat162* two = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(two[i]);
-      two[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS / 32);   // one arrival per warp
     }
-    *reinterpret_cast<uint4*>(sQ + r * L::LD + col) = raw;
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(qfull(q), 1);
+      mbar_init(qempty(q), CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
+  // Work units (query tile, batch x head): the query tiles of one head are
+  // adjacent, so that the CTAs running at once share K/V tiles in L2, and
+  // the heaviest come first.
+  const int n_mt = (S + BM - 1) / BM, BH = B * H;
+  const int units = n_mt * BH;
+  // Round rd of a persistent grid gives CTA c unit rd * G + c, or
+  // rd * G + G - 1 - c in odd rounds: two rounds then pair a heavy query
+  // tile with a light one.
+  auto unit_of = [&](int rd) {
+    const int c = (rd & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    return rd * gridDim.x + c;
+  };
+  struct Unit { int m0, b, h, j0, j1; };
+  auto unit = [&](int u) {
+    Unit w;
+    w.m0 = (n_mt - 1 - u % n_mt) * BM;
+    const int bh = u / n_mt;
+    w.b = bh / H;
+    w.h = bh % H;
+    // Live key tiles [j0, j1): keys < T, <= the unit's last query when
+    // causal, > its first query - window with a window.
+    const int n_end = causal ? min(T, w.m0 + BM) : T;
+    const int n_begin = window > 0 ? max(0, w.m0 - window + 1) : 0;
+    w.j0 = n_begin / BN;
+    w.j1 = (n_end + BN - 1) / BN;
+    return w;
+  };
 
-  uint32_t qf[HD / 16][4];
+  if (threadIdx.x >= CONSUMERS) {
+    // Producer warp: it needs few registers; one thread issues every copy,
+    // running ahead into the next unit while the consumers finish this one.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == CONSUMERS) {
+      int it = 0, n = 0;    // K/V tiles and units issued by this CTA
+      for (int rd = 0; rd * gridDim.x < units; ++rd) {
+        const int u = unit_of(rd);
+        if (u >= units) continue;
+        const Unit w = unit(u);
+        const int kvh = w.h / (H / KVH);
+        const int qb = n & 1;
+        const uint32_t sQ = sQ0 + qb * C::Q_BYTES;
+        mbar_wait(qempty(qb), ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(qfull(qb), C::Q_BYTES);
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-    ldsm_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * L::LD + ks * 16
-                        + (lane >> 4) * 8);
-
-  // Rows g and g + 8 of this warp's 16: running max, this thread's share of
-  // the denominator, and the output accumulator (HD/8 tiles of 16x8).
-  const int row0 = m0 + warp * 16 + g;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  float acc[HD / 8][4];
+        for (int c = 0; c < C::CHUNKS; ++c)
+          tma_load_4d(sQ + c * BM * 128, &tq, qfull(qb), c * 64, w.h, w.m0,
+                      w.b);
+        for (int j = w.j0; j < w.j1; ++j, ++it) {
+          const int st = it % C::STAGES;
+          mbar_wait(empty(st), ((it / C::STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * C::KV_BYTES);
+          const uint32_t dk = sKV + st * 2 * C::KV_BYTES;
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  for (int j = j0; j < j1; ++j) {
-    const int stage = (j - j0) & 1;
-    if (j + 1 < j1) {
-      const int64_t off = static_cast<int64_t>(j + 1) * BN * kv_stride;
-      load_kv<HD>(sK + (stage ^ 1) * L::TILE, gk + off, kv_stride,
-                  T - (j + 1) * BN);
-      load_kv<HD>(sV + (stage ^ 1) * L::TILE, gv + off, kv_stride,
-                  T - (j + 1) * BN);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* cK = sK + stage * L::TILE;
-    const bf16* cV = sV + stage * L::TILE;
-
-    // S = (q * scale) K^T for 16 rows x 64 keys: 8 accumulators of 16x8.
-    float sc[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; nt += 2) {
-        uint32_t kb[4];
-        ldsm_x4(kb, cK + (nt * 8 + (lane & 7) + ((lane >> 4) << 3)) * L::LD
-                        + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(sc[nt], qf[ks], kb[0], kb[1]);
-        mma_bf16(sc[nt + 1], qf[ks], kb[2], kb[3]);
+          for (int c = 0; c < C::CHUNKS; ++c) {
+            tma_load_4d(dk + c * BN * 128, &tk, full(st), c * 64, kvh,
+                        j * BN, w.b);
+            tma_load_4d(dk + C::KV_BYTES + c * BN * 128, &tv, full(st),
+                        c * 64, kvh, j * BN, w.b);
+          }
+        }
+        ++n;
       }
     }
+  } else {
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    int it0 = 0, n = 0;     // K/V tiles and units consumed by this CTA
+    for (int rd = 0; rd * gridDim.x < units; ++rd) {
+      const int u = unit_of(rd);
+      if (u >= units) continue;
+      const Unit w = unit(u);
+      const int j0 = w.j0, j1 = w.j1, b = w.b, h = w.h;
+      const int r0 = w.m0;                         // the unit's rows
+      const int row0 = r0 + warp * 16 + g;         // rows row0, row0 + 8
+      const int qb = n & 1;
+      const uint32_t qa = sQ0 + qb * C::Q_BYTES;
 
-    // Mask, then the online-softmax update of rows g (i = 0), g + 8 (i = 1).
-    const int n0 = j * BN;
-    float mx[2] = {m_run[0], m_run[1]};
+      // q * scale in fp32, rounded to bf16, in place (element-wise, so the
+      // swizzle does not matter); then hand the rows to the async proxy.
+      // A power-of-two scale (hd = 64) is exact in bf16 and commutes with
+      // every fp32 rounding of the dot: it is applied to the scores instead.
+      mbar_wait(qfull(qb), (n >> 1) & 1);
+      if (!pow2_scale) {
+        unsigned char* q_gen = smem_raw + (qa - raw);
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+        for (int c = 0; c < C::CHUNKS; ++c) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + nt * 8 + tq * 2 + (e & 1);
-        const int row = row0 + (e >> 1) * 8;
-        const bool live = col < T && (!causal || col <= row)
-                          && (window <= 0 || col > row - window);
-        if (!live) sc[nt][e] = MASKED;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+          for (int i = tid; i < 64 * 8; i += 128) {
+            uint4* p = reinterpret_cast<uint4*>(q_gen + c * BM * 128) + i;
+            uint4 v = *p;
+            __nv_bfloat162* two = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(two[e]);
+              two[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+            }
+            *p = v;
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
       }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      alpha[i] = __expf(m_run[i] - mx[i]);
-      m_run[i] = mx[i];
-      l_run[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(sc[nt][e] - m_run[e >> 1]);
-        l_run[e >> 1] += p;
-        sc[nt][e] = p;
-      }
-    }
 
-    // acc += bf16(P) V: the accumulators of key tiles 2kk and 2kk + 1 are
-    // the A operand of keys [16kk, 16kk + 16).
+      float m_run[2] = {-INFINITY, -INFINITY};
+      float l_run[2] = {0.f, 0.f};
+      float acc[C::CHUNKS][32];
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-          pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-          pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-          pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+      for (int c = 0; c < C::CHUNKS; ++c)
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; dt += 2) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                 * L::LD + dt * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[dt], pa, vb[0], vb[1]);
-        mma_bf16(acc[dt + 1], pa, vb[2], vb[3]);
+        for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+      for (int j = j0; j < j1; ++j) {
+        const int it = it0 + j - j0, st = it % C::STAGES;
+        mbar_wait(full(st), (it / C::STAGES) & 1);
+        const uint32_t sk = sKV + st * 2 * C::KV_BYTES;
+        const uint32_t sv = sk + C::KV_BYTES;
+        const int n0 = j * BN;
+        // S = Q K^T (Q scaled above, or the scale folded into l2e): 64 rows
+        // x BN keys.
+        float s[BN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;   // 16 bf16 of a 128-byte row
+          wgmma_ss_n64(s, desc_k_major(qa + (kk / 4) * BM * 128 + off),
+                      desc_k_major(sk + (kk / 4) * BN * 128 + off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+
+        // The mask, only where a cell of these rows is masked; then the
+        // online-softmax update of rows row0 (i = 0) and row0 + 8 (i = 1).
+        if ((causal && n0 + BN - 1 > r0) || n0 + BN > T
+            || (window > 0 && n0 <= r0 + 63 - window)) {
+#pragma unroll
+          for (int jn = 0; jn < BN / 8; ++jn) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = n0 + jn * 8 + t4 * 2 + (e & 1);
+              const int row = row0 + (e >> 1) * 8;
+              const bool live = col < T && (!causal || col <= row)
+                                && (window <= 0 || col > row - window);
+              if (!live) s[jn * 4 + e] = MASKED;
+            }
+          }
+        }
+        float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        // exp(s - m) = 2^(s l2e - m l2e), one FFMA and one EX2 a score (s
+        // and m in the product's units, l2e holding a folded scale). A row
+        // that has seen only masked scores (m = -1e30) takes exp(0) = 1 for
+        // each, as exp(s - m) does.
+        float alpha[2], sc[2], ms[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+          alpha[i] = ex2((m_run[i] - mx[i]) * l2e);
+          m_run[i] = mx[i];
+          l_run[i] *= alpha[i];
+          sc[i] = mx[i] == MASKED ? 0.f : l2e;
+          ms[i] = mx[i] * sc[i];
+        }
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          const float p = ex2(fmaf(s[i], sc[r], -ms[r]));
+          l_run[r] += p;
+          s[i] = p;
+        }
+        // bf16(P): the accumulators of keys [16 kk, 16 kk + 16) are the A
+        // fragment of the kk-th k-step.
+        uint32_t pa[BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+
+        // O += bf16(P) V, per 64-column block of hd.
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < C::CHUNKS; ++c)
+            wgmma_rs_n64_tb(acc[c], pa[kk],
+                            desc_mn_major(sv + c * BN * 128 + kk * 16 * 128));
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c) fence_regs(acc[c]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));   // the stage may be refilled
       }
+
+      it0 += j1 - j0;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(qempty(qb));      // Q may be refilled
+
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float l = l_run[i];
+        l += __shfl_xor_sync(FULL, l, 1);
+        l += __shfl_xor_sync(FULL, l, 2);
+        l = fmaxf(l, 1e-30f);
+        const int row = row0 + i * 8;
+        if (row >= S) continue;
+        bf16* dst = o + ((static_cast<int64_t>(b) * S + row) * H + h) * HD
+                    + t4 * 2;
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c)
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn)
+            *reinterpret_cast<uint32_t*>(dst + c * 64 + jn * 8) = pack_bf16(
+                acc[c][jn * 4 + 2 * i] / l, acc[c][jn * 4 + 2 * i + 1] / l);
+      }
+      ++n;
     }
-    __syncthreads();   // this stage is refilled two tiles on
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(FULL, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(FULL, l_run[i], 2);
-    l_run[i] = fmaxf(l_run[i], 1e-30f);
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row0 + i * 8 >= S) continue;
-    bf16* dst = go + (warp * 16 + g + i * 8) * q_stride + tq * 2;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(dst + dt * 8) =
-          pack_bf16(acc[dt][2 * i] / l_run[i], acc[dt][2 * i + 1] / l_run[i]);
-  }
+  return fn;
+}
+
+// A 4-d map over a contiguous (batch, rows, heads, HD) bf16 tensor, boxes of
+// 64 features x 1 head x `box_rows` rows x 1 batch, 128-byte swizzled; rows
+// out of range read as zeros. Returns the CUresult.
+int encode(CUtensorMap* map, const void* base, int batch, int rows, int heads,
+           int hd, int box_rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(hd) * 2,
+      static_cast<cuuint64_t>(hd) * heads * 2,
+      static_cast<cuuint64_t>(hd) * heads * rows * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return static_cast<int>(fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int T, int H, int KVH, int causal, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = Shape<HD>::SMEM;
+  using C = Cfg<HD>;
+  CUtensorMap mq, mk, mv;
+  int res = encode(&mq, q, B, S, H, HD, BM);
+  if (res == CUDA_SUCCESS) res = encode(&mk, k, B, T, KVH, HD, BN);
+  if (res == CUDA_SUCCESS) res = encode(&mv, v, B, T, KVH, HD, BN);
+  if (res != CUDA_SUCCESS) return -res;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BM - 1) / BM, B * H);
-  flash_fwd<HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, T, H, KVH,
-      causal, window, scale);
+  // As many CTAs as fit on the card at once walk the units.
+  const int units = (S + BM - 1) / BM * B * H;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int ctas = min(units, sms * C::MIN_BLOCKS);
+  int exp2 = 0;
+  const int pow2_scale = scale > 0.f && std::frexp(scale, &exp2) == 0.5f;
+  flash_fwd<HD><<<ctas, THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), B, S, T, H, KVH, causal, window,
+      scale, pow2_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o (B, S, H, hd) and k, v (B, T, KVH, hd), all contiguous bf16 on the
-// device; H a multiple of KVH; hd 64 or 128; window <= 0 means none. The
-// caller validates shapes. Returns the CUDA error of the launch (0 if none).
+// device with 16-byte aligned bases; H a multiple of KVH; hd 64 or 128;
+// window <= 0 means none. The caller validates shapes. Returns the CUDA
+// error of the launch (0 if none), or minus the CUresult of a tensor map
+// that could not be encoded.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int T, int H, int KVH, int hd, int causal,

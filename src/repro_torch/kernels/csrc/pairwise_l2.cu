@@ -17,45 +17,58 @@
 // LSB-first: bit j % 32 of word j / 32 of row i is the pair (i, j). Counts
 // include the diagonal.
 //
-// Design. One block of 256 threads (8 warps) owns a 32-row x 128-column tile
-// of one subset. It stages 32-feature slices of the row and column points in
-// shared memory and each thread keeps 16 fp32 accumulators: one column, 16
-// rows.
-// The Gram term is a plain FMA loop — no tensor cores and no TF32, because the
-// host's error bound (the backend's slack) covers fp32 rounding only. In the
-// epilogue lane j of a warp holds column j of a 32-column word, so
-// __ballot_sync over the join predicate *is* the packed mask word (the TPU
-// kernel needed an MXU matmul against powers of two for the same packing).
-// Counts are __popc per word, a shared-memory sum per block and one integer
-// atomicAdd per block: integer atomics give the same total in any order.
-// Tiles wholly past a subset's length skip the Gram loop and only write their
-// zero words.
+// Design of K1 and K2 (the served self-joins). A subset of L live points
+// has a symmetric join, so only the 64 x 64 tiles (ti, tj) with ti <= tj of
+// the live region are computed, 128 threads a tile. A persistent grid (five
+// blocks an SM) walks the upper triangle of tiles of P of every subset and
+// gives the tiles wholly past L a few instructions: they write the zeros of
+// their mask words, so the mask needs no clearing pass, and the host reads
+// no lengths back. Both tiles' points are staged point-major in shared
+// memory, 64 features per pass, by 16-byte cp.async copies all in flight at
+// once; each thread keeps an 8-row x 4-column register tile (32 fp32 accumulators) and
+// per 4 features reads each of its rows and columns as one float4: 12
+// shared loads per 128 FMAs. The Gram term is a plain FMA loop over the
+// features in order — no tensor cores and no TF32, because the host's error
+// bound (the backend's slack) covers fp32 rounding only. sq(i, j) and
+// sq(j, i) are the same bits: fmaf's product commutes and so does
+// |a|^2 + |b|^2, the norms being taken in the same order. So the mirrored
+// half is exact: an off-diagonal tile writes its row words, then the
+// transposed words (a 32 x 32 bit transpose by shuffles of its words in
+// shared memory), and counts its joined cells twice. A warp holds 2 rows x
+// 64 columns of a tile at a time; two ballots over its 4 column groups make
+// the 32-column mask words (LSB-first) of both rows. A tile inside the live
+// square with no eligibility words tests only the threshold. Counts are
+// __popc per word and integer atomics per warp: the same total in any order.
+//
+// K3 and K4 keep the first version's tile: one block of 256 threads (8 warps)
+// owns a 32-row x 128-column tile, stages 32-feature slices of the row and
+// column points in shared memory, and each thread keeps 16 fp32
+// accumulators (one column, 16 rows). In the epilogue lane j of a warp holds
+// column j of a 32-column word, so __ballot_sync over the join predicate is
+// the packed word (the TPU kernel needed an MXU matmul against powers of two
+// for the same packing).
 //
 // Bound on the card. The Gram term of a self-join needs 2d flops per distinct
-// pair (it is symmetric: L(L+1)/2 pairs for L points, though this version
-// computes both halves) and moves d*4 bytes per point read once plus 1/8 byte
-// of mask per padded cell. K1 and K3 must round as fp32 FMA does, so their
-// peak is fp32 outside the tensor cores (67 TFLOP/s on an H100 SXM): at the
-// main path's d = 64 and subsets of hundreds to thousands of points they are
-// bound by operations. K2 multiplies bf16 by bf16 into fp32 — the bf16
-// tensor cores' contract (989 TFLOP/s dense) — so at those shapes it is bound
-// by the bytes of its fp32 tile, and this FMA version of it runs far off that
-// bound. This first version is further bound by shared-memory issue: every 16
-// FMAs read five shared-memory words (four float4 row broadcasts and one
-// column value). Register tiling over columns too, half the tiles by
-// symmetry, and wgmma for the bf16 tier are later work.
+// pair (L(L+1)/2 pairs for L points) and moves d*4 bytes per point read once
+// plus 1/8 byte of mask per padded cell. K1 and K3 must round as fp32 FMA
+// does, so their peak is fp32 outside the tensor cores (67 TFLOP/s on an
+// H100 SXM): at the main path's d = 64 and subsets of hundreds to thousands
+// of points they are bound by operations. K2 multiplies bf16 by bf16 into
+// fp32 — the bf16 tensor cores' contract (989 TFLOP/s dense) — so at those
+// shapes it is bound by the bytes of its fp32 tile, and this FMA version of
+// it runs far off that bound; wgmma for the bf16 tier is later work.
 //
-// K4 is K1's body without the mask: it always writes the dense sq block and
-// counts joined pairs per tile of the *caller's* (bm, bn) grid, which need
-// not match the kernel's 32 x 128 block. A row's ballot word spans 32
-// columns and may straddle a bn boundary, so it is split by shifts into the
-// grid cells it touches; a block sums its cells in shared memory (at most
-// 32 x 128 of them, for bm = bn = 1) and adds each nonzero cell to the
-// output once. Per valid cell it needs 2d fp32 flops (1.9 ps at d = 64 and
-// 67 TFLOP/s) against 4 written bytes (1.2 ps at 3.35 TB/s), so a block full
-// of valid cells is bound by operations; at K1's path input most cells lie
-// past the subsets' lengths and cost bytes only, and the S P^2 4-byte sq
-// write bounds it. This version computes both halves of the symmetric block.
+// K4 is K3's tile over a batch of self-joins without the mask: it always
+// writes the dense sq block and counts joined pairs per tile of the
+// *caller's* (bm, bn) grid, which need not match the kernel's 32 x 128
+// block. A row's ballot word spans 32 columns and may straddle a bn
+// boundary, so it is split by shifts into the grid cells it touches; a block
+// sums its cells in shared memory (at most 32 x 128 of them, for bm = bn = 1)
+// and adds each nonzero cell to the output once. Per valid cell it needs 2d
+// fp32 flops (1.9 ps at d = 64 and 67 TFLOP/s) against 4 written bytes (1.2
+// ps at 3.35 TB/s), so a block full of valid cells is bound by operations;
+// at K1's path input most cells lie past the subsets' lengths and cost bytes
+// only, and the S P^2 4-byte sq write bounds it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,7 +112,6 @@ __device__ __forceinline__ float load_coord(const float* p) {
 // acc[i] = <a[row0 + rbase + i], b[col0 + c]> for this thread's column c, and
 // the squared norms of the tile's rows (sm.an) and columns (sm.bn). Rows at or
 // past a_rows and columns at or past b_rows read as zero.
-template <bool BF16>
 __device__ void gram_tile(Smem& sm, const float* __restrict__ a, int a_rows,
                           int row0, const float* __restrict__ b, int b_rows,
                           int col0, int d, float (&acc)[RPW]) {
@@ -116,13 +128,13 @@ __device__ void gram_tile(Smem& sm, const float* __restrict__ a, int a_rows,
       const int r = e / DK, k = e % DK;
       const int gr = row0 + r, gk = k0 + k;
       sm.at[k][r] = (gr < a_rows && gk < d)
-                       ? load_coord<BF16>(a + (size_t)gr * d + gk) : 0.f;
+                       ? __ldg(a + (size_t)gr * d + gk) : 0.f;
     }
     for (int e = tid; e < TN * DK; e += THREADS) {
       const int r = e / DK, k = e % DK;
       const int gr = col0 + r, gk = k0 + k;
       sm.b[r][k] = (gr < b_rows && gk < d)
-                       ? load_coord<BF16>(b + (size_t)gr * d + gk) : 0.f;
+                       ? __ldg(b + (size_t)gr * d + gk) : 0.f;
     }
     __syncthreads();
     if (tid < TM) {
@@ -158,18 +170,18 @@ __device__ __forceinline__ bool elig_bit(const int* __restrict__ words, int i) {
   return (static_cast<unsigned>(words[i >> 5]) >> (i & 31)) & 1u;
 }
 
-// The body K1, K2 and K4 share: the Gram tile of block (s, blockIdx.y,
-// blockIdx.z) over a subset of L valid points, then for each of this
-// thread's RPW rows epi(row, col, v, valid) with v = the cell's sq (FLT_MAX
-// where row or col is at or past L). Tiles wholly past L skip the Gram loop.
-template <bool BF16, class Epi>
+// K4's body: the Gram tile of block (s, blockIdx.y, blockIdx.z) over a
+// subset of L valid points, then for each of this thread's RPW rows
+// epi(row, col, v, valid) with v = the cell's sq (FLT_MAX where row or col
+// is at or past L). Tiles wholly past L skip the Gram loop.
+template <class Epi>
 __device__ __forceinline__ void self_join_rows(Smem& sm, const float* xs,
                                                int L, int d, Epi&& epi) {
   const int row0 = blockIdx.y * TM;
   const int col0 = blockIdx.z * TN;
   float acc[RPW];
   if (row0 < L && col0 < L) {                 // block-uniform
-    gram_tile<BF16>(sm, xs, L, row0, xs, L, col0, d, acc);
+    gram_tile(sm, xs, L, row0, xs, L, col0, d, acc);
   } else {
 #pragma unroll
     for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
@@ -189,44 +201,306 @@ __device__ __forceinline__ void self_join_rows(Smem& sm, const float* xs,
   }
 }
 
-// K1 (MASK) and K2 (!MASK, BF16). Grid (S, ceil(P/TM), ceil(P/TN)).
-template <bool BF16, bool MASK>
-__global__ void __launch_bounds__(THREADS)
-batched_join_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
-                    const float* __restrict__ radii, const int* __restrict__ elig,
-                    int P, int d, int W, int* __restrict__ mask,
-                    int* __restrict__ counts, float* __restrict__ sq_out) {
-  __shared__ Smem sm;
-  const int s = blockIdx.x;
-  const int L = min(max(lengths[s], 0), P);
-  const int* es = elig ? elig + (size_t)s * W : nullptr;
-  if (threadIdx.x == 0) sm.count = 0;
-  const int lane = threadIdx.x & 31;
-  const int word = blockIdx.z * WPB + (threadIdx.x >> 5) % WPB;
-  const float r = radii[s];
-  const float r2 = r * r;
-  int cnt = 0;
-  self_join_rows<BF16>(sm, x + (size_t)s * P * d, L, d,
-                       [&](int row, int col, float v, bool valid) {
-    const bool joined = valid && v <= r2
-        && (es == nullptr || (elig_bit(es, col) && elig_bit(es, row)));
-    const unsigned bits = __ballot_sync(0xffffffffu, joined);
-    if (MASK) {
-      if (sq_out != nullptr && row < P && col < P)
-        sq_out[((size_t)s * P + row) * P + col] = v;
-      if (lane == 0 && row < P && word < W)
-        mask[((size_t)s * P + row) * W + word] = static_cast<int>(bits);
-    }
-    if (lane == 0) cnt += __popc(bits);
-  });
-  if (lane == 0 && cnt) atomicAdd(&sm.count, cnt);
-  __syncthreads();
-  if (threadIdx.x == 0 && sm.count) atomicAdd(counts + s, sm.count);
+// ---- K1 and K2: square tiles over the upper triangle -----------------------
+
+constexpr int ST = 64;                     // square tile (rows = columns)
+constexpr int ST_THREADS = 128;
+constexpr int ST_RG = 8;                   // row groups: thread rows rg + 8 i
+constexpr int ST_CG = 16;                  // column groups: columns cg + 16 u
+constexpr int ST_RT = ST / ST_RG;          // rows per thread
+constexpr int ST_CT = ST / ST_CG;          // columns per thread
+constexpr int ST_K = 64;                   // features staged per pass
+constexpr int ST_LD = ST_K + 4;            // padded point rows (float4-aligned)
+constexpr int ST_WORDS = ST / 32;          // mask words per tile row
+
+static_assert(ST_RG * ST_CG == ST_THREADS, "threads tile the square");
+static_assert(ST_CG == 16 && ST_CT == 4, "a warp is 2 row groups x 16 lanes");
+
+struct alignas(16) TriSmem {
+  float a[ST][ST_LD];                      // row points, point-major
+  float b[ST][ST_LD];                      // column points
+  float an[ST];                            // squared norms of the rows
+  float bn[ST];                            // and of the columns
+  unsigned words[ST][ST_WORDS + 1];        // the tile's row words (padded)
+};
+
+// Tile t of the upper triangle, enumerated column by column:
+// (0,0), (0,1), (1,1), (0,2), ... Returns tj and sets ti <= tj.
+__device__ __forceinline__ int triangle_tile(int t, int& ti) {
+  auto first = [](long long j) { return j * (j + 1) / 2; };  // of column j
+  int tj = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
+  while (first(tj + 1) <= t) ++tj;
+  while (first(tj) > t) --tj;
+  ti = static_cast<int>(t - first(tj));
+  return tj;
 }
 
-// K4: K1's body with per-tile counts of the caller's (bm, bn) grid in place
-// of the mask. Grid (S, ceil(P/TM), ceil(P/TN)); counts (S, ceil(P/bm),
-// ceil(P/bn)).
+// 16 bytes global -> shared without a register round trip; zeros when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Stages features [k0, k0 + ST_K) of points [p0, p0 + ST) into dst; points
+// at or past L and features at or past d are zero. When every row is
+// 16-byte aligned (d % 4 == 0 and an aligned base) the copies are cp.async
+// of 16 bytes, all in flight at once, and the caller waits for them
+// (stage_wait); else scalar loads.
+template <bool BF16>
+__device__ __forceinline__ void stage_points(float (*dst)[ST_LD],
+                                             const float* __restrict__ xs,
+                                             int p0, int L, int d, int k0,
+                                             bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < ST * ST_K / 4; e += ST_THREADS) {
+      const int r = e / (ST_K / 4), k = (e % (ST_K / 4)) * 4;
+      const bool ok = p0 + r < L && k0 + k < d;
+      cp_async16(&dst[r][k], ok ? xs + (size_t)(p0 + r) * d + k0 + k : xs,
+                 ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ST * ST_K; e += ST_THREADS) {
+      const int r = e / ST_K, k = e % ST_K;
+      dst[r][k] = (p0 + r < L && k0 + k < d)
+          ? load_coord<BF16>(xs + (size_t)(p0 + r) * d + k0 + k) : 0.f;
+    }
+  }
+}
+
+// Completes this thread's cp.async copies into dst and, for the bf16 tier,
+// rounds what it copied.
+template <bool BF16>
+__device__ __forceinline__ void stage_wait(float (*dst)[ST_LD], bool vec) {
+  if (!vec) return;
+  cp_async_wait_all();
+  if (BF16) {
+    for (int e = threadIdx.x; e < ST * ST_K / 4; e += ST_THREADS) {
+      float4* v = reinterpret_cast<float4*>(
+          &dst[e / (ST_K / 4)][(e % (ST_K / 4)) * 4]);
+      float4 t = *v;
+      t.x = __bfloat162float(__float2bfloat16_rn(t.x));
+      t.y = __bfloat162float(__float2bfloat16_rn(t.y));
+      t.z = __bfloat162float(__float2bfloat16_rn(t.z));
+      t.w = __bfloat162float(__float2bfloat16_rn(t.w));
+      *v = t;
+    }
+  }
+}
+
+// Transposes the 32 x 32 bit matrix whose row b is lane b's word (bit c =
+// column c): afterwards lane j holds column j. Five rounds each swap the
+// off-diagonal blocks of size 16, 8, 4, 2, 1 with the partner lane.
+__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
+  const unsigned hi[5] = {0xffff0000u, 0xff00ff00u, 0xf0f0f0f0u, 0xccccccccu,
+                          0xaaaaaaaau};     // columns c with (c & j) != 0
+#pragma unroll
+  for (int st = 0; st < 5; ++st) {
+    const int j = 16 >> st;
+    const unsigned t = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? (x & hi[st]) | ((t >> j) & ~hi[st])
+                   : (x & ~hi[st]) | ((t << j) & hi[st]);
+  }
+  return x;
+}
+
+// One live tile (ti <= tj, tj * ST < L) of subset s of K1 (MASK) or K2
+// (!MASK, BF16). Thread (rg, cg) holds rows rg + 8 i and columns cg + 16 u
+// of the tile, so a warp's two row groups read two rows one apart (distinct
+// banks) and its 16 column groups 16 consecutive points.
+template <bool BF16, bool MASK>
+__device__ __forceinline__ void join_tile(
+    TriSmem& sm, const float* __restrict__ x, const float* __restrict__ radii,
+    const int* __restrict__ elig, int s, int ti, int tj, int L, int P, int d,
+    int W, int* __restrict__ mask, int* __restrict__ counts,
+    float* __restrict__ sq_out) {
+  const int row0 = ti * ST, col0 = tj * ST;
+  const bool diag = ti == tj;
+  const float* xs = x + (size_t)s * P * d;
+  const bool vec = (d % 4 == 0)
+                   && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rg = tid / ST_CG, cg = tid % ST_CG;
+  float acc[ST_RT][ST_CT];
+#pragma unroll
+  for (int i = 0; i < ST_RT; ++i)
+#pragma unroll
+    for (int u = 0; u < ST_CT; ++u) acc[i][u] = 0.f;
+  float norm = 0.f;                          // of row tid or column tid - ST
+
+  for (int k0 = 0; k0 < d; k0 += ST_K) {
+    stage_points<BF16>(sm.a, xs, row0, L, d, k0, vec);
+    stage_points<BF16>(sm.b, xs, col0, L, d, k0, vec);
+    stage_wait<BF16>(sm.a, vec);
+    stage_wait<BF16>(sm.b, vec);
+    __syncthreads();
+    // Norms over the features in order, as the Gram terms below sum them.
+    const float* np = tid < ST ? sm.a[tid] : sm.b[tid - ST];
+#pragma unroll 4
+    for (int k = 0; k < ST_K; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(np + k);
+      norm = fmaf(v.x, v.x, norm);
+      norm = fmaf(v.y, v.y, norm);
+      norm = fmaf(v.z, v.z, norm);
+      norm = fmaf(v.w, v.w, norm);
+    }
+#pragma unroll 1
+    for (int k = 0; k < ST_K; k += 4) {
+      float4 av[ST_RT], bv[ST_CT];
+#pragma unroll
+      for (int i = 0; i < ST_RT; ++i)
+        av[i] = *reinterpret_cast<const float4*>(&sm.a[rg + ST_RG * i][k]);
+#pragma unroll
+      for (int u = 0; u < ST_CT; ++u)
+        bv[u] = *reinterpret_cast<const float4*>(&sm.b[cg + ST_CG * u][k]);
+#pragma unroll
+      for (int i = 0; i < ST_RT; ++i)
+#pragma unroll
+        for (int u = 0; u < ST_CT; ++u) {
+          acc[i][u] = fmaf(av[i].x, bv[u].x, acc[i][u]);
+          acc[i][u] = fmaf(av[i].y, bv[u].y, acc[i][u]);
+          acc[i][u] = fmaf(av[i].z, bv[u].z, acc[i][u]);
+          acc[i][u] = fmaf(av[i].w, bv[u].w, acc[i][u]);
+        }
+    }
+    __syncthreads();
+  }
+  if (tid < ST) sm.an[tid] = norm;
+  else sm.bn[tid - ST] = norm;
+  __syncthreads();
+
+  const float r = radii[s];
+  const float r2 = r * r;
+  const int* es = elig ? elig + (size_t)s * W : nullptr;
+  // A tile inside the live square without eligibility words needs no
+  // predicate but the threshold (rows start at or before its columns).
+  const bool interior = es == nullptr && col0 + ST <= L;
+  float an[ST_RT], bn[ST_CT];
+  bool ecol[ST_CT];
+#pragma unroll
+  for (int u = 0; u < ST_CT; ++u) {
+    const int col = col0 + cg + ST_CG * u;
+    bn[u] = sm.bn[cg + ST_CG * u];
+    ecol[u] = interior
+              || (col < L && (es == nullptr || elig_bit(es, col)));
+  }
+#pragma unroll
+  for (int i = 0; i < ST_RT; ++i) an[i] = sm.an[rg + ST_RG * i];
+  // Lanes 0-15 hold row rg = 2 warp, lanes 16-31 the next row group;
+  // ballot(u) packs columns cg + 16 u of both rows, so two ballots make one
+  // 32-column word of each row. Lane 4 i + 2 h + c keeps word c of row
+  // 2 warp + h + 8 i.
+  const int warp = tid >> 5;
+  unsigned word = 0;
+  int wtr = 0, wc = 0;
+#pragma unroll
+  for (int i = 0; i < ST_RT; ++i) {
+    const int row = row0 + rg + ST_RG * i;
+    const bool erow = interior
+                      || (row < L && (es == nullptr || elig_bit(es, row)));
+    unsigned bal[ST_CT];
+#pragma unroll
+    for (int u = 0; u < ST_CT; ++u) {
+      // explicit roundings: the mirrored cell computes the same bits; the
+      // clamp at 0 does not change the comparison with r^2 >= 0
+      const float e = __fmaf_rn(-2.0f, acc[i][u], __fadd_rn(an[i], bn[u]));
+      bal[u] = __ballot_sync(0xffffffffu, erow && ecol[u] && e <= r2);
+      const int col = col0 + cg + ST_CG * u;
+      if (MASK && sq_out != nullptr && row < P && col < P) {
+        const float v = row < L && col < L ? fmaxf(e, 0.0f) : FLT_MAX;
+        sq_out[((size_t)s * P + row) * P + col] = v;
+        if (!diag) sq_out[((size_t)s * P + col) * P + row] = v;
+      }
+    }
+    const int k = lane - 4 * i;
+    if (k >= 0 && k < 4) {
+      const int h = k >> 1, c = k & 1;
+      const unsigned lo = c ? bal[2] : bal[0], hi = c ? bal[3] : bal[1];
+      word = h ? (lo >> 16) | (hi & 0xffff0000u) : (lo & 0xffffu) | (hi << 16);
+      wtr = 2 * warp + h + ST_RG * i;
+      wc = c;
+    }
+  }
+  int cnt = __popc(word) * (diag ? 1 : 2);   // and the mirrored half
+  cnt += __shfl_xor_sync(0xffffffffu, cnt, 16);
+  cnt += __shfl_xor_sync(0xffffffffu, cnt, 8);
+  cnt += __shfl_xor_sync(0xffffffffu, cnt, 4);
+  cnt += __shfl_xor_sync(0xffffffffu, cnt, 2);
+  cnt += __shfl_xor_sync(0xffffffffu, cnt, 1);
+  if (lane == 0 && cnt) atomicAdd(counts + s, cnt);
+  if (!MASK) return;
+  const int wrow = row0 + wtr, wi = (col0 >> 5) + wc;
+  if (wrow < P && wi < W)
+    mask[((size_t)s * P + wrow) * W + wi] = static_cast<int>(word);
+  if (!diag) {
+    // The mirrored words: warp w transposes the 32 x 32 bit block of tile
+    // rows 32 q.. and columns 32 c.. (lane b holds row 32 q + b; after
+    // the transpose lane j holds column 32 c + j).
+    sm.words[wtr][wc] = word;
+    __syncthreads();
+    const int c = warp >> 1, q = warp & 1;
+    const unsigned out = transpose32(sm.words[32 * q + lane][c], lane);
+    const int col = col0 + 32 * c + lane, twi = (row0 >> 5) + q;
+    if (col < P && twi < W)
+      mask[((size_t)s * P + col) * W + twi] = static_cast<int>(out);
+  }
+}
+
+constexpr int ST_BLOCKS_PER_SM = 5;   // 96 registers a thread
+
+// The mask words of tile (ti, tj) and of its mirror, for a tile wholly past
+// the subset's length: zero. With the live tiles' words they cover the mask.
+__device__ __forceinline__ void zero_tile_words(int* __restrict__ mask, int s,
+                                                int ti, int tj, int P, int W) {
+  const int r = threadIdx.x / ST_WORDS, c = threadIdx.x % ST_WORDS;
+  static_assert(ST * ST_WORDS == ST_THREADS, "one word a thread");
+  int row = ti * ST + r, wi = tj * ST_WORDS + c;
+  if (row < P && wi < W) mask[((size_t)s * P + row) * W + wi] = 0;
+  if (ti == tj) return;
+  row = tj * ST + r;
+  wi = ti * ST_WORDS + c;
+  if (row < P && wi < W) mask[((size_t)s * P + row) * W + wi] = 0;
+}
+
+// K1 (MASK) and K2 (!MASK, BF16): a persistent grid whose blocks walk the
+// T(T+1)/2 triangle tiles of each of the S subsets (T = ceil(P/ST) tiles a
+// side; index u = s T(T+1)/2 + t) and compute the live ones: a tile wholly
+// past the subset's length costs a few instructions, not a block, and
+// writes only its zero mask words. The caller zeroes counts and fills sq
+// with FLT_MAX.
+template <bool BF16, bool MASK>
+__global__ void __launch_bounds__(ST_THREADS, ST_BLOCKS_PER_SM)
+triangle_join_kernel(const float* __restrict__ x,
+                     const int* __restrict__ lengths,
+                     const float* __restrict__ radii,
+                     const int* __restrict__ elig, int S, int P, int d,
+                     int W, int* __restrict__ mask, int* __restrict__ counts,
+                     float* __restrict__ sq_out) {
+  __shared__ TriSmem sm;
+  const long long nt = (P + ST - 1) / ST, ntri = nt * (nt + 1) / 2;
+  for (long long u = blockIdx.x; u < ntri * S; u += gridDim.x) {
+    const int s = static_cast<int>(u / ntri);
+    const int L = min(max(lengths[s], 0), P);
+    int ti;
+    const int tj = triangle_tile(static_cast<int>(u % ntri), ti);
+    if (tj * ST >= L) {                      // block-uniform: a dead tile
+      if (MASK) zero_tile_words(mask, s, ti, tj, P, W);
+      continue;
+    }
+    join_tile<BF16, MASK>(sm, x, radii, elig, s, ti, tj, L, P, d, W, mask,
+                          counts, sq_out);
+  }
+}
+
+// K4: the dense sq block and per-tile counts of the caller's (bm, bn) grid.
+// Grid (S, ceil(P/TM), ceil(P/TN)); counts (S, ceil(P/bm), ceil(P/bn)).
 __global__ void __launch_bounds__(THREADS)
 batched_tiles_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                      const float* __restrict__ radii, int P, int d, int bm,
@@ -249,7 +523,7 @@ batched_tiles_kernel(const float* __restrict__ x, const int* __restrict__ length
   const int wc0 = col0 + ((threadIdx.x >> 5) % WPB) * 32;  // warp's 1st column
   const float r = radii[s];
   const float r2 = r * r;
-  self_join_rows<false>(sm, x + (size_t)s * P * d, L, d,
+  self_join_rows(sm, x + (size_t)s * P * d, L, d,
                         [&](int row, int col, float v, bool valid) {
     if (row < P && col < P) sq_out[((size_t)s * P + row) * P + col] = v;
     const unsigned bits = __ballot_sync(0xffffffffu, valid && v <= r2);
@@ -287,7 +561,7 @@ pairwise_join_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int col0 = blockIdx.x * TN;
   float acc[RPW];
   if (threadIdx.x == 0) sm.count = 0;
-  gram_tile<false>(sm, a, M, row0, b, N, col0, d, acc);
+  gram_tile(sm, a, M, row0, b, N, col0, d, acc);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -313,30 +587,42 @@ pairwise_join_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (threadIdx.x == 0) counts[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = sm.count;
 }
 
+// Blocks of a K1/K2 launch: as many as the card holds at once, or one per
+// triangle tile of all subsets if there are fewer.
+int triangle_blocks(int S, int P) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long nt = (P + ST - 1) / ST;
+  const long long tiles = nt * (nt + 1) / 2 * S;
+  const long long resident = static_cast<long long>(sms) * ST_BLOCKS_PER_SM;
+  return static_cast<int>(tiles < resident ? tiles : resident);
+}
+
 }  // namespace
 
 // Plain C interface (bound with ctypes). Each returns cudaGetLastError() after
 // its launch; 0 is success. Pointers are device pointers; elig and (K1) sq
-// may be null. The caller zeroes counts for the batched kernels.
+// may be null. The caller zeroes counts for the batched kernels, and for K1
+// fills sq with FLT_MAX.
 extern "C" {
 
 int join_batched_masked(const float* x, const int* lengths, const float* radii,
                         const int* elig, int S, int P, int d, int* mask,
                         int* counts, float* sq, void* stream) {
-  const int W = (P + 31) / 32;
-  const dim3 grid(S, (P + TM - 1) / TM, (P + TN - 1) / TN);
-  batched_join_kernel<false, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, lengths, radii, elig, P, d, W, mask, counts, sq);
+  triangle_join_kernel<false, true>
+      <<<triangle_blocks(S, P), ST_THREADS, 0, (cudaStream_t)stream>>>(
+          x, lengths, radii, elig, S, P, d, (P + 31) / 32, mask, counts, sq);
   return static_cast<int>(cudaGetLastError());
 }
 
 int join_batched_prune(const float* x, const int* lengths, const float* radii,
                        const int* elig, int S, int P, int d, int* counts,
                        void* stream) {
-  const int W = (P + 31) / 32;
-  const dim3 grid(S, (P + TM - 1) / TM, (P + TN - 1) / TN);
-  batched_join_kernel<true, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, lengths, radii, elig, P, d, W, nullptr, counts, nullptr);
+  triangle_join_kernel<true, false>
+      <<<triangle_blocks(S, P), ST_THREADS, 0, (cudaStream_t)stream>>>(
+          x, lengths, radii, elig, S, P, d, (P + 31) / 32, nullptr, counts,
+          nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -360,5 +646,6 @@ int pairwise_join(const float* a, const float* b, int M, int N, int d, float r,
 
 int join_tile_rows() { return TM; }
 int join_tile_cols() { return TN; }
+int join_square_tile() { return ST; }
 
 }  // extern "C"

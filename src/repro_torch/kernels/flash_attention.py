@@ -2,10 +2,12 @@
 
 The library builds at the first call (``kernels.build``) and binds through
 ``ctypes``. :func:`flash_attention` checks device, dtype, shape and
-contiguity, allocates the output, launches on the current stream, raises on
-a launch error, and adds one to :data:`launches` for each launch. There is no
-fallback: it takes CUDA bf16 tensors with head dim 64 or 128 only, and raises
-on anything else (``kernels.ops`` routes CPU tensors to the plain version,
+contiguity and what the kernel's TMA copies need (16-byte aligned bases;
+every stride is then a multiple of 128 bytes), allocates the output,
+launches on the current stream, raises on a launch error, and adds one to
+:data:`launches` for each launch. There is no fallback and no copy: it takes
+CUDA bf16 tensors with head dim 64 or 128 only, and raises on anything else
+(``kernels.ops`` routes CPU tensors to the plain version,
 ``kernels.ref.flash_attention``).
 """
 from __future__ import annotations
@@ -20,7 +22,13 @@ from repro_torch.kernels import build
 launches = {"flash_attention": 0}
 
 HEAD_DIMS = (64, 128)
-_MAX_GRID_Y = 65535
+# The kernel's work unit is QUERY_TILE query rows of one (batch, head); units
+# are numbered in int32.
+QUERY_TILE = 64
+_MAX_UNITS = 2 ** 31 - 1
+# A TMA tensor map takes dimensions below 2^32 and byte strides below 2^40.
+_TMA_MAX_DIM = 2 ** 32 - 1
+_TMA_MAX_STRIDE = 2 ** 40 - 1
 
 _LIB: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
@@ -41,6 +49,29 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = _I
         _LIB = lib
     return _LIB
+
+
+def check_tma_operand(name: str, t: torch.Tensor) -> None:
+    """Raises unless the kernel's 4-d tensor map can describe ``t``, a
+    contiguous (B, rows, heads, hd) bf16 tensor: a 16-byte aligned base, and
+    dimensions and byte strides within TMA's limits. Nothing is copied to
+    make a tensor fit."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary for TMA, "
+                         f"got address {t.data_ptr():#x}")
+    if max(t.shape) > _TMA_MAX_DIM \
+            or t.element_size() * t[0].numel() > _TMA_MAX_STRIDE:
+        raise ValueError(f"{name} {tuple(t.shape)} exceeds the TMA tensor "
+                         f"map's limits")
+
+
+def check_units(b: int, s: int, h: int) -> None:
+    """Raises where the kernel cannot number the work units of a
+    (B, S, H) query in int32."""
+    units = -(-s // QUERY_TILE) * b * h
+    if units > _MAX_UNITS:
+        raise ValueError(f"{units} work units (ceil(S/{QUERY_TILE}) x B x H) "
+                         f"exceed the kernel's int32 unit index")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -74,16 +105,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("attention over no keys")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if b * h > _MAX_GRID_Y:
-        raise ValueError(f"B*H={b * h} exceeds the kernel grid")
+    check_units(b, s, h)
     out = torch.empty_like(q)
     if b and s and h:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma_operand(name, t)
         with torch.cuda.device(q.device):
             err = library().flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
                 t_len, h, kvh, hd, int(causal), window or 0,
                 1.0 / float(hd) ** 0.5,
                 torch.cuda.current_stream(q.device).cuda_stream)
+        if err < 0:
+            raise RuntimeError(f"flash_attention: TMA tensor map encoding "
+                               f"failed (CUresult {-err})")
         if err:
             raise RuntimeError(f"flash_attention: kernel launch failed with "
                                f"CUDA error {err}")

@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import JOIN_TILE
+from repro_torch.kernels.ref import JOIN_SQUARE_TILE, JOIN_TILE
 
 # Launches per kernel since the last reset_launches().
 launches = {"join_batched_masked": 0, "join_batched_prune": 0,
@@ -47,14 +47,16 @@ def library() -> ctypes.CDLL:
                                       _P, _P]
         lib.join_batched_tiles.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
                                            _P, _P, _P]
+        tiles = (lib.join_tile_rows, lib.join_tile_cols, lib.join_square_tile)
         for fn in (lib.join_batched_masked, lib.join_batched_prune,
-                   lib.pairwise_join, lib.join_batched_tiles,
-                   lib.join_tile_rows, lib.join_tile_cols):
+                   lib.pairwise_join, lib.join_batched_tiles, *tiles):
             fn.restype = _I
-        lib.join_tile_rows.argtypes = []
-        lib.join_tile_cols.argtypes = []
-        if (lib.join_tile_rows(), lib.join_tile_cols()) != JOIN_TILE:
-            raise RuntimeError("kernel tile differs from kernels.ref.JOIN_TILE")
+        for fn in tiles:
+            fn.argtypes = []
+        if (lib.join_tile_rows(), lib.join_tile_cols()) != JOIN_TILE \
+                or lib.join_square_tile() != JOIN_SQUARE_TILE:
+            raise RuntimeError("kernel tiles differ from kernels.ref's "
+                               "JOIN_TILE and JOIN_SQUARE_TILE")
         _LIB = lib
     return _LIB
 
@@ -86,7 +88,18 @@ def _launched(name: str, err: int, elig: torch.Tensor | None = None) -> None:
         launches[name + "_elig"] += 1
 
 
+_MAX_INT32 = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
+
+
+def check_triangle_tiles(p: int) -> None:
+    """K1 and K2 number the tiles (ti <= tj) of the upper triangle of
+    :data:`JOIN_SQUARE_TILE` tiles of a subset in int32; raises where P
+    makes more."""
+    t = -(-p // JOIN_SQUARE_TILE)
+    if t * (t + 1) // 2 > _MAX_INT32:
+        raise ValueError(f"P={p} makes more triangle tiles than the kernel "
+                         f"numbers ({t} tiles a side)")
 
 
 def _check_batched(x, lengths, r, elig=None):
@@ -98,21 +111,23 @@ def _check_batched(x, lengths, r, elig=None):
     _check(r, "r", torch.float32, (s,), x.device)
     if elig is not None:
         _check(elig, "elig", torch.int32, (s, (p + 31) // 32), x.device)
-    if -(-p // JOIN_TILE[0]) > _MAX_GRID_Y:
-        raise ValueError(f"P={p} exceeds the kernel grid")
     return s, p, d
 
 
 def join_batched_masked(x: torch.Tensor, lengths: torch.Tensor,
                         r: torch.Tensor, elig: torch.Tensor | None = None, *,
                         with_sq: bool = False):
-    """CUDA kernel K1 — see ``kernels.ref.join_batched_masked``."""
+    """CUDA kernel K1 — see ``kernels.ref.join_batched_masked``. The kernel
+    writes every mask word (the tiles past a subset's length write zeros)
+    but only the live tiles of sq (with ``with_sq``), which starts at
+    fp32-max."""
     s, p, d = _check_batched(x, lengths, r, elig)
+    check_triangle_tiles(p)
     dev = x.device
     mask = torch.empty((s, p, (p + 31) // 32), dtype=torch.int32, device=dev)
     counts = torch.zeros(s, dtype=torch.int32, device=dev)
-    sq = torch.empty((s, p, p), dtype=torch.float32, device=dev) \
-        if with_sq else None
+    sq = torch.full((s, p, p), torch.finfo(torch.float32).max,
+                    dtype=torch.float32, device=dev) if with_sq else None
     if s and p and d:
         with torch.cuda.device(dev):
             err = library().join_batched_masked(
@@ -132,6 +147,7 @@ def join_batched_prune(x: torch.Tensor, lengths: torch.Tensor,
     fp32 tile and rounds coordinates to bf16 as it loads them; ``elig`` is
     K1's packed eligibility words."""
     s, p, d = _check_batched(x, lengths, r, elig)
+    check_triangle_tiles(p)
     counts = torch.zeros(s, dtype=torch.int32, device=x.device)
     if s and p and d:
         with torch.cuda.device(x.device):
@@ -150,6 +166,8 @@ def join_batched_tiles(x: torch.Tensor, lengths: torch.Tensor,
     """CUDA kernel K4 — see ``kernels.ref.join_batched_dense``. Returns sq
     (S, P, P) fp32 and counts (S, ceil(P/bm), ceil(P/bn)) int32."""
     s, p, d = _check_batched(x, lengths, r)
+    if -(-p // JOIN_TILE[0]) > _MAX_GRID_Y:
+        raise ValueError(f"P={p} exceeds the kernel grid")
     if bm < 1 or bn < 1:
         raise ValueError(f"tile sizes must be positive, got ({bm}, {bn})")
     sq = torch.empty((s, p, p), dtype=torch.float32, device=x.device)

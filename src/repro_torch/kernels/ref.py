@@ -26,6 +26,9 @@ import torch
 # The CUDA kernels' block tile (rows, columns): ``pairwise_join`` reports one
 # join count per tile of this shape.
 JOIN_TILE = (32, 128)
+# The square tile of the masked join and the coarse counts (K1, K2), which
+# compute the tiles of the upper triangle of each subset.
+JOIN_SQUARE_TILE = 64
 
 _FMAX = torch.finfo(torch.float32).max
 

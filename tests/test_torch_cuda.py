@@ -498,3 +498,94 @@ def test_filtered_engine_on_card_matches_cpu():
     for k, before in words.items():
         assert pairwise_l2.launches[k] > before, f"{k}: no launch took " \
             f"eligibility words"
+
+
+# (B, S, T, H, Kv, hd, causal, window): S and T off the 64-row tile and off
+# 128, T != S, B*H = 1,152 as on the embed path, hd 128 with grouped-query
+# heads 36/4, windows of 1 and 1024.
+FLASH_EDGE_CASES = [
+    (1, 1, 1, 2, 2, 64, True, None), (1, 63, 63, 2, 1, 64, True, None),
+    (1, 65, 65, 2, 2, 64, True, None), (1, 129, 129, 4, 2, 64, False, None),
+    (1, 700, 700, 2, 2, 64, True, 1), (1, 700, 700, 2, 2, 64, True, 1024),
+    (2, 100, 170, 4, 2, 64, True, None), (2, 170, 100, 4, 2, 64, False, None),
+    (32, 64, 64, 36, 36, 64, True, None),
+    (1, 129, 129, 36, 4, 128, True, None),
+    (1, 700, 700, 36, 4, 128, True, 1024),
+    (2, 65, 129, 4, 4, 128, True, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", FLASH_EDGE_CASES)
+def test_flash_attention_edge_shapes_on_card(b, s, t, h, kv, hd, causal,
+                                             window):
+    """K7 against its plain version where tiles, batches and heads have
+    edges: every element within ``ref.flash_attention_tolerance``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import flash_attention as flash
+    gen = torch.Generator(device="cuda").manual_seed(b * s + t + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    got = flash.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = ref.flash_attention_tolerance(q, k, v, want, causal=causal,
+                                        window=window)
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("with_sq", [False, True])
+def test_masked_join_triangle_on_card(fold, with_sq):
+    """K1 computes the upper triangle of tiles and mirrors it: the mask is
+    symmetric bit for bit, equals the plain version's off the fp32 band
+    (counts within it), holds no bit past a subset's length or on an
+    ineligible point, and with ``with_sq`` both halves of sq are written
+    (fp32-max outside the valid square)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    lengths = [0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 200]
+    s, p, d = len(lengths), 200, 64
+    rng = np.random.default_rng(17 + fold + 2 * with_sq)
+    x = rng.uniform(0, 10, (s, p, d)).astype(np.float32)
+    lens = np.array(lengths, dtype=np.int32)
+    radii = rng.uniform(5, 40, size=s).astype(np.float32)
+    el = rng.random((s, p)) < 0.7 if fold else np.ones((s, p), dtype=bool)
+    elig = torch.from_numpy(pack_join_mask(el).view(np.int32)).to(dev) \
+        if fold else None
+    args = [torch.from_numpy(a).to(dev) for a in (x, lens, radii)]
+    got = pairwise_l2.join_batched_masked(*args, elig, with_sq=with_sq)
+    want = ref.join_batched_masked(*args, elig, with_sq=with_sq)
+    torch.cuda.synchronize()
+    bits = ref.unpack_bits(got[0], p).cpu().numpy()
+    want_bits = ref.unpack_bits(want[0], p).cpu().numpy()
+    counts = got[1].cpu().numpy()
+    for si, band in enumerate(_band(x, lens, radii, el)):
+        n = lengths[si]
+        assert (bits[si] == bits[si].T).all(), f"subset {si}: not symmetric"
+        assert not ((bits[si] != want_bits[si]) & ~band).any(), f"subset {si}"
+        assert abs(int(counts[si]) - int(want[1][si])) <= int(band.sum())
+        assert int(counts[si]) == int(bits[si].sum())
+        live = (np.arange(p) < n) & el[si]
+        assert not (bits[si] & ~(live[:, None] & live[None, :])).any()
+    words = got[0].cpu().numpy().view(np.uint32)
+    for si, n in enumerate(lengths):
+        assert not words[si, n:].any(), f"subset {si}: words past L"
+    if with_sq:
+        sq_k, sq_p = got[2].cpu().numpy(), want[2].cpu().numpy()
+        fmax = np.finfo(np.float32).max
+        for si, n in enumerate(lengths):
+            valid = np.zeros((p, p), dtype=bool)
+            valid[:n, :n] = True
+            assert (sq_k[si][~valid] == fmax).all()
+            if n:
+                norm2 = (x[si, :n].astype(np.float64) ** 2).sum(-1).max()
+                tol = (64.0 + 4.0 * d) * _EPS32 * norm2
+                assert np.abs(sq_k[si][valid] - sq_p[si][valid]).max() <= tol
+                assert (sq_k[si][:n, :n] == sq_k[si][:n, :n].T).all()

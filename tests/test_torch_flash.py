@@ -159,3 +159,42 @@ def test_kernel_wrapper_takes_cuda_bf16_only():
         cuda_flash.flash_attention(q, q, q)
     assert cuda_flash.launches["flash_attention"] == 0
     assert set(cuda_flash.HEAD_DIMS) == {64, 128}
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window",
+                         [(1, 384, 2, 2, 64, True, None),
+                          (2, 320, 4, 1, 128, True, None),
+                          (1, 400, 3, 3, 64, True, 200),
+                          (1, 300, 2, 1, 64, False, None)])
+def test_flash_tolerance_at_128_key_tiles(b, s, h, kv, hd, causal, window):
+    """The tolerance does not depend on the kernel's key tile: the online
+    softmax over tiles of 128 keys stays within it, and dropping the key
+    tile [128, 256) for the query rows from 256 on, which see it, does
+    not."""
+    from repro_torch.kernels import ref
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(b, s, h, kv, hd, seed=5 * s + hd))
+    plain = ref.flash_attention(q, k, v, causal=causal, window=window)
+    tol = ref.flash_attention_tolerance(q, k, v, plain, causal=causal,
+                                        window=window)
+    ok = _online_softmax(q, k, v, causal, window, tile=128)
+    err = (ok.float() - plain.float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+    bad = _online_softmax(q, k, v, causal, window, skip=(slice(256, s), 128),
+                          tile=128)
+    assert float(((bad.float() - plain.float()).abs() / tol).max()) > 1.0
+
+
+def test_kernel_wrapper_refuses_what_tma_cannot_take():
+    """K7 reads q, k and v through TMA tensor maps and copies nothing: a
+    base off a 16-byte boundary is refused, and so is a query whose work
+    units (64 query rows of one batch and head) outgrow int32."""
+    flat = torch.zeros(2 * 8 * 2 * 64 + 8, dtype=torch.bfloat16)
+    cuda_flash.check_tma_operand("q", flat[8:].view(2, 8, 2, 64))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        cuda_flash.check_tma_operand("q", flat[1:2 * 8 * 2 * 64 + 1]
+                                     .view(2, 8, 2, 64))
+    cuda_flash.check_units(32, 512, 36)
+    with pytest.raises(ValueError, match="work units"):
+        cuda_flash.check_units(1 << 16, 1 << 16, 64)
+    assert cuda_flash.launches["flash_attention"] == 0

@@ -381,3 +381,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pairwise_l2.join_batched_tiles(x, lens, r)
     assert all(v == 0 for v in pairwise_l2.launches.values())
 
+
+
+def test_triangle_tile_refusals():
+    """K1 and K2 number the tiles of the upper triangle of each subset in
+    int32: a P that makes more is refused before any launch."""
+    pairwise_l2.check_triangle_tiles(2880)
+    pairwise_l2.check_triangle_tiles(4_000_000)
+    with pytest.raises(ValueError, match="more triangle tiles"):
+        pairwise_l2.check_triangle_tiles(5_000_000)
+    assert all(v == 0 for v in pairwise_l2.launches.values())
