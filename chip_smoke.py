@@ -27,19 +27,25 @@ Phases:
      just after: a batch of 64 random 3-keyword queries (k=1) in the exact
      tier and then in the approx tier through the engine's default torch
      backend; the exact batch again with every bin forced onto the device and
-     the bf16 prune tier armed; and ``backend.pairwise`` on one subset. The
-     default exact batch must launch K1, the forced batch K1 and K2, the
+     the bf16 prune tier armed; the exact batch again on the default route
+     with ``TorchBackend(prune_tier="off")`` and with a fresh default
+     backend (QPS with the tier off and armed, K2's launches on each); and
+     ``backend.pairwise`` on one subset. The default exact batch must launch
+     K1 (and K2 where the cost model's per-cell ratio, printed, arms the
+     tier), the forced batch K1 and K2, the prune-off batch no K2, the
      pairwise call K3.
      Answers are held to the numpy backend on the same engine (identical ids,
      float64 diameters to 1e-9: the two backends score through different
-     float64 formulas), the forced run to the default run bit for bit, and
-     every answer is checked to be a covering set of finite diameter.
+     float64 formulas), the forced, prune-off and fresh runs to the default
+     run bit for bit, and every answer is checked to be a covering set of
+     finite diameter.
   3. Hold each kernel against its plain PyTorch version on the card, on the
      largest input the main path gave it (recorded during phase 2): masks
      may differ only on cells whose float64 squared distance lies within the
      fp32 error band of the threshold, counts by at most that many cells, sq
      by at most the band; K1's mask must be symmetric bit for bit (it
-     computes the upper triangle of tiles and mirrors it). Time kernel,
+     computes the upper triangle of tiles and mirrors it), and K2's SASS
+     must hold HGMMA, its tensor-core product (``cuobjdump -sass``). Time kernel,
      plain version and (K3) torch.cdist with CUDA events, and K1-K3 by the
      fresh-process profiler. [K4] The same on K1's largest input for K4 (the
      dense block and 128 x 128 tile counts, which no served path launches,
@@ -69,8 +75,9 @@ Phases:
      points (every one answerable), each set through the exact tier
      (default backend, and forced onto the device with the prune tier
      armed), the approx tier and the device tier, every batch a path of its
-     own. The forced run over the second set must dispatch in the
-     filter's packing mode (counted per dispatch by the backend). Answers
+     own; price < 50 over the 64 queries also with the prune tier off (bit
+     for bit the default). The forced run over the second set must dispatch
+     in the filter's packing mode (counted per dispatch by the backend). Answers
      equal the numpy backend's under the same filter (ids, diameters to
      1e-9, the narrow tie acceptance of the stream phase), hold only
      eligible points, exist iff every keyword has an eligible point, the
@@ -562,7 +569,7 @@ def masked_row(rec, by_path: dict, profiles: KernelProfiles,
         replaces="src/repro/kernels/pairwise_l2.py:368",
         **row_launches(name + ("_elig" if elig else ""), by_path),
         max_abs_err=err, mask_bits_in_band=bits, symmetric=True,
-        shape=[s, p, d],
+        shape=[s, p, d], lengths=lengths.tolist(),
         ms=cuda_ms(lambda: K.join_batched_masked(x, lengths, r, words), 20),
         plain_ms=cuda_ms(lambda: ref.join_batched_masked(x, lengths, r,
                                                          words), 3, warmup=1),
@@ -573,10 +580,27 @@ def masked_row(rec, by_path: dict, profiles: KernelProfiles,
     return row
 
 
+def sass_has(lib: str, kernel: str, op: str) -> bool | None:
+    """Whether ``cuobjdump -sass`` of the built ``lib`` shows ``op`` in the
+    function whose name holds ``kernel`` (None where the toolkit has no
+    cuobjdump)."""
+    from repro_torch.kernels import build
+    tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(build.library_path(lib))],
+                         capture_output=True, text=True, timeout=300)
+    for part in out.stdout.split("Function : ")[1:]:
+        if kernel in part.split("\n", 1)[0]:
+            return op in part
+    return False
+
+
 def prune_row(rec, by_path: dict, profiles: KernelProfiles,
               elig: bool = False) -> dict:
     """K2 at the recorded input (with its eligibility words when ``elig``)
-    against its plain version: counts within the bf16 tile's band."""
+    against its plain version: counts within the bf16 tile's band, and its
+    SASS holds the tensor cores' HGMMA."""
     import torch
     from repro_torch.kernels import pairwise_l2 as K
     from repro_torch.kernels import ref
@@ -600,14 +624,16 @@ def prune_row(rec, by_path: dict, profiles: KernelProfiles,
         source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
         replaces="src/repro/kernels/pairwise_l2.py:262",
         **row_launches(name + ("_elig" if elig else ""), by_path),
-        max_abs_err=err, shape=[s, p, d],
+        max_abs_err=err, shape=[s, p, d], lengths=lengths.tolist(),
+        sass_hgmma=sass_has("pairwise_l2", "prune_join_kernel", "HGMMA"),
         ms=cuda_ms(lambda: K.join_batched_prune(x, lengths, r, words), 20),
         plain_ms=cuda_ms(lambda: ref.join_batched_counts(x, lengths, r,
                                                          words), 3, warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    check(row["sass_hgmma"] is not False, "K2's SASS has no HGMMA")
     profiles.add("K2" + (" (elig)" if elig else ""),
                  "pairwise_l2.join_batched_prune", (x, lengths, r, words),
-                 "triangle_join_kernel", "join_batched_prune", 20, row)
+                 "prune_join_kernel", "join_batched_prune", 20, row)
     return row
 
 
@@ -875,8 +901,14 @@ def serve(args, report: dict) -> tuple:
     report["default_backend"] = {"route": backend.route,
                                  "prune_tier": backend.prune_tier,
                                  "prune_armed": prune_armed}
+    model = backend._model
+    report["default_backend"]["prune_over_dev_cell"] = \
+        model.prune_cell_s / model.dev_cell_s
     print(f"[serve] default backend: route {backend.route}, prune tier "
-          f"{backend.prune_tier} -> armed {prune_armed}; cost model "
+          f"{backend.prune_tier} -> armed {prune_armed}; cost model at "
+          f"d={model.d}: dev_cell_s {model.dev_cell_s:.4g}, prune_cell_s "
+          f"{model.prune_cell_s:.4g}, prune/dev "
+          f"{model.prune_cell_s / model.dev_cell_s:.4f} (armed below 0.7); "
           f"{report['setup']['cost_model']}", flush=True)
     forced = TorchBackend(route="device", prune_tier="on")
     forced.attach(ds.points)                    # upload outside the timing
@@ -903,6 +935,28 @@ def serve(args, report: dict) -> tuple:
         print(f"[serve] exact, route=device + prune tier: {wall:.3f}s = "
               f"{len(queries) / wall:.2f} QPS; cascade {st.cascade}; "
               f"launches {by_path['forced']}", flush=True)
+        # The default route with the prune tier off, then with a fresh
+        # default backend (both with cold tile caches): answers bit for bit
+        # the default run's, whether or not auto armed the tier.
+        for path, be in (("exact-prune-off", TorchBackend(prune_tier="off")),
+                         ("exact-prune-auto", TorchBackend())):
+            be.attach(ds.points)
+            answers[path], wall = drive(path, lambda: engine.query_batch(
+                queries, k=1, tier="exact", backend=be))
+            report[path] = batch_report(wall, engine.last_batch_stats)
+        print(f"[serve] exact QPS with the prune tier armed by auto "
+              f"({prune_armed}) / off / auto on a fresh backend: "
+              f"{report['exact']['qps']:.2f} / "
+              f"{report['exact-prune-off']['qps']:.2f} / "
+              f"{report['exact-prune-auto']['qps']:.2f}; K2 launches "
+              f"{by_path['exact']['join_batched_prune']} / "
+              f"{by_path['exact-prune-off']['join_batched_prune']} / "
+              f"{by_path['exact-prune-auto']['join_batched_prune']}; K1 "
+              f"launches {by_path['exact']['join_batched_masked']} / "
+              f"{by_path['exact-prune-off']['join_batched_masked']} / "
+              f"{by_path['exact-prune-auto']['join_batched_masked']}; "
+              f"cascade off {report['exact-prune-off']['cascade']}",
+              flush=True)
         one, _ = drive("pairwise", lambda: forced.pairwise(ds.points[ids],
                                                            ds.points[ids]))
         print(f"[serve] backend.pairwise on {len(ids)} points: launches "
@@ -952,6 +1006,14 @@ def serve(args, report: dict) -> tuple:
           == [[(c.ids, c.diameter) for c in r.candidates]
               for r in answers["exact"]],
           "forced device + prune run differs from the default run")
+    for path in ("exact-prune-off", "exact-prune-auto"):
+        check([[(c.ids, c.diameter) for c in r.candidates]
+               for r in answers[path]]
+              == [[(c.ids, c.diameter) for c in r.candidates]
+                  for r in answers["exact"]],
+              f"{path} differs from the default run")
+    check(by_path["exact-prune-off"]["join_batched_prune"] == 0,
+          "the prune tier is off but the batch launched K2")
     n_cmp = min(args.compare, len(queries))
     for tier in ("exact", "approx"):
         ts = time.perf_counter()
@@ -960,9 +1022,9 @@ def serve(args, report: dict) -> tuple:
         report[tier]["numpy_backend_s"] = time.perf_counter() - ts
         check(same_answers(answers[tier][:n_cmp], ref_ans, 1e-9),
               f"{tier}: torch and numpy backends disagree")
-    print(f"[serve] answers: all covering and finite; forced run identical "
-          f"to the default; first {n_cmp} per tier agree with the numpy "
-          f"backend", flush=True)
+    print(f"[serve] answers: all covering and finite; forced run and the "
+          f"prune-off and fresh default runs identical to the default; "
+          f"first {n_cmp} per tier agree with the numpy backend", flush=True)
 
     for path, qs in (("device-q3", queries), ("device-q9", queries9)):
         check(by_path[path]["tuple_diameters"] == len(qs),
@@ -970,7 +1032,8 @@ def serve(args, report: dict) -> tuple:
               f"times for {len(qs)} queries, want one per query")
         check(not any(by_path[path][n] for n in K.launches),
               f"{path}: the device tier launched a join kernel")
-    for path in ("exact", "approx", "forced", "pairwise"):
+    for path in ("exact", "approx", "forced", "exact-prune-off",
+                 "exact-prune-auto", "pairwise"):
         check(by_path[path]["tuple_diameters"] == 0,
               f"{path}: a join path launched K6")
     opts = [r.candidates[0].diameter for r in answers["exact"]]
@@ -1258,6 +1321,8 @@ def filtered(args, report: dict, served, by_path: dict) -> tuple:
     }
     forced = TorchBackend(route="device", prune_tier="on")
     forced.attach(ds.points)                    # upload outside the timing
+    prune_off = TorchBackend(prune_tier="off")  # the default route
+    prune_off.attach(ds.points)
     largest = LargestCalls(engine.backend)
     recs = None
     out = {}
@@ -1265,10 +1330,13 @@ def filtered(args, report: dict, served, by_path: dict) -> tuple:
     def run_set(name, flt, eligible, qs, prefix):
         nonlocal recs
         rep, answers = {}, {}
-        for tier, t, b in (("exact", "exact", "torch"),
-                           ("exact-forced", "exact", forced),
-                           ("approx", "approx", "torch"),
-                           ("device", "device", "torch")):
+        tiers = [("exact", "exact", "torch"),
+                 ("exact-forced", "exact", forced),
+                 ("approx", "approx", "torch"),
+                 ("device", "device", "torch")]
+        if prefix == "filter:price<50":
+            tiers.insert(1, ("exact-prune-off", "exact", prune_off))
+        for tier, t, b in tiers:
             path = f"{prefix}:{tier}"
             record = path == "filter:price<50:exact-forced"
             if record:
@@ -1296,11 +1364,23 @@ def filtered(args, report: dict, served, by_path: dict) -> tuple:
                   f"{len(qs) / wall:.2f} QPS; answered "
                   f"{rep[tier]['answered']} of {len(qs)}; filtering "
                   f"{st.filtering}; launches {by_path[path]}", flush=True)
-        check([[(c.ids, c.diameter) for c in r.candidates]
-               for r in answers["exact-forced"]]
-              == [[(c.ids, c.diameter) for c in r.candidates]
-                  for r in answers["exact"]],
-              f"{prefix}: the forced run differs from the default")
+        for other in ("exact-forced", "exact-prune-off"):
+            check(other not in answers
+                  or [[(c.ids, c.diameter) for c in r.candidates]
+                      for r in answers[other]]
+                  == [[(c.ids, c.diameter) for c in r.candidates]
+                      for r in answers["exact"]],
+                  f"{prefix}: the {other} run differs from the default")
+        if "exact-prune-off" in answers:
+            off = by_path[f"{prefix}:exact-prune-off"]
+            check(off["join_batched_prune"] == 0,
+                  f"{prefix}: the prune tier is off but K2 launched")
+            print(f"[filter] {prefix[7:]} exact QPS default / prune tier off:"
+                  f" {rep['exact']['qps']:.2f} / "
+                  f"{rep['exact-prune-off']['qps']:.2f}; K2 launches "
+                  f"{by_path[prefix + ':exact']['join_batched_prune']} / "
+                  f"{off['join_batched_prune']}; answers identical",
+                  flush=True)
         for tier in ("exact", "approx"):
             ts = time.perf_counter()
             want = engine.query_batch(qs, k=1, tier=tier, backend="numpy",
@@ -1800,6 +1880,12 @@ def embed(args, report: dict) -> tuple:
           f"launches {k7} by shape {emb['k7_calls_by_shape']}; peak device "
           f"memory {peak} bytes; engine build (index, upload, cost model at "
           f"d={cfg.d_model}) {ingest_s - embed_s[0]:.3f}s", flush=True)
+    model = engine.backend._model
+    emb["prune_over_dev_cell"] = model.prune_cell_s / model.dev_cell_s
+    print(f"[embed] cost model at d={model.d}: dev_cell_s "
+          f"{model.dev_cell_s:.4g}, prune_cell_s {model.prune_cell_s:.4g}, "
+          f"prune/dev {emb['prune_over_dev_cell']:.4f} -> prune tier armed "
+          f"{engine.backend._prune_active(model.d)}", flush=True)
 
     check(k7 == cfg.n_layers * len(batches),
           f"K7 launched {k7} times, want {cfg.n_layers} x {len(batches)}")
@@ -2196,14 +2282,15 @@ def diameter_row(cases: list, launches_by_path: dict,
 def ptxas_report(name: str) -> list[str]:
     """The register, shared-memory and spill lines nvcc's ``-Xptxas -v``
     printed for the current build of ``csrc/<name>.cu``, each after the
-    kernel it belongs to."""
+    kernel it belongs to, and its warnings (C7513: wgmma serialized)."""
     from repro_torch.kernels import build
     log = build.library_path(name).with_suffix(".so.log")
     lines, kernel = [], None
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1] if "'" in line else line
-        elif "registers" in line or "spill" in line:
+        elif "registers" in line or "spill" in line \
+                or "warning" in line.lower():
             lines.append(f"{kernel}: {line.strip()}")
     return lines
 
@@ -2211,8 +2298,8 @@ def ptxas_report(name: str) -> list[str]:
 def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
     """The redesigned kernels' numbers side by side, once the profiler has
     filled in their device times: K7 at every case against
-    ``F.scaled_dot_product_attention``, K1 with and without eligibility
-    words."""
+    ``F.scaled_dot_product_attention``, K1 and K2 with and without
+    eligibility words."""
     flash = next(r for r in rows if r["name"] == "flash_attention")
     for case in flash["cases"]:
         print(f"[K7] {case['case']} {case['shape']} kv {case['kv_heads']} "
@@ -2225,6 +2312,11 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
         print(f"[K1] {r['name']} {r['shape']}: {r['ms']:.4f} ms by events, "
               f"{r.get('device_ms')} ms device, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), symmetric {r['symmetric']}", flush=True)
+    for r in [rows[1], elig_rows[1]]:
+        print(f"[K2] {r['name']} {r['shape']} lengths {r['lengths']}: "
+              f"{r['ms']:.4f} ms by events, {r.get('device_ms')} ms device, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SASS HGMMA "
+              f"{r['sass_hgmma']}", flush=True)
 
 
 def main() -> int:
@@ -2299,8 +2391,9 @@ def main() -> int:
             print(f"[kernel] {row['name']} {row['shape']}: {row['ms']:.4f} ms "
                   f"(plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
                   f" ms by {row['bound_by']}, library {row['library_ms']}); "
-                  f"max_abs_err {row['max_abs_err']}; launches "
-                  f"{row['launches_by_path']}", flush=True)
+                  f"max_abs_err {row['max_abs_err']}; lengths "
+                  f"{row.get('lengths')}; launches {row['launches_by_path']}",
+                  flush=True)
         rec, k7, rec_diam, k6, rec_k5_embed, k5_embed = embed(args, report)
         rows.append(flash_row(rec, k7, profiles))
         del rec

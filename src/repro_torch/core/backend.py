@@ -247,19 +247,83 @@ class DispatchCostModel:
 
 _COST_MODELS: dict[tuple, DispatchCostModel] = {}
 
+# Per-cell slopes at or under this are no measurement: on the card a probe
+# that gives one raises, off it the slope is clamped here.
+CELL_FLOOR_S = 1e-13
+
+
+def fit_cost_model(platform: str, d: int, cells: tuple[int, int],
+                   dev_s: tuple[float, float], prune_s: tuple[float, float],
+                   dispatch_s: float, host_cells: tuple[int, int],
+                   host_s: tuple[float, float]) -> DispatchCostModel:
+    """The two-point fit of :class:`DispatchCostModel` from probe timings.
+
+    ``dev_s`` and ``prune_s`` are the masked join's and the coarse counts'
+    times per call at ``cells`` padded cells (small, big), ``dispatch_s`` a
+    whole masked dispatch at the small size with its readback, and
+    ``host_s`` the host join at ``host_cells`` valid cells. The per-cell
+    terms are the slopes between the two sizes, the fixed terms what the
+    small probe leaves. On the card a device slope at or under
+    :data:`CELL_FLOOR_S` raises; elsewhere it is clamped there."""
+    span = cells[1] - cells[0]
+    dev_slope = (dev_s[1] - dev_s[0]) / span
+    prune_slope = (prune_s[1] - prune_s[0]) / span
+    if platform == "cuda" and min(dev_slope, prune_slope) <= CELL_FLOOR_S:
+        raise RuntimeError(
+            f"cost-model probe measured no per-cell time on the card "
+            f"(masked join {dev_slope:.3g} s, prune {prune_slope:.3g} s per "
+            f"cell between {cells[0]} and {cells[1]} cells)")
+    dev_cell = max(dev_slope, CELL_FLOOR_S)
+    host_cell = max((host_s[1] - host_s[0]) / (host_cells[1] - host_cells[0]),
+                    CELL_FLOOR_S)
+    host_fixed = max(host_s[0] - host_cell * host_cells[0], 0.0)
+    # Settlement share of a device block's end-to-end cost, as a fraction of
+    # the equivalent host join. Without an accelerator the fp32 dispatch buys
+    # no arithmetic advantage and every settled subset re-pays host-f64 work
+    # on top of the dispatch, so the full host cost is charged. On the card
+    # the prune tier removes most settlements and the dispatch term
+    # collapses, so half is charged.
+    settle_frac = 0.5 if platform == "cuda" else 1.0
+    return DispatchCostModel(
+        platform=platform, d=d,
+        dev_fixed_s=max(dispatch_s - dev_cell * cells[0], 0.0),
+        dev_cell_s=dev_cell, prune_cell_s=max(prune_slope, CELL_FLOOR_S),
+        host_fixed_s=host_fixed, host_cell_s=host_cell,
+        settle_cell_s=settle_frac * host_cell,
+        settle_fixed_s=settle_frac * host_fixed)
+
+
+def _device_s(f, reps: int = 10) -> float:
+    """Device time per call of ``f`` by CUDA events over ``reps`` calls
+    queued behind a spin of the card (``torch.cuda._sleep``), so that the
+    calls run back to back at the card's pace and not the host's."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    f()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)     # tens of ms: the host queues meanwhile
+    start.record()
+    for _ in range(reps):
+        f()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e-3 / reps
+
 
 def calibrate_cost_model(d: int, device: torch.device) -> DispatchCostModel:
     """Measure the device/host crossover at dimensionality ``d`` on
-    ``device`` (memoized per process). Each probe runs once to warm up (the
-    first call on the card builds the kernels), then is timed best-of-5 with
-    the device synchronised before the clock is read.
+    ``device`` (memoized per process) and fit it (:func:`fit_cost_model`).
+    Each probe runs once to warm up (the first call on the card builds the
+    kernels).
 
     On the card the device probes are batches of 8 subsets of 1024 and 2880
-    points, the span of the largest tiles a 10^6-point corpus dispatches:
-    below that the time is launch and readback overhead and the fitted
-    per-cell slope is noise. A slope at or under the 1e-13 s floor there is
-    a failed measurement and raises. The plain versions on the CPU keep the
-    small probes (32 and 256 points) and clamp at the floor."""
+    points, the span of the largest tiles a 10^6-point corpus dispatches,
+    timed on the card by CUDA events (:func:`_device_s`): a host clock around
+    launch and readback puts its own jitter into a slope of microseconds.
+    The whole small dispatch, readback included, is timed by the host clock
+    for the fixed term. The plain versions on the CPU keep the small probes
+    (32 and 256 points), all timed by the host clock, best of 5, with the
+    readback."""
     device = resolve_device(device)
     key = (device.type, d)
     model = _COST_MODELS.get(key)
@@ -286,28 +350,23 @@ def calibrate_cost_model(d: int, device: torch.device) -> DispatchCostModel:
     r = torch.ones(n_sub, dtype=torch.float32, device=device)
 
     def dev(x, lens):
-        _, cnt = ops.pairwise_l2_join_batched_masked(x, lens, r)
-        cnt.cpu()
+        return ops.pairwise_l2_join_batched_masked(x, lens, r)[1]
 
     def prune(x, lens):
-        ops.pairwise_l2_join_batched_counts(x, lens, r).cpu()
+        return ops.pairwise_l2_join_batched_counts(x, lens, r)
 
     for f in (dev, prune):
-        f(x_s, l_s)
-        f(x_b, l_b)
-    cells_s, cells_b = n_sub * p_small ** 2, n_sub * p_big ** 2
-    t_ds, t_db = best(lambda: dev(x_s, l_s)), best(lambda: dev(x_b, l_b))
-    t_ps, t_pb = best(lambda: prune(x_s, l_s)), best(lambda: prune(x_b, l_b))
-    dev_slope = (t_db - t_ds) / (cells_b - cells_s)
-    prune_slope = (t_pb - t_ps) / (cells_b - cells_s)
-    if on_card and min(dev_slope, prune_slope) <= 1e-13:
-        raise RuntimeError(
-            f"cost-model probe measured no per-cell time on {device} "
-            f"(masked join {dev_slope:.3g} s, prune {prune_slope:.3g} s per "
-            f"cell between {p_small} and {p_big} points)")
-    dev_cell = max(dev_slope, 1e-13)
-    dev_fixed = max(t_ds - dev_cell * cells_s, 0.0)
-    prune_cell = max(prune_slope, 1e-13)
+        f(x_s, l_s).cpu()
+        f(x_b, l_b).cpu()
+    if on_card:
+        timed = _device_s
+    else:
+        def timed(f):
+            return best(lambda: f().cpu())
+    dev_s = (timed(lambda: dev(x_s, l_s)), timed(lambda: dev(x_b, l_b)))
+    prune_s = (timed(lambda: prune(x_s, l_s)),
+               timed(lambda: prune(x_b, l_b)))
+    dispatch_s = best(lambda: dev(x_s, l_s).cpu())
 
     p_s = np.zeros((32, d))
     p_b = np.zeros((256, d))
@@ -317,23 +376,10 @@ def calibrate_cost_model(d: int, device: torch.device) -> DispatchCostModel:
         (dist <= 1.0).sum()
 
     host(p_s)
-    t_hs, t_hb = best(lambda: host(p_s)), best(lambda: host(p_b))
-    host_cell = max((t_hb - t_hs) / (256 ** 2 - 32 ** 2), 1e-13)
-    host_fixed = max(t_hs - host_cell * 32 ** 2, 0.0)
-
-    # Settlement share of a device block's end-to-end cost, as a fraction of
-    # the equivalent host join. Without an accelerator the fp32 dispatch buys
-    # no arithmetic advantage and every settled subset re-pays host-f64 work
-    # on top of the dispatch, so the full host cost is charged. On the card
-    # the prune tier removes most settlements and the dispatch term
-    # collapses, so half is charged.
-    settle_frac = 0.5 if device.type == "cuda" else 1.0
-    model = DispatchCostModel(
-        platform=device.type, d=d, dev_fixed_s=dev_fixed, dev_cell_s=dev_cell,
-        prune_cell_s=prune_cell, host_fixed_s=host_fixed,
-        host_cell_s=host_cell,
-        settle_cell_s=settle_frac * host_cell,
-        settle_fixed_s=settle_frac * host_fixed)
+    host_s = (best(lambda: host(p_s)), best(lambda: host(p_b)))
+    model = fit_cost_model(
+        device.type, d, (n_sub * p_small ** 2, n_sub * p_big ** 2), dev_s,
+        prune_s, dispatch_s, (32 ** 2, 256 ** 2), host_s)
     _COST_MODELS[key] = model
     return model
 

@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root (override the
 directory with ``REPRO_TORCH_BUILD_DIR``), for ``sm_90a`` (Hopper). The hash
-covers the source and the flags, so an edited source never loads a stale
-library. Nothing here runs at import: the first wrapper call on a CUDA tensor
-builds.
+covers the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source never loads a stale library. Nothing here runs at import: the
+first wrapper call on a CUDA tensor builds.
 """
 from __future__ import annotations
 
@@ -42,9 +42,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

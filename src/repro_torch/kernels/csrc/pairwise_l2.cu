@@ -15,12 +15,16 @@
 // Contract (all four): sq = max(|a|^2 + |b|^2 - 2 a.b, 0) in fp32, a pair
 // joins iff sq <= r*r (r squared in fp32). Mask and eligibility words are
 // LSB-first: bit j % 32 of word j / 32 of row i is the pair (i, j). Counts
-// include the diagonal.
+// include the diagonal. K2 takes the coordinates rounded to bf16 (round to
+// nearest even); its norms and products are summed in fp32 (a product of
+// two bf16 values is exact in fp32).
 //
-// Design of K1 and K2 (the served self-joins). A subset of L live points
-// has a symmetric join, so only the 64 x 64 tiles (ti, tj) with ti <= tj of
-// the live region are computed, 128 threads a tile. A persistent grid (five
-// blocks an SM) walks the upper triangle of tiles of P of every subset and
+// The served self-joins, K1 and K2. A subset of L live points has a
+// symmetric join, so only the 64 x 64 tiles (ti, tj) with ti <= tj of the
+// live region are computed, 128 threads a tile, and an off-diagonal tile
+// counts its joined cells twice.
+//
+// Design of K1. A persistent grid (five blocks an SM) walks the upper triangle of tiles of P of every subset and
 // gives the tiles wholly past L a few instructions: they write the zeros of
 // their mask words, so the mask needs no clearing pass, and the host reads
 // no lengths back. Both tiles' points are staged point-major in shared
@@ -40,6 +44,25 @@
 // square with no eligibility words tests only the threshold. Counts are
 // __popc per word and integer atomics per warp: the same total in any order.
 //
+// Design of K2 (no mask, so a dead tile costs only its index arithmetic).
+// One warpgroup a tile: per 64-feature panel it converts 16-byte fp32 loads
+// to bf16 in registers, summing each point's squared norm over the rounded
+// values, and stores them in the 128-byte swizzled K-major layout
+// (wgmma.cuh) — TMA cannot round fp32 to bf16, and a separate cast pass
+// would cost a launch and two passes over x. Four
+// wgmma.m64n64k16.f32.bf16.bf16 then sum the panel's products into 32 fp32
+// accumulators a thread, while the next panel's or tile's loads are in
+// flight. The epilogue reads the accumulator layout directly and sums the
+// joined cells as integers, one atomic a warp. At d = 64 a tile is four
+// wgmma, so the staging (loads, rounding, norms, stores) and the share of
+// tiles each block gets are what take the time: a block takes runs of up to
+// 4 consecutive tiles of a column, whose column points stay staged from
+// tile to tile, the runs being shared out through a prefix table of the
+// subsets' live runs (a batch of few subsets, often padded with empty
+// ones) or interleaved subset by subset (many small subsets), and the grid
+// holds twice the resident blocks, so that the block scheduler evens out
+// the tail.
+//
 // K3 and K4 keep the first version's tile: one block of 256 threads (8 warps)
 // owns a 32-row x 128-column tile, stages 32-feature slices of the row and
 // column points in shared memory, and each thread keeps 16 fp32
@@ -55,8 +78,10 @@
 // H100 SXM): at the main path's d = 64 and subsets of hundreds to thousands
 // of points they are bound by operations. K2 multiplies bf16 by bf16 into
 // fp32 — the bf16 tensor cores' contract (989 TFLOP/s dense) — so at those
-// shapes it is bound by the bytes of its fp32 tile, and this FMA version of
-// it runs far off that bound; wgmma for the bf16 tier is later work.
+// shapes its least time is a microsecond or two, well under the latency of
+// reading a tile's points from L2: what the kernel has to do is keep loads
+// in flight (several warpgroups an SM, the next tile's loads issued before
+// the wait for this tile's products).
 //
 // K4 is K3's tile over a batch of self-joins without the mask: it always
 // writes the dense sq block and counts joined pairs per tile of the
@@ -76,6 +101,8 @@
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -101,13 +128,6 @@ struct alignas(16) Smem {
   float bn[TN];
   int count;
 };
-
-template <bool BF16>
-__device__ __forceinline__ float load_coord(const float* p) {
-  float v = __ldg(p);
-  if (BF16) v = __bfloat162float(__float2bfloat16_rn(v));
-  return v;
-}
 
 // acc[i] = <a[row0 + rbase + i], b[col0 + c]> for this thread's column c, and
 // the squared norms of the tile's rows (sm.an) and columns (sm.bn). Rows at or
@@ -201,7 +221,7 @@ __device__ __forceinline__ void self_join_rows(Smem& sm, const float* xs,
   }
 }
 
-// ---- K1 and K2: square tiles over the upper triangle -----------------------
+// ---- K1: square tiles over the upper triangle ------------------------------
 
 constexpr int ST = 64;                     // square tile (rows = columns)
 constexpr int ST_THREADS = 128;
@@ -253,7 +273,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // 16-byte aligned (d % 4 == 0 and an aligned base) the copies are cp.async
 // of 16 bytes, all in flight at once, and the caller waits for them
 // (stage_wait); else scalar loads.
-template <bool BF16>
 __device__ __forceinline__ void stage_points(float (*dst)[ST_LD],
                                              const float* __restrict__ xs,
                                              int p0, int L, int d, int k0,
@@ -269,27 +288,7 @@ __device__ __forceinline__ void stage_points(float (*dst)[ST_LD],
     for (int e = threadIdx.x; e < ST * ST_K; e += ST_THREADS) {
       const int r = e / ST_K, k = e % ST_K;
       dst[r][k] = (p0 + r < L && k0 + k < d)
-          ? load_coord<BF16>(xs + (size_t)(p0 + r) * d + k0 + k) : 0.f;
-    }
-  }
-}
-
-// Completes this thread's cp.async copies into dst and, for the bf16 tier,
-// rounds what it copied.
-template <bool BF16>
-__device__ __forceinline__ void stage_wait(float (*dst)[ST_LD], bool vec) {
-  if (!vec) return;
-  cp_async_wait_all();
-  if (BF16) {
-    for (int e = threadIdx.x; e < ST * ST_K / 4; e += ST_THREADS) {
-      float4* v = reinterpret_cast<float4*>(
-          &dst[e / (ST_K / 4)][(e % (ST_K / 4)) * 4]);
-      float4 t = *v;
-      t.x = __bfloat162float(__float2bfloat16_rn(t.x));
-      t.y = __bfloat162float(__float2bfloat16_rn(t.y));
-      t.z = __bfloat162float(__float2bfloat16_rn(t.z));
-      t.w = __bfloat162float(__float2bfloat16_rn(t.w));
-      *v = t;
+          ? __ldg(xs + (size_t)(p0 + r) * d + k0 + k) : 0.f;
     }
   }
 }
@@ -310,11 +309,9 @@ __device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
   return x;
 }
 
-// One live tile (ti <= tj, tj * ST < L) of subset s of K1 (MASK) or K2
-// (!MASK, BF16). Thread (rg, cg) holds rows rg + 8 i and columns cg + 16 u
+// One live tile (ti <= tj, tj * ST < L) of subset s of K1. Thread (rg, cg) holds rows rg + 8 i and columns cg + 16 u
 // of the tile, so a warp's two row groups read two rows one apart (distinct
 // banks) and its 16 column groups 16 consecutive points.
-template <bool BF16, bool MASK>
 __device__ __forceinline__ void join_tile(
     TriSmem& sm, const float* __restrict__ x, const float* __restrict__ radii,
     const int* __restrict__ elig, int s, int ti, int tj, int L, int P, int d,
@@ -336,10 +333,9 @@ __device__ __forceinline__ void join_tile(
   float norm = 0.f;                          // of row tid or column tid - ST
 
   for (int k0 = 0; k0 < d; k0 += ST_K) {
-    stage_points<BF16>(sm.a, xs, row0, L, d, k0, vec);
-    stage_points<BF16>(sm.b, xs, col0, L, d, k0, vec);
-    stage_wait<BF16>(sm.a, vec);
-    stage_wait<BF16>(sm.b, vec);
+    stage_points(sm.a, xs, row0, L, d, k0, vec);
+    stage_points(sm.b, xs, col0, L, d, k0, vec);
+    if (vec) cp_async_wait_all();
     __syncthreads();
     // Norms over the features in order, as the Gram terms below sum them.
     const float* np = tid < ST ? sm.a[tid] : sm.b[tid - ST];
@@ -413,7 +409,7 @@ __device__ __forceinline__ void join_tile(
       const float e = __fmaf_rn(-2.0f, acc[i][u], __fadd_rn(an[i], bn[u]));
       bal[u] = __ballot_sync(0xffffffffu, erow && ecol[u] && e <= r2);
       const int col = col0 + cg + ST_CG * u;
-      if (MASK && sq_out != nullptr && row < P && col < P) {
+      if (sq_out != nullptr && row < P && col < P) {
         const float v = row < L && col < L ? fmaxf(e, 0.0f) : FLT_MAX;
         sq_out[((size_t)s * P + row) * P + col] = v;
         if (!diag) sq_out[((size_t)s * P + col) * P + row] = v;
@@ -435,7 +431,6 @@ __device__ __forceinline__ void join_tile(
   cnt += __shfl_xor_sync(0xffffffffu, cnt, 2);
   cnt += __shfl_xor_sync(0xffffffffu, cnt, 1);
   if (lane == 0 && cnt) atomicAdd(counts + s, cnt);
-  if (!MASK) return;
   const int wrow = row0 + wtr, wi = (col0 >> 5) + wc;
   if (wrow < P && wi < W)
     mask[((size_t)s * P + wrow) * W + wi] = static_cast<int>(word);
@@ -469,13 +464,12 @@ __device__ __forceinline__ void zero_tile_words(int* __restrict__ mask, int s,
   if (row < P && wi < W) mask[((size_t)s * P + row) * W + wi] = 0;
 }
 
-// K1 (MASK) and K2 (!MASK, BF16): a persistent grid whose blocks walk the
+// K1: a persistent grid whose blocks walk the
 // T(T+1)/2 triangle tiles of each of the S subsets (T = ceil(P/ST) tiles a
 // side; index u = s T(T+1)/2 + t) and compute the live ones: a tile wholly
 // past the subset's length costs a few instructions, not a block, and
 // writes only its zero mask words. The caller zeroes counts and fills sq
 // with FLT_MAX.
-template <bool BF16, bool MASK>
 __global__ void __launch_bounds__(ST_THREADS, ST_BLOCKS_PER_SM)
 triangle_join_kernel(const float* __restrict__ x,
                      const int* __restrict__ lengths,
@@ -491,11 +485,378 @@ triangle_join_kernel(const float* __restrict__ x,
     int ti;
     const int tj = triangle_tile(static_cast<int>(u % ntri), ti);
     if (tj * ST >= L) {                      // block-uniform: a dead tile
-      if (MASK) zero_tile_words(mask, s, ti, tj, P, W);
+      zero_tile_words(mask, s, ti, tj, P, W);
       continue;
     }
-    join_tile<BF16, MASK>(sm, x, radii, elig, s, ti, tj, L, P, d, W, mask,
-                          counts, sq_out);
+    join_tile(sm, x, radii, elig, s, ti, tj, L, P, d, W, mask, counts,
+              sq_out);
+  }
+}
+
+// ---- K2: bf16 coarse counts on the tensor cores ----------------------------
+
+constexpr int PR_THREADS = 128;            // one warpgroup: one wgmma tile
+constexpr int PR_K = 64;                   // features a panel: one 128-byte
+                                           // bf16 row a point
+constexpr int PR_LANES = 8;                // lanes a row: a 16-byte bf16 chunk
+                                           // (8 features) each
+constexpr int PR_PASSES = ST * PR_LANES / PR_THREADS;   // rows a thread
+constexpr int PR_STEP = PR_THREADS / PR_LANES;          // rows a pass
+constexpr int PR_PANEL = ST * PR_K * 2;    // bytes of one bf16 panel
+// slack, panels A and B, their norms, the walk's prefix table (scan_runs)
+constexpr int PR_SMEM = 1024 + 2 * PR_PANEL + 2 * ST * 4
+                        + (3 * PR_THREADS + 8) * 4;
+constexpr int PR_MIN_BLOCKS = 3;           // 164 registers a thread
+constexpr int PR_RUN = 4;                  // triangle tiles a unit of work
+constexpr int PR_SCAN_MAX = PR_THREADS;    // subsets a walk table holds
+
+static_assert(PR_PANEL % 1024 == 0, "panels keep the swizzle's alignment");
+
+// One panel's fp32 coordinates in flight to this thread: pass p holds
+// features k0 + 8 c .. k0 + 8 c + 7 (c = tid % 8) of row tid / 8 + 16 p, as
+// two 16-byte loads.
+struct PanelRegs {
+  float4 v[PR_PASSES][2];
+};
+
+// Issues the loads of features [k0, k0 + PR_K) of points [p0, p0 + ST).
+// Points at or past L and features at or past d read as zero. With vec (d a
+// multiple of 4 and a 16-byte aligned base) the loads are 16 bytes wide.
+__device__ __forceinline__ void load_panel(PanelRegs& R,
+                                           const float* __restrict__ xs,
+                                           int p0, int L, int d, int k0,
+                                           bool vec) {
+  const int f = k0 + 8 * (threadIdx.x % PR_LANES);
+#pragma unroll
+  for (int p = 0; p < PR_PASSES; ++p) {
+    const int row = p0 + threadIdx.x / PR_LANES + PR_STEP * p;
+    const float* src = xs + (size_t)row * d + f;
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    if (row < L) {
+      if (vec) {
+        if (f < d) lo = __ldg(reinterpret_cast<const float4*>(src));
+        if (f + 4 < d) hi = __ldg(reinterpret_cast<const float4*>(src + 4));
+      } else {
+        float t[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) t[e] = f + e < d ? __ldg(src + e) : 0.f;
+        lo = make_float4(t[0], t[1], t[2], t[3]);
+        hi = make_float4(t[4], t[5], t[6], t[7]);
+      }
+    }
+    R.v[p][0] = lo;
+    R.v[p][1] = hi;
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b,
+                                              float& norm) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(v);
+  norm = fmaf(f.x, f.x, norm);
+  norm = fmaf(f.y, f.y, norm);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rounds the staged coordinates to bf16 (round to nearest even) into the
+// panel at `panel` in the 128-byte swizzled K-major layout wgmma reads, and
+// adds each row's squared norm over this panel's rounded values to
+// norm[p]: each chunk's features in order, then the row's 8 chunks by a
+// butterfly over the 8 lanes that hold them (every lane gets the same bits).
+__device__ __forceinline__ void store_panel(unsigned char* panel,
+                                            const PanelRegs& R,
+                                            float (&norm)[PR_PASSES],
+                                            bool first) {
+  const int c = threadIdx.x % PR_LANES;
+#pragma unroll
+  for (int p = 0; p < PR_PASSES; ++p) {
+    const int row = threadIdx.x / PR_LANES + PR_STEP * p;
+    const float4 lo = R.v[p][0], hi = R.v[p][1];
+    float s = 0.f;
+    uint4 w;
+    w.x = bf16_pair(lo.x, lo.y, s);
+    w.y = bf16_pair(lo.z, lo.w, s);
+    w.z = bf16_pair(hi.x, hi.y, s);
+    w.w = bf16_pair(hi.z, hi.w, s);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    norm[p] = first ? s : norm[p] + s;
+    *reinterpret_cast<uint4*>(panel + row * 128 + ((c ^ (row & 7)) << 4)) = w;
+  }
+}
+
+// The live points of tile rows (or columns) [p0, p0 + ST) as bits: index <
+// L (p0 < L) and, with eligibility words, eligible.
+__device__ __forceinline__ unsigned long long live_bits(
+    const int* __restrict__ es, int p0, int L, int W) {
+  const int n = L - p0;
+  unsigned long long m = n >= 64 ? ~0ull : (1ull << n) - 1;
+  if (es != nullptr) {
+    const int w = p0 >> 5;
+    unsigned long long e = static_cast<unsigned>(es[w]);
+    if (w + 1 < W) e |= static_cast<unsigned long long>(
+                            static_cast<unsigned>(es[w + 1])) << 32;
+    m &= e;
+  }
+  return m;
+}
+
+// A block's place in the walk: unit i (run c of subset s: its `run`
+// consecutive tiles of the subset's column-by-column enumeration), tile t of
+// the subset and the run's end, (ti, tj) and the subset's length. The live
+// tiles of a subset are the first T(T+1)/2 of its enumeration (T =
+// ceil(L / ST)). A block takes units i = blockIdx.x, + gridDim.x, ...
+struct PruneTile {
+  int i, s, t, end, ti, tj, L;
+};
+
+// The walk's table for S <= PR_SCAN_MAX subsets, in shared memory: pre[s]
+// live runs before subset s (pre[S] in all), each subset's live tiles and
+// length. With it unit i is the i-th live run, so that the live runs are
+// shared out evenly whatever the lengths (a batch padded with empty subsets
+// included).
+struct RunTable {
+  int* pre;
+  int* live;
+  int* len;
+};
+
+// Block-wide inclusive sum of x over threads (wsum: a word a warp).
+__device__ __forceinline__ int block_scan(int x, int* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) x += wsum[w];
+  __syncthreads();                                   // wsum may be reused
+  return x;
+}
+
+// Fills the table and returns the run length: PR_RUN tiles, whose column
+// panels stay staged, or single tiles where the batch has fewer live tiles
+// than the grid has blocks (runs would then leave blocks idle while others
+// work through several tiles each).
+__device__ __forceinline__ int scan_runs(const int* __restrict__ lengths,
+                                         int S, int P, RunTable tab) {
+  const int tid = threadIdx.x;
+  int* wsum = tab.len + PR_THREADS;
+  const int L = tid < S ? min(max(lengths[tid], 0), P) : 0;
+  const int T = (L + ST - 1) / ST, live = T * (T + 1) / 2;
+  const int tiles = block_scan(live, wsum);
+  if (tid == PR_THREADS - 1) wsum[4] = tiles;        // the batch's live tiles
+  __syncthreads();
+  const int run = wsum[4] >= static_cast<int>(gridDim.x) ? PR_RUN : 1;
+  const int x = block_scan((live + run - 1) / run, wsum);
+  if (tid == 0) tab.pre[0] = 0;
+  if (tid < S) {
+    tab.pre[tid + 1] = x;
+    tab.live[tid] = live;
+    tab.len[tid] = L;
+  }
+  __syncthreads();
+  return run;
+}
+
+// The block's first live unit at or after index i (stepping by the grid):
+// from the table where there is one, else from the interleaved order i =
+// c S + s over all runs (batches of many subsets have few runs each).
+__device__ __forceinline__ bool next_unit(int i,
+                                          const int* __restrict__ lengths,
+                                          int S, int P, int runs, int run,
+                                          const RunTable& tab, PruneTile& t) {
+  for (;; i += gridDim.x) {
+    int s, c, L, live;
+    if (S <= PR_SCAN_MAX) {
+      if (i >= tab.pre[S]) return false;
+      int lo = 0, hi = S - 1;           // the s with pre[s] <= i < pre[s + 1]
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (tab.pre[mid] <= i) lo = mid;
+        else hi = mid - 1;
+      }
+      s = lo;
+      c = i - tab.pre[s];
+      L = tab.len[s];
+      live = tab.live[s];
+    } else {
+      if (i >= runs * S) return false;
+      s = i % S;
+      c = i / S;
+      L = min(max(lengths[s], 0), P);
+      const int T = (L + ST - 1) / ST;
+      live = T * (T + 1) / 2;
+      if (c * run >= live) continue;
+    }
+    t.i = i;
+    t.s = s;
+    t.t = c * run;
+    t.end = min(t.t + run, live);
+    t.tj = triangle_tile(t.t, t.ti);
+    t.L = L;
+    return true;
+  }
+}
+
+// K2: the bf16 coarse counts of the prune tier. A persistent grid of single
+// warpgroups walks the upper triangle of 64 x 64 tiles, runs of consecutive
+// tiles of a column-by-column enumeration a unit, so that consecutive tiles
+// mostly share their column points: with one feature panel (d <= 64) these
+// stay staged from one tile to the next. Per live tile and 64-feature
+// panel the block stages the row (and where needed the column) points as
+// bf16 in shared memory (a diagonal tile stages its points twice, so the
+// descriptors stay fixed), runs four wgmma.m64n64k16.f32.bf16.bf16, and
+// issues the next panel's or tile's global loads before it waits for them.
+// The epilogue works from the accumulator layout: thread t of warp w holds
+// rows 16 w + t / 4 and + 8, columns 8 j + 2 (t % 4) and + 1. The caller
+// zeroes counts.
+__global__ void __launch_bounds__(PR_THREADS, PR_MIN_BLOCKS)
+prune_join_kernel(const float* __restrict__ x,
+                  const int* __restrict__ lengths,
+                  const float* __restrict__ radii,
+                  const int* __restrict__ elig, int S, int P, int d, int W,
+                  int* __restrict__ counts) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sa = (raw + 1023u) & ~1023u;          // swizzle alignment
+  unsigned char* pa = smem_raw + (sa - raw);
+  unsigned char* pb = pa + PR_PANEL;
+  float* an = reinterpret_cast<float*>(pb + PR_PANEL);  // row norms
+  float* bn = an + ST;                                  // column norms
+  int* table = reinterpret_cast<int*>(bn + ST);
+  const RunTable tab{table, table + PR_THREADS + 1,
+                     table + 2 * PR_THREADS + 1};
+
+  const int nt = (P + ST - 1) / ST;
+  const int runs = (nt * (nt + 1) / 2 + PR_RUN - 1) / PR_RUN;
+  const int panels = (d + PR_K - 1) / PR_K;
+  const bool vec = (d % 4 == 0)
+                   && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  const int run = S <= PR_SCAN_MAX ? scan_runs(lengths, S, P, tab) : PR_RUN;
+  PruneTile cur;
+  if (!next_unit(blockIdx.x, lengths, S, P, runs, run, tab, cur)) return;
+  int k = 0;                                   // the panel of cur
+  bool staged = false;                 // cur's column panel is in place
+  PanelRegs ra, rb;
+  load_panel(ra, x + (size_t)cur.s * P * d, cur.ti * ST, cur.L, d, 0, vec);
+  if (cur.ti != cur.tj)
+    load_panel(rb, x + (size_t)cur.s * P * d, cur.tj * ST, cur.L, d, 0, vec);
+  float na[PR_PASSES], nb[PR_PASSES];
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  for (;;) {
+    const bool diag = cur.ti == cur.tj, last = k + 1 == panels;
+    __syncthreads();             // the previous panel's readers are done
+    store_panel(pa, ra, na, k == 0);
+    if (!staged) {
+      if (diag) store_panel(pb, ra, nb, k == 0);
+      else store_panel(pb, rb, nb, k == 0);
+    }
+    if (last && tid % PR_LANES == 0) {
+#pragma unroll
+      for (int p = 0; p < PR_PASSES; ++p) {
+        an[tid / PR_LANES + PR_STEP * p] = na[p];
+        if (!staged) bn[tid / PR_LANES + PR_STEP * p] = nb[p];
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PR_K / 16; ++kk)
+      wgmma_ss_n64(acc, desc_k_major(sa + kk * 32),
+                   desc_k_major(sa + PR_PANEL + kk * 32), k > 0 || kk > 0);
+    wgmma_commit();
+
+    // The epilogue's radius and live points, then the next panel's or tile's
+    // loads: all in flight while the tensor cores run.
+    const int* es = elig ? elig + (size_t)cur.s * W : nullptr;
+    const bool interior = es == nullptr && (cur.tj + 1) * ST <= cur.L;
+    float r2 = 0.f;
+    unsigned long long rl = 0, cl = 0;
+    if (last) {
+      const float r = radii[cur.s];
+      r2 = r * r;
+      if (!interior) {
+        rl = live_bits(es, cur.ti * ST, cur.L, W);
+        cl = live_bits(es, cur.tj * ST, cur.L, W);
+      }
+    }
+    PruneTile nxt = cur;
+    int nk = k + 1;
+    bool more = true, nstaged = false;
+    if (last) {
+      nk = 0;
+      if (cur.t + 1 < cur.end) {               // the unit's next tile
+        ++nxt.t;
+        if (++nxt.ti > nxt.tj) {
+          nxt.ti = 0;
+          ++nxt.tj;
+        }
+        nstaged = panels == 1 && nxt.tj == cur.tj;
+      } else {
+        more = next_unit(cur.i + gridDim.x, lengths, S, P, runs, run, tab,
+                         nxt);
+      }
+    }
+    if (more) {
+      const float* xs = x + (size_t)nxt.s * P * d;
+      load_panel(ra, xs, nxt.ti * ST, nxt.L, d, nk * PR_K, vec);
+      if (!nstaged && nxt.ti != nxt.tj)
+        load_panel(rb, xs, nxt.tj * ST, nxt.L, d, nk * PR_K, vec);
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    if (last) {
+      const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+      const float a0 = an[r0], a1 = an[r0 + 8];
+      // explicit roundings, as K1: e = (|a|^2 + |b|^2) - 2 a.b
+      auto joined = [&](float a, float b, float g) {
+        return __fmaf_rn(-2.0f, g, __fadd_rn(a, b)) <= r2;
+      };
+      int cnt = 0;
+      if (interior) {                          // the threshold alone
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(bn + 8 * j + c0);
+          cnt += joined(a0, b.x, acc[4 * j]) + joined(a0, b.y, acc[4 * j + 1])
+                 + joined(a1, b.x, acc[4 * j + 2])
+                 + joined(a1, b.y, acc[4 * j + 3]);
+        }
+      } else {
+        const bool l0 = (rl >> r0) & 1, l1 = (rl >> (r0 + 8)) & 1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + c0;
+          const bool e0 = (cl >> c) & 1, e1 = (cl >> (c + 1)) & 1;
+          const float2 b = *reinterpret_cast<const float2*>(bn + c);
+          cnt += (l0 && e0 && joined(a0, b.x, acc[4 * j]))
+                 + (l0 && e1 && joined(a0, b.y, acc[4 * j + 1]))
+                 + (l1 && e0 && joined(a1, b.x, acc[4 * j + 2]))
+                 + (l1 && e1 && joined(a1, b.y, acc[4 * j + 3]));
+        }
+      }
+      cnt *= diag ? 1 : 2;                     // and the mirrored half
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 16);
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 8);
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 4);
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 2);
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 1);
+      if (lane == 0 && cnt) atomicAdd(counts + cur.s, cnt);
+    }
+    if (!more) break;
+    cur = nxt;
+    k = nk;
+    staged = nstaged;
   }
 }
 
@@ -587,7 +948,7 @@ pairwise_join_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (threadIdx.x == 0) counts[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = sm.count;
 }
 
-// Blocks of a K1/K2 launch: as many as the card holds at once, or one per
+// Blocks of a K1 launch: as many as the card holds at once, or one per
 // triangle tile of all subsets if there are fewer.
 int triangle_blocks(int S, int P) {
   int dev = 0, sms = 0;
@@ -597,6 +958,25 @@ int triangle_blocks(int S, int P) {
   const long long tiles = nt * (nt + 1) / 2 * S;
   const long long resident = static_cast<long long>(sms) * ST_BLOCKS_PER_SM;
   return static_cast<int>(tiles < resident ? tiles : resident);
+}
+
+// Blocks of a K2 launch: twice as many as the card holds at once (by the
+// occupancy of its registers and shared memory), so that the hardware's
+// block scheduler evens out the tail of a walk whose live tiles are uneven
+// across blocks; or one per unit of work if there are fewer.
+int prune_blocks(int S, int P) {
+  static int per_sm = 0;               // a property of the kernel: asked once
+  if (per_sm == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, prune_join_kernel,
+                                                  PR_THREADS, PR_SMEM);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long nt = (P + ST - 1) / ST;
+  const long long units = (nt * (nt + 1) / 2 + PR_RUN - 1) / PR_RUN * S;
+  const long long blocks =
+      2 * static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(units < blocks ? units : blocks);
 }
 
 }  // namespace
@@ -610,7 +990,7 @@ extern "C" {
 int join_batched_masked(const float* x, const int* lengths, const float* radii,
                         const int* elig, int S, int P, int d, int* mask,
                         int* counts, float* sq, void* stream) {
-  triangle_join_kernel<false, true>
+  triangle_join_kernel
       <<<triangle_blocks(S, P), ST_THREADS, 0, (cudaStream_t)stream>>>(
           x, lengths, radii, elig, S, P, d, (P + 31) / 32, mask, counts, sq);
   return static_cast<int>(cudaGetLastError());
@@ -619,10 +999,9 @@ int join_batched_masked(const float* x, const int* lengths, const float* radii,
 int join_batched_prune(const float* x, const int* lengths, const float* radii,
                        const int* elig, int S, int P, int d, int* counts,
                        void* stream) {
-  triangle_join_kernel<true, false>
-      <<<triangle_blocks(S, P), ST_THREADS, 0, (cudaStream_t)stream>>>(
-          x, lengths, radii, elig, S, P, d, (P + 31) / 32, nullptr, counts,
-          nullptr);
+  prune_join_kernel
+      <<<prune_blocks(S, P), PR_THREADS, PR_SMEM, (cudaStream_t)stream>>>(
+          x, lengths, radii, elig, S, P, d, (P + 31) / 32, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

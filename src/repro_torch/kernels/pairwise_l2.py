@@ -144,8 +144,10 @@ def join_batched_prune(x: torch.Tensor, lengths: torch.Tensor,
                        r: torch.Tensor,
                        elig: torch.Tensor | None = None) -> torch.Tensor:
     """CUDA kernel K2 — see ``kernels.ref.join_batched_counts``. Takes the
-    fp32 tile and rounds coordinates to bf16 as it loads them; ``elig`` is
-    K1's packed eligibility words."""
+    fp32 tile, rounds coordinates to bf16 as it stages them, and sums the
+    products on the tensor cores (``wgmma``) in fp32; ``elig`` is K1's packed
+    eligibility words. Any base and any d: rows that are not 16-byte
+    aligned are loaded by scalar loads inside the kernel."""
     s, p, d = _check_batched(x, lengths, r, elig)
     check_triangle_tiles(p)
     counts = torch.zeros(s, dtype=torch.int32, device=x.device)

@@ -589,3 +589,121 @@ def test_masked_join_triangle_on_card(fold, with_sq):
                 tol = (64.0 + 4.0 * d) * _EPS32 * norm2
                 assert np.abs(sq_k[si][valid] - sq_p[si][valid]).max() <= tol
                 assert (sq_k[si][:n, :n] == sq_k[si][:n, :n].T).all()
+
+
+def _band_counts(x, lens, r, live=None):
+    """(S,) cells of each subset's live square whose float64 squared
+    distance, over the bf16-rounded coordinates, lies within the fp32 band
+    ``(64 + 4d) eps32 max|x|^2`` of ``r^2`` (computed on the card in
+    float64: its own error is ~1e-16 of the norms)."""
+    s, p, d = x.shape
+    xx = x.to(torch.bfloat16).double()
+    n2 = (xx * xx).sum(-1)
+    d2 = (n2[:, :, None] + n2[:, None, :]
+          - 2.0 * xx @ xx.transpose(1, 2)).clamp_min(0.0)
+    ok = torch.arange(p, device=x.device)[None, :] < lens.long()[:, None]
+    if live is not None:
+        ok &= live
+    norm2 = torch.where(ok, n2, torch.zeros_like(n2)).amax(dim=1)
+    tol = (64.0 + 4.0 * d) * _EPS32 * norm2
+    band = (ok[:, :, None] & ok[:, None, :]) \
+        & ((d2 - r.double()[:, None, None] ** 2).abs() <= tol[:, None, None])
+    return band.sum(dim=(1, 2))
+
+
+# (S, P, d, lengths): the shapes K2's tensor-core tiling meets — the
+# recorded path's (8, 2880, 64) at full length, two feature panels with a
+# partial second (d = 100), the embedded corpus's d = 2304, P off the
+# 64-point tile, and lengths 0, 1, 63, 64 and 65 at the tile's edges.
+PRUNE_CASES = [(8, 2880, 64, None), (2, 300, 100, None), (2, 256, 2304, None),
+               (3, 200, 64, [200, 130, 77]), (5, 200, 64, [0, 1, 63, 64, 65]),
+               (4, 97, 48, [97, 96, 33, 0])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,p,d,lengths", PRUNE_CASES)
+def test_prune_tensor_cores_match_plain_version_on_card(s, p, d, lengths):
+    """K2 (wgmma on bf16 tiles) against its plain version at the shapes its
+    tiling meets, with and without eligibility words (one subset wholly
+    ineligible): counts within the band of the bf16 tile, and never below
+    K1's counts at the fp32 radius."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(s * p + d)
+    x = rng.uniform(0, 10, (s, p, d)).astype(np.float32)
+    lens = np.array(lengths if lengths else [p] * s, dtype=np.int32)
+    # radii just under the typical pair distance (E|x - y|^2 = 100 d / 6),
+    # so that joins are partial at every d
+    radii = (np.sqrt(d * 100 / 6.0) * rng.uniform(0.85, 1.0, size=s)) \
+        .astype(np.float32)
+    norms = np.sqrt((x.astype(np.float64) ** 2).sum(-1)).max()
+    rc = ((radii + 2 * 2.0 ** -8 * norms) * 1.05).astype(np.float32)
+    el = rng.random((s, p)) < 0.5
+    el[min(1, s - 1)] = False
+    words = torch.from_numpy(pack_join_mask(el).view(np.int32)).to(dev)
+    xt, lt, rt, rct = (torch.from_numpy(a).to(dev)
+                       for a in (x, lens, radii, rc))
+    before = pairwise_l2.launches["join_batched_prune"]
+    for w, live in ((None, None), (words, torch.from_numpy(el).to(dev))):
+        got = pairwise_l2.join_batched_prune(xt, lt, rct, w)
+        want = ref.join_batched_counts(xt, lt, rct, w)
+        _, fp32 = pairwise_l2.join_batched_masked(xt, lt, rt, w)
+        band = _band_counts(xt, lt, rct, live)
+        assert bool(((got.long() - want.long()).abs() <= band).all()), \
+            (got.tolist(), want.tolist(), band.tolist())
+        assert bool((got >= fp32).all()), (got.tolist(), fp32.tolist())
+        if w is not None:
+            assert int(got[min(1, s - 1)]) == 0
+    assert pairwise_l2.launches["join_batched_prune"] == before + 2
+    empty = [i for i, n in enumerate(lens) if n == 0]
+    assert all(int(got[i]) == 0 for i in empty)
+
+
+@pytest.mark.cuda
+def test_prune_adversarial_boundary_on_card():
+    """Pairs within r (1 +/- k 2^-9) of the threshold, on the card: the
+    coarse count at the widened radius never misses a pair at float64
+    distance <= r, and is never below K1's count at the fp32 radius."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dev = torch.device("cuda")
+    for d in (8, 64, 100):
+        for seed, r in ((0, 1.0), (1, 7.3), (2, 123.0)):
+            rng = np.random.default_rng(seed + d)
+            base = rng.uniform(-1, 1, d)
+            base /= np.linalg.norm(base)
+            pts = [rng.uniform(-r, r, d).astype(np.float32)]
+            for k in (-4, -1, 0, 1, 4):
+                pts.append((pts[0] + base * r * (1.0 + k * 2.0 ** -9))
+                           .astype(np.float32))
+            x = np.stack(pts)[None].astype(np.float32)
+            pf = x[0].astype(np.float64)
+            d2 = ((pf[:, None] - pf[None, :]) ** 2).sum(-1)
+            exact = int((np.sqrt(d2) <= r).sum())
+            norms = np.sqrt((pf ** 2).sum(-1)).max()
+            rc = np.array([(r + 2 * 2.0 ** -8 * norms) * 1.05], np.float32)
+            xt = torch.from_numpy(x).to(dev)
+            lt = torch.tensor([x.shape[1]], dtype=torch.int32, device=dev)
+            got = int(pairwise_l2.join_batched_prune(
+                xt, lt, torch.from_numpy(rc).to(dev))[0])
+            fp32 = int(pairwise_l2.join_batched_masked(
+                xt, lt, torch.tensor([r], dtype=torch.float32,
+                                     device=dev))[1][0])
+            assert got >= exact, f"d={d} seed={seed} r={r}: {got} < {exact}"
+            assert got >= fp32, f"d={d} seed={seed} r={r}: {got} < {fp32}"
+
+
+@pytest.mark.cuda
+def test_cost_model_on_card_measures_both_slopes():
+    """The cost-model probe on the card times the masked join and the
+    coarse counts by CUDA events: both per-cell slopes clear the 1e-13 s
+    floor (the fit raises otherwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core import backend
+    model = backend.calibrate_cost_model(64, torch.device("cuda"))
+    assert model.platform == "cuda"
+    assert model.dev_cell_s > backend.CELL_FLOOR_S
+    assert model.prune_cell_s > backend.CELL_FLOOR_S
+    assert model.dev_fixed_s >= 0.0
