@@ -9,8 +9,8 @@
 Phases:
   1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and report
      the card (name and power limit, as nvidia-smi gives them) and the
-     ``-Xptxas -v`` lines (registers, shared memory, spills) of the K7 and
-     K1-K4 kernels.
+     ``-Xptxas -v`` lines (registers, shared memory, spills) of the K7,
+     K1-K4 and K6 kernels.
   1b. [build] Build the engine over a flickr-like corpus of 10^6 points
      (Table III's largest real dataset: u=24,874 keywords, t=11 tags, at the
      d=64 top of the paper's dimensionality grid; attribute columns price,
@@ -55,8 +55,13 @@ Phases:
   3b. The anchor-star device tier on the same engine (no second build), each
      batch a path of its own: (a) the same 64 queries at k=1 on
      ``tier="device"``; (b) 64 random 9-keyword queries (the paper's largest
-     query size) at k=10. K6 must launch exactly once per query (every pack
-     has R >= 128 anchors) and no join kernel may launch. Every answer is a
+     query size) at k=10. The fused anchor-star kernel (K6's device-tier
+     entry, ``kernels.diameter.anchor_star``) must launch its two kernels
+     once per query (the neighbour stage and the diameter stage), the
+     standalone K6 never, and no join kernel. Profiled again: the
+     device-tier window holds no matrix-product and no argmin kernel, and
+     the fused entry alone at its largest input launches nothing but its
+     own two kernels (and the memset of its keys). Every answer is a
      covering set of finite diameter, ascending, and its float64 rescore
      from its ids lies within the fp32 band ``sqrt((64 + 4d) eps32
      max|x - c|^2)`` of the reported diameter (x the query's packed points,
@@ -124,7 +129,7 @@ Phases:
      Prints embed wall time, tokens/s, the model-FLOP share of the embed
      wall against the bf16 peak, K7's launches and peak device memory. The
      same 64 queries then run on ``tier="device"`` with the checks of 3b (a):
-     K6 at d=2304.
+     the fused anchor-star kernel at d=2304.
   5. Hold K7 against its plain PyTorch version on the card: on the path's
      own q, k, v of both shapes (recorded during phase 4), causal; the long
      shape again with window 1024; grouped-query heads (36 query, 4 kv,
@@ -138,12 +143,21 @@ Phases:
      ``F.scaled_dot_product_attention`` with CUDA events (kernel and SDPA in
      turns, kernel, SDPA, SDPA, kernel; each the mean of its two runs), and
      the kernel by the fresh-process profiler; print kernel/SDPA per case.
-  6. Hold K6 against its plain PyTorch version on the card at the largest
-     (T, q, d) of 3b (a), of 3b (b) (q=9) and of the embed corpus's device
-     batch (d=2304): max |kernel - plain| over the per-tuple band of the
-     norms identity ``sqrt((64 + 4d) eps32 max|x|^2)`` at most 1. Time
-     kernel, plain version and ``torch.cdist(pts, pts).amax(dim=(1, 2))``
-     (two calls: no single PyTorch call computes r(A)) with CUDA events.
+  6. Hold the fused anchor-star kernel against its plain version
+     (``kernels.ref.anchor_star``) on the card at the largest (q, R, d)
+     input of 3b (a), of 3b (b) (q=9) and of the embed corpus's device batch
+     (d=2304): on the valid anchors each neighbour's float64 distance to
+     its anchor within the query's band of the plain one's, worst_nn too,
+     and the diameters within rtol 1e-5 plus the band of the plain
+     diameters of the kernel's own tuples. Time kernel, plain version and
+     the composition it replaced (cuBLAS product, torch passes, argmin and
+     the standalone K6) with CUDA events, and the kernel by the fresh-process
+     profiler. Then hold the standalone K6 (``tuple_diameters``) against its
+     plain version at the (R, q, d) tuples those neighbours form: max
+     |kernel - plain| over the per-tuple band of the norms identity
+     ``sqrt((64 + 4d) eps32 max|x|^2)`` at most 1; time kernel, plain
+     version and ``torch.cdist(pts, pts).amax(dim=(1, 2))`` (two calls: no
+     single PyTorch call computes r(A)) with CUDA events.
 
   7. [K5] Hold K5 against its plain PyTorch version on the card on the
      build's own inputs: (10^6, 64, m=2) at all 5 widths and the embedded
@@ -183,6 +197,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 EPS32 = 2.0 ** -23
+# Profiler kernel names of matrix products (cuBLAS/CUTLASS kernels).
+MATMUL_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
 
 
 class SmokeError(RuntimeError):
@@ -788,18 +804,19 @@ def check_device_answers(ds, queries, results, label: str, k: int,
 
 
 def device_report(ds, queries, wall: float, st, rec) -> dict:
-    """One device-tier batch: QPS, phases, transfers, K6's input shapes
-    (T = R anchors per query), the distance cells the batch computes
-    (sum of R * R * (q - 1)) and the largest anchor group."""
-    cells = sum(n * int(key.split("x")[0]) ** 2
-                * (int(key.split("x")[1]) - 1)
+    """One device-tier batch: QPS, phases, transfers, the fused anchor-star
+    kernel's input shapes (q, R, d: R anchors per query), the distance cells
+    the plain version computes (sum of R * R * (q - 1)) and the largest
+    anchor group."""
+    cells = sum(n * int(key.split("x")[1]) ** 2
+                * (int(key.split("x")[0]) - 1)
                 for key, n in rec.shapes.items())
     return {"queries": len(queries), "q": len(queries[0]), "wall_s": wall,
             "qps": len(queries) / wall, "phases": st.phases,
             "shard_dispatches": st.shard_dispatches,
             "h2d_bytes": st.h2d_bytes, "d2h_bytes": st.d2h_bytes,
-            "k6_calls_by_shape": rec.shapes,
-            "k6_largest": list(rec.best[0].shape), "distance_cells": cells,
+            "star_calls_by_shape": rec.shapes,
+            "star_largest": list(rec.best[0].shape), "distance_cells": cells,
             "largest_anchor_group": max(len(ds.points_with(q[0]))
                                         for q in queries)}
 
@@ -964,8 +981,7 @@ def serve(args, report: dict) -> tuple:
         queries9 = random_queries(ds, 9, args.queries, seed=args.seed + 2)
         for path, qs, k in (("device-q3", queries, 1),
                             ("device-q9", queries9, 10)):
-            rec = diam_recs[path] = Recorder(ops, "tuple_diameters",
-                                             tuple_cells)
+            rec = diam_recs[path] = Recorder(ops, "anchor_star", tuple_cells)
             try:
                 answers[path], wall = drive(path, lambda: engine.query_batch(
                     qs, k=k, tier="device"))
@@ -976,7 +992,8 @@ def serve(args, report: dict) -> tuple:
             print(f"[device] {path}: {len(qs)} queries of {len(qs[0])} "
                   f"keywords at k={k} in {wall:.4f}s = {len(qs) / wall:.2f} "
                   f"QPS; phases {st.phases}; launches {by_path[path]}; "
-                  f"largest K6 input {report[path]['k6_largest']}; distance "
+                  f"largest anchor-star input (q, R, d) "
+                  f"{report[path]['star_largest']}; distance "
                   f"cells {report[path]['distance_cells']}; largest anchor "
                   f"group {report[path]['largest_anchor_group']}",
                   flush=True)
@@ -1027,14 +1044,13 @@ def serve(args, report: dict) -> tuple:
           f"first {n_cmp} per tier agree with the numpy backend", flush=True)
 
     for path, qs in (("device-q3", queries), ("device-q9", queries9)):
-        check(by_path[path]["tuple_diameters"] == len(qs),
-              f"{path}: K6 launched {by_path[path]['tuple_diameters']} "
-              f"times for {len(qs)} queries, want one per query")
+        check_star_launches(by_path[path], qs, path)
         check(not any(by_path[path][n] for n in K.launches),
               f"{path}: the device tier launched a join kernel")
     for path in ("exact", "approx", "forced", "exact-prune-off",
                  "exact-prune-auto", "pairwise"):
-        check(by_path[path]["tuple_diameters"] == 0,
+        check(by_path[path]["tuple_diameters"] == 0
+              and by_path[path]["anchor_star"] == 0,
               f"{path}: a join path launched K6")
     opts = [r.candidates[0].diameter for r in answers["exact"]]
     report["device-q3"]["checks"] = check_device_answers(
@@ -1060,17 +1076,17 @@ def serve(args, report: dict) -> tuple:
                                          "max_err_over_band": worst}
     for path, qs, k in (("device-q3", queries, 1),
                         ("device-q9", queries9, 10)):
-        report[path]["profile"] = profile_window(
-            lambda: engine.query_batch(qs, k=k, tier="device"),
-            ("tuple_diameters (K6)", "tuple_diameters_kernel",
-             "tuple_diameters"))
-        prof = report[path]["profile"]
+        report[path]["profile"] = prof = device_profile(
+            lambda: engine.query_batch(qs, k=k, tier="device"), len(qs),
+            path)
         print(f"[device] profiler, {path} again after its launches were "
-              f"read: K6 events {prof.get('own_events')} for "
+              f"read: anchor-star events {prof.get('own_events')} for "
               f"{prof.get('own_launches')} launches; device busy "
               f"{prof.get('busy_share')} of {prof.get('wall_s')}s; kernel "
-              f"time by kind {prof.get('share_of_kernel_time')}; top kernels "
+              f"time by kind {prof.get('share_of_kernel_time')}; kernels a "
+              f"query {prof.get('kernels_per_query')}; top kernels "
               f"{prof.get('top_kernels_s')}", flush=True)
+    report["star_stage_kernels"] = stage_kernels(diam_recs["device-q9"])
     print(f"[device] answers covering, finite, ascending and within the band "
           f"of their float64 rescore: q=3 {report['device-q3']['checks']}, "
           f"q=9 {report['device-q9']['checks']}; first {n_cmp} on the card "
@@ -1399,9 +1415,8 @@ def filtered(args, report: dict, served, by_path: dict) -> tuple:
                 fres.append(dv)
         rep["device"]["checks"] = check_device_answers(
             ds, fq, fres, f"{prefix} device", 1, opts, eligible)
-        k6 = by_path[f"{prefix}:device"]["tuple_diameters"]
-        check(k6 == len(fq), f"{prefix}: K6 launched {k6} times for "
-              f"{len(fq)} feasible queries")
+        check_star_launches(by_path[f"{prefix}:device"], fq,
+                            f"{prefix}:device")
         print(f"[filter] {prefix[7:]}: exact and approx equal the numpy "
               f"backend ({rep['exact']['numpy_backend_s']:.2f}s, "
               f"{rep['approx']['numpy_backend_s']:.2f}s; ties "
@@ -1960,7 +1975,7 @@ def embed(args, report: dict) -> tuple:
           f"{emb['serve'].get('k1_vs_plain')}; answers equal the numpy "
           f"backend's, which took {numpy_s:.3f}s", flush=True)
 
-    rec_diam = Recorder(ops, "tuple_diameters", tuple_cells)
+    rec_diam = Recorder(ops, "anchor_star", tuple_cells)
     try:
         torch.cuda.synchronize()
         K.reset_launches()
@@ -1969,28 +1984,27 @@ def embed(args, report: dict) -> tuple:
         dev_ans = engine.query_batch(queries, k=1, tier="device")
         torch.cuda.synchronize()
         wall = time.perf_counter() - ts
-        k6 = D.launches["tuple_diameters"]
+        k6 = dict(D.launches)
         dev_joins = dict(K.launches)
     finally:
         rec_diam.restore()
     st = engine.last_batch_stats
     emb["device"] = device_report(engine.dataset, queries, wall, st,
                                   rec_diam)
-    check(k6 == len(queries), f"embed-device: K6 launched {k6} times for "
-          f"{len(queries)} queries, want one per query")
+    check_star_launches(k6, queries, "embed-device")
     check(not any(dev_joins.values()),
           "embed-device: the device tier launched a join kernel")
     emb["device"]["checks"] = check_device_answers(
         engine.dataset, queries, dev_ans, "embed-device", 1,
         [r.candidates[0].diameter for r in answers])
-    emb["device"]["profile"] = profile_window(
+    emb["device"]["profile"] = device_profile(
         lambda: engine.query_batch(queries, k=1, tier="device"),
-        ("tuple_diameters (K6)", "tuple_diameters_kernel",
-         "tuple_diameters"))
+        len(queries), "embed-device")
     print(f"[embed] device tier over the {n_docs} x {cfg.d_model} corpus: "
           f"{len(queries)} queries in {wall:.4f}s = {len(queries) / wall:.2f}"
-          f" QPS; phases {st.phases}; K6 launches {k6}, largest input "
-          f"{emb['device']['k6_largest']}; checks {emb['device']['checks']}"
+          f" QPS; phases {st.phases}; launches {k6}, largest anchor-star "
+          f"input {emb['device']['star_largest']}; checks "
+          f"{emb['device']['checks']}"
           f"; profiler (again, after the launches were read): busy "
           f"{emb['device']['profile'].get('busy_share')}, kernel time by "
           f"kind {emb['device']['profile'].get('share_of_kernel_time')}",
@@ -2052,15 +2066,16 @@ def profile_window(fn, own: tuple[str, str, str]) -> dict:
     total = sum(v[0] for v in kernels.values())
     if total <= 0.0:
         return {}
-    counts = {"own_events": events, "own_launches": launches}
+    counts = {"own_events": events, "own_launches": launches,
+              "kernel_events": sum(v[1] for v in kernels.values()),
+              "kernel_names": sorted(k[:160] for k in kernels)}
     if events != launches:
         return {"wall_s": wall, "kernel_s": None, "busy_share": None,
                 "share_of_kernel_time": None, **counts}
-    matmul_marks = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
     kinds = {label: 0.0, "matmul": 0.0, "other": 0.0}
     for name, (sec, _) in kernels.items():
         kind = label if mark in name else "matmul" \
-            if any(m in name.lower() for m in matmul_marks) else "other"
+            if any(m in name.lower() for m in MATMUL_MARKS) else "other"
         kinds[kind] += sec
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_s": wall, "kernel_s": total, "busy_share": total / wall,
@@ -2214,18 +2229,209 @@ def flash_row(rec: ShapeRecorder, k7_launches: int,
     return shared
 
 
+def star_launches(queries) -> int:
+    """Kernel launches of the fused anchor-star entry for these queries: the
+    neighbour stage and the diameter stage of each (the diameter stage
+    alone for a one-keyword query)."""
+    return sum(2 if len(set(q)) > 1 else 1 for q in queries)
+
+
+def check_star_launches(counts: dict, queries, label: str) -> None:
+    """The device tier launched the fused anchor-star kernels once per
+    query and the standalone K6 never."""
+    want = star_launches(queries)
+    check(counts["anchor_star"] == want,
+          f"{label}: the anchor-star kernels launched "
+          f"{counts['anchor_star']} times for {len(queries)} queries, want "
+          f"{want} (two a query)")
+    check(counts["tuple_diameters"] == 0,
+          f"{label}: the standalone K6 launched on the device tier")
+
+
+def device_profile(fn, n_queries: int, label: str) -> dict:
+    """:func:`profile_window` over a device-tier batch, with the fused
+    anchor-star kernels as its own: no matrix product and no argmin may
+    appear among its kernels (the neighbour stage is all in the fused
+    kernel), and the kernels a query launches are counted."""
+    prof = profile_window(fn, ("anchor_star (K6)", "anchor_star_",
+                               "anchor_star"))
+    bad = [n for n in prof.get("kernel_names", ())
+           if any(m in n.lower() for m in MATMUL_MARKS + ("argmin",))]
+    check(not bad, f"{label}: the device tier launched {bad}")
+    if prof:
+        prof["kernels_per_query"] = prof["kernel_events"] / n_queries
+    return prof
+
+
+def stage_kernels(rec) -> dict:
+    """The kernels one call of the fused entry launches at its largest
+    recorded input, by the profiler's names: its own two and the memset of
+    its keys, nothing else (no product, elementwise pass or argmin)."""
+    from repro_torch.kernels import ops
+    groups, mask = rec.best[:2]
+    table, _ = profiled(lambda: ops.anchor_star(groups, mask), 2)
+    names = {k[:160]: v[1] for k, v in table.items()}
+    others = [k for k in names
+              if "anchor_star_" not in k and "memset" not in k.lower()]
+    check(not others, f"the anchor-star entry launched other kernels: "
+          f"{others}")
+    print(f"[device] the anchor-star entry alone at {list(groups.shape)}, "
+          f"2 calls: kernel events {names}", flush=True)
+    return names
+
+
+def adaptive_reps(fn, budget_ms: float = 1500.0, cap: int = 50) -> int:
+    """Launches to time ``fn`` over: about ``budget_ms`` of it, 2 to cap."""
+    t = cuda_ms(fn, 1, warmup=1)
+    return max(2, min(cap, int(budget_ms / max(t, 1e-3))))
+
+
+def star_check(groups, mask, got, want, label: str) -> dict:
+    """The fused kernel's outputs against the plain version's on the valid
+    anchors (phase 6): each neighbour's float64 distance to its anchor
+    within the query's band of the plain one's, worst_nn likewise, and the
+    diameters within rtol 1e-5 plus the band of the plain diameters of the
+    kernel's own tuples."""
+    import torch
+    from repro_torch.kernels import ref
+    q, _, d = groups.shape
+    pts = groups[mask].double()
+    band = float(((64.0 + 4.0 * d) * EPS32 * (pts - pts.mean(0)).square()
+                  .sum(-1).max()).sqrt()) if len(pts) else 0.0
+    (nn, worst, diam), (nn_p, worst_p, _) = got, want
+    valid = mask[0]
+    a64 = groups[0].double()[valid]
+    nn_err, differ = 0.0, 0
+    for j in range(1, q):
+        g64 = groups[j].double()
+        idx, idx_p = nn[valid, j].long(), nn_p[valid, j].long()
+        check(bool(mask[j][idx].all()) or not bool(mask[j].any()),
+              f"K6 {label}: a neighbour of group {j} is not a valid point")
+        dk = (a64 - g64[idx]).norm(dim=-1)
+        dp = (a64 - g64[idx_p]).norm(dim=-1)
+        if len(dk):
+            nn_err = max(nn_err, float((dk - dp).abs().max()))
+        differ += int((idx != idx_p).sum())
+    live = valid & (worst_p < ref.BIG)
+    w_err = float((worst.double().sqrt() - worst_p.double().sqrt())
+                  .abs()[live].max()) if bool(live.any()) else 0.0
+    tuples = torch.stack([groups[j][nn[:, j].long()] for j in range(q)], 1)
+    own = ref.tuple_diameters(tuples).double()[valid]
+    d_err = (diam.double()[valid] - own).abs()
+    d_over = float((d_err / (1e-5 * own + band)).max()) if len(own) else 0.0
+    diam_err = float(d_err.max()) if len(own) else 0.0
+    check(nn_err <= band and w_err <= band and d_over <= 1.0,
+          f"K6 {label}: the fused kernel differs from its plain version: "
+          f"neighbour distances by {nn_err}, worst_nn by {w_err}, diameters "
+          f"by {d_over} of their tolerance (band {band})")
+    return dict(band=band, nn_dist_err=nn_err, nn_differ=differ,
+                worst_err=w_err, diam_err=diam_err,
+                max_abs_err=max(nn_err, w_err, diam_err))
+
+
+def composition(groups, mask):
+    """The device tier's neighbour stage as it was before the fused kernel:
+    the plain version's cuBLAS products, torch passes and argmin, with the
+    standalone K6 kernel for the diameters (the yardstick ``library_ms``)."""
+    from repro_torch.kernels import diameter as D
+    from repro_torch.kernels import ref
+    plain = ref.tuple_diameters
+    ref.tuple_diameters = D.tuple_diameters
+    try:
+        return ref.anchor_star(groups, mask)
+    finally:
+        ref.tuple_diameters = plain
+
+
+def anchor_star_row(cases: list, launches_by_path: dict,
+                    profiles: KernelProfiles) -> tuple[dict, list]:
+    """The fused anchor-star kernel against its plain version at each
+    recorded input (label, Recorder of ``ops.anchor_star``); timings with
+    CUDA events beside the plain version and the composition it replaced;
+    the bound counts this input's valid anchors and points. Returns the row
+    (its own numbers those of the first case, the main device batch's
+    largest input) and, per case, the (R, q, d) tuples its neighbours form
+    (the standalone K6's inputs)."""
+    import torch
+    from repro_torch.kernels import diameter as D
+    from repro_torch.kernels import ref
+
+    rows, tuples = [], []
+    for label, rec in cases:
+        groups, mask = rec.best[:2]
+        q, r, d = groups.shape
+        got = D.anchor_star(groups, mask)
+        want = ref.anchor_star(groups, mask)
+        torch.cuda.synchronize()
+        res = star_check(groups, mask, got, want, label)
+        nn = got[0]
+        tuples.append((label, torch.stack(
+            [groups[j][nn[:, j].long()] for j in range(q)], 1).contiguous()))
+        a_valid = int(mask[0].sum())
+        r_valid = [int(mask[j].sum()) for j in range(1, q)]
+        flops = 2.0 * a_valid * d * sum(r_valid) + 2.0 * a_valid * q * q * d
+        nbytes = (a_valid + sum(r_valid)) * d * 4.0 + q * r + r * (4.0 * q + 8)
+        b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        pad_ms, _ = bound(2.0 * r * d * (q - 1) * r, q * r * (d * 4.0 + 1),
+                          PEAK_FP32_FLOPS)
+        kernel = lambda: D.anchor_star(groups, mask)          # noqa: E731
+        plain = lambda: ref.anchor_star(groups, mask)         # noqa: E731
+        lib = lambda: composition(groups, mask)               # noqa: E731
+        reps_k, reps_p = adaptive_reps(kernel), adaptive_reps(plain, 3000.0)
+        rows.append(dict(
+            case=label, shape=[q, r, d], valid_anchors=a_valid,
+            valid_points=r_valid, **res,
+            ms=cuda_ms(kernel, reps_k), plain_ms=cuda_ms(plain, reps_p),
+            library_ms=cuda_ms(lib, reps_p), bound_ms=b_ms, bound_by=b_by,
+            padded_bound_ms=pad_ms, reps=reps_k))
+        c = rows[-1]
+        c["library_over_kernel"] = c["library_ms"] / c["ms"]
+        print(f"[kernel] anchor_star {label} (q, R, d) {c['shape']}, valid "
+              f"anchors {a_valid}, valid points {r_valid}: {c['ms']:.4f} ms "
+              f"(plain {c['plain_ms']:.4f} ms, composition "
+              f"{c['library_ms']:.4f} ms = {c['library_over_kernel']:.2f}x "
+              f"the kernel, bound {b_ms:.5f} ms by {b_by}, at the padded "
+              f"shape {pad_ms:.5f} ms); neighbour distance err "
+              f"{res['nn_dist_err']:.3g} ({res['nn_differ']} neighbours "
+              f"differ), worst err {res['worst_err']:.3g}, diameter err "
+              f"{res['diam_err']:.3g}, band {res['band']:.3g}", flush=True)
+        profiles.add(f"K6 anchor_star {label}", "diameter.anchor_star",
+                     (groups, mask), "anchor_star_", "anchor_star",
+                     max(3, min(50, int(1000.0 / c["ms"]))), c)
+    main_case = rows[0]
+    row = dict(name="anchor_star", route="cuda",
+               source="src/repro_torch/kernels/csrc/diameter.cu",
+               replaces="src/repro/kernels/diameter.py:36",
+               also_replaces="src/repro/core/distributed.py:39 (the "
+                             "neighbour stage: _masked_sq_dists and the "
+                             "argmin loop at :79)",
+               launches=launches_by_path["device-q3"], path="device-q3",
+               launches_by_path=launches_by_path,
+               max_abs_err=max(r["max_abs_err"] for r in rows),
+               shape=main_case["shape"], ms=main_case["ms"],
+               plain_ms=main_case["plain_ms"],
+               bound_ms=main_case["bound_ms"],
+               bound_by=main_case["bound_by"],
+               library_ms=main_case["library_ms"],
+               library="the composition it replaced: torch.mm + torch "
+                       "passes + argmin + gather per group, then the "
+                       "standalone K6",
+               cases=rows)
+    profiles.targets[f"K6 anchor_star {cases[0][0]}"] += (row,)
+    return row, tuples
+
+
 def diameter_row(cases: list, launches_by_path: dict,
                  profiles: KernelProfiles) -> dict:
-    """K6 against its plain version at each recorded input (label, Recorder);
-    timings with CUDA events. The row's own numbers are those of the first
-    case (the largest input of the main device batch)."""
+    """The standalone K6 against its plain version at each (label, tuples)
+    input; timings with CUDA events. The row's own numbers are those of the
+    first case (the tuples of the main device batch's largest input)."""
     import torch
     from repro_torch.kernels import diameter as D
     from repro_torch.kernels import ref
 
     rows = []
-    for label, rec in cases:
-        x = rec.best[0]
+    for label, x in cases:
         t, q, d = x.shape
         got = D.tuple_diameters(x)
         want = ref.tuple_diameters(x)
@@ -2260,7 +2466,7 @@ def diameter_row(cases: list, launches_by_path: dict,
     row = dict(name="tuple_diameters", route="cuda",
                source="src/repro_torch/kernels/csrc/diameter.cu",
                replaces="src/repro/kernels/diameter.py:36",
-               launches=launches_by_path["device-q3"], path="device-q3",
+               launches=launches_by_path["device-q3"], path=None,
                launches_by_path=launches_by_path,
                max_abs_err=max(r["max_abs_err"] for r in rows),
                max_err_over_band=max(r["max_err_over_band"] for r in rows),
@@ -2271,11 +2477,11 @@ def diameter_row(cases: list, launches_by_path: dict,
                library_ms=main_case["library_ms"],
                library="torch.cdist(pts, pts).amax(dim=(1, 2)): two calls",
                cases=rows)
-    for (label, rec), case in zip(cases, rows):
+    for (label, x), case in zip(cases, rows):
         targets = (case, row) if case is main_case else (case,)
-        profiles.add(f"K6 {label}", "diameter.tuple_diameters",
-                     (rec.best[0],), "tuple_diameters_kernel",
-                     "tuple_diameters", 50, *targets)
+        profiles.add(f"K6 {label}", "diameter.tuple_diameters", (x,),
+                     "tuple_diameters_kernel", "tuple_diameters", 50,
+                     *targets)
     return row
 
 
@@ -2317,6 +2523,17 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
               f"{r['ms']:.4f} ms by events, {r.get('device_ms')} ms device, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SASS HGMMA "
               f"{r['sass_hgmma']}", flush=True)
+    star = next(r for r in rows if r["name"] == "anchor_star")
+    for case in star["cases"]:
+        dev = case.get("device_ms")
+        share = f", the bound {case['bound_ms'] / dev:.1%} of it" if dev \
+            else ""
+        print(f"[K6] anchor_star {case['case']} (q, R, d) {case['shape']}: "
+              f"{case['ms']:.4f} ms by events, {dev} ms device, composition "
+              f"{case['library_ms']:.4f} ms ({case['library_over_kernel']:.2f}"
+              f"x the kernel), plain {case['plain_ms']:.4f} ms, bound "
+              f"{case['bound_ms']:.5f} ms ({case['bound_by']}{share})",
+              flush=True)
 
 
 def main() -> int:
@@ -2369,8 +2586,8 @@ def main() -> int:
         report["card"] = card
         print(f"[build] kernels built in {report['build_s']:.1f}s; card: "
               f"{card}", flush=True)
-        report["ptxas"] = {n: ptxas_report(n)
-                           for n in ("flash_attention", "pairwise_l2")}
+        report["ptxas"] = {n: ptxas_report(n) for n in
+                           ("flash_attention", "pairwise_l2", "diameter")}
         for n, lines in report["ptxas"].items():
             for line in lines:
                 print(f"[ptxas] {n}: {line}", flush=True)
@@ -2397,12 +2614,15 @@ def main() -> int:
         rec, k7, rec_diam, k6, rec_k5_embed, k5_embed = embed(args, report)
         rows.append(flash_row(rec, k7, profiles))
         del rec
-        k6_by_path = {p: c["tuple_diameters"] for p, c in by_path.items()}
-        k6_by_path["embed-device"] = k6
-        rows.append(diameter_row([("path", diam_recs["device-q3"]),
-                                  ("q9", diam_recs["device-q9"]),
-                                  ("d2304", rec_diam)], k6_by_path,
-                                 profiles))
+        star_by, k6_by = ({p: c[n] for p, c in by_path.items()}
+                          for n in ("anchor_star", "tuple_diameters"))
+        star_by["embed-device"] = k6["anchor_star"]
+        k6_by["embed-device"] = k6["tuple_diameters"]
+        star_row, tuples = anchor_star_row(
+            [("path", diam_recs["device-q3"]), ("q9", diam_recs["device-q9"]),
+             ("d2304", rec_diam)], star_by, profiles)
+        rows.append(star_row)
+        rows.append(diameter_row(tuples, k6_by, profiles))
         k5_by_path = {p: c["project_and_bin"] for p, c in by_path.items()}
         k5_by_path["embed-build"] = k5_embed
         rec_k5 = served[4]

@@ -1,6 +1,7 @@
 """Public threshold-join ops, routed by the device of their tensors.
 
-A CUDA tensor goes to the hand-written kernel (``kernels.pairwise_l2``),
+A CUDA tensor goes to the hand-written kernel (``kernels.pairwise_l2``,
+``kernels.diameter``, ``kernels.flash_attention``, ``kernels.project_bin``),
 which launches or raises; a CPU tensor goes to the kernel's plain PyTorch
 version (``kernels.ref``). Nothing else is routed: there is no silent
 fallback from the card to the host.
@@ -14,8 +15,12 @@ fallback from the card to the host.
   * :func:`pairwise_l2_join_batched` — the batched self-join with the dense
     block and per-tile counts (K4; no serving path calls it, as in the
     reference).
-  * :func:`tuple_diameters` — the diameters r(A) of a batch of candidate
-    tuples (the anchor-star device tier's ranking).
+  * :func:`anchor_star` — the anchor-star search of one query (the device
+    tier): masked nearest neighbours of every anchor in each other keyword
+    group, the worst of their squared distances and the tuples' diameters,
+    fused in one kernel on the card (``kernels.diameter``).
+  * :func:`tuple_diameters` — the diameters r(A) of a batch of given
+    candidate tuples (the TPU kernel's own function).
   * :func:`flash_attention` — causal or windowed attention forward (the LM
     embedder's self-attention).
   * :func:`project_and_bin` — the random projections and both bin keys of
@@ -96,6 +101,22 @@ def pairwise_l2_join(a: torch.Tensor, b: torch.Tensor,
     if _route(a) == "cuda":
         return _cuda.pairwise_join(a, b, r)
     return ref.pairwise_join(a, b, r)
+
+
+def anchor_star(groups: torch.Tensor, mask: torch.Tensor, *,
+                block_bytes: int = ref.ANCHOR_BLOCK_BYTES
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Nearest valid neighbour of every anchor (``groups[0]``) in each other
+    group, the worst of those squared distances and each anchor tuple's
+    diameter: groups (q, R, d) fp32, mask (q, R) bool -> (nn (R, q) int32,
+    worst_nn (R,) fp32, diam (R,) fp32); see ``kernels.ref.anchor_star``.
+    On the card only contiguous fp32 groups and bool mask with 1 <= q <= 9
+    are taken (anything else raises), and anchors of a wholly masked
+    128-anchor tile are left at nn 0, worst_nn BIG. ``block_bytes`` bounds
+    the plain version's (anchors, R) blocks; the kernel has none."""
+    if _route(groups) == "cuda":
+        return _diameter.anchor_star(groups, mask)
+    return ref.anchor_star(groups, mask, block_bytes=block_bytes)
 
 
 def tuple_diameters(pts: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function computes what its CUDA kernel in ``csrc/pairwise_l2.cu`` (the
-threshold joins K1-K4), ``csrc/diameter.cu`` (tuple diameters),
-``csrc/flash_attention.cu`` (attention) or ``csrc/project_bin.cu``
-(projection and binning) computes, with the same inputs and
-outputs; ``kernels.ops`` routes a CPU tensor here, and the
+threshold joins K1-K4), ``csrc/diameter.cu`` (the anchor-star search and
+tuple diameters), ``csrc/flash_attention.cu`` (attention) or
+``csrc/project_bin.cu`` (projection and binning) computes, with the same
+inputs and outputs; ``kernels.ops`` routes a CPU tensor here, and the
 tests and ``chip_smoke.py`` hold the kernels against these. They transcribe
 the reference package's memory-lean formulations (the masked join and the
 bf16 coarse counts).
@@ -193,6 +193,61 @@ def tuple_diameters(pts: torch.Tensor) -> torch.Tensor:
     gram = torch.bmm(x, x.transpose(1, 2))                      # (T, q, q)
     d2 = (sq[:, :, None] + sq[:, None, :] - 2.0 * gram).clamp_min(0.0)
     return d2.amax(dim=(1, 2)).sqrt()
+
+
+# The score of a masked point in the anchor-star search (the reference's
+# BIG), and the byte budget of one (anchors, R) fp32 distance block of
+# :func:`anchor_star`: the product and its epilogue hold two such blocks.
+BIG = float(np.float32(3.4e38))
+ANCHOR_BLOCK_BYTES = 1 << 30
+
+
+def _masked_sq_dists(a: torch.Tensor, b: torch.Tensor,
+                     b_mask: torch.Tensor) -> torch.Tensor:
+    """(A, d) x (B, d) -> (A, B) squared L2 with invalid b masked to BIG:
+    ``max((|a|^2 + |b|^2) - 2 a.b, 0)`` in fp32, in place after the sum."""
+    sq = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
+    sq.sub_(torch.mm(a, b.T).mul_(2.0)).clamp_min_(0.0)
+    return sq.masked_fill_(~b_mask[None, :], BIG)
+
+
+def anchor_star(groups: torch.Tensor, mask: torch.Tensor, *,
+                block_bytes: int = ANCHOR_BLOCK_BYTES
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The anchor-star search of one query (kernel ``anchor_star`` in
+    ``csrc/diameter.cu``).
+
+    groups (q, R, d) fp32 (centred by the caller), mask (q, R) bool; the
+    anchors are ``groups[0]``. Returns nn (R, q) int32 — ``nn[a, 0] = a``
+    and ``nn[a, j]`` the nearest valid point of group j by
+    :func:`_masked_sq_dists` (the lowest index among equal minima,
+    ``torch.argmin``'s rule; index 0 at BIG when the group has no valid
+    point) — worst_nn (R,) fp32, the largest of those squared distances (0
+    for q = 1), and diam (R,) fp32, the diameter of each anchor's tuple by
+    :func:`tuple_diameters`.
+
+    Anchors are taken ``block_bytes // (4 R)`` at a time. Each anchor's row
+    is independent of the others, so tiling changes nothing but how the
+    matrix product may round (its blocking), not which rows meet which."""
+    q, r, d = groups.shape
+    anchors = groups[0]
+    chunk = max(1, block_bytes // (4 * max(r, 1)))
+    nn = torch.empty((r, q), dtype=torch.int64, device=groups.device)
+    nn[:, 0] = torch.arange(r, device=groups.device)
+    tuples = torch.empty((r, q, d), dtype=torch.float32, device=groups.device)
+    tuples[:, 0] = anchors
+    worst_nn = torch.zeros(r, dtype=torch.float32, device=groups.device)
+    for a0 in range(0, r, chunk):
+        rows = slice(a0, min(r, a0 + chunk))
+        for j in range(1, q):
+            sq = _masked_sq_dists(anchors[rows], groups[j], mask[j])
+            idx = sq.argmin(dim=1)
+            nn_d = sq.gather(1, idx[:, None])[:, 0]
+            del sq
+            worst_nn[rows] = torch.maximum(worst_nn[rows], nn_d)
+            tuples[rows, j] = groups[j][idx]
+            nn[rows, j] = idx
+    return nn.to(torch.int32), worst_nn, tuple_diameters(tuples)
 
 
 def _attention_numerators(q, k, v, causal, window):

@@ -8,11 +8,18 @@ cells whose float64 squared distance lies within ``(64 + 4d) * eps32 *
 max|x|^2`` of ``r^2``, counts within the number of such cells, ``sq`` within
 that band. Tolerance of the tuple-diameter kernel K6: rtol 1e-5 plus the
 band of the norms identity over each tuple, ``sqrt((64 + 4d) eps32
-max|x|^2)``. Tolerance of the attention kernel: both versions round q*scale and
-the softmax numerators to bf16 and the output once; they normalise the
-numerators by different maxima (running against final), so each numerator
-may round differently (2^-9 relative), and the output may land one bf16 ulp
-apart: ``|kernel - plain| <= 2^-7 |plain| + 2^-8 max|v|``.
+max|x|^2)``. Tolerance of the fused anchor-star kernel (K6's device-tier
+entry): its neighbours are compared by float64 distance to the anchor, not
+by index (its dot products round otherwise than cuBLAS's, so a near tie may
+name another point), within the query's band ``sqrt((64 + 4d) eps32
+max|x - c|^2)`` (``core.distributed.diameter_band``); on small integer
+coordinates, where every sum is exact, the index must be the lowest among
+equal minima. Tolerance of the attention kernel: both versions round
+q*scale and the softmax numerators to bf16 and the output once; they
+normalise the numerators by different maxima (running against final), so
+each numerator may round differently (2^-9 relative), and the output may
+land one bf16 ulp apart: ``|kernel - plain| <= 2^-7 |plain| + 2^-8
+max|v|``.
 """
 import numpy as np
 import pytest
@@ -202,12 +209,190 @@ def test_tuple_diameters_raises_on_what_it_does_not_take():
         diameter.tuple_diameters(torch.zeros((4, 3, 8)))
 
 
+def _query_band(groups: torch.Tensor, mask: torch.Tensor) -> float:
+    """``core.distributed.diameter_band`` on the card, in float64."""
+    pts = groups[mask].double()
+    if not len(pts):
+        return 0.0
+    norm2 = (pts - pts.mean(0)).square().sum(-1).max()
+    return float(((64.0 + 4.0 * groups.shape[-1]) * _EPS32 * norm2).sqrt())
+
+
+def _star_query(q: int, a: int, d: int, seed: int):
+    """Centred (q, a, d) groups on the card, about 85% of each group valid
+    (holes among the anchors too, anchor 0 valid), the last group down to a
+    few points."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    groups = torch.randn((q, a, d), generator=gen, device="cuda") * 20 \
+        + torch.rand((1, 1, d), generator=gen, device="cuda") * 10
+    mask = torch.rand((q, a), generator=gen, device="cuda") < 0.85
+    mask[0, 0] = True
+    if q > 1:
+        mask[-1, 7:] = False
+    groups = groups - groups[mask].mean(0)
+    return groups.contiguous(), mask
+
+
+def _check_star(groups, mask, got, want, band):
+    """Kernel against plain version on the valid anchors: nn[:, 0] the
+    anchor itself; each neighbour within the band of the plain one's
+    float64 distance (index 0 at BIG where the group has no valid point);
+    worst_nn and the diameters of the kernel's own tuples within the band."""
+    q = groups.shape[0]
+    (nn, worst, diam), (nn_p, worst_p, _) = got, want
+    valid = mask[0]
+    assert nn.dtype == torch.int32 and nn.shape == nn_p.shape
+    assert torch.equal(nn[:, 0], nn_p[:, 0])
+    a64 = groups[0].double()
+    for j in range(1, q):
+        if not bool(mask[j].any()):
+            assert bool((nn[valid, j] == 0).all())
+            assert bool((worst[valid] == ref.BIG).all())
+            continue
+        g64 = groups[j].double()
+        dk = (a64 - g64[nn[:, j].long()]).norm(dim=-1)
+        dp = (a64 - g64[nn_p[:, j].long()]).norm(dim=-1)
+        assert bool(mask[j][nn[valid, j].long()].all())
+        assert bool(((dk - dp).abs()[valid] <= band).all())
+    live = valid & (worst_p < ref.BIG)
+    assert bool(((worst.double().sqrt() - worst_p.double().sqrt()).abs()[live]
+                 <= band).all())
+    tuples = torch.stack([groups[j][nn[:, j].long()] for j in range(q)], 1)
+    own = ref.tuple_diameters(tuples).double()
+    assert bool(((diam.double() - own).abs()[valid]
+                 <= 1e-5 * own[valid] + band).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 64, 2304])
+@pytest.mark.parametrize("q", range(1, 10))
+def test_anchor_star_matches_plain_version_on_card(q, d):
+    """The fused anchor-star kernel against ``ref.anchor_star`` at 1, 31 and
+    5000 anchors: two launches (one for q = 1), within the band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import diameter
+    for a in (1, 31, 5000):
+        groups, mask = _star_query(q, a, d, seed=q * 10_000 + d + a)
+        before = diameter.launches["anchor_star"]
+        got = diameter.anchor_star(groups, mask)
+        want = ref.anchor_star(groups, mask)
+        torch.cuda.synchronize()
+        assert diameter.launches["anchor_star"] == before + (2 if q > 1 else 1)
+        _check_star(groups, mask, got, want, _query_band(groups, mask))
+        if q == 1:
+            assert bool((got[1] == 0).all() and (got[2] == 0).all())
+
+
+def _lowest_argmin(anchors, pts, valid):
+    a, p = anchors.long(), pts.long()
+    sq = (a[:, None] - p[None]).square().sum(-1)
+    sq = torch.where(valid[None, :], sq, torch.iinfo(torch.int64).max)
+    return sq.argmin(dim=1)        # the first of equal minima
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16, 64, 200])
+def test_anchor_star_exact_ties_on_card(d):
+    """Small integer coordinates, on which every fp32 sum is exact: copies of
+    the anchors (sq exactly 0), duplicates across column tiles and units,
+    masked lower copies. The kernel's neighbour is the lowest index among
+    equal minima however R is split across blocks, and its worst_nn and
+    diameters equal the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import diameter
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, r = 4, 1000
+    groups = torch.randint(-3, 4, (q, r, d), generator=gen, device="cuda") \
+        .float()
+    for j in range(1, q):
+        groups[j, 600:900] = groups[j, 20:320]     # duplicates, later tiles
+        groups[j, 900:950] = groups[0, 0:50]       # copies of anchors
+        groups[j, 10:30] = groups[0, 0:20]         # ... and lower ones
+    mask = torch.ones((q, r), dtype=torch.bool, device="cuda")
+    mask[1:, 10:20] = False
+    mask[0, 990:] = False
+    want_nn, want_worst, want_diam = ref.anchor_star(groups, mask)
+    for tiles in (0, 1, 3):
+        nn, worst, diam = diameter.anchor_star(groups, mask,
+                                               tiles_per_unit=tiles)
+        for j in range(1, q):
+            lowest = _lowest_argmin(groups[0], groups[j], mask[j])
+            assert torch.equal(nn[:, j].long(), lowest)
+            assert torch.equal(want_nn[:, j].long(), lowest)
+        assert torch.equal(worst, want_worst)
+        assert torch.equal(diam, want_diam)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 64, 200])
+def test_anchor_star_split_merge_matches_unsplit_on_card(d):
+    """R split across blocks (one column tile a unit, three, or 24) and
+    merged by atomicMin gives the same bits as the shape's own split, the
+    merge being exact whatever the order; also on sparse masks, where whole
+    runs of tiles and most anchor tiles are skipped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import diameter
+    groups, mask = _star_query(5, 3000, d, seed=d)
+    mask[-1] = mask[1]                      # a large last group here
+    # sparse: anchors in three tiles, a group of a few scattered points
+    sparse = mask.clone()
+    sparse[0] = False
+    sparse[0, 130:140] = sparse[0, 640:700] = sparse[0, 2990:] = True
+    sparse[2] = False
+    sparse[2, [5, 1800, 1801, 2999]] = True
+    for m in (mask, sparse):
+        want = diameter.anchor_star(groups, m)
+        _check_star(groups, m, want, ref.anchor_star(groups, m),
+                    _query_band(groups, m))
+        for tiles in (1, 3, 24):
+            got = diameter.anchor_star(groups, m, tiles_per_unit=tiles)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_anchor_star_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import diameter
+    g = torch.zeros((3, 8, 4), device="cuda")
+    m = torch.ones((3, 8), dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError):
+        diameter.anchor_star(g.double(), m)
+    with pytest.raises(TypeError):
+        diameter.anchor_star(g, m.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        diameter.anchor_star(g.transpose(1, 2).contiguous().transpose(1, 2),
+                             m)
+    with pytest.raises(ValueError, match="CUDA"):
+        diameter.anchor_star(g.cpu(), m.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        diameter.anchor_star(g, m.cpu())
+    with pytest.raises(ValueError, match="tuples of 10"):
+        diameter.anchor_star(torch.zeros((10, 8, 4), device="cuda"),
+                             torch.ones((10, 8), dtype=torch.bool,
+                                        device="cuda"))
+    with pytest.raises(ValueError, match="mask must be"):
+        diameter.anchor_star(g, m[:2])
+    r = diameter.MAX_R + 1
+    with pytest.raises(ValueError, match="R <="):
+        diameter.anchor_star(torch.zeros((1, r, 1), device="cuda"),
+                             torch.ones((1, r), dtype=torch.bool,
+                                        device="cuda"))
+
+
 @pytest.mark.cuda
 def test_device_tier_on_card_matches_cpu():
     """The anchor-star tier on the card against ``device="cpu"`` (the plain
     path end to end) on a small corpus: ids equal, diameters within the
-    band; K6 launches once per query and the card path reaches no plain
-    version."""
+    band; the fused kernel launches twice per query, the standalone K6
+    never, and the card path reaches no plain version (both raise if
+    called)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     from repro_torch import NKSEngine, flickr_like_dataset, random_queries
@@ -220,16 +405,20 @@ def test_device_tier_on_card_matches_cpu():
         + random_queries(ds, 9, 6, seed=2)
     card = NKSEngine(ds, device="cuda")
     cpu = NKSEngine(ds, device="cpu")
-    called = []
-    plain = ref.tuple_diameters
-    ref.tuple_diameters = lambda pts: called.append(pts) or plain(pts)
+    plain = ref.anchor_star, ref.tuple_diameters
+
+    def refuse(*args, **kw):
+        raise AssertionError("the card path reached a plain version")
+    ref.anchor_star = ref.tuple_diameters = refuse
     try:
-        before = diameter.launches["tuple_diameters"]
+        before = dict(diameter.launches)
         got = card.query_batch(queries, k=4, tier="device")
-        assert diameter.launches["tuple_diameters"] == before + len(queries)
-        assert not called
+        assert diameter.launches["anchor_star"] \
+            == before["anchor_star"] + 2 * len(queries)
+        assert diameter.launches["tuple_diameters"] \
+            == before["tuple_diameters"]
     finally:
-        ref.tuple_diameters = plain
+        ref.anchor_star, ref.tuple_diameters = plain
     want = cpu.query_batch(queries, k=4, tier="device")
     for q, g, w in zip(queries, got, want):
         pg = pack_groups(ds, q)
