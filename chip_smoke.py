@@ -51,7 +51,11 @@ Phases:
      dense block and 128 x 128 tile counts, which no served path launches,
      as in the reference: only ``ops.pairwise_l2_join_batched`` calls it),
      timed with CUDA events and the profiler beside ``torch.cdist`` and a
-     count.
+     count; each live square must be bitwise symmetric (K4 computes the
+     upper triangle of tiles and writes the transpose), and K4 is also
+     checked and timed on a dense input of the same shape (every length P)
+     for its FMA rate. K3's counts must lie on the reference's 128 x 128
+     grid.
   3b. The anchor-star device tier on the same engine (no second build), each
      batch a path of its own: (a) the same 64 queries at k=1 on
      ``tier="device"``; (b) 64 random 9-keyword queries (the paper's largest
@@ -183,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
 import dataclasses
 import json
 import pathlib
@@ -671,7 +676,12 @@ def kernel_rows(rec_mask, rec_prune, rec_pair, by_path,
     err = float((sq_k - sq_p).abs().max())
     check(err <= (64.0 + 4.0 * d) * EPS32 * norm2,
           f"pairwise_join sq differs by {err} beyond the fp32 band")
-    check(int(n_k.sum()) == int(n_p.sum()) == m * n,
+    check(tuple(n_k.shape) == tuple(n_p.shape) == (-(-m // 128),
+                                                     -(-n // 128)),
+          f"pairwise_join counts {tuple(n_k.shape)} are not on the "
+          f"reference's 128 x 128 grid")
+    check(int(n_k.sum()) == int(n_p.sum()) == m * n
+          and bool((n_k == n_p).all()),
           "pairwise_join counts at r=inf must cover every pair")
     flops = 2.0 * d * (m * n + m + n)
     nbytes = (m + n) * d * 4 + m * n * 4 + n_k.numel() * 4
@@ -1588,18 +1598,17 @@ def tenants(args, report: dict, by_path: dict) -> None:
           f"local id outside the tenant's dictionary raises", flush=True)
 
 
-def k4_row(rec_mask, by_path: dict, profiles: KernelProfiles) -> dict:
-    """K4 against its plain version on K1's largest path input (x, lengths,
-    r): sq within the fp32 band on every valid cell and fp32 max elsewhere,
-    tile counts (128 x 128) equal but for cells within the band of r^2.
-    No served path launches it (only ``ops.pairwise_l2_join_batched``)."""
+def k4_check(x, lengths, r, bm: int, bn: int) -> dict:
+    """K4 against its plain version on (x, lengths, r): sq within the fp32
+    band on every valid cell, bitwise symmetric on each live square and
+    fp32 max exactly outside it; tile counts equal but for cells within the
+    band of r^2. Returns the largest error, its share of the band, the
+    largest tile-count difference and the band's cells."""
     import torch
     from repro_torch.kernels import pairwise_l2 as K
     from repro_torch.kernels import ref
 
-    x, lengths, r = rec_mask.best[:3]
     s, p, d = x.shape
-    bm = bn = 128
     sq_k, c_k = K.join_batched_tiles(x, lengths, r, bm=bm, bn=bn)
     sq_p, c_p = ref.join_batched_dense(x, lengths, r, bm=bm, bn=bn)
     torch.cuda.synchronize()
@@ -1614,6 +1623,10 @@ def k4_row(rec_mask, by_path: dict, profiles: KernelProfiles) -> dict:
         check(bool(((sq_k[si] == fmax) == ~cell).all())
               and bool(((sq_p[si] == fmax) == ~cell).all()),
               "K4: fp32 max outside the valid square differs")
+        blk = sq_k[si, :n, :n]
+        check(torch.equal(blk.contiguous().view(torch.int32),
+                          blk.T.contiguous().view(torch.int32)),
+              f"K4: subset {si}'s live square is not bitwise symmetric")
         d2, n2 = self_sq64(x[si:si + 1])
         norm2 = float(n2[0, :n].max()) if n else 0.0
         tol = (64.0 + 4.0 * d) * EPS32 * norm2
@@ -1630,45 +1643,83 @@ def k4_row(rec_mask, by_path: dict, profiles: KernelProfiles) -> dict:
               f"K4: subset {si} tile counts differ beyond the band")
         count_diff = max(count_diff, int(diff.max()))
         band_total += int(band.sum())
+    return dict(max_abs_err=err, max_err_over_band=over,
+                max_tile_count_diff=count_diff, band_cells=band_total,
+                symmetric=True)
+
+
+def k4_row(rec_mask, by_path: dict, profiles: KernelProfiles) -> dict:
+    """K4 against its plain version (``k4_check``) on K1's largest path
+    input (x, lengths, r) at 128 x 128 count tiles, then timed there and on
+    a dense input of the same shape (every length P: all tiles live, the
+    kernel's FMA rate). No served path launches it (only
+    ``ops.pairwise_l2_join_batched``)."""
+    import torch
+    from repro_torch.kernels import pairwise_l2 as K
+    from repro_torch.kernels import ref
+
+    x, lengths, r = rec_mask.best[:3]
+    s, p, d = x.shape
+    bm = bn = 128
+    checked = k4_check(x, lengths, r, bm, bn)
     for path, counts in by_path.items():
         check(counts["join_batched_tiles"] == 0,
               f"K4 launched on the served path {path}")
-    lens = lengths.double()
-    flops = 2.0 * d * float((lens * lens).sum())
-    nbytes = s * p * p * 4.0 + float(lens.sum()) * d * 4 + c_k.numel() * 4
-    b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
-    r2 = r.float() * r.float()
 
-    def library():
-        return (torch.cdist(x, x).square() <= r2[:, None, None]).sum((1, 2))
+    def timing(x, lengths, r) -> dict:
+        flops, in_bytes = self_join_work(x, lengths)
+        nbytes = s * p * p * 4.0 + in_bytes + s * (-(-p // bm)) \
+            * (-(-p // bn)) * 4
+        b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        r2 = r.float() * r.float()
+
+        def library():
+            return (torch.cdist(x, x).square() <= r2[:, None, None]).sum(
+                (1, 2))
+        return dict(
+            ms=cuda_ms(lambda: K.join_batched_tiles(x, lengths, r), 20),
+            plain_ms=cuda_ms(lambda: ref.join_batched_dense(x, lengths, r),
+                             3, warmup=1),
+            library_ms=cuda_ms(library, 20), bound_ms=b_ms, bound_by=b_by,
+            bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
+            ops_ms=flops / PEAK_FP32_FLOPS * 1e3, flops=flops)
+
     row = dict(name="join_batched_tiles", route="cuda",
                source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
                replaces="src/repro/kernels/pairwise_l2.py:175",
                launches=0, path=None,
                launches_by_path={p_: c["join_batched_tiles"]
                                  for p_, c in by_path.items()},
-               max_abs_err=err, max_err_over_band=over,
-               max_tile_count_diff=count_diff, band_cells=band_total,
-               shape=[s, p, d], tile=[bm, bn],
-               ms=cuda_ms(lambda: K.join_batched_tiles(x, lengths, r), 20),
-               plain_ms=cuda_ms(lambda: ref.join_batched_dense(
-                   x, lengths, r), 3, warmup=1),
-               library_ms=cuda_ms(library, 20),
-               library="torch.cdist(x, x).square() then a count",
-               bound_ms=b_ms, bound_by=b_by,
-               bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
-               ops_ms=flops / PEAK_FP32_FLOPS * 1e3)
+               **checked, shape=[s, p, d], tile=[bm, bn],
+               lengths=lengths.tolist(), **timing(x, lengths, r),
+               library="torch.cdist(x, x).square() then a count")
+    # every subset full: seeded points, radii near the median distance
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    xd = torch.rand((s, p, d), generator=gen, device=x.device) * 100.0
+    ld = torch.full((s,), p, dtype=torch.int32, device=x.device)
+    rd = torch.full((s,), 100.0 * (d / 6.0) ** 0.5, device=x.device)
+    dense = dict(shape=[s, p, d], lengths=ld.tolist(),
+                 **k4_check(xd, ld, rd, bm, bn), **timing(xd, ld, rd))
+    row["dense"] = dense
     profiles.add("K4", "pairwise_l2.join_batched_tiles", (x, lengths, r),
                  "batched_tiles_kernel", "join_batched_tiles", 20, row,
                  bm=bm, bn=bn)
-    print(f"[K4] join_batched_tiles {row['shape']} tiles {bm}x{bn}: "
-          f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
-          f"cdist + count {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms by "
-          f"{b_by}: bytes {row['bytes_ms']:.4f} ms, fp32 operations "
-          f"{row['ops_ms']:.4f} ms); max |sq - plain| {err} ({over:.3g} of "
-          f"the band); tile counts differ by at most {count_diff} ({band_total}"
-          f" cells in the band); launches on every served path 0 (no engine "
-          f"path calls it, as in the reference)", flush=True)
+    profiles.add("K4 dense", "pairwise_l2.join_batched_tiles", (xd, ld, rd),
+                 "batched_tiles_kernel", "join_batched_tiles", 20, dense,
+                 bm=bm, bn=bn)
+    for label, t in (("path", row), ("dense", dense)):
+        print(f"[K4] join_batched_tiles {label} {t['shape']} lengths "
+              f"{t['lengths']} tiles {bm}x{bn}: {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f} ms, cdist + count {t['library_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}: bytes "
+              f"{t['bytes_ms']:.4f} ms, fp32 operations {t['ops_ms']:.4f} "
+              f"ms); max |sq - plain| {t['max_abs_err']} "
+              f"({t['max_err_over_band']:.3g} of the band); tile counts "
+              f"differ by at most {t['max_tile_count_diff']} "
+              f"({t['band_cells']} cells in the band); bitwise symmetric",
+              flush=True)
+    print("[K4] launches on every served path 0 (no engine path calls it, "
+          "as in the reference)", flush=True)
     return row
 
 
@@ -2505,7 +2556,7 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
     """The redesigned kernels' numbers side by side, once the profiler has
     filled in their device times: K7 at every case against
     ``F.scaled_dot_product_attention``, K1 and K2 with and without
-    eligibility words."""
+    eligibility words, K3, K4 at the path input and dense, K6."""
     flash = next(r for r in rows if r["name"] == "flash_attention")
     for case in flash["cases"]:
         print(f"[K7] {case['case']} {case['shape']} kv {case['kv_heads']} "
@@ -2523,6 +2574,16 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
               f"{r['ms']:.4f} ms by events, {r.get('device_ms')} ms device, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SASS HGMMA "
               f"{r['sass_hgmma']}", flush=True)
+    k3 = next(r for r in rows if r["name"] == "pairwise_join")
+    k4 = next(r for r in rows if r["name"] == "join_batched_tiles")
+    for label, r in (("K3 pairwise_join", k3), ("K4 path", k4),
+                     ("K4 dense", k4["dense"])):
+        dev = r.get("device_ms")
+        share = f", the bound {r['bound_ms'] / dev:.1%} of it" if dev else ""
+        print(f"[{label.split()[0]}] {label} {r['shape']}: {r['ms']:.4f} ms by "
+              f"events, {dev} ms device, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}{share})", flush=True)
     star = next(r for r in rows if r["name"] == "anchor_star")
     for case in star["cases"]:
         dev = case.get("device_ms")
@@ -2591,6 +2652,13 @@ def main() -> int:
         for n, lines in report["ptxas"].items():
             for line in lines:
                 print(f"[ptxas] {n}: {line}", flush=True)
+        from repro_torch.kernels import pairwise_l2
+        engine = pairwise_l2.library().join_engine_smem
+        engine.restype, engine.argtypes = ctypes.c_int, []
+        report["k3_k4_dynamic_smem"] = engine()
+        print(f"[ptxas] pairwise_l2: pairwise_join_kernel and "
+              f"batched_tiles_kernel take {report['k3_k4_dynamic_smem']} "
+              f"bytes of dynamic shared memory a block", flush=True)
         recs, by_path, diam_recs, served = serve(args, report)
         elig_recs = filtered(args, report, served, by_path)
         stream(args, report, served, by_path)

@@ -63,13 +63,28 @@
 // holds twice the resident blocks, so that the block scheduler evens out
 // the tail.
 //
-// K3 and K4 keep the first version's tile: one block of 256 threads (8 warps)
-// owns a 32-row x 128-column tile, stages 32-feature slices of the row and
-// column points in shared memory, and each thread keeps 16 fp32
-// accumulators (one column, 16 rows). In the epilogue lane j of a warp holds
-// column j of a 32-column word, so __ballot_sync over the join predicate is
-// the packed word (the TPU kernel needed an MXU matmul against powers of two
-// for the same packing).
+// K3 and K4 share one engine of 128 x 128 output tiles (rt_run). A
+// persistent grid of 128-thread blocks, two an SM, walks the tiles; each
+// thread keeps a 16 x 8 register tile (rows rg + 8 i, columns cg + 16 u)
+// and per 4 features reads its 16 rows and 8 columns as float4: 24 shared
+// loads a 512 FMAs (an 8 x 8 tile's 16 a 256 spill at two blocks an SM
+// and ran K3 10% slower on an H100 80GB HBM3 at 700 W, by
+// tools/join_breakdown.py). Points are staged point-major by 16-byte cp.async (K1's
+// stage_points), 32 features a stage, double-buffered, so the next stage's
+// or the next tile's copies fly during the FMAs and the epilogue; the
+// squared norms are summed from the staged points. The Gram term is a plain
+// fp32 FMA chain in feature order (no TF32, no tensor cores: the backend's
+// slack covers fp32 rounding only). The epilogue writes the clamped sq
+// through shared memory, 64 rows at a time, so that a warp stores each
+// output row whole with 16-byte streaming stores (st.global.cs: the block
+// exceeds L2 and is never read back; single floats only where N is not a
+// multiple of 4). Counts land on the caller's (bm, bn) grid: where a pass
+// (a tile or its transpose) lies in one grid cell, as on the default 128 x
+// 128 grid, each lane sums its cells' predicates and a warp adds its total
+// once; else four ballots a row give the joined bits of its 4-column
+// float4 lanes, split at every bn boundary (a lane a grid cell), summed per
+// lane while the cell stays the same, then in shared memory, then one
+// atomic per nonzero cell.
 //
 // Bound on the card. The Gram term of a self-join needs 2d flops per distinct
 // pair (L(L+1)/2 pairs for L points) and moves d*4 bytes per point read once
@@ -83,21 +98,25 @@
 // in flight (several warpgroups an SM, the next tile's loads issued before
 // the wait for this tile's products).
 //
-// K4 is K3's tile over a batch of self-joins without the mask: it always
-// writes the dense sq block and counts joined pairs per tile of the
-// *caller's* (bm, bn) grid, which need not match the kernel's 32 x 128
-// block. A row's ballot word spans 32 columns and may straddle a bn
-// boundary, so it is split by shifts into the grid cells it touches; a block
-// sums its cells in shared memory (at most 32 x 128 of them, for bm = bn = 1)
-// and adds each nonzero cell to the output once. Per valid cell it needs 2d
-// fp32 flops (1.9 ps at d = 64 and 67 TFLOP/s) against 4 written bytes (1.2
-// ps at 3.35 TB/s), so a block full of valid cells is bound by operations;
-// at K1's path input most cells lie past the subsets' lengths and cost bytes
-// only, and the S P^2 4-byte sq write bounds it.
+// K3 is bound by operations (2d flops per cell, 1.9 ps at d = 64 and 67
+// TFLOP/s, against 4 written bytes, 1.2 ps at 3.35 TB/s). K4 is the engine
+// over a batch of self-joins, always writing the dense sq block: it walks
+// the upper triangle of each subset's live tiles (through a table of live
+// tiles a subset for batches of up to 128), and an off-diagonal tile also
+// writes its transpose, staged transposed so that its rows go out whole
+// too: sq(i, j) and sq(j, i) are the same bits, as in K1. The mirrored
+// half counts in its own orientation (cell (j / bm, i / bn)), which is not
+// the direct half's transpose when bm != bn. Cells outside the live square
+// (empty subsets, padded rows and columns) take FLT_MAX from the same
+// launch, by each warp's share of rows in 16-byte streaming stores spread
+// between its block's tiles, with no Gram term and no shared memory. At
+// K1's path input most cells are dead, and the S P^2 4-byte write bounds
+// it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
@@ -106,119 +125,8 @@
 
 namespace {
 
-constexpr int TM = 32;                     // rows per block
-constexpr int WPB = 4;                     // 32-column mask words per block
-constexpr int TN = 32 * WPB;               // columns per block
-constexpr int DK = 32;                     // features staged per pass
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int RPW = TM * WPB / WARPS;      // rows per thread (one column each)
-
-static_assert(RPW * (WARPS / WPB) == TM, "warps must tile the rows");
-static_assert(RPW % 4 == 0, "rows are read as float4");
-
-// Row points are stored transposed (feature-major, rows padded to 36 floats)
-// so a thread reads its 16 rows of one feature as four float4 broadcasts;
-// column points keep point-major rows of 33 floats, so a warp's 32 columns of
-// one feature fall in 32 distinct banks.
-struct alignas(16) Smem {
-  float at[DK][TM + 4];
-  float b[TN][DK + 1];
-  float an[TM];
-  float bn[TN];
-  int count;
-};
-
-// acc[i] = <a[row0 + rbase + i], b[col0 + c]> for this thread's column c, and
-// the squared norms of the tile's rows (sm.an) and columns (sm.bn). Rows at or
-// past a_rows and columns at or past b_rows read as zero.
-__device__ void gram_tile(Smem& sm, const float* __restrict__ a, int a_rows,
-                          int row0, const float* __restrict__ b, int b_rows,
-                          int col0, int d, float (&acc)[RPW]) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int c = (warp % WPB) * 32 + (tid & 31);
-  const int rbase = (warp / WPB) * RPW;
-  if (tid < TM) sm.an[tid] = 0.f;
-  if (tid < TN) sm.bn[tid] = 0.f;
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += DK) {
-    for (int e = tid; e < TM * DK; e += THREADS) {
-      const int r = e / DK, k = e % DK;
-      const int gr = row0 + r, gk = k0 + k;
-      sm.at[k][r] = (gr < a_rows && gk < d)
-                       ? __ldg(a + (size_t)gr * d + gk) : 0.f;
-    }
-    for (int e = tid; e < TN * DK; e += THREADS) {
-      const int r = e / DK, k = e % DK;
-      const int gr = col0 + r, gk = k0 + k;
-      sm.b[r][k] = (gr < b_rows && gk < d)
-                       ? __ldg(b + (size_t)gr * d + gk) : 0.f;
-    }
-    __syncthreads();
-    if (tid < TM) {
-      float s = sm.an[tid];
-#pragma unroll
-      for (int k = 0; k < DK; ++k) s = fmaf(sm.at[k][tid], sm.at[k][tid], s);
-      sm.an[tid] = s;
-    } else if (tid < TM + TN) {
-      const int j = tid - TM;
-      float s = sm.bn[j];
-#pragma unroll
-      for (int k = 0; k < DK; ++k) s = fmaf(sm.b[j][k], sm.b[j][k], s);
-      sm.bn[j] = s;
-    }
-#pragma unroll 8
-    for (int k = 0; k < DK; ++k) {
-      const float bv = sm.b[c][k];
-      const float4* ap = reinterpret_cast<const float4*>(&sm.at[k][rbase]);
-#pragma unroll
-      for (int j = 0; j < RPW / 4; ++j) {
-        const float4 av = ap[j];
-        acc[4 * j + 0] = fmaf(av.x, bv, acc[4 * j + 0]);
-        acc[4 * j + 1] = fmaf(av.y, bv, acc[4 * j + 1]);
-        acc[4 * j + 2] = fmaf(av.z, bv, acc[4 * j + 2]);
-        acc[4 * j + 3] = fmaf(av.w, bv, acc[4 * j + 3]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 __device__ __forceinline__ bool elig_bit(const int* __restrict__ words, int i) {
   return (static_cast<unsigned>(words[i >> 5]) >> (i & 31)) & 1u;
-}
-
-// K4's body: the Gram tile of block (s, blockIdx.y, blockIdx.z) over a
-// subset of L valid points, then for each of this thread's RPW rows
-// epi(row, col, v, valid) with v = the cell's sq (FLT_MAX where row or col
-// is at or past L). Tiles wholly past L skip the Gram loop.
-template <class Epi>
-__device__ __forceinline__ void self_join_rows(Smem& sm, const float* xs,
-                                               int L, int d, Epi&& epi) {
-  const int row0 = blockIdx.y * TM;
-  const int col0 = blockIdx.z * TN;
-  float acc[RPW];
-  if (row0 < L && col0 < L) {                 // block-uniform
-    gram_tile(sm, xs, L, row0, xs, L, col0, d, acc);
-  } else {
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-    __syncthreads();
-  }
-  const int warp = threadIdx.x >> 5;
-  const int rbase = (warp / WPB) * RPW;
-  const int c = (warp % WPB) * 32 + (threadIdx.x & 31);
-  const int col = col0 + c;
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = row0 + rbase + i;
-    const bool valid = row < L && col < L;
-    const float v = valid
-        ? fmaxf(sm.an[rbase + i] + sm.bn[c] - 2.0f * acc[i], 0.0f) : FLT_MAX;
-    epi(row, col, v, valid);
-  }
 }
 
 // ---- K1: square tiles over the upper triangle ------------------------------
@@ -268,25 +176,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
-// Stages features [k0, k0 + ST_K) of points [p0, p0 + ST) into dst; points
-// at or past L and features at or past d are zero. When every row is
-// 16-byte aligned (d % 4 == 0 and an aligned base) the copies are cp.async
-// of 16 bytes, all in flight at once, and the caller waits for them
-// (stage_wait); else scalar loads.
-__device__ __forceinline__ void stage_points(float (*dst)[ST_LD],
+// Stages features [k0, k0 + KC) of points [p0, p0 + ROWS) into dst (rows of
+// LD floats), NT threads together; points at or past L and features at or
+// past d are zero. When every row is 16-byte aligned (d % 4 == 0 and an
+// aligned base) the copies are cp.async of 16 bytes, all in flight at once,
+// and the caller waits for them; else scalar loads. K1 takes the defaults.
+template <int ROWS = ST, int KC = ST_K, int NT = ST_THREADS, int LD>
+__device__ __forceinline__ void stage_points(float (*dst)[LD],
                                              const float* __restrict__ xs,
                                              int p0, int L, int d, int k0,
                                              bool vec) {
   if (vec) {
-    for (int e = threadIdx.x; e < ST * ST_K / 4; e += ST_THREADS) {
-      const int r = e / (ST_K / 4), k = (e % (ST_K / 4)) * 4;
+    for (int e = threadIdx.x; e < ROWS * KC / 4; e += NT) {
+      const int r = e / (KC / 4), k = (e % (KC / 4)) * 4;
       const bool ok = p0 + r < L && k0 + k < d;
       cp_async16(&dst[r][k], ok ? xs + (size_t)(p0 + r) * d + k0 + k : xs,
                  ok);
     }
   } else {
-    for (int e = threadIdx.x; e < ST * ST_K; e += ST_THREADS) {
-      const int r = e / ST_K, k = e % ST_K;
+    for (int e = threadIdx.x; e < ROWS * KC; e += NT) {
+      const int r = e / KC, k = e % KC;
       dst[r][k] = (p0 + r < L && k0 + k < d)
           ? __ldg(xs + (size_t)(p0 + r) * d + k0 + k) : 0.f;
     }
@@ -860,92 +769,566 @@ prune_join_kernel(const float* __restrict__ x,
   }
 }
 
-// K4: the dense sq block and per-tile counts of the caller's (bm, bn) grid.
-// Grid (S, ceil(P/TM), ceil(P/TN)); counts (S, ceil(P/bm), ceil(P/bn)).
-__global__ void __launch_bounds__(THREADS)
-batched_tiles_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
-                     const float* __restrict__ radii, int P, int d, int bm,
-                     int bn, float* __restrict__ sq_out,
-                     int* __restrict__ counts) {
-  __shared__ Smem sm;
-  __shared__ int cells[TM * TN];
-  const int s = blockIdx.x;
-  const int row0 = blockIdx.y * TM;
-  const int col0 = blockIdx.z * TN;
-  const int L = min(max(lengths[s], 0), P);
-  const int gm = (P + bm - 1) / bm, gn = (P + bn - 1) / bn;
-  // This block's cells: rows [cr0, cr1], columns [cc0, cc1] of the grid.
-  const int cr0 = row0 / bm, cr1 = min(row0 + TM, P) - 1;
-  const int cc0 = col0 / bn, cc1 = min(col0 + TN, P) - 1;
-  const int ncc = cc1 / bn - cc0 + 1;
-  const int ncells = (cr1 / bm - cr0 + 1) * ncc;
-  for (int e = threadIdx.x; e < ncells; e += THREADS) cells[e] = 0;
-  const int lane = threadIdx.x & 31;
-  const int wc0 = col0 + ((threadIdx.x >> 5) % WPB) * 32;  // warp's 1st column
-  const float r = radii[s];
-  const float r2 = r * r;
-  self_join_rows(sm, x + (size_t)s * P * d, L, d,
-                        [&](int row, int col, float v, bool valid) {
-    if (row < P && col < P) sq_out[((size_t)s * P + row) * P + col] = v;
-    const unsigned bits = __ballot_sync(0xffffffffu, valid && v <= r2);
-    if (lane == 0 && bits) {
-      const int base = (row / bm - cr0) * ncc;
-      // Split the word at every bn boundary it crosses.
-      for (int lo = wc0; lo < wc0 + 32;) {
-        const int cell = lo / bn;
-        const int hi = min((cell + 1) * bn, wc0 + 32);
-        const int w = hi - lo;
-        const unsigned part = (bits >> (lo - wc0))
-            & (w == 32 ? 0xffffffffu : ((1u << w) - 1u));
-        if (part) atomicAdd(&cells[base + cell - cc0], __popc(part));
-        lo = hi;
+// ---- K3 and K4: 128 x 128 register tiles written out whole ----------------
+
+constexpr int RT = 128;                    // tile rows = tile columns
+constexpr int RT_RG = 8;                   // row groups
+constexpr int RT_CG = 16;                  // column groups
+constexpr int RT_THREADS = RT_RG * RT_CG;
+constexpr int RT_WARPS = RT_THREADS / 32;
+constexpr int RT_NI = RT / RT_RG;          // a thread's rows rg + RT_RG i
+constexpr int RT_NU = RT / RT_CG;          // and columns cg + RT_CG u
+constexpr int RT_NPT = 2 * RT / RT_THREADS;  // norms a thread sums
+constexpr int RT_KC = 32;                  // features a stage
+constexpr int RT_LD = RT_KC + 4;           // padded point rows (144 bytes)
+constexpr int RT_STAGE = 2 * RT * RT_LD;   // floats of a stage: rows, columns
+constexpr int RT_HALF = RT / 2;            // output rows staged at a time
+constexpr int OUT_LD = RT + 8;             // staged direct rows (8 mod 32)
+constexpr int MIR_LD = RT + 4;             // staged mirrored rows (4 mod 32)
+constexpr int CELL_CAP = 1024;             // grid cells a pass sums in smem
+constexpr int RT_BLOCKS_PER_SM = 2;        // at most 255 registers a thread
+// Dynamic shared memory: two stage buffers, the tile's squared norms, the
+// pass's count cells, K4's walk table (pre[S + 1], len[S], 8 warp sums).
+constexpr int RT_SMEM =
+    (2 * RT_STAGE + 2 * RT + CELL_CAP + 2 * RT_THREADS + 1 + 8) * 4;
+
+static_assert(RT_CG == 16 && RT_RG % 4 == 0 && RT_WARPS <= 8,
+              "warps of 4 row groups x 8 column groups");
+static_assert(RT_HALF * OUT_LD <= RT_STAGE && RT_HALF * MIR_LD <= RT_STAGE,
+              "a staged half of the output fits one stage buffer");
+static_assert(RT_HALF % RT_WARPS == 0 && 2 * RT % RT_THREADS == 0,
+              "warps share a half's rows, threads the norms");
+
+// A warp holds 4 row groups x 8 column groups: per float4 load it reads 4
+// rows or 8 consecutive column rows (distinct banks), and its writes of a
+// staged output half, direct or transposed, fall in 32 distinct banks.
+__device__ __forceinline__ int rt_rg() {
+  return (threadIdx.x >> 6) * 4 + ((threadIdx.x & 31) >> 3);
+}
+__device__ __forceinline__ int rt_cg() {
+  return ((threadIdx.x >> 5) & 1) * 8 + (threadIdx.x & 7);
+}
+
+// One output tile: rows [row0, row0 + RT) of a (na points) against columns
+// [col0, col0 + RT) of b (nb points); points past na, nb read as zero.
+struct RtTile {
+  const float* a;
+  const float* b;
+  int na, nb, row0, col0;
+  int s;                                   // K4: the subset
+  bool diag;                               // K4: b's tile is a's, staged once
+};
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Starts the copies of features [k0, k0 + RT_KC) of the tile's row points
+// and (off the diagonal) column points into a stage buffer.
+__device__ __forceinline__ void rt_load(float* buf, const RtTile& t, int d,
+                                         int k0, bool vec) {
+  using Rows = float (*)[RT_LD];
+  stage_points<RT, RT_KC, RT_THREADS>(reinterpret_cast<Rows>(buf), t.a,
+                                      t.row0, t.na, d, k0, vec);
+  if (!t.diag)
+    stage_points<RT, RT_KC, RT_THREADS>(reinterpret_cast<Rows>(buf + RT * RT_LD),
+                                        t.b, t.col0, t.nb, d, k0, vec);
+}
+
+// s plus the squares of a staged point's RT_KC features, in feature order.
+__device__ __forceinline__ float rt_norm(const float* p, float s) {
+#pragma unroll
+  for (int k = 0; k < RT_KC; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + k);
+    s = fmaf(v.x, v.x, s);
+    s = fmaf(v.y, v.y, s);
+    s = fmaf(v.z, v.z, s);
+    s = fmaf(v.w, v.w, s);
+  }
+  return s;
+}
+
+// acc[i][u] += <row rg + RT_RG i, column cg + RT_CG u> over a stage's
+// features, in feature order: per 4 features the thread's 8 columns as one
+// float4 each, then each of its 16 rows as one float4 against all of them,
+// 24 shared loads a 512 FMAs. 144-byte rows put 8 consecutive points in
+// distinct banks.
+__device__ __forceinline__ void rt_gram(float (&acc)[RT_NI][RT_NU],
+                                        const float* A, const float* B,
+                                        int rg, int cg) {
+#pragma unroll 1
+  for (int k = 0; k < RT_KC; k += 4) {
+    float4 bv[RT_NU];
+#pragma unroll
+    for (int u = 0; u < RT_NU; ++u)
+      bv[u] = *reinterpret_cast<const float4*>(B + (cg + RT_CG * u) * RT_LD + k);
+#pragma unroll
+    for (int i = 0; i < RT_NI; ++i) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(A + (rg + RT_RG * i) * RT_LD + k);
+#pragma unroll
+      for (int u = 0; u < RT_NU; ++u) {
+        acc[i][u] = fmaf(av.x, bv[u].x, acc[i][u]);
+        acc[i][u] = fmaf(av.y, bv[u].y, acc[i][u]);
+        acc[i][u] = fmaf(av.z, bv[u].z, acc[i][u]);
+        acc[i][u] = fmaf(av.w, bv[u].w, acc[i][u]);
       }
-    }
-  });
-  __syncthreads();
-  for (int e = threadIdx.x; e < ncells; e += THREADS) {
-    const int v = cells[e];
-    if (v) {
-      const int gr = cr0 + e / ncc, gc = cc0 + e % ncc;
-      atomicAdd(counts + ((size_t)s * gm + gr) * gn + gc, v);
     }
   }
 }
 
-// K3. Grid (ceil(N/TN), ceil(M/TM)); counts[(by, bx)] is the block's join size.
-__global__ void __launch_bounds__(THREADS)
-pairwise_join_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                     int M, int N, int d, float r, float* __restrict__ sq,
-                     int* __restrict__ counts) {
-  __shared__ Smem sm;
-  const int row0 = blockIdx.y * TM;
-  const int col0 = blockIdx.x * TN;
-  float acc[RPW];
-  if (threadIdx.x == 0) sm.count = 0;
-  gram_tile(sm, a, M, row0, b, N, col0, d, acc);
+// Bits a..b of a word, none when a > b (then a may be 32).
+__device__ __forceinline__ unsigned bit_span(int a, int b) {
+  if (a > b) return 0u;
+  return (b >= 31 ? 0xffffffffu : (2u << b) - 1u) & (0xffffffffu << a);
+}
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rbase = (warp / WPB) * RPW;
-  const int c = (warp % WPB) * 32 + lane;
-  const int col = col0 + c;
-  const float r2 = r * r;
-  int cnt = 0;
+// The lanes l whose float4 column 4 l + j lies in [lo, hi): bits of word j.
+__device__ __forceinline__ unsigned lanes_in(int lo, int hi, int j) {
+  return bit_span((lo - j + 3) >> 2, (hi - 1 - j) >> 2);
+}
+
+// The join counts of one pass on the caller's (bm, bn) grid: output rows
+// [grow0, grow0 + RT) by columns [gcol0, gcol0 + RT), rows < nr and columns
+// < nc valid. The pass's cells sum in shared memory where there are at most
+// CELL_CAP of them (each nonzero cell then takes one atomic), else straight
+// into the output counts. Lane l counts grid column cc0 + l of every row:
+// its four lane masks are fixed for the pass, so a row costs four ANDs and
+// popcounts (a pass with more than 32 grid columns, bn < 4, splits each row
+// in a loop). A lane keeps one pending (row cell, column cell, count) and
+// adds it where it moves on.
+struct RtCounts {
+  int* cells;                              // shared, or nullptr
+  int* out;                                // (gm, gn) counts of the output
+  int gn, bm, bn;
+  int rc0, cc0, ncc, ncells;
+  int my_cc;                               // this lane's grid column, or -1
+  unsigned m[4];
+  bool single;                             // the pass lies in one grid cell
+  int prc, pcc, pend;
+
+  __device__ __forceinline__ RtCounts(int* s_cells, int* out_, int gn_,
+                                      int bm_, int bn_, int grow0, int gcol0,
+                                      int nr, int nc)
+      : out(out_), gn(gn_), bm(bm_), bn(bn_), prc(-1), pcc(-1), pend(0) {
+    rc0 = grow0 / bm;
+    cc0 = gcol0 / bn;
+    ncc = (min(gcol0 + RT, nc) - 1) / bn - cc0 + 1;
+    ncells = ((min(grow0 + RT, nr) - 1) / bm - rc0 + 1) * ncc;
+    cells = ncells <= CELL_CAP ? s_cells : nullptr;
+    single = ncells == 1;
+    const int lane = threadIdx.x & 31;
+    my_cc = lane < ncc ? cc0 + lane : -1;
+    const int lo = max(my_cc * bn - gcol0, 0);
+    const int hi = min((my_cc + 1) * bn - gcol0, RT);
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = row0 + rbase + i;
-    bool joined = false;
-    if (row < M && col < N) {
-      const float v = fmaxf(sm.an[rbase + i] + sm.bn[c] - 2.0f * acc[i], 0.0f);
-      sq[(size_t)row * N + col] = v;
-      joined = v <= r2;
-    }
-    const unsigned bits = __ballot_sync(0xffffffffu, joined);
-    if (lane == 0) cnt += __popc(bits);
+    for (int j = 0; j < 4; ++j) m[j] = my_cc >= 0 ? lanes_in(lo, hi, j) : 0u;
   }
-  if (lane == 0 && cnt) atomicAdd(&sm.count, cnt);
+
+  __device__ __forceinline__ void flush() {
+    if (pend) {
+      if (cells) atomicAdd(cells + (prc - rc0) * ncc + (pcc - cc0), pend);
+      else atomicAdd(out + (size_t)prc * gn + pcc, pend);
+    }
+    pend = 0;
+  }
+
+  __device__ __forceinline__ void add(int rc, int cc, int n) {
+    if (n == 0) return;
+    if (rc != prc || cc != pcc) {
+      flush();
+      prc = rc;
+      pcc = cc;
+    }
+    pend += n;
+  }
+
+  // Row cell rc's joined cells: bit l of w[j] is column gcol0 + 4 l + j.
+  __device__ __forceinline__ void row(const unsigned (&w)[4], int rc,
+                                      int gcol0) {
+    if (ncc <= 32) {
+      add(rc, my_cc, __popc(w[0] & m[0]) + __popc(w[1] & m[1])
+                         + __popc(w[2] & m[2]) + __popc(w[3] & m[3]));
+      return;
+    }
+    for (int cc = cc0 + (threadIdx.x & 31); cc < cc0 + ncc; cc += 32) {
+      const int lo = max(cc * bn - gcol0, 0);
+      const int hi = min((cc + 1) * bn - gcol0, RT);
+      add(rc, cc, __popc(w[0] & lanes_in(lo, hi, 0))
+                      + __popc(w[1] & lanes_in(lo, hi, 1))
+                      + __popc(w[2] & lanes_in(lo, hi, 2))
+                      + __popc(w[3] & lanes_in(lo, hi, 3)));
+    }
+  }
+};
+
+// Writes staged rows [0, RT_HALF) (stride ld) to output rows grow0 + r,
+// columns gcol0 + [0, RT) (row stride out_ld): warp w takes rows 8 w .. 8 w
+// + 7, a row at a time, lane l its columns 4 l .. 4 l + 3 as one 16-byte
+// streaming store (st.global.cs: the block is not read back) where all four
+// are valid and aligned, else one by one. Rows >= nr and columns >= nc are
+// not written. Counts the valid cells with sq <= r2.
+__device__ __forceinline__ void rt_store_half(const float* st, int ld,
+                                              float* out, size_t out_ld,
+                                              int grow0, int gcol0, int nr,
+                                              int nc, bool vec_out, float r2,
+                                              RtCounts& cnt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gc = gcol0 + 4 * lane;
+  constexpr int ROWS = RT_HALF / RT_WARPS;
+  int grow = grow0 + ROWS * warp;
+  int rc = grow / cnt.bm, next = (rc + 1) * cnt.bm;   // the row's grid cell
+  int joined = 0;                          // (single) this lane's count
+#pragma unroll 2
+  for (int q = 0; q < ROWS; ++q, ++grow) {
+    if (grow >= nr) break;                   // warp-uniform
+    if (grow == next) {
+      ++rc;
+      next += cnt.bm;
+    }
+    const float4 v =
+        *reinterpret_cast<const float4*>(st + (ROWS * warp + q) * ld + 4 * lane);
+    float* dst = out + (size_t)grow * out_ld + gc;
+    if (vec_out && gc + 3 < nc) {
+      __stcs(reinterpret_cast<float4*>(dst), v);
+    } else {
+      if (gc < nc) __stcs(dst, v.x);
+      if (gc + 1 < nc) __stcs(dst + 1, v.y);
+      if (gc + 2 < nc) __stcs(dst + 2, v.z);
+      if (gc + 3 < nc) __stcs(dst + 3, v.w);
+    }
+    const bool p0 = gc < nc && v.x <= r2, p1 = gc + 1 < nc && v.y <= r2;
+    const bool p2 = gc + 2 < nc && v.z <= r2, p3 = gc + 3 < nc && v.w <= r2;
+    if (cnt.single) {                        // warp-uniform
+      joined += p0 + p1 + p2 + p3;
+    } else {
+      const unsigned w[4] = {__ballot_sync(0xffffffffu, p0),
+                             __ballot_sync(0xffffffffu, p1),
+                             __ballot_sync(0xffffffffu, p2),
+                             __ballot_sync(0xffffffffu, p3)};
+      if (w[0] | w[1] | w[2] | w[3]) cnt.row(w, rc, gcol0);
+    }
+  }
+  if (cnt.single) {
+#pragma unroll
+    for (int o = 16; o; o >>= 1) joined += __shfl_xor_sync(0xffffffffu, joined, o);
+    if (lane == 0) cnt.add(cnt.rc0, cnt.cc0, joined);
+  }
+  cnt.flush();
+}
+
+// One orientation of a finished tile (v[i][u]: sq of tile row rg + RT_RG i,
+// column cg + RT_CG u): direct (output rows row0 + .., columns col0 + ..) or,
+// for MIRROR, its transpose (rows col0 + .., columns row0 + ..). Two halves,
+// each staged through `st` (a stage buffer) so that output rows go out
+// whole: the direct half h holds tile rows 64 h.., the mirrored half h tile
+// columns 64 h... Counts are summed per pass and added to counts (gm, gn).
+template <bool MIRROR>
+__device__ __forceinline__ void rt_pass(float* st, int* s_cells,
+                                        const float (&v)[RT_NI][RT_NU],
+                                        int row0, int col0, int nr, int nc,
+                                        float* out, size_t out_ld,
+                                        bool vec_out, float r2, int* counts,
+                                        int gn, int bm, int bn) {
+  const int tid = threadIdx.x, rg = rt_rg(), cg = rt_cg();
+  const int grow0 = MIRROR ? col0 : row0, gcol0 = MIRROR ? row0 : col0;
+  const int ld = MIRROR ? MIR_LD : OUT_LD;
+  RtCounts cnt(s_cells, counts, gn, bm, bn, grow0, gcol0, MIRROR ? nc : nr,
+               MIRROR ? nr : nc);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    __syncthreads();                       // the buffer's readers are done
+    if (h == 0 && cnt.cells)
+      for (int e = tid; e < cnt.ncells; e += RT_THREADS) cnt.cells[e] = 0;
+#pragma unroll
+    for (int a = 0; a < (MIRROR ? RT_NU : RT_NI) / 2; ++a)
+#pragma unroll
+      for (int b = 0; b < (MIRROR ? RT_NI : RT_NU); ++b) {
+        if (MIRROR)
+          st[(cg + RT_CG * a) * MIR_LD + rg + RT_RG * b] =
+              v[b][RT_NU / 2 * h + a];
+        else
+          st[(rg + RT_RG * a) * OUT_LD + cg + RT_CG * b] =
+              v[RT_NI / 2 * h + a][b];
+      }
+    __syncthreads();
+    rt_store_half(st, ld, out, out_ld, grow0 + RT_HALF * h, gcol0,
+                  MIRROR ? nc : nr, MIRROR ? nr : nc, vec_out, r2, cnt);
+  }
   __syncthreads();
-  if (threadIdx.x == 0) counts[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = sm.count;
+  if (cnt.cells)
+    for (int e = tid; e < cnt.ncells; e += RT_THREADS) {
+      const int n = cnt.cells[e];
+      if (n)
+        atomicAdd(counts + (size_t)(cnt.rc0 + e / cnt.ncc) * gn + cnt.cc0
+                      + e % cnt.ncc, n);
+    }
+}
+
+// The engine of K3 and K4: a persistent block walks its units u (walk.next:
+// the first live unit at or after u, stepping by the grid; walk.tile: its
+// tile), each tile computed in stages of RT_KC features through two stage
+// buffers: the next stage's copies (or the next tile's first) start right
+// after the wait for the current one, so they fly during its FMAs and, at
+// a tile's end, during its epilogue. One barrier a stage. Only the unit
+// indices live across the FMA loop; tiles are rebuilt from them. The
+// squared norms are summed from the staged points (thread t: points t and
+// t + RT_THREADS, rows below RT, then columns), in feature order as the
+// Gram terms are, so a point's norm has the same bits as a row and as a
+// column. Then epi(tile, sq, a
+// free stage buffer) with sq = max((|a|^2 + |b|^2) - 2 a.b, 0) rounded as
+// K1 rounds it, and slot() between tiles (and once before the first).
+template <class Walk, class Epi, class Slot>
+__device__ __forceinline__ void rt_run(float* smem, const Walk& walk, int d,
+                                       bool vec, Epi&& epi, Slot&& slot) {
+  float* s_an = smem + 2 * RT_STAGE;
+  float* s_bn = s_an + RT;
+  const int tid = threadIdx.x, rg = rt_rg(), cg = rt_cg();
+  const int stages = (d + RT_KC - 1) / RT_KC;
+  long long u = walk.next(blockIdx.x);
+  if (u >= 0) rt_load(smem, walk.tile(u), d, 0, vec);
+  cp_async_commit();
+  slot();
+  if (u < 0) return;
+  int g = 0;                               // stages so far: buffer g & 1
+  for (;;) {
+    float acc[RT_NI][RT_NU];
+#pragma unroll
+    for (int i = 0; i < RT_NI; ++i)
+#pragma unroll
+      for (int v = 0; v < RT_NU; ++v) acc[i][v] = 0.f;
+    float norm[RT_NPT] = {};
+    long long un = -1;
+    for (int ks = 0; ks < stages; ++ks, ++g) {
+      float* cb = smem + (g & 1) * RT_STAGE;
+      float* nb = smem + ((g + 1) & 1) * RT_STAGE;
+      cp_async_wait0();                    // this stage has landed
+      __syncthreads();                     // ... for all; nb is free
+      if (ks + 1 < stages) {
+        rt_load(nb, walk.tile(u), d, (ks + 1) * RT_KC, vec);
+      } else {
+        un = walk.next(u + gridDim.x);
+        if (un >= 0) rt_load(nb, walk.tile(un), d, 0, vec);
+      }
+      cp_async_commit();
+      const float* A = cb;
+      const float* B = walk.diag(u) ? cb : cb + RT * RT_LD;
+#pragma unroll
+      for (int j = 0; j < RT_NPT; ++j) {
+        const int pt = tid + RT_THREADS * j;   // row pt, or column pt - RT
+        norm[j] = rt_norm(pt < RT ? A + pt * RT_LD : B + (pt - RT) * RT_LD,
+                          norm[j]);
+      }
+      rt_gram(acc, A, B, rg, cg);
+    }
+#pragma unroll
+    for (int j = 0; j < RT_NPT; ++j) s_an[tid + RT_THREADS * j] = norm[j];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RT_NI; ++i) {
+      const float an = s_an[rg + RT_RG * i];
+#pragma unroll
+      for (int v = 0; v < RT_NU; ++v) {
+        // explicit roundings: the mirrored cell has the same bits
+        const float e = __fmaf_rn(-2.0f, acc[i][v],
+                                  __fadd_rn(an, s_bn[cg + RT_CG * v]));
+        acc[i][v] = e > 0.f ? e : 0.f;      // +0, never -0
+      }
+    }
+    epi(walk.tile(u), acc, smem + ((g - 1) & 1) * RT_STAGE);
+    slot();
+    if (un < 0) break;
+    u = un;
+  }
+}
+
+// FLT_MAX into p[0, n) by the calling warp: single floats up to a 16-byte
+// boundary, then 16-byte streaming stores, then the tail.
+__device__ __forceinline__ void fill_span(float* p, int n) {
+  const int lane = threadIdx.x & 31;
+  const int head = min(
+      n, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15)
+             / 4);
+  if (lane < head) __stcs(p + lane, FLT_MAX);
+  float4* body = reinterpret_cast<float4*>(p + head);
+  const int nv = (n - head) / 4;
+  const float4 f = make_float4(FLT_MAX, FLT_MAX, FLT_MAX, FLT_MAX);
+  for (int e = lane; e < nv; e += 32) __stcs(body + e, f);
+  if (lane < n - head - 4 * nv) __stcs(p + head + 4 * nv + lane, FLT_MAX);
+}
+
+// K3's walk: output tile u = ti * ntn + tj, row-major; every unit is live.
+struct PairWalk {
+  const float* a;
+  const float* b;
+  int M, N, ntn;
+  long long end;
+
+  __device__ __forceinline__ long long next(long long u) const {
+    return u < end ? u : -1;
+  }
+  __device__ __forceinline__ bool diag(long long) const { return false; }
+  __device__ __forceinline__ RtTile tile(long long u) const {
+    return RtTile{a, b, M, N, static_cast<int>(u / ntn) * RT,
+                  static_cast<int>(u % ntn) * RT, 0, false};
+  }
+};
+
+// K4's walk: the live tiles (ti <= tj < ceil(L / RT)) of every subset, in
+// the column-by-column order of triangle_tile. With a table of the live
+// tiles before each subset (pre, S + 1 entries; len, the lengths) unit u
+// is the batch's u-th live tile; without (S > RT_THREADS), u = s ntri + t
+// over all ntri tiles of P, those past L skipped.
+struct SelfWalk {
+  const float* x;
+  const int* lengths;
+  const int* pre;
+  const int* len;
+  int S, P, d, ntri;
+  long long end;
+
+  // (s, t): the subset of unit u and the tile's index in its triangle.
+  __device__ __forceinline__ int subset(long long u, int& t) const {
+    if (pre) {
+      int lo = 0, hi = S - 1;              // the last s with pre[s] <= u
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (pre[mid] <= u) lo = mid;
+        else hi = mid - 1;
+      }
+      t = static_cast<int>(u - pre[lo]);
+      return lo;
+    }
+    t = static_cast<int>(u % ntri);
+    return static_cast<int>(u / ntri);
+  }
+  __device__ __forceinline__ int length(int s) const {
+    return pre ? len[s] : min(max(lengths[s], 0), P);
+  }
+  __device__ __forceinline__ long long next(long long u) const {
+    for (; u < end; u += gridDim.x) {
+      if (pre) return u;
+      int t;
+      const int T = (length(subset(u, t)) + RT - 1) / RT;
+      if (t < T * (T + 1) / 2) return u;
+    }
+    return -1;
+  }
+  __device__ __forceinline__ bool diag(long long u) const {
+    int t, ti;
+    subset(u, t);
+    return triangle_tile(t, ti) == ti;
+  }
+  __device__ __forceinline__ RtTile tile(long long u) const {
+    int t, ti;
+    const int s = subset(u, t);
+    const int tj = triangle_tile(t, ti);
+    const int L = length(s);
+    const float* xs = x + (size_t)s * P * d;
+    return RtTile{xs, xs, L, L, ti * RT, tj * RT, s, ti == tj};
+  }
+};
+
+// K3. counts (ceil(M / bm), ceil(N / bn)) are zero on entry; bm <= M, bn <= N.
+__global__ void __launch_bounds__(RT_THREADS, RT_BLOCKS_PER_SM)
+pairwise_join_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     int M, int N, int d, float r, int bm, int bn,
+                     float* __restrict__ sq, int* __restrict__ counts) {
+  extern __shared__ __align__(16) float rt_smem[];
+  int* cells = reinterpret_cast<int*>(rt_smem + 2 * RT_STAGE + 2 * RT);
+  const int ntn = (N + RT - 1) / RT;
+  const PairWalk walk{a, b, M, N, ntn,
+                      static_cast<long long>((M + RT - 1) / RT) * ntn};
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const bool vec_out = N % 4 == 0 && reinterpret_cast<uintptr_t>(sq) % 16 == 0;
+  rt_run(rt_smem, walk, d, vec,
+         [&](const RtTile& t, const float (&v)[RT_NI][RT_NU], float* st) {
+           rt_pass<false>(st, cells, v, t.row0, t.col0, M, N, sq, N, vec_out,
+                          r * r, counts, (N + bn - 1) / bn, bm, bn);
+         },
+         [] {});
+}
+
+// K4. counts (S, ceil(P / bm), ceil(P / bn)) are zero on entry; bm, bn <= P.
+// Live tiles write their cells of the live square, an off-diagonal one also
+// its transpose; every warp fills its share of the rows' other cells
+// (every column of a row at or past L, columns L.. of a row before it) with
+// FLT_MAX, spread over slots between the block's tiles so that the writes
+// overlap other blocks' FMAs.
+__global__ void __launch_bounds__(RT_THREADS, RT_BLOCKS_PER_SM)
+batched_tiles_kernel(const float* __restrict__ x,
+                     const int* __restrict__ lengths,
+                     const float* __restrict__ radii, int S, int P, int d,
+                     int bm, int bn, float* __restrict__ sq,
+                     int* __restrict__ counts) {
+  extern __shared__ __align__(16) float rt_smem[];
+  int* cells = reinterpret_cast<int*>(rt_smem + 2 * RT_STAGE + 2 * RT);
+  int* pre = cells + CELL_CAP;
+  int* len = pre + RT_THREADS + 1;
+  int* wsum = len + RT_THREADS;
+  const int tid = threadIdx.x;
+  const int nt = (P + RT - 1) / RT, ntri = nt * (nt + 1) / 2;
+  SelfWalk walk{x, lengths, nullptr, nullptr, S, P, d, ntri,
+                static_cast<long long>(ntri) * S};
+  if (S <= RT_THREADS) {
+    const int L = tid < S ? min(max(lengths[tid], 0), P) : 0;
+    const int T = (L + RT - 1) / RT;
+    const int incl = block_scan(T * (T + 1) / 2, wsum);
+    if (tid == 0) pre[0] = 0;
+    if (tid < S) {
+      pre[tid + 1] = incl;
+      len[tid] = L;
+    }
+    __syncthreads();
+    walk.pre = pre;
+    walk.len = len;
+    walk.end = pre[S];
+  }
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_out = P % 4 == 0 && reinterpret_cast<uintptr_t>(sq) % 16 == 0;
+  const int gm = (P + bm - 1) / bm, gn = (P + bn - 1) / bn;
+
+  // The fill: warp gw of GW takes rows q = gw + k GW (k < nk) of the S P,
+  // in `slots` slices: one before the block's first tile and one after
+  // each.
+  int slots = 1;
+  for (long long u = walk.next(blockIdx.x); u >= 0;
+       u = walk.next(u + gridDim.x))
+    ++slots;
+  int slot = 0;
+  auto fill = [&] {
+    const long long rows = static_cast<long long>(S) * P;
+    const long long GW = static_cast<long long>(gridDim.x) * RT_WARPS;
+    const long long gw =
+        static_cast<long long>(blockIdx.x) * RT_WARPS + (tid >> 5);
+    const long long nk = gw < rows ? (rows - gw + GW - 1) / GW : 0;
+    const long long k1 = nk * (slot + 1) / slots;
+    for (long long k = nk * slot / slots; k < k1; ++k) {
+      const long long q = gw + k * GW;
+      const int s = static_cast<int>(q / P), row = static_cast<int>(q % P);
+      const int L = walk.length(s);
+      const int c0 = row < L ? L : 0;
+      fill_span(sq + ((size_t)s * P + row) * P + c0, P - c0);
+    }
+    ++slot;
+  };
+  rt_run(rt_smem, walk, d, vec,
+         [&](const RtTile& t, const float (&v)[RT_NI][RT_NU], float* st) {
+           const float r = radii[t.s];
+           float* out = sq + (size_t)t.s * P * P;
+           int* cnt = counts + (size_t)t.s * gm * gn;
+           rt_pass<false>(st, cells, v, t.row0, t.col0, t.na, t.na, out, P,
+                          vec_out, r * r, cnt, gn, bm, bn);
+           if (!t.diag)
+             rt_pass<true>(st, cells, v, t.row0, t.col0, t.na, t.na, out, P,
+                           vec_out, r * r, cnt, gn, bm, bn);
+         },
+         fill);
 }
 
 // Blocks of a K1 launch: as many as the card holds at once, or one per
@@ -979,6 +1362,25 @@ int prune_blocks(int S, int P) {
   return static_cast<int>(units < blocks ? units : blocks);
 }
 
+// Blocks of a K3 or K4 launch: as many as the card holds at once, by the
+// kernel's occupancy (registers and its dynamic shared memory, raised past
+// 48 KB once a device).
+template <class Kernel>
+int resident_blocks(Kernel kernel) {
+  static int per_sm[64] = {};
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int& n = per_sm[dev % 64];
+  if (n == 0) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         RT_SMEM);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, RT_THREADS,
+                                                  RT_SMEM);
+  }
+  return sms * (n > 0 ? n : 1);
+}
+
 }  // namespace
 
 // Plain C interface (bound with ctypes). Each returns cudaGetLastError() after
@@ -1009,22 +1411,28 @@ int join_batched_prune(const float* x, const int* lengths, const float* radii,
 int join_batched_tiles(const float* x, const int* lengths, const float* radii,
                        int S, int P, int d, int bm, int bn, float* sq,
                        int* counts, void* stream) {
-  const dim3 grid(S, (P + TM - 1) / TM, (P + TN - 1) / TN);
-  batched_tiles_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, lengths, radii, P, d, bm, bn, sq, counts);
+  batched_tiles_kernel<<<resident_blocks(batched_tiles_kernel), RT_THREADS,
+                         RT_SMEM, (cudaStream_t)stream>>>(
+      x, lengths, radii, S, P, d, std::min(bm, P), std::min(bn, P), sq,
+      counts);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The caller zeroes counts (ceil(M/bm), ceil(N/bn)); bm, bn >= 1.
 int pairwise_join(const float* a, const float* b, int M, int N, int d, float r,
-                  float* sq, int* counts, void* stream) {
-  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-  pairwise_join_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      a, b, M, N, d, r, sq, counts);
+                  int bm, int bn, float* sq, int* counts, void* stream) {
+  const long long tiles =
+      static_cast<long long>((M + RT - 1) / RT) * ((N + RT - 1) / RT);
+  const int blocks = static_cast<int>(
+      std::min(tiles, static_cast<long long>(
+                          resident_blocks(pairwise_join_kernel))));
+  pairwise_join_kernel<<<blocks, RT_THREADS, RT_SMEM, (cudaStream_t)stream>>>(
+      a, b, M, N, d, r, std::min(bm, M), std::min(bn, N), sq, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
-int join_tile_rows() { return TM; }
-int join_tile_cols() { return TN; }
 int join_square_tile() { return ST; }
+// Dynamic shared memory a K3 or K4 block takes (ptxas reports static only).
+int join_engine_smem() { return RT_SMEM; }
 
 }  // extern "C"

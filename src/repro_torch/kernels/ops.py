@@ -94,13 +94,15 @@ def pairwise_l2_join_batched(x: torch.Tensor, lengths,
 
 
 def pairwise_l2_join(a: torch.Tensor, b: torch.Tensor,
-                     r: float = float("inf")
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pairwise squared-L2 + threshold-join counts. Returns (sq (M, N),
-    per-tile counts); ``counts.sum()`` is the join size at ``r``."""
+                     r: float = float("inf"), *, bm: int = 128,
+                     bn: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pairwise squared-L2 + threshold-join counts. Returns sq (M, N) fp32
+    and counts (ceil(M/bm), ceil(N/bn)) int32, the pairs with ``sq <= r^2``
+    per bm x bn tile, as the reference's grid; ``counts.sum()`` is the join
+    size at ``r``."""
     if _route(a) == "cuda":
-        return _cuda.pairwise_join(a, b, r)
-    return ref.pairwise_join(a, b, r)
+        return _cuda.pairwise_join(a, b, r, bm=bm, bn=bn)
+    return ref.pairwise_join(a, b, r, bm=bm, bn=bn)
 
 
 def anchor_star(groups: torch.Tensor, mask: torch.Tensor, *,

@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import JOIN_SQUARE_TILE, JOIN_TILE
+from repro_torch.kernels.ref import JOIN_SQUARE_TILE
 
 # Launches per kernel since the last reset_launches().
 launches = {"join_batched_masked": 0, "join_batched_prune": 0,
@@ -43,20 +43,18 @@ def library() -> ctypes.CDLL:
                                             _P, _P, _P]
         lib.join_batched_prune.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
                                            _P]
-        lib.pairwise_join.argtypes = [_P, _P, _I, _I, _I, ctypes.c_float, _P,
-                                      _P, _P]
+        lib.pairwise_join.argtypes = [_P, _P, _I, _I, _I, ctypes.c_float, _I,
+                                      _I, _P, _P, _P]
         lib.join_batched_tiles.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
                                            _P, _P, _P]
-        tiles = (lib.join_tile_rows, lib.join_tile_cols, lib.join_square_tile)
         for fn in (lib.join_batched_masked, lib.join_batched_prune,
-                   lib.pairwise_join, lib.join_batched_tiles, *tiles):
+                   lib.pairwise_join, lib.join_batched_tiles,
+                   lib.join_square_tile):
             fn.restype = _I
-        for fn in tiles:
-            fn.argtypes = []
-        if (lib.join_tile_rows(), lib.join_tile_cols()) != JOIN_TILE \
-                or lib.join_square_tile() != JOIN_SQUARE_TILE:
-            raise RuntimeError("kernel tiles differ from kernels.ref's "
-                               "JOIN_TILE and JOIN_SQUARE_TILE")
+        lib.join_square_tile.argtypes = []
+        if lib.join_square_tile() != JOIN_SQUARE_TILE:
+            raise RuntimeError("the kernels' square tile differs from "
+                               "kernels.ref's JOIN_SQUARE_TILE")
         _LIB = lib
     return _LIB
 
@@ -89,7 +87,6 @@ def _launched(name: str, err: int, elig: torch.Tensor | None = None) -> None:
 
 
 _MAX_INT32 = 2 ** 31 - 1
-_MAX_GRID_Y = 65535
 
 
 def check_triangle_tiles(p: int) -> None:
@@ -162,16 +159,20 @@ def join_batched_prune(x: torch.Tensor, lengths: torch.Tensor,
     return counts
 
 
+def _check_grid(bm: int, bn: int) -> None:
+    if bm < 1 or bn < 1:
+        raise ValueError(f"tile sizes must be positive, got ({bm}, {bn})")
+
+
 def join_batched_tiles(x: torch.Tensor, lengths: torch.Tensor,
                        r: torch.Tensor, *, bm: int = 128, bn: int = 128
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """CUDA kernel K4 — see ``kernels.ref.join_batched_dense``. Returns sq
-    (S, P, P) fp32 and counts (S, ceil(P/bm), ceil(P/bn)) int32."""
+    (S, P, P) fp32 and counts (S, ceil(P/bm), ceil(P/bn)) int32. One launch
+    writes every cell: the live squares (the upper triangle of 128 x 128
+    tiles, mirrored) and fp32-max elsewhere."""
     s, p, d = _check_batched(x, lengths, r)
-    if -(-p // JOIN_TILE[0]) > _MAX_GRID_Y:
-        raise ValueError(f"P={p} exceeds the kernel grid")
-    if bm < 1 or bn < 1:
-        raise ValueError(f"tile sizes must be positive, got ({bm}, {bn})")
+    _check_grid(bm, bn)
     sq = torch.empty((s, p, p), dtype=torch.float32, device=x.device)
     counts = torch.zeros((s, -(-p // bm), -(-p // bn)), dtype=torch.int32,
                          device=x.device)
@@ -187,25 +188,25 @@ def join_batched_tiles(x: torch.Tensor, lengths: torch.Tensor,
 
 
 def pairwise_join(a: torch.Tensor, b: torch.Tensor,
-                  r: float = float("inf")) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA kernel K3 — see ``kernels.ref.pairwise_join``."""
+                  r: float = float("inf"), *, bm: int = 128, bn: int = 128
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA kernel K3 — see ``kernels.ref.pairwise_join``. Returns sq (M, N)
+    fp32 and counts (ceil(M/bm), ceil(N/bn)) int32."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"a (M, d) and b (N, d) expected, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     (m, d), n = a.shape, b.shape[0]
     _check(a, "a", torch.float32, (m, d), a.device)
     _check(b, "b", torch.float32, (n, d), a.device)
-    tm, tn = JOIN_TILE
-    if -(-m // tm) > _MAX_GRID_Y:
-        raise ValueError(f"M={m} exceeds the kernel grid")
+    _check_grid(bm, bn)
     sq = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    counts = torch.zeros((-(-m // tm), -(-n // tn)), dtype=torch.int32,
+    counts = torch.zeros((-(-m // bm), -(-n // bn)), dtype=torch.int32,
                          device=a.device)
     if m and n and d:
         with torch.cuda.device(a.device):
             err = library().pairwise_join(
-                _ptr(a), _ptr(b), m, n, d, float(r), _ptr(sq), _ptr(counts),
-                torch.cuda.current_stream(a.device).cuda_stream)
+                _ptr(a), _ptr(b), m, n, d, float(r), bm, bn, _ptr(sq),
+                _ptr(counts), torch.cuda.current_stream(a.device).cuda_stream)
         _launched("pairwise_join", err)
     elif d == 0:
         raise ValueError("a and b must have at least one feature")

@@ -23,9 +23,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# The CUDA kernels' block tile (rows, columns): ``pairwise_join`` reports one
-# join count per tile of this shape.
-JOIN_TILE = (32, 128)
 # The square tile of the masked join and the coarse counts (K1, K2), which
 # compute the tiles of the upper triangle of each subset.
 JOIN_SQUARE_TILE = 64
@@ -128,33 +125,33 @@ def join_batched_dense(x: torch.Tensor, lengths: torch.Tensor,
     cell = valid[:, :, None] & valid[:, None, :]
     sq = torch.where(cell, sq, torch.full_like(sq, _FMAX))
     r2 = r.float() * r.float()
-    joined = (sq <= r2[:, None, None]) & cell
-    gm, gn = -(-p // bm), -(-p // bn)
-    pad = torch.zeros(s, gm * bm, gn * bn, dtype=torch.int32,
-                      device=x.device)
-    pad[:, :p, :p] = joined
-    counts = pad.view(s, gm, bm, gn, bn).sum(dim=(2, 4), dtype=torch.int32)
-    return sq, counts
+    return sq, _tile_counts((sq <= r2[:, None, None]) & cell, bm, bn)
+
+
+def _tile_counts(joined: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
+    """(..., M, N) bool -> (..., ceil(M/bm), ceil(N/bn)) int32: the set cells
+    of each bm x bn tile."""
+    *lead, m, n = joined.shape
+    gm, gn = -(-m // bm), -(-n // bn)
+    pad = torch.zeros(*lead, gm * bm, gn * bn, dtype=torch.int32,
+                      device=joined.device)
+    pad[..., :m, :n] = joined
+    return pad.view(*lead, gm, bm, gn, bn).sum(dim=(-3, -1),
+                                               dtype=torch.int32)
 
 
 def pairwise_join(a: torch.Tensor, b: torch.Tensor,
-                  r: float = float("inf")) -> tuple[torch.Tensor, torch.Tensor]:
+                  r: float = float("inf"), *, bm: int = 128, bn: int = 128
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """One (M, d) x (N, d) join (kernel ``pairwise_join``). Returns sq (M, N)
-    fp32 and counts (ceil(M/32), ceil(N/128)) int32: the pairs with
-    ``sq <= r^2`` in each :data:`JOIN_TILE` tile (``counts.sum()`` is the
-    join size)."""
+    fp32 and counts (ceil(M/bm), ceil(N/bn)) int32: the pairs with
+    ``sq <= r^2`` in each bm x bn tile (``counts.sum()`` is the join
+    size), the reference's grid."""
     af, bf = a.float(), b.float()
     sq = ((af * af).sum(1)[:, None] + (bf * bf).sum(1)[None, :]
           - 2.0 * (af @ bf.T)).clamp_min(0.0)
     r32 = torch.tensor(r, dtype=torch.float32, device=a.device)
-    joined = sq <= r32 * r32
-    tm, tn = JOIN_TILE
-    m, n = sq.shape
-    gm, gn = -(-m // tm), -(-n // tn)
-    pad = torch.zeros(gm * tm, gn * tn, dtype=torch.int32, device=a.device)
-    pad[:m, :n] = joined
-    counts = pad.view(gm, tm, gn, tn).sum(dim=(1, 3), dtype=torch.int32)
-    return sq, counts
+    return sq, _tile_counts(sq <= r32 * r32, bm, bn)
 
 
 def bin_constants(w: float, c: int) -> tuple[float, float, float]:

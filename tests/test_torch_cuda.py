@@ -569,22 +569,14 @@ K4_CASES = [(3, 10, 8, 16, 16), (5, 37, 9, 16, 16), (2, 200, 12, 128, 128),
             (8, 700, 64, 128, 128), (2, 97, 3, 1, 1)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("s,p,d,bm,bn", K4_CASES)
-def test_join_batched_tiles_matches_plain_version_on_card(s, p, d, bm, bn):
-    """K4 against ``ref.join_batched_dense``: sq within the fp32 band (fp32
-    max at the same cells), per-tile counts equal except by the band cells
-    inside each tile."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
+def _check_join_batched_tiles(x, lens, radii, bm, bn):
+    """K4 against ``ref.join_batched_dense`` on the card: sq within the fp32
+    band on each live square, bitwise symmetric there and fp32 max exactly
+    outside it; per-tile counts equal except by the band cells inside each
+    tile (the mirrored half counted in its own orientation)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    rng = np.random.default_rng(s * p + bm)
-    x = rng.uniform(0, 100, (s, p, d)).astype(np.float32)
-    lens = rng.integers(0, p + 1, size=s).astype(np.int32)
-    lens[0], lens[-1] = p, 0
-    radii = rng.uniform(0, 150, size=s).astype(np.float32)
-    radii[min(1, s - 1)] = np.inf
+    s, p, d = x.shape
     args = [torch.from_numpy(a).to(dev) for a in (x, lens, radii)]
     before = pairwise_l2.launches["join_batched_tiles"]
     sq_k, c_k = pairwise_l2.join_batched_tiles(*args, bm=bm, bn=bn)
@@ -598,18 +590,120 @@ def test_join_batched_tiles_matches_plain_version_on_card(s, p, d, bm, bn):
     gm, gn = -(-p // bm), -(-p // bn)
     for si, band in enumerate(_band(x, lens, radii, np.ones((s, p), bool))):
         n = int(lens[si])
+        live = np.zeros((p, p), bool)
+        live[:n, :n] = True
+        assert (sq_k[si][~live] == fmax).all(), f"subset {si}"
+        blk = sq_k[si, :n, :n]
+        assert (blk.view(np.uint32) == blk.T.view(np.uint32)).all()
         norm2 = (x[si, :n].astype(np.float64) ** 2).sum(-1).max() if n else 0
         tol = (64 + 4 * d) * _EPS32 * norm2
-        assert float(np.abs(sq_k[si, :n, :n] - sq_p[si, :n, :n]).max(
-            initial=0.0)) <= tol
+        assert float(np.abs(blk - sq_p[si, :n, :n]).max(initial=0.0)) <= tol
         pad = np.zeros((gm * bm, gn * bn), np.int64)
         pad[:p, :p] = band
         band_cells = pad.reshape(gm, bm, gn, bn).sum(axis=(1, 3))
         diff = np.abs(c_k[si].cpu().numpy().astype(np.int64)
                       - c_p[si].cpu().numpy())
         assert (diff <= band_cells).all(), f"subset {si}"
+        joined = np.zeros((gm * bm, gn * bn), np.int64)
+        joined[:n, :n] = blk <= np.float32(radii[si]) ** 2
+        np.testing.assert_array_equal(
+            c_k[si].cpu().numpy(),
+            joined.reshape(gm, bm, gn, bn).sum(axis=(1, 3)))
         if not np.isfinite(radii[si]):
             assert int(c_k[si].sum()) == n * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,p,d,bm,bn", K4_CASES)
+def test_join_batched_tiles_matches_plain_version_on_card(s, p, d, bm, bn):
+    """K4 against ``ref.join_batched_dense`` (``_check_join_batched_tiles``)
+    with random lengths, the first P and the last 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    rng = np.random.default_rng(s * p + bm)
+    x = rng.uniform(0, 100, (s, p, d)).astype(np.float32)
+    lens = rng.integers(0, p + 1, size=s).astype(np.int32)
+    lens[0], lens[-1] = p, 0
+    radii = rng.uniform(0, 150, size=s).astype(np.float32)
+    radii[min(1, s - 1)] = np.inf
+    _check_join_batched_tiles(x, lens, radii, bm, bn)
+
+
+# (S, P, d, bm, bn, lengths): every subset live at L = P (dense, many
+# off-diagonal tiles mirrored), bm != bn on mirrored tiles, and a batch of
+# more subsets than the kernel's walk table holds (S > 128).
+K4_DENSE_CASES = [(4, 384, 64, 128, 128, "full"), (3, 261, 33, 48, 16, "full"),
+                  (2, 300, 8, 16, 80, "full"), (2, 517, 64, 100, 7, "0-P"),
+                  (300, 40, 4, 8, 3, "random"), (2, 1000, 64, 128, 128, "full")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,p,d,bm,bn,lengths", K4_DENSE_CASES)
+def test_join_batched_tiles_dense_and_mirrored_on_card(s, p, d, bm, bn,
+                                                       lengths):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    rng = np.random.default_rng(s + p + bn)
+    x = rng.uniform(0, 100, (s, p, d)).astype(np.float32)
+    if lengths == "full":
+        lens = np.full(s, p, np.int32)
+    elif lengths == "0-P":
+        lens = np.array([0, p], np.int32)
+    else:
+        lens = rng.integers(0, p + 1, size=s).astype(np.int32)
+    # radii near the median distance: counts neither empty nor full
+    radii = (100 * np.sqrt(d / 6) * rng.uniform(0.8, 1.1, size=s)
+             ).astype(np.float32)
+    _check_join_batched_tiles(x, lens, radii, bm, bn)
+
+
+# (M, N, d, bm, bn): tails off the 128 tile and off 4 (scalar stores),
+# features off 4 (scalar staging) and past one stage, the caller's grid.
+K3_CASES = [(1, 1, 1, 128, 128), (5, 3, 3, 1, 1), (130, 70, 33, 16, 48),
+            (257, 259, 64, 128, 128), (300, 129, 64, 7, 5),
+            (129, 131, 2304, 128, 128), (511, 257, 1, 48, 16),
+            (384, 1000, 64, 128, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d,bm,bn", K3_CASES)
+def test_pairwise_join_tails_on_card(m, n, d, bm, bn):
+    """K3 against ``ref.pairwise_join``: sq within the fp32 band, counts on
+    the caller's (bm, bn) grid equal but for each tile's band cells, and
+    exactly the kernel's own sq thresholded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(m * n + d)
+    a = rng.uniform(0, 100, (m, d)).astype(np.float32)
+    b = rng.uniform(0, 100, (n, d)).astype(np.float32)
+    r = float(100 * np.sqrt(d / 6))
+    at, bt = (torch.from_numpy(v).cuda() for v in (a, b))
+    before = pairwise_l2.launches["pairwise_join"]
+    sq_k, n_k = pairwise_l2.pairwise_join(at, bt, r, bm=bm, bn=bn)
+    sq_p, n_p = ref.pairwise_join(at, bt, r, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert pairwise_l2.launches["pairwise_join"] == before + 1
+    assert n_k.shape == n_p.shape == (-(-m // bm), -(-n // bn))
+    norm2 = max((a.astype(np.float64) ** 2).sum(-1).max(),
+                (b.astype(np.float64) ** 2).sum(-1).max())
+    tol = (64 + 4 * d) * _EPS32 * norm2
+    sq_k, sq_p = sq_k.cpu().numpy(), sq_p.cpu().numpy()
+    assert float(np.abs(sq_k - sq_p).max()) <= tol
+    d2 = ((a.astype(np.float64)[:, None] - b[None].astype(np.float64)) ** 2
+          ).sum(-1)
+    gm, gn = n_p.shape
+
+    def tiles(cells):
+        pad = np.zeros((gm * bm, gn * bn), np.int64)
+        pad[:m, :n] = cells
+        return pad.reshape(gm, bm, gn, bn).sum(axis=(1, 3))
+    r2 = np.float32(r) ** 2
+    band = tiles(np.abs(d2 - float(r2)) <= tol)
+    assert (np.abs(n_k.cpu().numpy() - n_p.cpu().numpy()) <= band).all()
+    np.testing.assert_array_equal(n_k.cpu().numpy(), tiles(sq_k <= r2))
+    _, n_inf = pairwise_l2.pairwise_join(at, bt, bm=bm, bn=bn)
+    assert int(n_inf.sum()) == m * n
 
 
 @pytest.mark.cuda

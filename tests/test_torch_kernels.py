@@ -341,27 +341,34 @@ def test_join_batched_dense_tile_counts(bm, bn):
 
 
 # ---------------------------------------------------------- single join (K3)
+@pytest.mark.parametrize("bm,bn", [(128, 128), (16, 48), (1, 1)])
 @pytest.mark.parametrize("m,n,d", [(8, 8, 4), (130, 70, 33), (257, 129, 64),
                                    (64, 300, 8)])
-def test_pairwise_join_matches_reference(m, n, d):
+def test_pairwise_join_matches_reference(m, n, d, bm, bn):
+    """sq within the fp32 band of the reference's, and per-tile counts on
+    the reference's own (bm, bn) grid, equal but for the band cells of each
+    tile."""
     rng = np.random.default_rng(m + n + d)
     a = rng.standard_normal((m, d)).astype(np.float32) * 10
     b = rng.standard_normal((n, d)).astype(np.float32) * 10
     r = 40.0
     sq_j, cnt_j = jops.pairwise_l2_join(jnp.asarray(a), jnp.asarray(b), r,
-                                        bm=128, bn=128, interpret=True)
-    sq_t, cnt_t = ops.pairwise_l2_join(_t(a), _t(b), r)
+                                        bm=bm, bn=bn, interpret=True)
+    sq_t, cnt_t = ops.pairwise_l2_join(_t(a), _t(b), r, bm=bm, bn=bn)
     scale = max((a.astype(np.float64) ** 2).sum(-1).max(),
                 (b.astype(np.float64) ** 2).sum(-1).max())
     tol = (64 + 4 * d) * _EPS32 * scale
     np.testing.assert_allclose(sq_t.numpy(), np.asarray(sq_j), rtol=0,
                                atol=tol)
-    assert tuple(cnt_t.shape) == (-(-m // ref.JOIN_TILE[0]),
-                                  -(-n // ref.JOIN_TILE[1]))
+    cnt_j = np.asarray(cnt_j).astype(np.int64)
+    assert tuple(cnt_t.shape) == cnt_j.shape == (-(-m // bm), -(-n // bn))
     d2 = ((a.astype(np.float64)[:, None] - b[None].astype(np.float64)) ** 2
           ).sum(-1)
-    band = int((np.abs(d2 - np.float32(r) ** 2) <= tol).sum())
-    assert abs(int(cnt_t.sum()) - int(np.asarray(cnt_j).sum())) <= band
+    gm, gn = cnt_j.shape
+    pad = np.zeros((gm * bm, gn * bn), np.int64)
+    pad[:m, :n] = np.abs(d2 - np.float32(r) ** 2) <= tol
+    band = pad.reshape(gm, bm, gn, bn).sum(axis=(1, 3))
+    assert (np.abs(cnt_t.numpy() - cnt_j) <= band).all()
     assert int(cnt_t.sum()) == int((sq_t.numpy() <= np.float32(r) ** 2).sum())
 
 
