@@ -29,23 +29,41 @@ Phases:
      backend; the exact batch again with every bin forced onto the device and
      the bf16 prune tier armed; the exact batch again on the default route
      with ``TorchBackend(prune_tier="off")`` and with a fresh default
-     backend (QPS with the tier off and armed, K2's launches on each); and
+     backend (QPS with the tier off and armed, K2's launches on each); then
+     [prune-int8] with ``TorchBackend(prune_tier="on", prune_dtype="int8")``
+     (K2i, the int8 arm, must launch and K2 not); and
      ``backend.pairwise`` on one subset. The default exact batch must launch
      K1 (and K2 where the cost model's per-cell ratio, printed, arms the
      tier), the forced batch K1 and K2, the prune-off batch no K2, the
      pairwise call K3.
      Answers are held to the numpy backend on the same engine (identical ids,
      float64 diameters to 1e-9: the two backends score through different
-     float64 formulas), the forced, prune-off and fresh runs to the default
-     run bit for bit, and every answer is checked to be a covering set of
-     finite diameter.
+     float64 formulas), the forced, prune-off, fresh and int8 runs to the
+     default run bit for bit, and every answer is checked to be a covering
+     set of finite diameter.
+  2b. [semantics] On the same engine, the batch's queries (3 keywords, k=2)
+     under the reference semantics bench's four variants — classic, m-of-k
+     (m=2), weighted (the batch's two lowest keyword ids boosted to 3.0),
+     scored (m=2) — in the exact and approx tiers, on the torch and the
+     numpy backend, each a path of its own (QPS, subqueries, phases, K1/K2
+     launches). Torch answers equal numpy's (ids; costs and scores to 1e-9;
+     ties only within TIE_ULPS ulps of the rescored cost, the weighted cost
+     of ``brute_force.weighted_set_cost`` for the weighted variant);
+     degenerate semantics equal classic bit for bit on every route; the
+     device tier refuses the flexible variants. Past
+     ``--semantics-budget`` seconds the numpy runs take ``--compare``
+     queries (printed).
   3. Hold each kernel against its plain PyTorch version on the card, on the
      largest input the main path gave it (recorded during phase 2): masks
      may differ only on cells whose float64 squared distance lies within the
      fp32 error band of the threshold, counts by at most that many cells, sq
      by at most the band; K1's mask must be symmetric bit for bit (it
      computes the upper triangle of tiles and mirrors it), and K2's SASS
-     must hold HGMMA, its tensor-core product (``cuobjdump -sass``). Time kernel,
+     must hold HGMMA, its tensor-core product (``cuobjdump -sass``). K2i
+     (the int8 arm) at K2's path input, at the price < 50 input with its
+     eligibility words and at a seeded d=2304 input must equal its plain
+     version bit for bit, count at least K1's fp32 counts at the same radius,
+     and its join's SASS must hold IGMMA. Time kernel,
      plain version and (K3) torch.cdist with CUDA events, and K1-K3 by the
      fresh-process profiler. [K4] The same on K1's largest input for K4 (the
      dense block and 128 x 128 tile counts, which no served path launches,
@@ -197,9 +215,10 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores,
-# bf16 on the tensor cores, HBM3.
+# bf16 and int8 on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 EPS32 = 2.0 ** -23
 # Profiler kernel names of matrix products (cuBLAS/CUTLASS kernels).
@@ -601,8 +620,8 @@ def masked_row(rec, by_path: dict, profiles: KernelProfiles,
     return row
 
 
-def sass_has(lib: str, kernel: str, op: str) -> bool | None:
-    """Whether ``cuobjdump -sass`` of the built ``lib`` shows ``op`` in the
+def sass_ops(lib: str, kernel: str, ops: tuple[str, ...]) -> list | None:
+    """Which of ``ops`` ``cuobjdump -sass`` of the built ``lib`` shows in the
     function whose name holds ``kernel`` (None where the toolkit has no
     cuobjdump)."""
     from repro_torch.kernels import build
@@ -613,8 +632,14 @@ def sass_has(lib: str, kernel: str, op: str) -> bool | None:
                          capture_output=True, text=True, timeout=300)
     for part in out.stdout.split("Function : ")[1:]:
         if kernel in part.split("\n", 1)[0]:
-            return op in part
-    return False
+            return [op for op in ops if op in part]
+    return []
+
+
+def sass_has(lib: str, kernel: str, op: str) -> bool | None:
+    """Whether ``op`` is in the SASS of ``kernel`` (see :func:`sass_ops`)."""
+    found = sass_ops(lib, kernel, (op,))
+    return None if found is None else bool(found)
 
 
 def prune_row(rec, by_path: dict, profiles: KernelProfiles,
@@ -655,6 +680,70 @@ def prune_row(rec, by_path: dict, profiles: KernelProfiles,
     profiles.add("K2" + (" (elig)" if elig else ""),
                  "pairwise_l2.join_batched_prune", (x, lengths, r, words),
                  "prune_join_kernel", "join_batched_prune", 20, row)
+    return row
+
+
+def prune_int8_row(rec_prune, rec_elig, by_path: dict,
+                   profiles: KernelProfiles) -> dict:
+    """K2i (``join_batched_prune_int8``) against its plain version, exactly:
+    at K2's path input (the prune tier's largest recorded input, its coarse
+    radii), at the forced price<50 run's K2 input with its eligibility
+    words, and at a seeded d=2304 input. Counts equal the plain version's
+    bit for bit and are at least K1's fp32 counts at the same radius; the
+    join kernel's SASS holds the tensor cores' integer product (IGMMA)."""
+    import torch
+    from repro_torch.kernels import pairwise_l2 as K
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x24 = torch.randn((8, 512, 2304), generator=g, device="cuda")
+    l24 = torch.tensor([512, 500, 257, 64, 63, 1, 0, 0], dtype=torch.int32,
+                       device="cuda")
+    r24 = torch.full((8,), 62.0, device="cuda")    # ~ the median distance
+    cases = [("path", *rec_prune.best[:3], None),
+             ("path (elig)", *rec_elig.best[:4]),
+             ("d2304", x24, l24, r24, None)]
+    out = []
+    for label, x, lengths, r, words in cases:
+        s, p, d = x.shape
+        k_k = K.join_batched_prune_int8(x, lengths, r, words)
+        k_p = ref.join_batched_counts_int8(x, lengths, r, words)
+        _, k1 = K.join_batched_masked(x, lengths, r, words)
+        torch.cuda.synchronize()
+        check(bool((k_k == k_p).all()), f"K2i {label}: counts "
+              f"{k_k.tolist()} differ from the plain version's "
+              f"{k_p.tolist()}")
+        check(bool((k_k >= k1).all()), f"K2i {label}: counts "
+              f"{k_k.tolist()} below K1's {k1.tolist()}")
+        # int8 x int8 products summed in int32: the tensor cores' int8 rate
+        ops_n, in_bytes = self_join_work(x, lengths)
+        extra = words.numel() * 4 if words is not None else 0
+        b_ms, b_by = bound(ops_n, in_bytes + extra + s * 4, PEAK_INT8_OPS)
+        case = dict(case=label, shape=[s, p, d], lengths=lengths.tolist(),
+                    counts=k_k.tolist(), k1_counts=k1.tolist(),
+                    max_abs_err=int((k_k - k_p).abs().max()) if s else 0,
+                    ms=cuda_ms(lambda: K.join_batched_prune_int8(
+                        x, lengths, r, words), 20),
+                    plain_ms=cuda_ms(lambda: ref.join_batched_counts_int8(
+                        x, lengths, r, words), 3, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        out.append((case, (x, lengths, r, words)))
+    name = "join_batched_prune_int8"
+    row = dict(out[0][0], name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
+               replaces="src/repro/kernels/ops.py:101",
+               **row_launches(name, by_path),
+               elig_launches_by_path={p: c[name + "_elig"]
+                                      for p, c in by_path.items()},
+               sass=sass_ops("pairwise_l2", "prune_int8_kernel",
+                             ("IGMMA", "IMMA", "HGMMA")),
+               cases=[case for case, _ in out])
+    check(row["sass"] is None or bool(row["sass"]),
+          "K2i's SASS has no tensor-core product")
+    for i, (case, args) in enumerate(out):
+        # the kernels' three launches a call: names holding "int8_"
+        profiles.add(f"K2i {case['case']}",
+                     "pairwise_l2.join_batched_prune_int8", args, "int8_",
+                     name, 20, case, *((row,) if i == 0 else ()))
     return row
 
 
@@ -715,42 +804,70 @@ def check_answers(ds, queries, results, tier) -> None:
         check(set(q) <= covered, f"{tier}: answer {c.ids} does not cover {q}")
 
 
-def answer_diff(a, b, rtol: float, ds=None, ties=None) -> str | None:
+# Float64 rescores of two tied answers may differ by at most this many ulps
+# of the larger (the ties recorded so far differ by 0-4).
+TIE_ULPS = 8
+
+
+def ulps_apart(a: float, b: float) -> float:
+    """|a - b| in ulps of the larger magnitude (0 where both are 0)."""
+    import math
+    unit = math.ulp(max(abs(a), abs(b)))
+    return abs(a - b) / unit if unit else 0.0
+
+
+def answer_diff(a, b, rtol: float, ds=None, ties=None, cost=None,
+                score=None, partial: bool = False) -> str | None:
     """The first query on which two batches of answers differ (ids, or
-    diameters beyond ``rtol``), described; None if they agree. With ``ds``
-    an answer whose ids differ is a tie when the diameters agree within
-    ``rtol`` and both sets cover the query with float64 diameters (by
-    coordinate differences) equal within ``rtol``: the numpy backend scores
-    through the norms identity, the torch backend through differences, and
-    the two may round two equally tight sets apart. Ties are appended to
-    ``ties``."""
+    costs/diameters beyond ``rtol``, or scores beyond ``rtol``), described;
+    None if they agree. With ``ds`` an answer whose ids differ is a tie when
+    the reported costs agree within ``rtol``, both sets cover the query (any
+    of its keywords with ``partial``, as m-of-k answers may) and
+    their float64 costs rescored from the ids (``cost(query, ids)``, by
+    default the diameter by coordinate differences) lie within
+    :data:`TIE_ULPS` ulps of each other, and (``score(query, ids)``, the
+    covered weight of a scored query) cover equally: the numpy backend
+    scores through the norms identity, the torch backend through
+    differences, and the two may round two equally tight sets apart. Ties
+    are appended to ``ties`` with the ulps between their rescores."""
     if len(a) != len(b):
         return f"{len(a)} answers against {len(b)}"
+    cost = cost or (lambda q, ids: rescore(ds, ids))
     for ra, rb in zip(a, b):
-        ca = [(c.ids, c.diameter) for c in ra.candidates]
-        cb = [(c.ids, c.diameter) for c in rb.candidates]
+        ca = [(c.ids, c.diameter, c.score) for c in ra.candidates]
+        cb = [(c.ids, c.diameter, c.score) for c in rb.candidates]
         if len(ca) == len(cb) and all(
                 abs(x[1] - y[1]) <= rtol * max(abs(y[1]), 1e-300)
+                and (x[2] is None) == (y[2] is None)
+                and (x[2] is None
+                     or abs(x[2] - y[2]) <= rtol * max(abs(y[2]), 1e-300))
                 for x, y in zip(ca, cb)):
             if [c[0] for c in ca] == [c[0] for c in cb]:
                 continue
-            if ds is not None and all(
-                    covers(ds, ra.query, x[0]) and covers(ds, ra.query, y[0])
-                    and abs(rescore(ds, x[0]) - rescore(ds, y[0]))
-                    <= rtol * max(abs(y[1]), 1e-300)
-                    for x, y in zip(ca, cb)):
-                if ties is not None:
-                    ties.append({"query": ra.query, "a": ca, "b": cb})
-                continue
+            if ds is not None:
+                apart = [ulps_apart(cost(ra.query, x[0]), cost(ra.query, y[0]))
+                         if x[0] != y[0] else 0.0 for x, y in zip(ca, cb)]
+                if all(covers(ds, ra.query, x[0], partial)
+                       and covers(ds, ra.query, y[0], partial)
+                       and u <= TIE_ULPS
+                       and (score is None or x[0] == y[0]
+                            or score(ra.query, x[0]) == score(ra.query, y[0]))
+                       for x, y, u in zip(ca, cb, apart)):
+                    if ties is not None:
+                        ties.append({"query": ra.query, "a": ca, "b": cb,
+                                     "ulps": max(apart)})
+                    continue
         return f"query {ra.query}: {ca} against {cb}"
     return None
 
 
-def covers(ds, query, ids) -> bool:
+def covers(ds, query, ids, partial: bool = False) -> bool:
+    """Whether ``ids`` cover every keyword of ``query`` (with ``partial``,
+    at least one: an m-of-k answer covers some of them)."""
     found = set()
     for i in ids:
         found.update(int(v) for v in ds.kw.row(i))
-    return set(query) <= found
+    return bool(set(query) & found) if partial else set(query) <= found
 
 
 def same_answers(a, b, rtol: float) -> bool:
@@ -984,6 +1101,23 @@ def serve(args, report: dict) -> tuple:
               f"{by_path['exact-prune-auto']['join_batched_masked']}; "
               f"cascade off {report['exact-prune-off']['cascade']}",
               flush=True)
+        # [prune-int8]: the default batch on a backend whose forced prune
+        # tier runs the int8 arm (K2i); its cost model is calibrated (K2i
+        # and K1 probes) before the path's counters start.
+        be8 = TorchBackend(prune_tier="on", prune_dtype="int8")
+        be8.attach(ds.points)
+        be8.warmup(ds.dim)
+        answers["exact-prune-int8"], wall = drive(
+            "exact-prune-int8", lambda: engine.query_batch(
+                queries, k=1, tier="exact", backend=be8))
+        st = engine.last_batch_stats
+        report["exact-prune-int8"] = batch_report(wall, st)
+        n8 = by_path["exact-prune-int8"]
+        print(f"[prune-int8] exact, prune tier forced on in int8: {wall:.3f}s"
+              f" = {len(queries) / wall:.2f} QPS; cascade {st.cascade}; K2i "
+              f"launches {n8['join_batched_prune_int8']} (3 kernels a call), "
+              f"K2 {n8['join_batched_prune']}, K1 "
+              f"{n8['join_batched_masked']}", flush=True)
         one, _ = drive("pairwise", lambda: forced.pairwise(ds.points[ids],
                                                            ds.points[ids]))
         print(f"[serve] backend.pairwise on {len(ids)} points: launches "
@@ -1033,7 +1167,11 @@ def serve(args, report: dict) -> tuple:
           == [[(c.ids, c.diameter) for c in r.candidates]
               for r in answers["exact"]],
           "forced device + prune run differs from the default run")
-    for path in ("exact-prune-off", "exact-prune-auto"):
+    check(by_path["exact-prune-int8"]["join_batched_prune_int8"] > 0
+          and by_path["exact-prune-int8"]["join_batched_prune"] == 0,
+          "the int8 prune tier did not run K2i alone: "
+          f"{by_path['exact-prune-int8']}")
+    for path in ("exact-prune-off", "exact-prune-auto", "exact-prune-int8"):
         check([[(c.ids, c.diameter) for c in r.candidates]
                for r in answers[path]]
               == [[(c.ids, c.diameter) for c in r.candidates]
@@ -1050,7 +1188,8 @@ def serve(args, report: dict) -> tuple:
         check(same_answers(answers[tier][:n_cmp], ref_ans, 1e-9),
               f"{tier}: torch and numpy backends disagree")
     print(f"[serve] answers: all covering and finite; forced run and the "
-          f"prune-off and fresh default runs identical to the default; "
+          f"prune-off, fresh default and int8 prune runs identical to the "
+          f"default; "
           f"first {n_cmp} per tier agree with the numpy backend", flush=True)
 
     for path, qs in (("device-q3", queries), ("device-q9", queries9)):
@@ -1058,7 +1197,7 @@ def serve(args, report: dict) -> tuple:
         check(not any(by_path[path][n] for n in K.launches),
               f"{path}: the device tier launched a join kernel")
     for path in ("exact", "approx", "forced", "exact-prune-off",
-                 "exact-prune-auto", "pairwise"):
+                 "exact-prune-auto", "exact-prune-int8", "pairwise"):
         check(by_path[path]["tuple_diameters"] == 0
               and by_path[path]["anchor_star"] == 0,
               f"{path}: a join path launched K6")
@@ -1102,6 +1241,171 @@ def serve(args, report: dict) -> tuple:
           f"q=9 {report['device-q9']['checks']}; first {n_cmp} on the card "
           f"equal the CPU's (max err/band {worst:.4g})", flush=True)
     return recs, by_path, diam_recs, (engine, ds, queries, pinned, rec_k5)
+
+
+def semantics(args, report: dict, served, by_path: dict) -> None:
+    """[semantics] Flexible query semantics on the served engine: the
+    batch's queries (3 keywords, k=2)
+    under the four variants of the reference's semantics bench — classic,
+    m-of-k (m=2), weighted (the two lowest keyword ids of the batch boosted
+    to 3.0) and scored (m=2) — in the exact and approx tiers, each a path
+    of its own on the torch backend and on the numpy backend. Torch answers
+    equal the numpy backend's (ids; costs and scores to 1e-9; ties within
+    TIE_ULPS of the rescored cost: the weighted cost of
+    ``brute_force.weighted_set_cost`` for the weighted variant, the
+    geometric diameter otherwise, scored ties with equal coverage); every
+    weighted answer's cost equals ``weighted_set_cost`` of its ids to 1e-9
+    (the einsum's summation order depends on the table's shape); m-of-k
+    answers cover at least m keywords. Degenerate
+    semantics (m=3, empty weights) answer bit for bit as classic on each
+    route (over the first ``--compare`` queries), a flexible ``query``
+    answers as its batch of one, and the device
+    tier refuses the flexible variants. Once the phase has run longer than
+    ``--semantics-budget`` seconds, the numpy backend's runs take only the
+    first ``--compare`` queries (printed)."""
+    import numpy as np
+    from repro_torch.core.brute_force import weighted_set_cost
+    from repro_torch.core.semantics import QuerySemantics
+
+    engine, ds, queries = served[:3]
+    qs = queries
+    k = 2
+    boosted = sorted({v for q in qs for v in q})[:2]
+    variants = {"classic": None, "m_of_k": {"m": 2},
+                "weighted": {"weights": {v: 3.0 for v in boosted}},
+                "scored": {"m": 2, "score": True}}
+    out = report["semantics"] = {"queries": len(qs), "k": k,
+                                 "boosted": boosted, "runs": {},
+                                 "numpy_queries": {}}
+    t_phase = time.perf_counter()
+    answers = {}
+
+    def rows(res):
+        return [[(c.ids, c.diameter, c.score) for c in r.candidates]
+                for r in res]
+
+    for tier in ("exact", "approx"):
+        for name, raw in variants.items():
+            sem = QuerySemantics.coerce(raw)
+            for be in ("torch", "numpy"):
+                batch = qs
+                if be == "numpy" and time.perf_counter() - t_phase \
+                        > args.semantics_budget:
+                    batch = qs[:args.compare]
+                    print(f"[semantics] budget of {args.semantics_budget}s "
+                          f"spent: the numpy backend's {tier} {name} run "
+                          f"takes the first {len(batch)} queries", flush=True)
+                path = f"sem-{tier}-{name}-{be}"
+                answers[(tier, name, be)], wall = drive_path(
+                    by_path, path, lambda: engine.query_batch(
+                        batch, k=k, tier=tier, backend=be, semantics=raw))
+                st = engine.last_batch_stats
+                n = by_path[path]
+                out["runs"][path] = {
+                    "queries": len(batch), "wall_s": wall,
+                    "qps": len(batch) / wall, "subqueries": st.subqueries,
+                    "phases": st.phases, "cascade": st.cascade,
+                    "fallback_queries": st.fallback_queries,
+                    "device_bins": st.device_dispatches,
+                    "host_bins": st.host_routed_dispatches,
+                    "k1_launches": n["join_batched_masked"],
+                    "k2_launches": n["join_batched_prune"]}
+                print(f"[semantics] {tier} {name} {be}: {len(batch)} queries "
+                      f"in {wall:.3f}s = {len(batch) / wall:.2f} QPS; "
+                      f"subqueries {st.subqueries}; phases {st.phases}; "
+                      f"fallback {st.fallback_queries}; device bins "
+                      f"{st.device_dispatches}, host bins "
+                      f"{st.host_routed_dispatches}; K1/K2 launches "
+                      f"{n['join_batched_masked']}/{n['join_batched_prune']}",
+                      flush=True)
+                if be == "numpy":
+                    check(not any(n.values()), f"{path} launched kernels: {n}")
+            got, want = (answers[(tier, name, b)] for b in ("torch", "numpy"))
+            out["numpy_queries"][f"{tier}-{name}"] = len(want)
+            wvecs = {tuple(q): sem.weight_vector(ds, q) if sem else None
+                     for q in qs}
+            m = sem.m if sem is not None and sem.m is not None else 3
+
+            def cost(q, ids):
+                return weighted_set_cost(ids, ds, wvecs[tuple(q)])
+
+            score = None
+            if sem is not None and sem.score:
+                def score(q, ids):
+                    return sem.coverage_fn(ds, q)(ids)
+            ties = []
+            diff = answer_diff(got[:len(want)], want, 1e-9, ds, ties,
+                               cost=cost, score=score, partial=m < 3)
+            check(diff is None, f"semantics {tier} {name}: torch and numpy "
+                  f"backends disagree: {diff}")
+            out["runs"][f"sem-{tier}-{name}-torch"]["ties"] = ties
+            for be in ("torch", "numpy"):
+                for q, r in zip(qs, answers[(tier, name, be)]):
+                    check(1 <= len(r.candidates) <= k,
+                          f"semantics {tier} {name} {be}: query {q} has "
+                          f"{len(r.candidates)} answers")
+                    for c in r.candidates:
+                        kws = {int(v) for i in c.ids for v in ds.kw.row(i)}
+                        check(len(kws & set(q)) >= m,
+                              f"semantics {tier} {name} {be}: {c.ids} covers "
+                              f"fewer than {m} of {q}")
+                        check(np.isfinite(c.diameter), f"semantics {tier} "
+                              f"{name} {be}: cost {c.diameter}")
+                        check((c.score is not None) == (score is not None),
+                              f"semantics {tier} {name} {be}: score "
+                              f"{c.score}")
+                        if name == "weighted":
+                            w = cost(q, c.ids)
+                            check(abs(c.diameter - w) <= 1e-9 * max(w, 1e-300),
+                                  f"semantics {tier} weighted {be}: {c.ids} "
+                                  f"reports {c.diameter}, weighted_set_cost "
+                                  f"{w}")
+            print(f"[semantics] {tier} {name}: torch equals numpy over "
+                  f"{len(want)} queries ({len(ties)} ties, at most "
+                  f"{max([t['ulps'] for t in ties], default=0)} ulps apart)",
+                  flush=True)
+
+    # Degenerate semantics are the classic path, bit for bit, on each route
+    # (over the first --compare queries: a batch's answers are per query);
+    # a flexible query() is its batch of one on the numpy backend; the
+    # device tier refuses the flexible variants. qb holds a boosted keyword,
+    # so the weights touch it.
+    qb = next(q for q in qs if set(q) & set(boosted))
+    n_deg = min(args.compare, len(qs))
+    for tier in ("exact", "approx"):
+        for be in ("torch", "numpy"):
+            classic = rows(answers[(tier, "classic", be)][:n_deg])
+            for degen in ({"m": 3}, {"weights": {}}):
+                res = engine.query_batch(qs[:n_deg], k=k, tier=tier,
+                                         backend=be, semantics=degen)
+                check(rows(res) == classic, f"semantics {degen} on {tier} "
+                      f"{be} differs from classic")
+        for name in ("m_of_k", "weighted", "scored"):
+            one = engine.query(qb, k=k, tier=tier, semantics=variants[name])
+            batch = engine.query_batch([qb], k=k, tier=tier,
+                                       backend="numpy",
+                                       semantics=variants[name])
+            check(rows([one]) == rows(batch),
+                  f"query({tier}, {name}) differs from its batch of one")
+    for name in ("m_of_k", "weighted", "scored"):
+        for call in (lambda: engine.query_batch([qb], k=k, tier="device",
+                                                semantics=variants[name]),
+                     lambda: engine.query(qb, k=k, tier="device",
+                                          semantics=variants[name])):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise SmokeError(f"the device tier took semantics {name}")
+    for name in variants:
+        check(by_path[f"sem-exact-{name}-torch"]["join_batched_masked"] > 0,
+              f"semantics exact {name}: the torch backend launched no K1")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[semantics] degenerate semantics (m=3, no weights) equal classic "
+          f"bit for bit on every route; query() equals its batch of one; the "
+          f"device "
+          f"tier refuses m-of-k, weighted and scored; phase "
+          f"{out['wall_s']:.1f}s", flush=True)
 
 
 def stream(args, report: dict, served, by_path: dict) -> None:
@@ -2556,7 +2860,8 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
     """The redesigned kernels' numbers side by side, once the profiler has
     filled in their device times: K7 at every case against
     ``F.scaled_dot_product_attention``, K1 and K2 with and without
-    eligibility words, K3, K4 at the path input and dense, K6."""
+    eligibility words, K2i at its three inputs, K3, K4 at the path input
+    and dense, K6."""
     flash = next(r for r in rows if r["name"] == "flash_attention")
     for case in flash["cases"]:
         print(f"[K7] {case['case']} {case['shape']} kv {case['kv_heads']} "
@@ -2574,6 +2879,18 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
               f"{r['ms']:.4f} ms by events, {r.get('device_ms')} ms device, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SASS HGMMA "
               f"{r['sass_hgmma']}", flush=True)
+    k2i = next(r for r in rows if r["name"] == "join_batched_prune_int8")
+    for case in k2i["cases"]:
+        dev = case.get("device_ms")
+        share = f", the bound {case['bound_ms'] / dev:.1%} of it" if dev \
+            else ""
+        print(f"[K2i] {case['case']} {case['shape']} lengths "
+              f"{case['lengths']}: {case['ms']:.4f} ms by events, {dev} ms "
+              f"device (3 kernels), plain {case['plain_ms']:.4f} ms, bound "
+              f"{case['bound_ms']:.5f} ms ({case['bound_by']}{share}); counts "
+              f"{case['counts']} (K1 {case['k1_counts']}); SASS "
+              f"{k2i['sass']}; launches {k2i['launches_by_path']}",
+              flush=True)
     k3 = next(r for r in rows if r["name"] == "pairwise_join")
     k4 = next(r for r in rows if r["name"] == "join_batched_tiles")
     for label, r in (("K3 pairwise_join", k3), ("K4 path", k4),
@@ -2614,6 +2931,9 @@ def main() -> int:
                     help="points deleted there, half bulk and half delta")
     ap.add_argument("--tenant-points", type=int, default=50_000,
                     help="points per tenant of the tenant-scoped check")
+    ap.add_argument("--semantics-budget", type=float, default=240.0,
+                    help="seconds of the semantics phase after which the "
+                         "numpy backend takes only --compare queries")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                           / "chip_smoke.json"))
@@ -2660,6 +2980,7 @@ def main() -> int:
               f"batched_tiles_kernel take {report['k3_k4_dynamic_smem']} "
               f"bytes of dynamic shared memory a block", flush=True)
         recs, by_path, diam_recs, served = serve(args, report)
+        semantics(args, report, served, by_path)
         elig_recs = filtered(args, report, served, by_path)
         stream(args, report, served, by_path)
         tenants(args, report, by_path)
@@ -2672,6 +2993,7 @@ def main() -> int:
         elig_rows = [masked_row(elig_recs[0], by_path, profiles, elig=True),
                      prune_row(elig_recs[1], by_path, profiles, elig=True)]
         report["kernels_elig"] = elig_rows
+        rows.append(prune_int8_row(recs[1], elig_recs[1], by_path, profiles))
         for row in rows + elig_rows:
             print(f"[kernel] {row['name']} {row['shape']}: {row['ms']:.4f} ms "
                   f"(plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"

@@ -17,10 +17,10 @@ per covering-bucket subset. This module routes that production:
     per-subset radius is widened by an absolute slack bounding fp32
     cancellation error, and the enumeration stage re-scores surviving tuples
     through the float64 path before they enter the queue
-    (``subset_search.enumerate_with_block``). A coarse bf16 counts pass (the
-    prune tier) can run ahead of the fp32 join, and a measured cost model
-    sends bins too small for the device to the exact host path; every tier
-    and route gives bitwise the same results.
+    (``subset_search.enumerate_with_block``). A coarse counts pass (the
+    prune tier, bf16 by default or int8) can run ahead of the fp32 join,
+    and a measured cost model sends bins too small for the device to the
+    exact host path; every tier and route gives bitwise the same results.
 
 The block contract (:class:`DistanceBlock`) carries either ``dist`` (dense
 float64, numpy) or ``mask`` (packed uint32 at the dispatch-time pruning
@@ -310,11 +310,14 @@ def _device_s(f, reps: int = 10) -> float:
     return start.elapsed_time(end) * 1e-3 / reps
 
 
-def calibrate_cost_model(d: int, device: torch.device) -> DispatchCostModel:
+def calibrate_cost_model(d: int, device: torch.device,
+                         prune_dtype: str = "bf16") -> DispatchCostModel:
     """Measure the device/host crossover at dimensionality ``d`` on
-    ``device`` (memoized per process) and fit it (:func:`fit_cost_model`).
-    Each probe runs once to warm up (the first call on the card builds the
-    kernels).
+    ``device`` (memoized per process, device, d and ``prune_dtype``) and fit
+    it (:func:`fit_cost_model`). The coarse-count probe runs the prune tier
+    in ``prune_dtype`` (K2 for bf16, K2i for int8), the arm the backend will
+    run. Each probe runs once to warm up (the first call on the card builds
+    the kernels).
 
     On the card the device probes are batches of 8 subsets of 1024 and 2880
     points, the span of the largest tiles a 10^6-point corpus dispatches,
@@ -325,7 +328,7 @@ def calibrate_cost_model(d: int, device: torch.device) -> DispatchCostModel:
     (32 and 256 points), all timed by the host clock, best of 5, with the
     readback."""
     device = resolve_device(device)
-    key = (device.type, d)
+    key = (device.type, d, prune_dtype)
     model = _COST_MODELS.get(key)
     if model is not None:
         return model
@@ -353,7 +356,8 @@ def calibrate_cost_model(d: int, device: torch.device) -> DispatchCostModel:
         return ops.pairwise_l2_join_batched_masked(x, lens, r)[1]
 
     def prune(x, lens):
-        return ops.pairwise_l2_join_batched_counts(x, lens, r)
+        return ops.pairwise_l2_join_batched_counts(x, lens, r,
+                                                   dtype=prune_dtype)
 
     for f in (dev, prune):
         f(x_s, l_s).cpu()
@@ -472,58 +476,75 @@ class TorchBackend(DistanceBackend):
     The corpus lives on ``device`` as an (n, d) fp32 tensor, uploaded once
     per corpus generation (:meth:`attach`); a streaming corpus's inserted
     rows are appended to it (capacity doubling), each uploaded once.
-    Per-point float64 squared norms stay on the host for the slack. Subset counts and pad widths are rounded up
-    (``QUANTUM``) so repeated scales reuse tile shapes. A call whose packed
-    (S, P, P) join block would exceed ``MAX_BLOCK_BYTES`` is split into
-    size-bounded chunks — still one dispatch per chunk.
+    Per-point float64 squared norms stay on the host for the slack. Subset
+    counts and pad widths are rounded up (``quantum``) so repeated scales
+    reuse tile shapes. A call whose packed (S, P, P) join block would exceed
+    ``max_block_bytes`` is split into size-bounded chunks — still one
+    dispatch per chunk.
 
     On a CUDA device the joins run the hand-written kernels; on the CPU
-    (``device="cpu"``) their plain PyTorch versions. ``CACHE_BYTES`` bounds
+    (``device="cpu"``) their plain PyTorch versions. ``cache_bytes`` bounds
     the device-tile / host-table LRU.
     """
 
     name = "torch"
 
-    # Subset counts and pad widths round up to this quantum (tile-shape
-    # reuse); size classes per call are at most N_CLASSES quantile edges (or
-    # the pow2 class count, if larger); one dispatch's (S, P, P) join block
-    # stays under MAX_BLOCK_BYTES; the LRU holds at most CACHE_BYTES; the
-    # coarse radius carries PRUNE_EPS relative headroom.
-    QUANTUM = 8
-    N_CLASSES = 6
-    MAX_BLOCK_BYTES = 256 << 20
-    CACHE_BYTES = 128 << 20
-    PRUNE_EPS = 0.05
-
     def __init__(self, *, device: str | torch.device | None = None,
+                 quantum: int = 8,
+                 max_block_bytes: int = 256 << 20,
+                 cache_bytes: int = 128 << 20,
+                 bin_strategy: str = "quantile",
+                 n_classes: int = 6,
                  route: str = "auto",
                  prune_tier: str = "auto",
+                 prune_dtype: str = "bf16",
+                 prune_eps: float = 0.05,
                  elig_pack_threshold: float = 0.25,
                  cost_model: DispatchCostModel | None = None) -> None:
         super().__init__()
+        # quantum: subset counts and pad widths round up to it (tile-shape
+        #   reuse). max_block_bytes: one dispatch's (S, P, P) join block
+        #   stays under it. cache_bytes: the LRU's bound.
+        # bin_strategy: "quantile" fits size-class edges to the planned
+        #   subset-length distribution per call (at most n_classes edges,
+        #   never more padded cells than "pow2"); "pow2" pads each subset to
+        #   the next power of two.
         # route: "auto" sends bins below the measured device break-even to
         #   the exact host path; "device" pins every finite-radius bin on the
         #   device.
-        # prune_tier: "on"/"off"/"auto" — the coarse bf16 counts pass ahead
-        #   of the fp32 masked join; "auto" enables it only where the
-        #   calibrated model shows the coarse pass is cheaper.
+        # prune_tier: "on"/"off"/"auto" — the coarse counts pass ahead of
+        #   the fp32 masked join; "auto" enables it only where the calibrated
+        #   model (probed in prune_dtype) shows the coarse pass is cheaper.
+        # prune_dtype: the coarse arithmetic, "bf16" (K2) or "int8" (K2i);
+        #   prune_eps: the coarse radius's relative headroom.
         # elig_pack_threshold: below this filter selectivity (eligible share
         #   of a call's subset points), tiles pack the eligible rows densely
         #   instead of folding eligibility words into full-width tiles.
         # cost_model: a fixed routing model in place of the calibrated one.
+        if bin_strategy not in ("quantile", "pow2"):
+            raise ValueError(f"unknown bin_strategy: {bin_strategy!r}")
         if route not in ("auto", "device"):
             raise ValueError(f"unknown route: {route!r}")
         if prune_tier not in ("auto", "on", "off"):
             raise ValueError(f"unknown prune_tier: {prune_tier!r}")
+        if prune_dtype not in ("bf16", "int8"):
+            raise ValueError(f"unknown prune_dtype: {prune_dtype!r}")
         self.device = resolve_device(device)
+        self.quantum = quantum
+        self.max_block_bytes = max_block_bytes
+        self.cache_bytes = cache_bytes
+        self.bin_strategy = bin_strategy
+        self.n_classes = n_classes
         self.route = route
         self.prune_tier = prune_tier
+        self.prune_dtype = prune_dtype
+        self.prune_eps = prune_eps
         self.elig_pack_threshold = float(elig_pack_threshold)
         self._model = cost_model
         # The class floor is the masked join's tile on the card (every block
         # computes whole tiles anyway); the plain version uses exact shapes.
         self._min_class = JOIN_SQUARE_TILE if self.device.type == "cuda" \
-            else self.QUANTUM
+            else self.quantum
         self._edge_cache: dict[bytes, np.ndarray] = {}
         # LRU over device-committed dispatch tiles and host distance tables;
         # values are (nbytes, payload). Entries are valid for one corpus
@@ -608,14 +629,14 @@ class TorchBackend(DistanceBackend):
         return entry[1]
 
     def _cache_put(self, key: tuple, payload, nbytes: int) -> None:
-        if nbytes > self.CACHE_BYTES:
+        if nbytes > self.cache_bytes:
             return
         old = self._cache.pop(key, None)
         if old is not None:
             self._cache_nbytes -= old[0]
         self._cache[key] = (nbytes, payload)
         self._cache_nbytes += nbytes
-        while self._cache_nbytes > self.CACHE_BYTES:
+        while self._cache_nbytes > self.cache_bytes:
             _, (dropped, _) = self._cache.popitem(last=False)
             self._cache_nbytes -= dropped
             self.stats.cache_evictions += 1
@@ -641,7 +662,7 @@ class TorchBackend(DistanceBackend):
         return np.sqrt(sq.cpu().numpy().astype(np.float64))
 
     def _round(self, n: int) -> int:
-        q = self.QUANTUM
+        q = self.quantum
         return max(q, ((n + q - 1) // q) * q)
 
     def _class_pad(self, n: int) -> int:
@@ -653,7 +674,8 @@ class TorchBackend(DistanceBackend):
 
     def _cost_model(self, d: int) -> DispatchCostModel:
         if self._model is None:
-            self._model = calibrate_cost_model(d, self.device)
+            self._model = calibrate_cost_model(d, self.device,
+                                               self.prune_dtype)
         return self._model
 
     def warmup(self, d: int) -> None:
@@ -674,12 +696,12 @@ class TorchBackend(DistanceBackend):
 
         Lengths are rounded up to the quantum (shape reuse) and floored at
         the min class, then segmented by the waste-minimizing DP
-        (:func:`_dp_segment`) capped at ``N_CLASSES`` edges — or the pow2
+        (:func:`_dp_segment`) capped at ``n_classes`` edges — or the pow2
         class count if that is larger, which makes the pow2 segmentation a
         *feasible* DP choice and hence quantile padded cells <= pow2 padded
         cells on every call (the guard below enforces it exactly). Edges are
         cached per sorted-length signature for the life of the corpus."""
-        q = self.QUANTUM
+        q = self.quantum
         vals = np.maximum(((np.maximum(sizes, 1) + q - 1) // q) * q,
                           self._min_class).astype(np.int64)
         svals = np.sort(vals)
@@ -689,7 +711,7 @@ class TorchBackend(DistanceBackend):
             return hit
         distinct, counts = np.unique(svals, return_counts=True)
         pow2_edges = np.unique([self._class_pad(int(v)) for v in distinct])
-        cap = max(self.N_CLASSES, len(pow2_edges))
+        cap = max(self.n_classes, len(pow2_edges))
         edges = _dp_segment(distinct, counts, cap)
 
         def total_cells(e):
@@ -762,23 +784,26 @@ class TorchBackend(DistanceBackend):
                 int(el_counts.sum()) < self.elig_pack_threshold * tot
             if elig_dense:
                 sizes = el_counts
-        edges = self._quantile_edges(sizes)
-        cls = edges[np.searchsorted(edges, np.maximum(sizes, 1))]
+        if self.bin_strategy == "quantile":
+            edges = self._quantile_edges(sizes)
+            cls = edges[np.searchsorted(edges, np.maximum(sizes, 1))]
+        else:
+            cls = np.array([self._class_pad(int(max(s, 1))) for s in sizes])
         classes: dict[int, list[int]] = {}
         for pos in range(len(finite)):
             classes.setdefault(int(cls[pos]), []).append(pos)
         model = None
         if self.route == "auto":
             model = self._cost_model(points.shape[1])
-        budget = self.MAX_BLOCK_BYTES // 4
+        budget = max(1, self.max_block_bytes // 4)
         for p_pad, poss in sorted(classes.items()):
             # Budget the *padded* subset count: _dispatch rounds it up to
             # quantum for shape reuse, so floor max_s to a quantum multiple
             # (falling back to unrounded single-subset dispatches when even
             # one quantum of this class would blow the budget).
             max_s = budget // (p_pad * p_pad)
-            if max_s >= self.QUANTUM:
-                max_s = (max_s // self.QUANTUM) * self.QUANTUM
+            if max_s >= self.quantum:
+                max_s = (max_s // self.quantum) * self.quantum
             max_s = max(1, max_s)
             for c0 in range(0, len(poss), max_s):
                 chunk = poss[c0:c0 + max_s]
@@ -896,7 +921,7 @@ class TorchBackend(DistanceBackend):
         lengths = np.fromiter((len(ids) for ids in pack_ids), np.int32,
                               count=n_subsets)
         s_pad = self._round(n_subsets)
-        if s_pad * p_pad * p_pad > self.MAX_BLOCK_BYTES // 4:
+        if s_pad * p_pad * p_pad > self.max_block_bytes // 4:
             # Shape-reuse rounding must not blow the budget.
             s_pad = n_subsets
         tile_key = None
@@ -953,7 +978,7 @@ class TorchBackend(DistanceBackend):
         # fold, packed lengths otherwise.
         n_live = lengths.astype(np.int64) if el_counts is None else el_counts
 
-        # ---- tier 0: coarse bf16 prune (counts only) ----
+        # ---- tier 0: coarse prune in prune_dtype (counts only) ----
         pruned = None
         cc = None
         if self._prune_active(d):
@@ -971,14 +996,15 @@ class TorchBackend(DistanceBackend):
             eps16 = 2.0 ** -8
             rtnorm = slacks / np.sqrt((64.0 + 4.0 * d) * _EPS32)
             r_c = (r_mask + slacks + 2.0 * eps16 * rtnorm) \
-                * (1.0 + self.PRUNE_EPS)
+                * (1.0 + self.prune_eps)
             rc_pad = np.zeros(s_pad, np.float32)
             with np.errstate(over="ignore"):
                 rc_pad[:n_subsets] = np.nextafter(
                     r_c.astype(np.float32), np.float32(np.inf))
             t_p = time.perf_counter()
             cnt_c = ops.pairwise_l2_join_batched_counts(
-                x_dev, lens_dev, torch.from_numpy(rc_pad).to(dev), elig_words)
+                x_dev, lens_dev, torch.from_numpy(rc_pad).to(dev), elig_words,
+                dtype=self.prune_dtype)
             counts_c = cnt_c.cpu().numpy()
             dtp = time.perf_counter() - t_p
             self.stats.t_prune_s += dtp

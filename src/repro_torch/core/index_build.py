@@ -176,17 +176,20 @@ def _to_host(offsets: torch.Tensor, values: torch.Tensor) -> CSR:
 def _assemble_scale(dataset: KeywordDataset, h1: torch.Tensor,
                     h2: torch.Tensor, scale: int, width: float,
                     n_buckets: int, kw: tuple[torch.Tensor, torch.Tensor],
-                    stats: BuildStats) -> tuple[HIStructure, HIStructure]:
-    """One scale of both indices from its bin keys (h1, h2 int64 (n, m) on
-    the device): the exact structure hashes all 2^m signatures into
-    ``n_buckets``, the approximate one h1 alone into ``n_buckets >> scale``
-    (at least 64); tables and I_khb are assembled on the device and copied
-    to the host."""
+                    stats: BuildStats,
+                    flavours: tuple[bool, ...] = (True, False)
+                    ) -> list[HIStructure]:
+    """One scale of the indices in ``flavours`` (True: exact, False:
+    approximate) from its bin keys (h1, h2 int64 (n, m) on the device): the
+    exact structure hashes all 2^m signatures into ``n_buckets``, the
+    approximate one h1 alone into ``n_buckets >> scale`` (at least 64);
+    tables and I_khb are assembled on the device and copied to the host."""
     dev = h1.device
     point_ids = torch.arange(dataset.n, dtype=torch.int32, device=dev)
     out = []
     t1 = time.perf_counter()
-    for exact, nb in ((True, n_buckets), (False, max(64, n_buckets >> scale))):
+    for exact in flavours:
+        nb = n_buckets if exact else max(64, n_buckets >> scale)
         if exact:
             buckets = sig.bucket_ids_overlapping_torch(h1, h2, nb)
             ids = torch.repeat_interleave(point_ids, buckets.shape[1])
@@ -205,20 +208,23 @@ def _assemble_scale(dataset: KeywordDataset, h1: torch.Tensor,
         stats.t_assemble_s += t2 - t1
         stats.t_copy_s += t3 - t2
         t1 = t3
-    return out[0], out[1]
+    return out
 
 
 def build_indices(dataset: KeywordDataset, points_dev: torch.Tensor, *,
                   m: int = 2, n_scales: int = 5, seed: int = 0,
                   w0: float | None = None, n_buckets: int | None = None,
-                  stats: BuildStats | None = None
-                  ) -> tuple[PromishIndex, PromishIndex]:
-    """Both ProMiSH indices of ``dataset`` (exact, approximate), equal array
+                  stats: BuildStats | None = None,
+                  build_exact: bool = True, build_approx: bool = True
+                  ) -> tuple[PromishIndex | None, PromishIndex | None]:
+    """The ProMiSH indices of ``dataset`` (exact, approximate), equal array
     for array to :func:`repro_torch.core.index.build_index` with the same
     arguments, built on the device ``points_dev`` (the corpus's rows, (n, d)
     fp32) lies on: one K5 launch per scale. ``w0``/``n_buckets`` pin the
     hash geometry as there (``n_buckets`` a power of two or below 2^31). Phase
-    walls, K5 launches and settled entries accumulate in ``stats``."""
+    walls, K5 launches and settled entries accumulate in ``stats``.
+    ``build_exact=False`` / ``build_approx=False`` skip that flavour's
+    assembly; its slot in the result is None."""
     st = stats if stats is not None else BuildStats()
     dev = points_dev.device
     t0 = time.perf_counter()
@@ -236,14 +242,17 @@ def build_indices(dataset: KeywordDataset, points_dev: torch.Tensor, *,
           torch.from_numpy(dataset.kw.values).to(dev))
     _sync(dev)
     st.t_project_s += time.perf_counter() - t0
+    flavours = tuple(f for f, on in ((True, build_exact),
+                                     (False, build_approx)) if on)
     structs = []
     for s in range(n_scales):
         width = w0 * (2.0 ** s)
         h1, h2 = bin_scale(points_dev, z_dev, margin, p_host, width, st)
         structs.append(_assemble_scale(dataset, h1, h2, s, width, n_buckets,
-                                       kw, st))
+                                       kw, st, flavours))
         del h1, h2
-    return tuple(PromishIndex(z=z, w0=float(w0), n_scales=n_scales,
-                              exact=exact, structures=tuple(per_scale),
-                              p_max=p_max)
-                 for exact, per_scale in zip((True, False), zip(*structs)))
+    built = {exact: PromishIndex(z=z, w0=float(w0), n_scales=n_scales,
+                                 exact=exact, structures=tuple(per_scale),
+                                 p_max=p_max)
+             for exact, per_scale in zip(flavours, zip(*structs))}
+    return built.get(True), built.get(False)

@@ -214,7 +214,8 @@ def pair_counts(adj: np.ndarray, groups: list[np.ndarray]) -> np.ndarray:
 
 def _frontier_tuples(adj: np.ndarray, ordered_groups: list[np.ndarray],
                      limit: int, pts: np.ndarray | None = None,
-                     thr: float = np.inf, d2: np.ndarray | None = None
+                     thr: float = np.inf, d2: np.ndarray | None = None,
+                     w: np.ndarray | None = None
                      ) -> tuple[np.ndarray, np.ndarray | None] | None:
     """Vectorized Alg. 4: expand candidate prefixes group-by-group over the
     join adjacency. Each frontier row keeps the bitwise-AND of its members'
@@ -233,6 +234,13 @@ def _frontier_tuples(adj: np.ndarray, ordered_groups: list[np.ndarray],
     subset) replaces the per-extension einsum with a table gather — cheaper
     than recomputing coordinate differences whenever total candidate pairs
     exceed the n^2 build cost, which the caller decides by subset size.
+
+    ``w`` (per-row weights for the streaming ``pts`` path; a weighted caller
+    using ``d2`` pre-scales the table instead) folds flexible-semantics
+    keyword weights into the refinement: each squared pair distance is
+    multiplied by the pair's weight product before the max/threshold, so the
+    returned diameters are weighted costs — identical arithmetic to the
+    pre-scaled table and the oracle.
 
     Returns ``(tuples (T, q), diams (T,) | None)``, or None once the frontier
     exceeds ``limit`` (caller falls back to the pruned recursion)."""
@@ -253,7 +261,10 @@ def _frontier_tuples(adj: np.ndarray, ordered_groups: list[np.ndarray],
                 d2new = d2[prefix[fi], cand[:, None]].max(axis=1)   # (C, i) -> (C,)
             else:
                 diff = pts[prefix[fi]] - pts[cand][:, None, :]      # (C, i, d)
-                d2new = np.einsum("cid,cid->ci", diff, diff).max(axis=1)
+                d2new = np.einsum("cid,cid->ci", diff, diff)
+                if w is not None:
+                    d2new = d2new * (w[prefix[fi]] * w[cand][:, None])
+                d2new = d2new.max(axis=1)
             d2new = np.maximum(d2new, d2max[fi])
             keep = d2new <= thr2
             fi, cand, d2max = fi[keep], cand[keep], d2new[keep]
@@ -376,7 +387,8 @@ def enumerate_with_distances(f_ids: np.ndarray, gl: list[np.ndarray],
                              pq: TopK, dist: np.ndarray, *,
                              slack: float = 0.0,
                              rescore: bool = False,
-                             frontier_limit: int = DEFAULT_FRONTIER_LIMIT) -> int:
+                             frontier_limit: int = DEFAULT_FRONTIER_LIMIT,
+                             weights: np.ndarray | None = None) -> int:
     """Host enumeration over a dense self-distance block ``dist``.
 
     Packs the join mask at the *current* ``r_k + slack`` and runs the
@@ -386,6 +398,13 @@ def enumerate_with_distances(f_ids: np.ndarray, gl: list[np.ndarray],
     admit *extra* work, never wrong results. Mutates ``pq``; returns the
     number of candidate tuples fully materialised (the N_p statistic of
     §VII).
+
+    ``weights`` ((N,) float64 per-point keyword weights, all >= 1) switches
+    the objective to the weighted cost: the *geometric* ``dist``-derived
+    mask keeps pruning (it is a superset of the weighted join — weighted
+    cost dominates geometric diameter), while settlement runs through
+    :func:`_enumerate_weighted`'s float64 weighted tables, exactly like the
+    mask path.
     """
     q = len(query)
     if q == 1:
@@ -403,6 +422,9 @@ def enumerate_with_distances(f_ids: np.ndarray, gl: list[np.ndarray],
     order = greedy_group_order(pair_counts(adj, gl))
     ordered_groups = [gl[i] for i in order]
 
+    if weights is not None:
+        return _enumerate_weighted(f_ids, adj, ordered_groups, query,
+                                   dataset, pq, weights, frontier_limit)
     out = _frontier_tuples(adj, ordered_groups, frontier_limit)
     if out is None:
         return _enumerate_recursive(f_ids, ordered_groups, query, dataset,
@@ -440,11 +462,45 @@ def _sq_dists_f64(pts: np.ndarray) -> np.ndarray:
     return d2
 
 
+def _enumerate_weighted(f_ids: np.ndarray, adj: np.ndarray,
+                        ordered_groups: list[np.ndarray],
+                        query: Sequence[int], dataset: KeywordDataset,
+                        pq: TopK, weights: np.ndarray,
+                        frontier_limit: int) -> int:
+    """Weighted-cost settlement over a *geometric* adjacency superset.
+
+    ``adj`` was packed at the geometric pruning radius; with all weights
+    >= 1 the weighted cost dominates the geometric diameter, so every
+    weighted-joining pair is present and the mask only over-admits. The
+    float64 squared-distance tables are pre-scaled by the pair weight
+    product (:func:`repro_torch.core.semantics.weighted_pair_sq`
+    arithmetic), so the frontier's refine-at-live-r_k and the recursion
+    fallback both prune and settle directly in weighted cost."""
+    pts = np.asarray(dataset.points[f_ids], dtype=np.float64)
+    wloc = np.asarray(weights, dtype=np.float64)[f_ids]
+    d2 = None
+    if len(f_ids) <= _D2_TABLE_MAX_N:
+        d2 = _sq_dists_f64(pts) * (wloc[:, None] * wloc[None, :])
+    out = _frontier_tuples(adj, ordered_groups, frontier_limit,
+                           pts=None if d2 is not None else pts,
+                           thr=pq.kth_diameter(), d2=d2,
+                           w=None if d2 is not None else wloc)
+    if out is None:
+        if d2 is None:
+            d2 = _sq_dists_f64(pts) * (wloc[:, None] * wloc[None, :])
+        return _enumerate_recursive(f_ids, ordered_groups, query, dataset,
+                                    pq, np.sqrt(d2), 0.0, False)
+    tuples, diams = out
+    _offer_tuples(tuples, diams, f_ids, query, dataset, pq)
+    return len(tuples)
+
+
 def enumerate_with_block(f_ids: np.ndarray, gl: list[np.ndarray],
                          query: Sequence[int], dataset: KeywordDataset,
                          pq: TopK, block, *,
                          frontier_limit: int = DEFAULT_FRONTIER_LIMIT,
-                         timers: dict | None = None) -> int:
+                         timers: dict | None = None,
+                         weights: np.ndarray | None = None) -> int:
     """Host enumeration over a backend ``DistanceBlock``.
 
     Dense blocks re-pack the mask at the live r_k; mask-only device blocks
@@ -464,11 +520,18 @@ def enumerate_with_block(f_ids: np.ndarray, gl: list[np.ndarray],
     ``timers`` (optional dict) accumulates ``rescore_s``: wall time in the
     float64 settlement of surviving tuples (table build + refine/recursion),
     the cascade's exact tier.
+
+    ``weights`` ((N,) per-point keyword weights, all >= 1) routes settlement
+    through :func:`_enumerate_weighted` — the geometric mask stays a valid
+    superset of the weighted join, all the short-circuits below (diagonal
+    bound, singleton scan) are weight-invariant, and the unweighted path is
+    byte-identical to before.
     """
     if block.dist is not None:
         return enumerate_with_distances(
             f_ids, gl, query, dataset, pq, block.dist, slack=block.slack,
-            rescore=block.rescore, frontier_limit=frontier_limit)
+            rescore=block.rescore, frontier_limit=frontier_limit,
+            weights=weights)
 
     q = len(query)
     if q == 1:
@@ -519,6 +582,13 @@ def enumerate_with_block(f_ids: np.ndarray, gl: list[np.ndarray],
     order = greedy_group_order(pair_counts(adj, gl))
     ordered_groups = [gl[i] for i in order]
     t0 = time.perf_counter() if timers is not None else 0.0
+    if weights is not None:
+        explored = _enumerate_weighted(f_ids, adj, ordered_groups, query,
+                                       dataset, pq, weights, frontier_limit)
+        if timers is not None:
+            timers["rescore_s"] = timers.get("rescore_s", 0.0) \
+                + time.perf_counter() - t0
+        return explored
     pts = np.asarray(dataset.points[f_ids], dtype=np.float64)
     d2 = _sq_dists_f64(pts) if n_adj <= _D2_TABLE_MAX_N else None
     # The mask prunes at the (stale) dispatch radius; the float64 refine
@@ -549,15 +619,21 @@ def enumerate_with_block(f_ids: np.ndarray, gl: list[np.ndarray],
 
 def search_in_subset(f_ids: np.ndarray, query: Sequence[int],
                      dataset: KeywordDataset, pq: TopK,
-                     distance_fn: DistanceFn = pairwise_l2_numpy) -> int:
+                     distance_fn: DistanceFn = pairwise_l2_numpy,
+                     eligible: np.ndarray | None = None,
+                     weights: np.ndarray | None = None) -> int:
     """Algorithms 3+4, both stages fused (the per-query path). Mutates ``pq``;
-    returns the number of candidate tuples fully materialised."""
+    returns the number of candidate tuples fully materialised. ``eligible``
+    applies a filtered query's point-eligibility mask (see
+    :func:`local_groups`); ``weights`` switches settlement to the weighted
+    cost (see :func:`enumerate_with_distances`)."""
     f_ids = np.unique(np.asarray(f_ids, dtype=np.int64))
     if len(f_ids) == 0:
         return 0
-    gl = local_groups(f_ids, query, dataset)
+    gl = local_groups(f_ids, query, dataset, eligible=eligible)
     if gl is None:
         return 0
     pts = dataset.points[f_ids]
     dist = distance_fn(pts, pts)                      # (|F'|, |F'|)
-    return enumerate_with_distances(f_ids, gl, query, dataset, pq, dist)
+    return enumerate_with_distances(f_ids, gl, query, dataset, pq, dist,
+                                    weights=weights)

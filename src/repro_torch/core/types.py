@@ -9,6 +9,7 @@ frozen bulk + append-only delta - tombstones.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -115,6 +116,11 @@ class KeywordDataset:
     def points_with(self, keyword: int) -> np.ndarray:
         """I_kp lookup: ids of points tagged with ``keyword``."""
         return self.ikp.row(keyword)
+
+    def has_keyword(self, point_id: int, keyword: int) -> bool:
+        row = self.kw.row(point_id)
+        j = np.searchsorted(row, keyword)
+        return bool(j < len(row) and row[j] == keyword)
 
     def attr_column(self, name: str) -> np.ndarray:
         """(N,) attribute column for predicate evaluation."""
@@ -535,10 +541,16 @@ class StreamingCorpus:
 @dataclasses.dataclass(frozen=True)
 class Candidate:
     """A query result: a minimal point set covering Q, ranked by diameter then
-    cardinality (the paper's tie-break)."""
+    cardinality (the paper's tie-break).
+
+    Under flexible semantics (``core.semantics``) ``diameter`` holds the
+    *weighted* cost — identical to the geometric diameter with unit weights —
+    and scored mode stamps ``score`` (None everywhere else, so the classic
+    result shape is unchanged)."""
 
     ids: tuple[int, ...]          # sorted, unique point ids
     diameter: float
+    score: float | None = None
 
     def key(self) -> tuple[float, int, tuple[int, ...]]:
         return (self.diameter, len(self.ids), self.ids)
@@ -550,12 +562,22 @@ class TopK:
     ``kth_diameter`` is +inf until k results exist — ProMiSH-E's k sentinel
     entries of diameter +inf and ProMiSH-A's initially empty queue behave the
     same, so one queue serves both.
+
+    ``tie_open=True`` (flexible-semantics queues only) inflates the reported
+    k-th diameter by one ulp. The enumeration gates prune with strict
+    ``diam < r_k`` comparisons, which in classic mode never drops a result.
+    m-of-k coverage admits many *equal-cost* candidates (cost-0 singletons
+    especially), where a strict gate would discard a late-arriving equal
+    whose (cost, cardinality, ids) key beats the incumbent; the one-ulp
+    inflation lets exact ties through to ``offer``, whose total-order key
+    settles them.
     """
 
-    def __init__(self, k: int):
+    def __init__(self, k: int, tie_open: bool = False):
         self.k = int(k)
         self._items: list[Candidate] = []
         self._seen: set[tuple[int, ...]] = set()
+        self._tie_open = tie_open
 
     def __len__(self) -> int:
         return len(self._items)
@@ -567,7 +589,8 @@ class TopK:
     def kth_diameter(self) -> float:
         if len(self._items) < self.k:
             return float("inf")
-        return self._items[self.k - 1].diameter
+        kth = self._items[self.k - 1].diameter
+        return math.nextafter(kth, math.inf) if self._tie_open else kth
 
     def offer(self, cand: Candidate) -> bool:
         """Insert if it improves the top-k; dedup by point-id set."""
@@ -578,6 +601,79 @@ class TopK:
         self._items.append(cand)
         self._seen.add(cand.ids)
         self._items.sort(key=Candidate.key)
+        if len(self._items) > self.k:
+            drop = self._items.pop()
+            self._seen.discard(drop.ids)
+        return True
+
+    def full(self) -> bool:
+        return len(self._items) >= self.k
+
+
+class ScoredTopK:
+    """Scored-mode priority queue: rank by ``score = coverage / (1 + alpha *
+    cost)`` — descending score, then the classic (cost, cardinality, ids)
+    tie-break. Duck-types :class:`TopK` (``offer`` / ``kth_diameter`` /
+    ``full`` / ``items``) so every search loop and enumeration stage runs
+    unchanged.
+
+    ``kth_diameter`` converts the k-th score back into the largest cost any
+    still-admissible candidate could have: coverage is at most
+    ``total_weight``, so a candidate beats the k-th score only if ``cost <=
+    (total_weight / kth_score - 1) / alpha``. The bound is nudged one ulp up
+    so equal-score candidates (which can still win on the tie-break) survive
+    the strict ``<`` prefilters. Lemma-2 termination stays sound: weighted
+    cost dominates geometric diameter (weights >= 1).
+
+    Offers arrive as plain ``Candidate(ids, cost)``; the queue computes the
+    score itself (``coverage`` is the semantics-supplied ids -> covered-weight
+    function) and stamps it on the stored candidate.
+    """
+
+    def __init__(self, k: int, *, total_weight: float, alpha: float,
+                 coverage):
+        self.k = int(k)
+        self.total_weight = float(total_weight)
+        self.alpha = float(alpha)
+        self._coverage = coverage
+        self._items: list[Candidate] = []
+        self._seen: set[tuple[int, ...]] = set()
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    @property
+    def items(self) -> list[Candidate]:
+        return list(self._items)
+
+    @staticmethod
+    def _key(cand: Candidate) -> tuple:
+        return (-cand.score, cand.diameter, len(cand.ids), cand.ids)
+
+    def kth_diameter(self) -> float:
+        if len(self._items) < self.k:
+            return float("inf")
+        kth = self._items[self.k - 1].score
+        if kth <= 0.0:
+            return float("inf")
+        bound = (self.total_weight / kth - 1.0) / self.alpha
+        return math.nextafter(max(bound, 0.0), math.inf)
+
+    def offer(self, cand: Candidate) -> bool:
+        """Insert if it improves the top-k; dedup by point-id set. The score
+        is derived here, so the candidate's cost (``diameter``) is all the
+        enumeration has to settle."""
+        if cand.ids in self._seen:
+            return False
+        cov = float(self._coverage(cand.ids))
+        cand = dataclasses.replace(
+            cand, score=cov / (1.0 + self.alpha * cand.diameter))
+        if len(self._items) >= self.k \
+                and self._key(cand) >= self._key(self._items[self.k - 1]):
+            return False
+        self._items.append(cand)
+        self._seen.add(cand.ids)
+        self._items.sort(key=self._key)
         if len(self._items) > self.k:
             drop = self._items.pop()
             self._seen.discard(drop.ids)

@@ -1,7 +1,7 @@
 // Threshold-join kernels for Hopper (sm_90a): the batched fp32 self-join with
-// a packed adjacency mask (K1), its bf16 coarse-count twin (K2), the single
-// (M, d) x (N, d) join (K3), and the batched self-join with the dense block
-// and per-tile counts (K4).
+// a packed adjacency mask (K1), its bf16 and int8 coarse-count twins (K2,
+// K2i), the single (M, d) x (N, d) join (K3), and the batched self-join with
+// the dense block and per-tile counts (K4).
 //
 // Replaces the Pallas TPU kernels of the reference package's
 // kernels/pairwise_l2.py:
@@ -9,6 +9,8 @@
 //                           ops._fold_eligibility epilogue)
 //   join_batched_prune   <- pairwise_l2_join_batched_prune (its dense 0/1
 //                           eligibility row arrives as K1's packed words)
+//   join_batched_prune_int8 <- ops._xla_join_batched_counts(dtype="int8")
+//                           (XLA code in the reference, no pallas_call)
 //   pairwise_join        <- pairwise_l2_join
 //   join_batched_tiles   <- pairwise_l2_join_batched
 //
@@ -118,6 +120,7 @@
 
 #include <algorithm>
 #include <cfloat>
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
@@ -769,6 +772,224 @@ prune_join_kernel(const float* __restrict__ x,
   }
 }
 
+// ---- K2i: int8 coarse counts on the tensor cores --------------------------
+//
+// The reference's int8 arm of the prune tier (ops._xla_join_batched_counts
+// with dtype "int8", XLA code there, no pallas_call). Three launches a call:
+//   int8_maxabs_kernel   each subset's largest |x| over its whole padded
+//                        (P, d) block, as fp32 bits by atomicMax (|x| >= 0
+//                        orders as its bits);
+//   int8_quantize_kernel q = round_half_even(x * scale) as int8, a warp a
+//                        row, into rows of dq = ceil(d / 128) * 128 bytes
+//                        (zeros past d), and each row's exact int32 norm;
+//   prune_int8_kernel    K2's triangle walk and prefix table; per 64 x 64
+//                        tile and 128-feature panel the row and column
+//                        points' int8 rows are copied as 16-byte chunks into
+//                        128-byte swizzled K-major panels, and up to four
+//                        wgmma.m64n64k32.s32.s8.s8 sum the exact int32
+//                        Gram; the epilogue compares sq = n_i + n_j - 2 g
+//                        with the integer threshold and counts as K2 does.
+// scale = 127 / max(maxabs, 1e-30) and thr = ceil((r scale + sqrt(d))^2) + 1
+// are fp32 with one rounding an operation (__fdiv_rn, __fmul_rn,
+// __fadd_rn: no contraction into an FMA), so everything but those two
+// roundings is exact and the counts equal kernels.ref's bit for bit.
+// Bound: 2 d int8 operations a distinct live pair at 1,979 TOP/s against
+// the live points' fp32 rows read once at 3.35 TB/s: about half a
+// microsecond each at the main path's (8, 2880, 64), far under three
+// launches' latency. This first design stages synchronously (no loads in
+// flight behind the tensor cores) and passes the int8 block through device
+// memory between launches.
+
+constexpr int QI_K = 128;                  // int8 features a panel
+constexpr int QI_PANEL = ST * QI_K;        // bytes of one int8 panel
+constexpr int QI_SMEM = 1024 + 2 * QI_PANEL + 2 * ST * 4
+                        + (3 * PR_THREADS + 8) * 4;
+constexpr int QI_MAX_THREADS = 256;        // the maxabs pass's block
+
+static_assert(QI_PANEL % 1024 == 0, "panels keep the swizzle's alignment");
+
+__device__ __forceinline__ float int8_scale(unsigned maxbits) {
+  return __fdiv_rn(127.0f, fmaxf(__uint_as_float(maxbits), 1e-30f));
+}
+
+__device__ __forceinline__ int f2i_sat(float v) {
+  if (v >= 2147483648.0f) return INT_MAX;
+  if (v < -2147483648.0f) return INT_MIN;
+  return static_cast<int>(v);
+}
+
+// Grid (S, chunks): block (s, c) folds a strided share of subset s's P d
+// values into maxbits[s]. The caller zeroes maxbits (S,).
+__global__ void __launch_bounds__(QI_MAX_THREADS)
+int8_maxabs_kernel(const float* __restrict__ x, long long n,
+                   unsigned* __restrict__ maxbits) {
+  __shared__ float wmax[QI_MAX_THREADS / 32];
+  const float* xs = x + static_cast<size_t>(blockIdx.x) * n;
+  float m = 0.f;
+  for (long long i = blockIdx.y * static_cast<long long>(blockDim.x)
+                     + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.y) * blockDim.x)
+    m = fmaxf(m, fabsf(__ldg(xs + i)));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < QI_MAX_THREADS / 32; ++w) m = fmaxf(m, wmax[w]);
+    if (m > 0.f) atomicMax(maxbits + blockIdx.x, __float_as_uint(m));
+  }
+}
+
+// A warp a row of the (S, P) rows: q (S, P, dq) int8 and n2 (S, P) int32.
+__global__ void __launch_bounds__(PR_THREADS)
+int8_quantize_kernel(const float* __restrict__ x,
+                     const unsigned* __restrict__ maxbits, int S, int P,
+                     int d, int dq, signed char* __restrict__ q,
+                     int* __restrict__ n2) {
+  const long long row = static_cast<long long>(blockIdx.x) * (PR_THREADS / 32)
+                        + (threadIdx.x >> 5);
+  if (row >= static_cast<long long>(S) * P) return;
+  const int lane = threadIdx.x & 31;
+  const float scale = int8_scale(maxbits[row / P]);
+  const float* src = x + row * d;
+  signed char* dst = q + row * dq;
+  int acc = 0;
+  for (int f = lane; f < dq; f += 32) {
+    const int v = f < d ? __float2int_rn(__fmul_rn(__ldg(src + f), scale)) : 0;
+    dst[f] = static_cast<signed char>(v);
+    acc += v * v;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) n2[row] = acc;
+}
+
+// Rows [p0, p0 + ST) of one subset's int8 block, features [k0, k0 + QI_K),
+// into a 128-byte swizzled K-major panel; rows at or past L stage zeros.
+__device__ __forceinline__ void stage_int8(unsigned char* panel,
+                                           const signed char* __restrict__ qs,
+                                           int p0, int L, int dq, int k0) {
+  for (int e = threadIdx.x; e < ST * 8; e += PR_THREADS) {
+    const int r = e >> 3, c = e & 7;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (p0 + r < L)
+      v = __ldg(reinterpret_cast<const uint4*>(
+          qs + static_cast<size_t>(p0 + r) * dq + k0 + 16 * c));
+    *reinterpret_cast<uint4*>(panel + r * 128 + ((c ^ (r & 7)) << 4)) = v;
+  }
+}
+
+// K2i's join: the caller zeroes counts.
+__global__ void __launch_bounds__(PR_THREADS, PR_MIN_BLOCKS)
+prune_int8_kernel(const signed char* __restrict__ q,
+                  const int* __restrict__ n2,
+                  const unsigned* __restrict__ maxbits,
+                  const int* __restrict__ lengths,
+                  const float* __restrict__ radii,
+                  const int* __restrict__ elig, int S, int P, int d, int dq,
+                  int W, int* __restrict__ counts) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sa = (raw + 1023u) & ~1023u;          // swizzle alignment
+  unsigned char* pa = smem_raw + (sa - raw);
+  unsigned char* pb = pa + QI_PANEL;
+  int* an = reinterpret_cast<int*>(pb + QI_PANEL);      // row norms
+  int* bn = an + ST;                                    // column norms
+  int* table = bn + ST;
+  const RunTable tab{table, table + PR_THREADS + 1,
+                     table + 2 * PR_THREADS + 1};
+
+  const int nt = (P + ST - 1) / ST;
+  const int runs = (nt * (nt + 1) / 2 + PR_RUN - 1) / PR_RUN;
+  const int panels = dq / QI_K, steps = (d + 31) / 32;
+  const float sqrtd = __fsqrt_rn(static_cast<float>(d));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  const int run = S <= PR_SCAN_MAX ? scan_runs(lengths, S, P, tab) : PR_RUN;
+  PruneTile cur;
+  for (int i = blockIdx.x;
+       next_unit(i, lengths, S, P, runs, run, tab, cur);
+       i = cur.i + gridDim.x) {
+    for (;;) {
+      const bool diag = cur.ti == cur.tj;
+      const signed char* qs = q + static_cast<size_t>(cur.s) * P * dq;
+      int acc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[j] = 0;
+      for (int k = 0; k < panels; ++k) {
+        __syncthreads();           // the previous panel's readers are done
+        stage_int8(pa, qs, cur.ti * ST, cur.L, dq, k * QI_K);
+        if (!diag) stage_int8(pb, qs, cur.tj * ST, cur.L, dq, k * QI_K);
+        if (k == 0) {
+          const int p = (tid < ST ? cur.ti : cur.tj) * ST + (tid % ST);
+          (tid < ST ? an : bn)[tid % ST] =
+              p < cur.L ? n2[static_cast<size_t>(cur.s) * P + p] : 0;
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        // a diagonal tile reads panel A as both operands
+        const uint32_t da = sa, db = diag ? sa : sa + QI_PANEL;
+        const int ks = min(QI_K / 32, steps - k * (QI_K / 32));
+        wgmma_fence();
+        for (int kk = 0; kk < ks; ++kk)
+          wgmma_s8_n64(acc, desc_k_major(da + kk * 32),
+                       desc_k_major(db + kk * 32), k > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
+
+      const int* es = elig ? elig + static_cast<size_t>(cur.s) * W : nullptr;
+      const bool interior = es == nullptr && (cur.tj + 1) * ST <= cur.L;
+      const float scale = int8_scale(maxbits[cur.s]);
+      const float rq = __fadd_rn(__fmul_rn(radii[cur.s], scale), sqrtd);
+      const int thr = f2i_sat(__fadd_rn(ceilf(__fmul_rn(rq, rq)), 1.0f));
+      const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+      const int a0 = an[r0], a1 = an[r0 + 8];
+      auto joined = [&](int a, int b, int g) { return a + b - 2 * g <= thr; };
+      int cnt = 0;
+      if (interior) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + c0;
+          cnt += joined(a0, bn[c], acc[4 * j])
+                 + joined(a0, bn[c + 1], acc[4 * j + 1])
+                 + joined(a1, bn[c], acc[4 * j + 2])
+                 + joined(a1, bn[c + 1], acc[4 * j + 3]);
+        }
+      } else {
+        const unsigned long long rl = live_bits(es, cur.ti * ST, cur.L, W);
+        const unsigned long long cl = live_bits(es, cur.tj * ST, cur.L, W);
+        const bool l0 = (rl >> r0) & 1, l1 = (rl >> (r0 + 8)) & 1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + c0;
+          const bool e0 = (cl >> c) & 1, e1 = (cl >> (c + 1)) & 1;
+          cnt += (l0 && e0 && joined(a0, bn[c], acc[4 * j]))
+                 + (l0 && e1 && joined(a0, bn[c + 1], acc[4 * j + 1]))
+                 + (l1 && e0 && joined(a1, bn[c], acc[4 * j + 2]))
+                 + (l1 && e1 && joined(a1, bn[c + 1], acc[4 * j + 3]));
+        }
+      }
+      cnt *= diag ? 1 : 2;                     // and the mirrored half
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 16);
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 8);
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 4);
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 2);
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, 1);
+      if (lane == 0 && cnt) atomicAdd(counts + cur.s, cnt);
+
+      if (cur.t + 1 >= cur.end) break;         // the unit's next tile
+      ++cur.t;
+      if (++cur.ti > cur.tj) {
+        cur.ti = 0;
+        ++cur.tj;
+      }
+    }
+  }
+}
+
 // ---- K3 and K4: 128 x 128 register tiles written out whole ----------------
 
 constexpr int RT = 128;                    // tile rows = tile columns
@@ -1343,15 +1564,17 @@ int triangle_blocks(int S, int P) {
   return static_cast<int>(tiles < resident ? tiles : resident);
 }
 
-// Blocks of a K2 launch: twice as many as the card holds at once (by the
+// Blocks of a K2 or K2i join launch: twice as many as the card holds at
+// once (by the
 // occupancy of its registers and shared memory), so that the hardware's
 // block scheduler evens out the tail of a walk whose live tiles are uneven
 // across blocks; or one per unit of work if there are fewer.
-int prune_blocks(int S, int P) {
-  static int per_sm = 0;               // a property of the kernel: asked once
+// per_sm: the caller's memo of the kernel's occupancy (asked once).
+template <class Kernel>
+int walk_blocks(Kernel kernel, int smem, int S, int P, int& per_sm) {
   if (per_sm == 0)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, prune_join_kernel,
-                                                  PR_THREADS, PR_SMEM);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  PR_THREADS, smem);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1401,9 +1624,40 @@ int join_batched_masked(const float* x, const int* lengths, const float* radii,
 int join_batched_prune(const float* x, const int* lengths, const float* radii,
                        const int* elig, int S, int P, int d, int* counts,
                        void* stream) {
-  prune_join_kernel
-      <<<prune_blocks(S, P), PR_THREADS, PR_SMEM, (cudaStream_t)stream>>>(
-          x, lengths, radii, elig, S, P, d, (P + 31) / 32, counts);
+  static int per_sm = 0;
+  prune_join_kernel<<<walk_blocks(prune_join_kernel, PR_SMEM, S, P, per_sm),
+                      PR_THREADS, PR_SMEM, (cudaStream_t)stream>>>(
+      x, lengths, radii, elig, S, P, d, (P + 31) / 32, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2i: maxbits (S,) and counts zeroed by the caller; q (S, P, dq) int8 and
+// n2 (S, P) int32 are scratch, dq = ceil(d / 128) * 128.
+int join_batched_prune_int8(const float* x, const int* lengths,
+                            const float* radii, const int* elig, int S, int P,
+                            int d, unsigned* maxbits, signed char* q, int* n2,
+                            int* counts, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n = static_cast<long long>(P) * d;
+  const long long per_block = QI_MAX_THREADS * 16;    // values a block folds
+  const long long chunks = (n + per_block - 1) / per_block;
+  int8_maxabs_kernel<<<dim3(S, static_cast<unsigned>(
+                                   std::min(chunks, 1024LL))),
+                       QI_MAX_THREADS, 0, st>>>(x, n, maxbits);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const int dq = (d + QI_K - 1) / QI_K * QI_K;
+  const long long rows = static_cast<long long>(S) * P;
+  const long long qblocks = (rows + PR_THREADS / 32 - 1) / (PR_THREADS / 32);
+  int8_quantize_kernel<<<static_cast<unsigned>(qblocks), PR_THREADS, 0, st>>>(
+      x, maxbits, S, P, d, dq, q, n2);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  static int per_sm = 0;
+  prune_int8_kernel<<<walk_blocks(prune_int8_kernel, QI_SMEM, S, P, per_sm),
+                      PR_THREADS, QI_SMEM, st>>>(
+      q, n2, maxbits, lengths, radii, elig, S, P, d, dq, (P + 31) / 32,
+      counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1432,6 +1686,8 @@ int pairwise_join(const float* a, const float* b, int M, int N, int d, float r,
 }
 
 int join_square_tile() { return ST; }
+// Features of a K2i panel: the caller pads the int8 rows to a multiple.
+int join_int8_panel() { return QI_K; }
 // Dynamic shared memory a K3 or K4 block takes (ptxas reports static only).
 int join_engine_smem() { return RT_SMEM; }
 

@@ -1,12 +1,12 @@
 // Hopper warpgroup matrix-multiply (wgmma) helpers shared by the kernels
-// that feed bf16 tiles from shared memory to the tensor cores: K7
-// (flash_attention.cu) and K2 (pairwise_l2.cu). sm_90a only.
+// that feed bf16 or int8 tiles from shared memory to the tensor cores: K7
+// (flash_attention.cu), K2 and K2i (pairwise_l2.cu). sm_90a only.
 //
-// A tile is a block of 128-byte rows (64 bf16), 128-byte swizzled: 16-byte
-// chunk c of row r sits at chunk c ^ (r & 7) of its row, counted from a
-// 1024-byte aligned base. TMA writes that layout; a kernel that stores the
-// tile itself with generic stores issues fence.proxy.async.shared::cta
-// before a wgmma reads it.
+// A tile is a block of 128-byte rows (64 bf16 or 128 int8), 128-byte
+// swizzled: 16-byte chunk c of row r sits at chunk c ^ (r & 7) of its row,
+// counted from a 1024-byte aligned base. TMA writes that layout; a kernel
+// that stores the tile itself with generic stores issues
+// fence.proxy.async.shared::cta before a wgmma reads it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,6 +55,34 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 64 s32) += A (64 x 32 s8, shared) * B (64 x 32 s8, shared), both
+// K-major (the only layout integer wgmma takes; no scale or transpose
+// operands); scale_d 0 overwrites d. Integer products and sums are exact.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (64 x 64 fp32) += A (64 x 16 bf16, shared) * B (64 x 16 bf16, shared),

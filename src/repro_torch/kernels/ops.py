@@ -9,8 +9,8 @@ fallback from the card to the host.
   * :func:`pairwise_l2_join_batched_masked` — the fp32 masked self-join of a
     batch of padded subsets (the serving hot path), with the optional
     eligibility fold.
-  * :func:`pairwise_l2_join_batched_counts` — the bf16 coarse counts of the
-    cascade's prune tier.
+  * :func:`pairwise_l2_join_batched_counts` — the bf16 (K2) or int8 (K2i)
+    coarse counts of the cascade's prune tier.
   * :func:`pairwise_l2_join` — one (M, d) x (N, d) join.
   * :func:`pairwise_l2_join_batched` — the batched self-join with the dense
     block and per-tile counts (K4; no serving path calls it, as in the
@@ -61,15 +61,24 @@ def pairwise_l2_join_batched_masked(x: torch.Tensor, lengths: torch.Tensor,
 
 def pairwise_l2_join_batched_counts(x: torch.Tensor, lengths: torch.Tensor,
                                     r: torch.Tensor,
-                                    elig: torch.Tensor | None = None
-                                    ) -> torch.Tensor:
-    """Coarse bf16 threshold-join counts (the cascade's tier 0): same batching
+                                    elig: torch.Tensor | None = None, *,
+                                    dtype: str = "bf16") -> torch.Tensor:
+    """Coarse threshold-join counts (the cascade's tier 0): same batching
     and eligibility contract as the masked join, counts (S,) int32 only.
-    Call with the error-widened coarse radii; a subset whose count stays at
-    or below its (eligible) diagonal provably has no off-diagonal fp32
-    pair."""
+    ``dtype`` picks the coarse arithmetic: ``"bf16"`` (K2: coordinates
+    rounded to bf16, fp32 sums) or ``"int8"`` (K2i: per-subset symmetric
+    int8 quantisation, exact int32 norms and Gram, an integer threshold
+    widened by the quantisation error). Call with the error-widened coarse
+    radii; a subset whose count stays at or below its (eligible) diagonal
+    provably has no off-diagonal fp32 pair."""
+    if dtype not in ("bf16", "int8"):
+        raise ValueError(f"unknown prune dtype: {dtype!r}")
     if _route(x) == "cuda":
+        if dtype == "int8":
+            return _cuda.join_batched_prune_int8(x, lengths, r, elig)
         return _cuda.join_batched_prune(x, lengths, r, elig)
+    if dtype == "int8":
+        return ref.join_batched_counts_int8(x, lengths, r, elig)
     return ref.join_batched_counts(x, lengths, r, elig)
 
 

@@ -4,11 +4,10 @@ The library builds at the first call (``kernels.build``) and binds through
 ``ctypes``. Every wrapper checks device, dtype, shape and contiguity,
 allocates its outputs, launches on the current stream, raises on a launch
 error, and adds one to its entry of :data:`launches` for each launch — the
-count a run reads to show that its path went through the kernel (K1 and K2
-also add one to ``<name>_elig`` for a launch given eligibility words). There
-is no
-fallback: these take CUDA tensors only (``kernels.ops`` routes CPU tensors to
-the plain versions in ``kernels.ref``).
+count a run reads to show that its path went through the kernel (K1, K2 and
+K2i also add one to ``<name>_elig`` for a launch given eligibility words).
+There is no fallback: these take CUDA tensors only (``kernels.ops`` routes
+CPU tensors to the plain versions in ``kernels.ref``).
 """
 from __future__ import annotations
 
@@ -21,8 +20,10 @@ from repro_torch.kernels.ref import JOIN_SQUARE_TILE
 
 # Launches per kernel since the last reset_launches().
 launches = {"join_batched_masked": 0, "join_batched_prune": 0,
+            "join_batched_prune_int8": 0,
             "pairwise_join": 0, "join_batched_tiles": 0,
-            "join_batched_masked_elig": 0, "join_batched_prune_elig": 0}
+            "join_batched_masked_elig": 0, "join_batched_prune_elig": 0,
+            "join_batched_prune_int8_elig": 0}
 
 _LIB: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
@@ -43,18 +44,24 @@ def library() -> ctypes.CDLL:
                                             _P, _P, _P]
         lib.join_batched_prune.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
                                            _P]
+        lib.join_batched_prune_int8.argtypes = [_P, _P, _P, _P, _I, _I, _I,
+                                                _P, _P, _P, _P, _P]
         lib.pairwise_join.argtypes = [_P, _P, _I, _I, _I, ctypes.c_float, _I,
                                       _I, _P, _P, _P]
         lib.join_batched_tiles.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
                                            _P, _P, _P]
         for fn in (lib.join_batched_masked, lib.join_batched_prune,
-                   lib.pairwise_join, lib.join_batched_tiles,
-                   lib.join_square_tile):
+                   lib.join_batched_prune_int8, lib.pairwise_join,
+                   lib.join_batched_tiles, lib.join_square_tile,
+                   lib.join_int8_panel):
             fn.restype = _I
         lib.join_square_tile.argtypes = []
+        lib.join_int8_panel.argtypes = []
         if lib.join_square_tile() != JOIN_SQUARE_TILE:
             raise RuntimeError("the kernels' square tile differs from "
                                "kernels.ref's JOIN_SQUARE_TILE")
+        if lib.join_int8_panel() != INT8_PANEL:
+            raise RuntimeError("K2i's panel differs from INT8_PANEL")
         _LIB = lib
     return _LIB
 
@@ -77,13 +84,14 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _launched(name: str, err: int, elig: torch.Tensor | None = None) -> None:
+def _launched(name: str, err: int, elig: torch.Tensor | None = None,
+              kernels: int = 1) -> None:
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    launches[name] += 1
+    launches[name] += kernels
     if elig is not None:
-        launches[name + "_elig"] += 1
+        launches[name + "_elig"] += kernels
 
 
 _MAX_INT32 = 2 ** 31 - 1
@@ -154,6 +162,45 @@ def join_batched_prune(x: torch.Tensor, lengths: torch.Tensor,
                 _ptr(x), _ptr(lengths), _ptr(r), _ptr(elig), s, p, d,
                 _ptr(counts), torch.cuda.current_stream(x.device).cuda_stream)
         _launched("join_batched_prune", err, elig)
+    elif d == 0:
+        raise ValueError("x must have at least one feature")
+    return counts
+
+
+# Widest rows K2i takes: its integer distances n_i + n_j - 2 g reach
+# 4 d 127^2, which must stay in int32 (as the reference's do).
+INT8_MAX_D = (2 ** 31 - 1) // (4 * 127 * 127)
+# int8 features a K2i panel: the quantised rows are padded to a multiple.
+INT8_PANEL = 128
+
+
+def join_batched_prune_int8(x: torch.Tensor, lengths: torch.Tensor,
+                            r: torch.Tensor,
+                            elig: torch.Tensor | None = None) -> torch.Tensor:
+    """CUDA kernel K2i — see ``kernels.ref.join_batched_counts_int8``. One
+    call is three launches on the stream, each counted: each subset's
+    largest magnitude, the int8 quantisation with exact int32 norms (into
+    scratch of S P ceil(d/128) 128 bytes and S P ints), and the join on the
+    tensor cores (``wgmma`` s8 x s8 -> s32) over K2's triangle walk.
+    ``elig`` is K1's packed eligibility words."""
+    s, p, d = _check_batched(x, lengths, r, elig)
+    check_triangle_tiles(p)
+    if d > INT8_MAX_D:
+        raise ValueError(f"d={d} overflows K2i's int32 distances "
+                         f"(at most {INT8_MAX_D} features)")
+    dev = x.device
+    counts = torch.zeros(s, dtype=torch.int32, device=dev)
+    if s and p and d:
+        dq = -(-d // INT8_PANEL) * INT8_PANEL
+        maxbits = torch.zeros(s, dtype=torch.int32, device=dev)
+        q = torch.empty((s, p, dq), dtype=torch.int8, device=dev)
+        n2 = torch.empty((s, p), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = library().join_batched_prune_int8(
+                _ptr(x), _ptr(lengths), _ptr(r), _ptr(elig), s, p, d,
+                _ptr(maxbits), _ptr(q), _ptr(n2), _ptr(counts),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _launched("join_batched_prune_int8", err, elig, kernels=3)
     elif d == 0:
         raise ValueError("x must have at least one feature")
     return counts

@@ -7,7 +7,7 @@ tuple diameters), ``csrc/flash_attention.cu`` (attention) or
 inputs and outputs; ``kernels.ops`` routes a CPU tensor here, and the
 tests and ``chip_smoke.py`` hold the kernels against these. They transcribe
 the reference package's memory-lean formulations (the masked join and the
-bf16 coarse counts).
+bf16 and int8 coarse counts).
 
 Mask words are ``int32`` tensors holding the uint32 bit patterns (PyTorch has
 no shifts or comparisons for uint32 on the CPU). At the host boundary
@@ -108,6 +108,75 @@ def join_batched_counts(x: torch.Tensor, lengths: torch.Tensor,
     _, live = _live_rows(lengths, p, elig)
     r2 = r.float() * r.float()
     joined = (sq <= r2[:, None, None]) & live[:, :, None] & live[:, None, :]
+    return joined.sum(dim=(1, 2), dtype=torch.int32)
+
+
+# Symmetric int8 quantisation's full scale, and the floor of a subset's
+# largest magnitude (an all-zero subset quantises to zeros, not to NaN).
+INT8_LEVELS = 127.0
+INT8_MAXABS_FLOOR = 1e-30
+_I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def int8_scale(maxabs: torch.Tensor) -> torch.Tensor:
+    """Per-subset int8 scale ``127 / max(maxabs, 1e-30)`` in fp32."""
+    m = maxabs.float().clamp_min(INT8_MAXABS_FLOOR)
+    return torch.full_like(m, INT8_LEVELS) / m
+
+
+def int8_threshold(scale: torch.Tensor, r: torch.Tensor, d: int
+                   ) -> torch.Tensor:
+    """Per-subset integer join threshold, in fp32 with one rounding an
+    operation (no fused multiply-add): ``rq = r * scale + sqrt(d)``, ``thr
+    = ceil(rq * rq) + 1``, converted to int32 with saturation. A pair of
+    quantised points joins iff its exact squared integer distance is at
+    most ``thr``: ``|x_i - x_j| >= (|q_i - q_j| - sqrt(d)) / scale`` (half a
+    level of rounding per coordinate and endpoint), and the +1 absorbs the
+    fp32 threshold's rounding, so the count bounds the fp32 join's from
+    above."""
+    rq = r.float() * scale + torch.tensor(float(d), dtype=torch.float32) ** 0.5
+    thr = torch.ceil(rq * rq) + 1.0
+    return thr.double().clamp(_I32_MIN, _I32_MAX).to(torch.int32)
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(S, P, d) fp32 -> q (S, P, d) int32 holding the int8 levels, and each
+    subset's scale (S,) fp32 from its largest magnitude over the whole padded
+    block: ``q = round_half_even(x * scale)``, the fp32 product rounded
+    once."""
+    xf = x.float()
+    maxabs = xf.abs().amax(dim=(1, 2)) if xf.numel() else \
+        torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    scale = int8_scale(maxabs)
+    return torch.round(xf * scale[:, None, None]).to(torch.int32), scale
+
+
+def join_batched_counts_int8(x: torch.Tensor, lengths: torch.Tensor,
+                             r: torch.Tensor,
+                             elig: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """Coarse int8 join counts (kernel ``join_batched_prune_int8``): the
+    reference's int8 arm of the prune tier. Each subset is quantised
+    symmetrically (:func:`quantize_int8`); norms and the Gram term are exact
+    int32, ``sq = n2_i + n2_j - 2 g``, and a pair joins iff ``sq <= thr``
+    (:func:`int8_threshold`). Same x, lengths, r and eligibility words
+    as :func:`join_batched_masked`; returns counts (S,) int32, a superset of
+    the fp32 join's at the same radius. All integer work is exact, so the
+    kernel's counts equal these bit for bit."""
+    s, p, d = x.shape
+    q, scale = quantize_int8(x)
+    thr = int8_threshold(scale, r, d)
+    n2 = (q * q).sum(-1, dtype=torch.int32)                     # (S, P)
+    if q.device.type == "cpu":
+        gram = torch.bmm(q, q.transpose(1, 2))                  # exact int32
+    else:
+        # No integer bmm on the card: float64 holds every partial sum of
+        # int8 products exactly (|g| <= d 127^2 < 2^53), in any order.
+        qd = q.double()
+        gram = torch.bmm(qd, qd.transpose(1, 2)).to(torch.int32)
+    sq = n2[:, :, None] + n2[:, None, :] - 2 * gram
+    _, live = _live_rows(lengths, p, elig)
+    joined = (sq <= thr[:, None, None]) & live[:, :, None] & live[:, None, :]
     return joined.sum(dim=(1, 2), dtype=torch.int32)
 
 

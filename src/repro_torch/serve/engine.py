@@ -53,6 +53,15 @@ mask as eligibility words (K1's fold, K2's on the prune tier) or, at low
 selectivity, packs only the eligible rows — the readback is the unfiltered
 dispatch's packed mask either way. On a multi-tenant corpus a
 tenant-scoped query speaks tenant-local keyword ids.
+
+**Flexible semantics** (``semantics=`` on ``query`` and ``query_batch``, a
+:class:`~repro_torch.core.semantics.QuerySemantics` or its JSON form): m-of-k
+coverage expands each query into its keyword subqueries, which run the same
+plan/dispatch/enumerate loop as execution entries sharing their query's
+queue; keyword weights rescale only the host float64 settlement (the
+device join at the geometric radius stays a superset); scored queues rank by
+coverage over cost. Degenerate semantics give the classic answer exactly;
+the device tier refuses the rest.
 """
 from __future__ import annotations
 
@@ -73,6 +82,7 @@ from repro_torch.core.filters import Filter
 from repro_torch.core.index import (IndexDelta, PromishIndex, absorb_into,
                                     retire_from)
 from repro_torch.core.index_build import BuildStats, build_indices
+from repro_torch.core.semantics import QuerySemantics
 from repro_torch.core.subset_search import enumerate_with_block, local_groups
 from repro_torch.core.types import (Candidate, KeywordDataset,
                                     StreamingCorpus, TopK, make_dataset)
@@ -171,6 +181,9 @@ class PipelineStats:
     filtered_subsets: int = 0
     elig_fold_dispatches: int = 0
     elig_dense_dispatches: int = 0
+    # Flexible semantics: planned subqueries after m-of-k expansion
+    # (== batch_size on a classic batch — one subquery per query).
+    subqueries: int = 0
 
     @property
     def dispatches_per_scale(self) -> list[int]:
@@ -282,8 +295,8 @@ class PreparedCompaction:
     version: tuple[int, int]            # (corpus rows, tombstones) at prepare
     bulk: KeywordDataset
     points_dev: torch.Tensor
-    index_e: PromishIndex
-    index_a: PromishIndex
+    index_e: PromishIndex | None
+    index_a: PromishIndex | None
     live: np.ndarray
     ext: np.ndarray
     build_stats: BuildStats
@@ -302,6 +315,7 @@ class NKSEngine:
                  w0: float | None = None, n_buckets: int | None = None,
                  compact_ratio: float = 0.25, compact_min: int = 4096,
                  auto_compact: bool = True,
+                 build_exact: bool = True, build_approx: bool = True,
                  device: str | torch.device | None = None,
                  _indices: tuple[PromishIndex, PromishIndex] | None = None):
         """Put the corpus on ``device`` (the CUDA card unless the caller
@@ -318,7 +332,10 @@ class NKSEngine:
         ``n_buckets`` is a power of two or below 2^31); after an insert or
         delete, the delta is folded into a fresh bulk index once
         ``delta_points + tombstones >= max(compact_min, compact_ratio * N)``
-        (``auto_compact=False`` leaves compaction to :meth:`compact`)."""
+        (``auto_compact=False`` leaves compaction to :meth:`compact`).
+
+        ``build_exact=False`` / ``build_approx=False`` skip that index (and
+        its streaming delta and rebuilds); its tier then raises."""
         self.device = resolve_device(device)
         self._bulk = dataset
         self.last_batch_stats: PipelineStats | None = None
@@ -333,6 +350,7 @@ class NKSEngine:
         else:
             self.index_e, self.index_a = build_indices(
                 dataset, self.backend._points_dev, stats=self.build_stats,
+                build_exact=build_exact, build_approx=build_approx,
                 **self._build_params)
         # Streaming-ingest state: lazy — a never-mutated engine keeps the
         # frozen KeywordDataset and the classic single-corpus code paths.
@@ -400,8 +418,10 @@ class NKSEngine:
         if self._view is not None:
             return self._view, self._deltas
         view = StreamingCorpus(self._bulk)
-        return view, {"e": IndexDelta(self.index_e, view),
-                      "a": IndexDelta(self.index_a, view)}
+        return view, {key: IndexDelta(index, view)
+                      for key, index in (("e", self.index_e),
+                                         ("a", self.index_a))
+                      if index is not None}
 
     def insert(self, points: np.ndarray,
                keywords: Sequence[Sequence[int]],
@@ -484,8 +504,10 @@ class NKSEngine:
         points_dev = self.backend._points_dev.index_select(
             0, torch.from_numpy(live).to(self.device))
         stats = BuildStats()
-        index_e, index_a = build_indices(bulk, points_dev, stats=stats,
-                                         **self._build_params)
+        index_e, index_a = build_indices(
+            bulk, points_dev, stats=stats,
+            build_exact=self.index_e is not None,
+            build_approx=self.index_a is not None, **self._build_params)
         return PreparedCompaction(
             version=version, bulk=bulk, points_dev=points_dev,
             index_e=index_e, index_a=index_a, live=live,
@@ -598,24 +620,36 @@ class NKSEngine:
         """One query through the per-query search (float64 on the host), or
         one anchor-star dispatch on the engine's device (``tier="device"``).
         A filtered exact or approx query runs the batched pipeline (a batch
-        of one), which threads the eligibility mask through every stage.
-        ``semantics`` (flexible m-of-k semantics) is not ported."""
+        of one), which threads the eligibility mask through every stage, and
+        so does a query under non-trivial ``semantics`` (see
+        :meth:`query_batch`); the device tier refuses those."""
         t0 = time.perf_counter()
-        _refuse_semantics(semantics)
         self._validate_queries([keywords])
         flt = Filter.coerce(filter)
+        sem = QuerySemantics.coerce(semantics)
+        flex = sem is not None and not sem.trivial_for(
+            sorted(set(int(v) for v in keywords)))
+        if tier == "device" and flex:
+            raise ValueError(
+                "device tier does not support flexible semantics; "
+                "use tier='exact' or 'approx'")
         if tier in ("exact", "approx") and (self._streaming_dirty()
-                                            or flt is not None):
+                                            or flt is not None or flex):
             # The per-query searches walk a frozen index; with a live delta
             # the batched pipeline (a batch of one reproduces them exactly)
-            # is the delta-aware path — and the filtered path.
+            # is the delta-aware path — and the filtered path, and the
+            # flexible one (m-of-k expansion, weights and scored queues
+            # live in ``_batch_search``).
             res = self.query_batch([keywords], k=k, tier=tier,
-                                   backend="numpy", filter=flt)[0]
+                                   backend="numpy", filter=flt,
+                                   semantics=sem)[0]
             return dataclasses.replace(res, latency_s=time.perf_counter() - t0)
         if tier == "exact":
-            pq = promish_e.search(self.dataset, self.index_e, keywords, k=k)
+            pq = promish_e.search(self.dataset, self._index(tier), keywords,
+                                  k=k)
         elif tier == "approx":
-            pq = promish_a.search(self.dataset, self.index_a, keywords, k=k)
+            pq = promish_a.search(self.dataset, self._index(tier), keywords,
+                                  k=k)
         elif tier == "device":
             resolved = self._resolve_namespace([keywords], flt)[0]
             eligible = self._eligible(flt)
@@ -628,6 +662,12 @@ class NKSEngine:
             raise ValueError(tier)
         return QueryResult(list(keywords), self._externalize(pq.items),
                            time.perf_counter() - t0, tier)
+
+    def _index(self, tier: str) -> PromishIndex:
+        index = self.index_e if tier == "exact" else self.index_a
+        if index is None:
+            raise ValueError(f"engine built without the {tier!r} index")
+        return index
 
     def _resolve_namespace(self, queries: Sequence[Sequence[int]],
                            flt: Filter | None) -> list[list[int]]:
@@ -699,12 +739,17 @@ class NKSEngine:
                    queries: list[list[int]], pqs: list[TopK],
                    backend: DistanceBackend, stats: PipelineStats,
                    ctx: plan.BatchPlanContext, timers: dict,
-                   eligible: np.ndarray | None = None
+                   eligible: np.ndarray | None = None,
+                   weights: list[np.ndarray | None] | None = None
                    ) -> tuple[int, int, int]:
         """Distance stage + enumeration stage for one batch of subset tasks.
         ``eligible`` is the batch's predicate mask: keyword groups restrict
         to eligible rows (a task whose filtered groups lose a keyword is
         dropped before any pack), and the backend scopes its joins to it.
+        ``weights`` maps each task's ``qidx`` to its query's (N,)
+        keyword-weight vector (or None, unweighted): the dispatch stages are
+        weight-blind (the geometric join is a superset of the weighted one),
+        only host settlement consumes it.
         Returns (tasks_searched, dispatches_issued, join_pairs)."""
         t0 = time.perf_counter()
         prepared = []
@@ -729,25 +774,49 @@ class NKSEngine:
             join_pairs += db.join_count
             stats.candidates_explored += enumerate_with_block(
                 t.f_ids, gl, queries[t.qidx], self.dataset, pqs[t.qidx], db,
-                timers=timers)
+                timers=timers,
+                weights=None if weights is None else weights[t.qidx])
         stats.t_enumerate_s += time.perf_counter() - t1
         return len(prepared), backend.stats.dispatches - d0, join_pairs
 
     def _batch_search(self, queries: list[list[int]], k: int, tier: str,
-                      backend: DistanceBackend, flt: Filter | None = None
+                      backend: DistanceBackend, flt: Filter | None = None,
+                      sem: QuerySemantics | None = None
                       ) -> tuple[list[TopK], PipelineStats]:
         exact = tier == "exact"
-        index = self.index_e if exact else self.index_a
+        index = self._index(tier)
         stats = PipelineStats(batch_size=len(queries), tier=tier,
                               backend=backend.name)
         b0 = dataclasses.replace(backend.stats)
         b0_bins = dict(backend.stats.bin_points)
-        pqs = [TopK(k) for _ in queries]
+        # Flexible semantics: each query's m-of-k subqueries run the
+        # plan/dispatch/enumerate loop as independent *execution* entries
+        # that share the original query's queue (and weight vector) — the
+        # queue's id-set dedup resolves cross-subquery duplicates, since a
+        # candidate's cost and coverage depend only on (ids, Q). A classic
+        # batch (``sem`` None) expands to itself: one execution entry per
+        # query, plain TopK queues, no weights.
+        if sem is None:
+            pqs = [TopK(k) for _ in queries]
+            exec_queries: list[list[int]] = list(queries)
+            exec_orig = list(range(len(queries)))
+            exec_pqs, exec_weights = pqs, None
+        else:
+            pqs = [sem.make_pq(self.dataset, q, k) for q in queries]
+            wvecs = [sem.weight_vector(self.dataset, q) for q in queries]
+            exec_queries, exec_orig = [], []
+            for o, q in enumerate(queries):
+                for sub in sem.expand_subqueries(q):
+                    exec_queries.append(sub)
+                    exec_orig.append(o)
+            exec_pqs = [pqs[o] for o in exec_orig]
+            exec_weights = [wvecs[o] for o in exec_orig]
+        stats.subqueries = len(exec_queries)
         t0 = time.perf_counter()
         # One BatchPlanContext per batch: keyword masks and covering-bucket
         # selections are memoized for the batch's lifetime.
         pctx = plan.BatchPlanContext(self.dataset)
-        bitsets = [pctx.query_bitset(q) for q in queries]
+        bitsets = [pctx.query_bitset(q) for q in exec_queries]
         # Streaming: plan over bulk ∪ delta, tombstones cleared from every
         # bitset (the subsets the backend packs and the enumeration walks
         # then contain live points only).
@@ -766,8 +835,9 @@ class NKSEngine:
             stats.filter_selectivity = round(
                 stats.eligible_points / live, 6) if live else 0.0
         stats.t_plan_s += time.perf_counter() - t0
-        explored = {i: set() for i in range(len(queries))} if exact else None
-        active = list(range(len(queries)))
+        explored = {i: set() for i in range(len(exec_queries))} if exact \
+            else None
+        active = list(range(len(exec_queries)))
         timers = {"rescore_s": 0.0}
 
         for s in range(index.n_scales):
@@ -776,7 +846,7 @@ class NKSEngine:
             sstats = ScaleStats(scale=s, active_queries=len(active))
             pstats = plan.PlanStats()
             t0 = time.perf_counter()
-            tasks = plan.plan_scale(index, s, queries, bitsets, active,
+            tasks = plan.plan_scale(index, s, exec_queries, bitsets, active,
                                     explored, pstats, ctx=pctx, delta=delta,
                                     eligible=eligible)
             stats.t_plan_s += time.perf_counter() - t0
@@ -786,19 +856,26 @@ class NKSEngine:
             stats.filtered_subsets += pstats.filtered_subsets
             sstats.tasks_planned = len(tasks)
             searched, dispatches, pairs = self._run_tasks(
-                tasks, queries, pqs, backend, stats, pctx, timers, eligible)
+                tasks, exec_queries, exec_pqs, backend, stats, pctx, timers,
+                eligible, exec_weights)
             sstats.tasks_searched = searched
             sstats.dispatches = dispatches
             sstats.join_pairs = pairs
             # Per-query termination, exactly as the per-query searches do it:
             # E: Lemma-2 radius test after the scale; A: first full PQ.
+            # Termination is a property of the ORIGINAL query's shared queue,
+            # so one decision per original deactivates all its subqueries.
             still = []
+            done_orig: dict[int, bool] = {}
             for qidx in active:
-                done = pqs[qidx].kth_diameter() <= index.w0 * (2.0 ** (s - 1)) \
-                    if exact else pqs[qidx].full()
-                if done:
-                    sstats.queries_finished += 1
-                else:
+                o = exec_orig[qidx]
+                if o not in done_orig:
+                    done_orig[o] = pqs[o].kth_diameter() \
+                        <= index.w0 * (2.0 ** (s - 1)) if exact \
+                        else pqs[o].full()
+                    if done_orig[o]:
+                        sstats.queries_finished += 1
+                if not done_orig[o]:
                     still.append(qidx)
             active = still
             stats.scales.append(sstats)
@@ -807,7 +884,8 @@ class NKSEngine:
             stats.fallback_queries = len(active)
             tasks = plan.fallback_tasks(bitsets, active, eligible)
             _, stats.fallback_dispatches, _ = self._run_tasks(
-                tasks, queries, pqs, backend, stats, pctx, timers, eligible)
+                tasks, exec_queries, exec_pqs, backend, stats, pctx, timers,
+                eligible, exec_weights)
         stats.t_rescore_s = timers["rescore_s"]
         for f in _DELTA_FIELDS:
             setattr(stats, f, getattr(backend.stats, f) - getattr(b0, f))
@@ -840,10 +918,24 @@ class NKSEngine:
         subsets, the device join is scoped to eligible points (no new D2H),
         and every candidate is drawn from eligible points only. On a
         namespaced multi-tenant corpus a tenant-scoped batch speaks
-        tenant-local keyword ids; results echo them. ``semantics`` (flexible
-        m-of-k semantics) is not ported."""
-        _refuse_semantics(semantics)
+        tenant-local keyword ids; results echo them.
+
+        ``semantics`` (a :class:`~repro_torch.core.semantics.QuerySemantics`
+        or its JSON form ``{"m": ..., "weights": {...}, "score": ...,
+        "alpha": ...}``) applies m-of-k partial coverage, per-keyword weights
+        (tenant-local keys under a tenant filter) and scored ranking to the
+        whole batch. Degenerate semantics (full coverage, unit weights, no
+        scoring) are dropped before planning, so results stay bit-identical
+        to a plain call; the device tier rejects non-trivial semantics."""
         flt = Filter.coerce(filter)
+        sem = QuerySemantics.coerce(semantics)
+        if sem is not None and tier == "device":
+            if any(not sem.trivial_for(sorted(set(int(v) for v in q)))
+                   for q in queries):
+                raise ValueError(
+                    "device tier does not support flexible semantics; "
+                    "use tier='exact' or 'approx'")
+            sem = None
         if tier == "device":
             t0 = time.perf_counter()
             self._validate_queries(queries)
@@ -864,8 +956,21 @@ class NKSEngine:
             raise ValueError(tier)
         t0 = time.perf_counter()
         qlists = self._validate_queries(self._resolve_namespace(queries, flt))
+        if sem is not None:
+            if flt is not None and flt.tenant is not None \
+                    and self.dataset.tenants is not None:
+                # Weight keys speak the same tenant-local ids as the query
+                # keywords — resolve them through the same namespace.
+                ns, tenant = self.dataset.tenants, flt.tenant
+                sem = sem.resolve_keywords(
+                    lambda kw: ns.resolve(tenant, [kw])[0])
+            # Degenerate semantics normalise away entirely: the classic
+            # pipeline below is then byte-for-byte the plain one.
+            if all(sem.trivial_for(q) for q in qlists):
+                sem = None
         pqs, stats = self._batch_search(qlists, k, tier,
-                                        self._resolve_backend(backend), flt)
+                                        self._resolve_backend(backend), flt,
+                                        sem)
         self._record_ingest(stats)
         self.last_batch_stats = stats
         per_q = (time.perf_counter() - t0) / max(len(qlists), 1)
@@ -886,10 +991,3 @@ class NKSEngine:
         if backend == "numpy":
             return NumpyBackend()
         raise ValueError(f"unknown distance backend: {backend!r}")
-
-
-def _refuse_semantics(semantics) -> None:
-    if semantics is not None:
-        raise NotImplementedError(
-            "flexible query semantics (m-of-k coverage, keyword weights, "
-            "scored ranking) are not ported")

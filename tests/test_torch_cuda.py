@@ -990,3 +990,86 @@ def test_cost_model_on_card_measures_both_slopes():
     assert model.dev_cell_s > backend.CELL_FLOOR_S
     assert model.prune_cell_s > backend.CELL_FLOOR_S
     assert model.dev_fixed_s >= 0.0
+
+
+# (S, P, d, lengths): K2i's walk and panels — the path's (8, 2880, 64) with
+# the recorded live lengths, a partial second 128-feature panel (d = 130),
+# the embedded corpus's d = 2304, P off the 64-point tile and lengths at the
+# tile's edges.
+INT8_CASES = [(8, 2880, 64, [2779, 2876, 0, 0, 0, 0, 0, 0]),
+              (2, 300, 130, None), (2, 256, 2304, None),
+              (5, 200, 64, [0, 1, 63, 64, 65]), (4, 97, 17, [97, 96, 33, 0]),
+              (200, 40, 33, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,p,d,lengths", INT8_CASES)
+def test_prune_int8_matches_plain_version_on_card(s, p, d, lengths):
+    """K2i (int8 wgmma, exact int32 sums) against its plain version, with
+    and without eligibility words (one subset wholly ineligible), on padded
+    rows of random values (the scale spans the whole block): counts equal
+    bit for bit, and never below K1's at the same radius."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(s * p + d + 1)
+    x = rng.uniform(-10, 10, (s, p, d)).astype(np.float32)
+    lens = np.array(lengths if lengths else [p] * s, dtype=np.int32)
+    # E|x - y|^2 = 400 d / 6: radii just under it, partial joins at every d
+    radii = (np.sqrt(d * 400 / 6.0) * rng.uniform(0.85, 1.0, size=s)) \
+        .astype(np.float32)
+    el = rng.random((s, p)) < 0.5
+    el[min(1, s - 1)] = False
+    words = torch.from_numpy(pack_join_mask(el).view(np.int32)).to(dev)
+    xt, lt, rt = (torch.from_numpy(a).to(dev) for a in (x, lens, radii))
+    before = pairwise_l2.launches["join_batched_prune_int8"]
+    for w in (None, words):
+        got = pairwise_l2.join_batched_prune_int8(xt, lt, rt, w)
+        want = ref.join_batched_counts_int8(xt, lt, rt, w)
+        _, fp32 = pairwise_l2.join_batched_masked(xt, lt, rt, w)
+        assert got.tolist() == want.tolist()
+        assert bool((got >= fp32).all()), (got.tolist(), fp32.tolist())
+        if w is not None:
+            assert int(got[min(1, s - 1)]) == 0
+    assert pairwise_l2.launches["join_batched_prune_int8"] == before + 6
+    assert all(int(got[i]) == 0 for i, n in enumerate(lens) if n == 0)
+
+
+@pytest.mark.cuda
+def test_prune_int8_zero_and_single_point_subsets_on_card():
+    """All-zero subsets (the scale's 1e-30 floor), single points, a zero
+    radius and an infinite one, and integer coordinates on half levels:
+    the plain version's counts, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dev = torch.device("cuda")
+    s, p, d = 6, 70, 9
+    rng = np.random.default_rng(5)
+    x = np.round(rng.uniform(-4, 4, (s, p, d))).astype(np.float32)
+    x[0] = 0.0
+    x[3, :, 0] = 127.0
+    x[3, ::2, 1] = 0.5
+    x[3, 1::2, 1] = 1.5
+    lens = np.array([70, 1, 0, 70, 17, 70], np.int32)
+    radii = np.array([1.0, 0.0, 3.0, 0.0, np.inf, 2.5], np.float32)
+    xt, lt, rt = (torch.from_numpy(a).to(dev) for a in (x, lens, radii))
+    got = pairwise_l2.join_batched_prune_int8(xt, lt, rt)
+    assert got.tolist() == ref.join_batched_counts_int8(xt, lt, rt).tolist()
+    assert got[0] == 70 * 70 and got[1] == 1 and got[2] == 0
+    assert got[4] == 17 * 17
+
+
+@pytest.mark.cuda
+def test_prune_int8_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dev = torch.device("cuda")
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    r = torch.ones(1, device=dev)
+    with pytest.raises(TypeError):
+        pairwise_l2.join_batched_prune_int8(
+            torch.zeros((1, 4, 2), dtype=torch.float64, device=dev), lens, r)
+    with pytest.raises(ValueError, match="overflows"):
+        pairwise_l2.join_batched_prune_int8(
+            torch.zeros((1, 1, pairwise_l2.INT8_MAX_D + 1), device=dev),
+            lens, r)

@@ -583,9 +583,20 @@ def test_filter_evaluate_ops_match_reference(corpora):
 
 
 def test_semantics_is_not_ported(engines, queries):
-    _, engine = engines
+    """Flexible semantics, once refused here, now run under a filter:
+    ``query_batch`` and ``query`` answer as the reference engine does (the
+    numpy backends bit for bit; ``tests/test_torch_semantics.py`` holds the
+    rest)."""
+    ref_engine, engine = engines
     sem = {"m": 1}
-    with pytest.raises(NotImplementedError, match="semantics"):
-        engine.query_batch(queries[:1], tier="exact", semantics=sem)
-    with pytest.raises(NotImplementedError, match="semantics"):
-        engine.query(queries[0], tier="approx", semantics=sem)
+    flt = _price(0.5)
+    for tier in ("exact", "approx"):
+        want = ref_engine.query_batch(queries[:2], k=2, tier=tier,
+                                      backend="numpy", filter=flt.as_json(),
+                                      semantics=sem)
+        got = engine.query_batch(queries[:2], k=2, tier=tier,
+                                 backend="numpy", filter=flt, semantics=sem)
+        assert _cands(got) == _cands(want), tier
+        one = engine.query(queries[0], k=2, tier=tier, filter=flt,
+                           semantics=sem)
+        assert _cands([one]) == _cands(want[:1]), tier

@@ -372,6 +372,118 @@ def test_pairwise_join_matches_reference(m, n, d, bm, bn):
     assert int(cnt_t.sum()) == int((sq_t.numpy() <= np.float32(r) ** 2).sum())
 
 
+# ------------------------------------------------------- int8 prune arm (K2i)
+INT8_CASES = [(4, 37, 8), (6, 64, 16), (3, 130, 5), (2, 65, 17),
+              (5, 128, 64), (3, 70, 129), (9, 7, 33)]
+
+
+def _int8_want(x, lens, radii, el=None):
+    return np.asarray(jops._xla_join_batched_counts(
+        jnp.asarray(x), jnp.asarray(lens), jnp.asarray(radii),
+        None if el is None else jnp.asarray(el), "int8"))
+
+
+@pytest.mark.parametrize("elig", [False, True])
+@pytest.mark.parametrize("s,p,d", INT8_CASES)
+def test_join_batched_counts_match_reference_int8(s, p, d, elig):
+    """The plain twin of K2i equals the reference's int8 lowering
+    (``_xla_join_batched_counts(dtype="int8")``) exactly — every integer
+    step is exact and the fp32 scale and threshold round once an operation
+    on both sides — with and without eligibility words (the reference's
+    dense row built from the same bits), on padded rows of random values
+    (the scale is taken over the whole padded block), edge lengths and an
+    infinite radius. Counts never fall below the fp32 join's at the same
+    radius (K1's plain version) nor the float64 join's."""
+    x, lens, radii, el = _case(s, p, d, seed=s * 31 + p + d)
+    x -= 50.0                                        # both signs
+    el = el if elig else None
+    words = None if el is None else ref.pack_bits(_t(el))
+    want = _int8_want(x, lens, radii, el)
+    got = ops.pairwise_l2_join_batched_counts(
+        _t(x), _t(lens), _t(radii), words, dtype="int8").numpy()
+    np.testing.assert_array_equal(got, want)
+    _, c_fp32 = ops.pairwise_l2_join_batched_masked(
+        _t(x), _t(lens), _t(radii), words)
+    assert (got >= c_fp32.numpy()).all()
+    for si, (exact, _) in enumerate(_band(x, lens, radii, el)):
+        assert got[si] >= int(exact.sum()), f"subset {si}"
+
+
+def test_join_batched_counts_int8_edge_subsets():
+    """All-zero subsets (the 1e-30 floor of the scale), single points,
+    empty subsets, zero and infinite radii, integer coordinates that
+    quantise onto exact ties (x * scale on a half level): the twin equals
+    the reference bit for bit."""
+    s, p, d = 6, 40, 9
+    rng = np.random.default_rng(5)
+    x = np.round(rng.uniform(-4, 4, (s, p, d))).astype(np.float32)
+    x[0] = 0.0
+    x[3, :, 0] = 127.0                      # scale 1: integers stay put
+    x[3, ::2, 1] = 0.5                      # half levels: round to even
+    x[3, 1::2, 1] = 1.5
+    lens = np.array([40, 1, 0, 40, 17, 40], np.int32)
+    radii = np.array([1.0, 0.0, 3.0, 0.0, np.inf, 2.5], np.float32)
+    want = _int8_want(x, lens, radii)
+    got = ops.pairwise_l2_join_batched_counts(
+        _t(x), _t(lens), _t(radii), dtype="int8").numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == 40 * 40 and got[1] == 1 and got[2] == 0
+    assert got[4] == 17 * 17
+
+
+@pytest.mark.parametrize("seed,r", [(0, 1.0), (1, 7.3), (2, 123.0)])
+def test_join_batched_counts_int8_adversarial_boundary(seed, r):
+    """Pairs within r*(1 +/- k*2^-9) of the threshold, also scaled up to
+    the order of 1e4 (coordinates the int8 levels resolve coarsely): the
+    int8 count at the unwidened radius equals the reference's and never
+    misses a pair at true distance <= r."""
+    d = 8
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-1, 1, d)
+    base /= np.linalg.norm(base)
+    pts = [rng.uniform(-r, r, d).astype(np.float32)]
+    for k in (-4, -1, 0, 1, 4):
+        pts.append((pts[0] + base * r * (1.0 + k * 2.0 ** -9))
+                   .astype(np.float32))
+    x = np.stack(pts)[None].astype(np.float32)
+    x = np.concatenate([x, x * np.float32(100.0)])
+    lens = np.array([x.shape[1]] * 2, np.int32)
+    radii = np.array([r, r * 100.0], np.float32)
+    got = ops.pairwise_l2_join_batched_counts(
+        _t(x), _t(lens), _t(radii), dtype="int8").numpy()
+    np.testing.assert_array_equal(got, _int8_want(x, lens, radii))
+    for si in range(2):
+        pf = x[si].astype(np.float64)
+        d2 = ((pf[:, None] - pf[None, :]) ** 2).sum(-1)
+        exact = int((d2 <= float(radii[si]) ** 2).sum())
+        assert got[si] >= exact, f"subset {si}: {got[si]} < {exact}"
+
+
+def test_int8_scale_threshold_rounds_once_per_operation():
+    """The threshold is fp32 with one rounding an operation: r * scale and
+    + sqrt(d) rounded apart (no fused multiply-add), as the reference's
+    lowering on the CPU computes it."""
+    maxabs = torch.tensor([3.0, 1e-31, 0.7], dtype=torch.float32)
+    r = torch.tensor([2.0, 0.0, 0.123], dtype=torch.float32)
+    scale = ref.int8_scale(maxabs)
+    thr = ref.int8_threshold(scale, r, 17)
+    f = np.float32
+    for i in range(3):
+        sc = f(127.0) / max(f(maxabs[i]), f(1e-30))
+        rq = f(f(r[i]) * sc) + f(np.sqrt(f(17)))
+        assert float(scale[i]) == float(sc)
+        assert int(thr[i]) == int(f(np.ceil(f(rq * rq))) + f(1.0))
+    big = ref.int8_threshold(scale, torch.full((3,), np.inf), 4)
+    assert (big == 2 ** 31 - 1).all()
+
+
+def test_counts_refuse_unknown_dtype():
+    x = torch.zeros((1, 4, 2))
+    with pytest.raises(ValueError, match="prune dtype"):
+        ops.pairwise_l2_join_batched_counts(
+            x, torch.ones(1, dtype=torch.int32), torch.ones(1), dtype="fp8")
+
+
 # ------------------------------------------------------------ routing rules
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers take CUDA tensors only: nothing falls back."""
@@ -382,6 +494,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pairwise_l2.join_batched_masked(x, lens, r)
     with pytest.raises(ValueError, match="CUDA"):
         pairwise_l2.join_batched_prune(x, lens, r)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_l2.join_batched_prune_int8(x, lens, r)
     with pytest.raises(ValueError, match="CUDA"):
         pairwise_l2.pairwise_join(x[0], x[1])
     with pytest.raises(ValueError, match="CUDA"):
