@@ -50,9 +50,7 @@ Phases:
      ties only within TIE_ULPS ulps of the rescored cost, the weighted cost
      of ``brute_force.weighted_set_cost`` for the weighted variant);
      degenerate semantics equal classic bit for bit on every route; the
-     device tier refuses the flexible variants. Past
-     ``--semantics-budget`` seconds the numpy runs take ``--compare``
-     queries (printed).
+     device tier refuses the flexible variants.
   3. Hold each kernel against its plain PyTorch version on the card, on the
      largest input the main path gave it (recorded during phase 2): masks
      may differ only on cells whose float64 squared distance lies within the
@@ -62,9 +60,10 @@ Phases:
      must hold HGMMA, its tensor-core product (``cuobjdump -sass``). K2i
      (the int8 arm) at K2's path input, at the price < 50 input with its
      eligibility words and at a seeded d=2304 input must equal its plain
-     version bit for bit, count at least K1's fp32 counts at the same radius,
-     and its join's SASS must hold IGMMA. Time kernel,
-     plain version and (K3) torch.cdist with CUDA events, and K1-K3 by the
+     version (run on host copies: integer PyTorch on the CPU) bit for bit,
+     count at least K1's fp32 counts at the same radius, and its join's SASS
+     must hold IGMMA. Time kernel, plain version (K2i's on the host's clock)
+     and (K3) torch.cdist with CUDA events, and K1-K3 by the
      fresh-process profiler. [K4] The same on K1's largest input for K4 (the
      dense block and 128 x 128 tile counts, which no served path launches,
      as in the reference: only ``ops.pairwise_l2_join_batched`` calls it),
@@ -255,6 +254,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Milliseconds a call of ``fn`` takes on the host's clock: for a plain
+    version that runs on the CPU only."""
+    ts = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - ts) * 1e3 / reps
 
 
 def profiled(fn, reps: int) -> tuple[dict, float]:
@@ -705,10 +713,14 @@ def prune_int8_row(rec_prune, rec_elig, by_path: dict,
     out = []
     for label, x, lengths, r, words in cases:
         s, p, d = x.shape
+        # The plain version is integer PyTorch on the CPU (the card has no
+        # integer bmm): it takes host copies of the same inputs.
+        host = tuple(t.cpu() if t is not None else None
+                     for t in (x, lengths, r, words))
         k_k = K.join_batched_prune_int8(x, lengths, r, words)
-        k_p = ref.join_batched_counts_int8(x, lengths, r, words)
         _, k1 = K.join_batched_masked(x, lengths, r, words)
-        torch.cuda.synchronize()
+        k_k, k1 = k_k.cpu(), k1.cpu()
+        k_p = ref.join_batched_counts_int8(*host)
         check(bool((k_k == k_p).all()), f"K2i {label}: counts "
               f"{k_k.tolist()} differ from the plain version's "
               f"{k_p.tolist()}")
@@ -723,8 +735,8 @@ def prune_int8_row(rec_prune, rec_elig, by_path: dict,
                     max_abs_err=int((k_k - k_p).abs().max()) if s else 0,
                     ms=cuda_ms(lambda: K.join_batched_prune_int8(
                         x, lengths, r, words), 20),
-                    plain_ms=cuda_ms(lambda: ref.join_batched_counts_int8(
-                        x, lengths, r, words), 3, warmup=1),
+                    plain_ms=host_ms(lambda: ref.join_batched_counts_int8(
+                        *host), 2), plain_on="cpu",
                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
         out.append((case, (x, lengths, r, words)))
     name = "join_batched_prune_int8"
@@ -1259,10 +1271,9 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
     answers cover at least m keywords. Degenerate
     semantics (m=3, empty weights) answer bit for bit as classic on each
     route (over the first ``--compare`` queries), a flexible ``query``
-    answers as its batch of one, and the device
-    tier refuses the flexible variants. Once the phase has run longer than
-    ``--semantics-budget`` seconds, the numpy backend's runs take only the
-    first ``--compare`` queries (printed)."""
+    answers bit for bit as its numpy-backend batch of one and as its row of
+    the numpy backend's whole batch, and the device tier refuses the
+    flexible variants."""
     import numpy as np
     from repro_torch.core.brute_force import weighted_set_cost
     from repro_torch.core.semantics import QuerySemantics
@@ -1275,8 +1286,7 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
                 "weighted": {"weights": {v: 3.0 for v in boosted}},
                 "scored": {"m": 2, "score": True}}
     out = report["semantics"] = {"queries": len(qs), "k": k,
-                                 "boosted": boosted, "runs": {},
-                                 "numpy_queries": {}}
+                                 "boosted": boosted, "runs": {}}
     t_phase = time.perf_counter()
     answers = {}
 
@@ -1288,30 +1298,23 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
         for name, raw in variants.items():
             sem = QuerySemantics.coerce(raw)
             for be in ("torch", "numpy"):
-                batch = qs
-                if be == "numpy" and time.perf_counter() - t_phase \
-                        > args.semantics_budget:
-                    batch = qs[:args.compare]
-                    print(f"[semantics] budget of {args.semantics_budget}s "
-                          f"spent: the numpy backend's {tier} {name} run "
-                          f"takes the first {len(batch)} queries", flush=True)
                 path = f"sem-{tier}-{name}-{be}"
                 answers[(tier, name, be)], wall = drive_path(
                     by_path, path, lambda: engine.query_batch(
-                        batch, k=k, tier=tier, backend=be, semantics=raw))
+                        qs, k=k, tier=tier, backend=be, semantics=raw))
                 st = engine.last_batch_stats
                 n = by_path[path]
                 out["runs"][path] = {
-                    "queries": len(batch), "wall_s": wall,
-                    "qps": len(batch) / wall, "subqueries": st.subqueries,
+                    "queries": len(qs), "wall_s": wall,
+                    "qps": len(qs) / wall, "subqueries": st.subqueries,
                     "phases": st.phases, "cascade": st.cascade,
                     "fallback_queries": st.fallback_queries,
                     "device_bins": st.device_dispatches,
                     "host_bins": st.host_routed_dispatches,
                     "k1_launches": n["join_batched_masked"],
                     "k2_launches": n["join_batched_prune"]}
-                print(f"[semantics] {tier} {name} {be}: {len(batch)} queries "
-                      f"in {wall:.3f}s = {len(batch) / wall:.2f} QPS; "
+                print(f"[semantics] {tier} {name} {be}: {len(qs)} queries "
+                      f"in {wall:.3f}s = {len(qs) / wall:.2f} QPS; "
                       f"subqueries {st.subqueries}; phases {st.phases}; "
                       f"fallback {st.fallback_queries}; device bins "
                       f"{st.device_dispatches}, host bins "
@@ -1321,7 +1324,6 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
                 if be == "numpy":
                     check(not any(n.values()), f"{path} launched kernels: {n}")
             got, want = (answers[(tier, name, b)] for b in ("torch", "numpy"))
-            out["numpy_queries"][f"{tier}-{name}"] = len(want)
             wvecs = {tuple(q): sem.weight_vector(ds, q) if sem else None
                      for q in qs}
             m = sem.m if sem is not None and sem.m is not None else 3
@@ -1334,7 +1336,7 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
                 def score(q, ids):
                     return sem.coverage_fn(ds, q)(ids)
             ties = []
-            diff = answer_diff(got[:len(want)], want, 1e-9, ds, ties,
+            diff = answer_diff(got, want, 1e-9, ds, ties,
                                cost=cost, score=score, partial=m < 3)
             check(diff is None, f"semantics {tier} {name}: torch and numpy "
                   f"backends disagree: {diff}")
@@ -1361,16 +1363,19 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
                                   f"reports {c.diameter}, weighted_set_cost "
                                   f"{w}")
             print(f"[semantics] {tier} {name}: torch equals numpy over "
-                  f"{len(want)} queries ({len(ties)} ties, at most "
+                  f"{len(qs)} queries ({len(ties)} ties, at most "
                   f"{max([t['ulps'] for t in ties], default=0)} ulps apart)",
                   flush=True)
 
     # Degenerate semantics are the classic path, bit for bit, on each route
     # (over the first --compare queries: a batch's answers are per query);
-    # a flexible query() is its batch of one on the numpy backend; the
-    # device tier refuses the flexible variants. qb holds a boosted keyword,
-    # so the weights touch it.
+    # a flexible query() runs as a numpy-backend batch of one (as the
+    # reference's does) and answers as the query's row of the numpy
+    # backend's whole batch (the torch backend's costs may differ from it in
+    # the last bits, hence answer_diff above); the device tier refuses the
+    # flexible variants. qb holds a boosted keyword, so the weights touch it.
     qb = next(q for q in qs if set(q) & set(boosted))
+    ib = qs.index(qb)
     n_deg = min(args.compare, len(qs))
     for tier in ("exact", "approx"):
         for be in ("torch", "numpy"):
@@ -1387,6 +1392,9 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
                                        semantics=variants[name])
             check(rows([one]) == rows(batch),
                   f"query({tier}, {name}) differs from its batch of one")
+            check(rows([one]) == rows([answers[(tier, name, "numpy")][ib]]),
+                  f"query({tier}, {name}) differs from its row of the numpy "
+                  f"backend's batch")
     for name in ("m_of_k", "weighted", "scored"):
         for call in (lambda: engine.query_batch([qb], k=k, tier="device",
                                                 semantics=variants[name]),
@@ -1402,8 +1410,8 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
               f"semantics exact {name}: the torch backend launched no K1")
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"[semantics] degenerate semantics (m=3, no weights) equal classic "
-          f"bit for bit on every route; query() equals its batch of one; the "
-          f"device "
+          f"bit for bit on every route; query() equals its batch of one and "
+          f"its row of the whole batch; the device "
           f"tier refuses m-of-k, weighted and scored; phase "
           f"{out['wall_s']:.1f}s", flush=True)
 
@@ -2886,7 +2894,8 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
             else ""
         print(f"[K2i] {case['case']} {case['shape']} lengths "
               f"{case['lengths']}: {case['ms']:.4f} ms by events, {dev} ms "
-              f"device (3 kernels), plain {case['plain_ms']:.4f} ms, bound "
+              f"device (3 kernels), plain {case['plain_ms']:.4f} ms (CPU), "
+              f"bound "
               f"{case['bound_ms']:.5f} ms ({case['bound_by']}{share}); counts "
               f"{case['counts']} (K1 {case['k1_counts']}); SASS "
               f"{k2i['sass']}; launches {k2i['launches_by_path']}",
@@ -2931,9 +2940,6 @@ def main() -> int:
                     help="points deleted there, half bulk and half delta")
     ap.add_argument("--tenant-points", type=int, default=50_000,
                     help="points per tenant of the tenant-scoped check")
-    ap.add_argument("--semantics-budget", type=float, default=240.0,
-                    help="seconds of the semantics phase after which the "
-                         "numpy backend takes only --compare queries")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                           / "chip_smoke.json"))

@@ -162,18 +162,13 @@ def join_batched_counts_int8(x: torch.Tensor, lengths: torch.Tensor,
     (:func:`int8_threshold`). Same x, lengths, r and eligibility words
     as :func:`join_batched_masked`; returns counts (S,) int32, a superset of
     the fp32 join's at the same radius. All integer work is exact, so the
-    kernel's counts equal these bit for bit."""
+    kernel's counts equal these bit for bit. CPU tensors only: the card has
+    no integer bmm."""
     s, p, d = x.shape
     q, scale = quantize_int8(x)
     thr = int8_threshold(scale, r, d)
     n2 = (q * q).sum(-1, dtype=torch.int32)                     # (S, P)
-    if q.device.type == "cpu":
-        gram = torch.bmm(q, q.transpose(1, 2))                  # exact int32
-    else:
-        # No integer bmm on the card: float64 holds every partial sum of
-        # int8 products exactly (|g| <= d 127^2 < 2^53), in any order.
-        qd = q.double()
-        gram = torch.bmm(qd, qd.transpose(1, 2)).to(torch.int32)
+    gram = torch.bmm(q, q.transpose(1, 2))                      # exact int32
     sq = n2[:, :, None] + n2[:, None, :] - 2 * gram
     _, live = _live_rows(lengths, p, elig)
     joined = (sq <= thr[:, None, None]) & live[:, :, None] & live[:, None, :]

@@ -1021,11 +1021,13 @@ def test_prune_int8_matches_plain_version_on_card(s, p, d, lengths):
     el = rng.random((s, p)) < 0.5
     el[min(1, s - 1)] = False
     words = torch.from_numpy(pack_join_mask(el).view(np.int32)).to(dev)
-    xt, lt, rt = (torch.from_numpy(a).to(dev) for a in (x, lens, radii))
+    x_h, l_h, r_h = (torch.from_numpy(a) for a in (x, lens, radii))
+    xt, lt, rt = (t.to(dev) for t in (x_h, l_h, r_h))
     before = pairwise_l2.launches["join_batched_prune_int8"]
     for w in (None, words):
         got = pairwise_l2.join_batched_prune_int8(xt, lt, rt, w)
-        want = ref.join_batched_counts_int8(xt, lt, rt, w)
+        want = ref.join_batched_counts_int8(
+            x_h, l_h, r_h, None if w is None else w.cpu())
         _, fp32 = pairwise_l2.join_batched_masked(xt, lt, rt, w)
         assert got.tolist() == want.tolist()
         assert bool((got >= fp32).all()), (got.tolist(), fp32.tolist())
@@ -1052,9 +1054,10 @@ def test_prune_int8_zero_and_single_point_subsets_on_card():
     x[3, 1::2, 1] = 1.5
     lens = np.array([70, 1, 0, 70, 17, 70], np.int32)
     radii = np.array([1.0, 0.0, 3.0, 0.0, np.inf, 2.5], np.float32)
-    xt, lt, rt = (torch.from_numpy(a).to(dev) for a in (x, lens, radii))
-    got = pairwise_l2.join_batched_prune_int8(xt, lt, rt)
-    assert got.tolist() == ref.join_batched_counts_int8(xt, lt, rt).tolist()
+    x_h, l_h, r_h = (torch.from_numpy(a) for a in (x, lens, radii))
+    got = pairwise_l2.join_batched_prune_int8(
+        *(t.to(dev) for t in (x_h, l_h, r_h)))
+    assert got.tolist() == ref.join_batched_counts_int8(x_h, l_h, r_h).tolist()
     assert got[0] == 70 * 70 and got[1] == 1 and got[2] == 0
     assert got[4] == 17 * 17
 

@@ -583,10 +583,12 @@ def test_filter_evaluate_ops_match_reference(corpora):
 
 
 def test_semantics_is_not_ported(engines, queries):
-    """Flexible semantics, once refused here, now run under a filter:
-    ``query_batch`` and ``query`` answer as the reference engine does (the
-    numpy backends bit for bit; ``tests/test_torch_semantics.py`` holds the
-    rest)."""
+    """Semantics under a filter match the reference (the name is historical:
+    the test once held that the port refused ``semantics=``, and keeps its
+    name so that its record carries on). ``query_batch`` and ``query`` with
+    ``semantics=`` under a price filter answer as the reference engine does
+    (the numpy backends bit for bit; ``tests/test_torch_semantics.py`` holds
+    the rest)."""
     ref_engine, engine = engines
     sem = {"m": 1}
     flt = _price(0.5)
