@@ -61,10 +61,14 @@ Phases:
      (the int8 arm) at K2's path input, at the price < 50 input with its
      eligibility words and at a seeded d=2304 input must equal its plain
      version (run on host copies: integer PyTorch on the CPU) bit for bit,
-     count at least K1's fp32 counts at the same radius, and its join's SASS
-     must hold IGMMA. Time kernel, plain version (K2i's on the host's clock)
-     and (K3) torch.cdist with CUDA events, and K1-K3 by the
-     fresh-process profiler. [K4] The same on K1's largest input for K4 (the
+     count at least K1's fp32 counts at the same radius; its join's SASS
+     must hold IGMMA and UTMALDG (TMA) and ptxas must report no spills in
+     its two kernels. Time kernel, plain version (K2i's on the host's
+     clock) and the library yardsticks (K2: bf16 torch.bmm then a count;
+     K2i: the quantisation in torch ops, torch._int_mm a subset, then a
+     count; K3: torch.cdist) with CUDA events, and K1-K3 by the
+     fresh-process profiler (K2i's prep and join kernels also one by
+     one). [K4] The same on K1's largest input for K4 (the
      dense block and 128 x 128 tile counts, which no served path launches,
      as in the reference: only ``ops.pairwise_l2_join_batched`` calls it),
      timed with CUDA events and the profiler beside ``torch.cdist`` and a
@@ -193,7 +197,10 @@ the profiler's events of the kernel equal its launch counter over the same
 calls; otherwise they print as None beside both counts. The kernels' device
 times (K1-K7) are measured at the end, in a fresh child process
 (``--profile-jobs``, given the saved inputs): in this process, after the
-served phases' profiler windows, the profiler misses launches.
+served phases' profiler windows, the profiler misses launches. A kernel
+whose bound is by bytes is timed there with L2 evicted before each call (a
+write of twice the card's L2 between calls, outside the timed kernel), and
+a device time under a kernel's bound fails the run.
 
 Prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when a
@@ -308,17 +315,23 @@ class KernelProfiles:
     :meth:`add` registers a call (a wrapper of ``repro_torch.kernels`` by
     "module.function", its arguments) and the result dicts to fill;
     :meth:`run` saves the arguments under ``build/``, profiles every call in
-    one child and writes ``device`` ({ms, events, launches}) and
-    ``device_ms`` into each of them."""
+    one child and writes ``device`` ({ms, events, launches, evicted, parts})
+    and ``device_ms`` into each of them. A call whose targets are bound by
+    bytes is timed with L2 evicted before each launch (an input that stays
+    in the 50 MB L2 between back-to-back launches read faster than the
+    bound allows); ``parts`` names kernels of a call timed one by one. A
+    device time under a target's bound fails the run."""
 
     def __init__(self):
         self.jobs: dict = {}
         self.targets: dict = {}
 
     def add(self, label: str, fn: str, args: tuple, mark: str, counter: str,
-            reps: int, *targets: dict, **kw) -> None:
+            reps: int, *targets: dict, parts: tuple = (), **kw) -> None:
+        evict = any(t.get("bound_by") == "bytes" for t in targets)
         self.jobs[label] = dict(fn=fn, args=args, kw=kw, mark=mark,
-                                counter=counter, reps=reps)
+                                counter=counter, reps=reps, evict=evict,
+                                parts=parts)
         self.targets[label] = targets
 
     def run(self) -> dict:
@@ -338,9 +351,19 @@ class KernelProfiles:
                 target["device"] = res
                 target["device_ms"] = res["ms"]
             print(f"[profiler] {label}: {res['ms']} ms of device time per "
-                  f"launch ({res['events']} kernel events for "
-                  f"{res['launches']} launches, in a fresh process)",
+                  f"call ({res['events']} kernel events for "
+                  f"{res['launches']} launches, in a fresh process"
+                  f"{', L2 evicted before each call' if res['evicted'] else ''}"
+                  f"){'; ' if res['parts'] else ''}"
+                  f"{', '.join(f'{k} {v} ms' for k, v in res['parts'].items())}",
                   flush=True)
+        for label, res in results.items():
+            for target in self.targets[label]:
+                dev, bnd = res["ms"], target.get("bound_ms")
+                check(dev is None or bnd is None or dev >= bnd,
+                      f"{label}: device time {dev} ms is under its bound "
+                      f"{bnd} ms ({target.get('bound_by')}): an impossible "
+                      f"reading")
         return results
 
 
@@ -355,8 +378,15 @@ def run_profile_jobs(path: str) -> int:
         mod, name = job["fn"].rsplit(".", 1)
         fn = getattr(importlib.import_module(f"repro_torch.kernels.{mod}"),
                      name)
-        out[label] = profiled_ms(lambda: fn(*job["args"], **job["kw"]),
-                                 job["reps"], job["mark"], job["counter"])
+        # the profiler sometimes drops kernel events (its events then differ
+        # from the launch counter and ms is None): up to three attempts
+        for attempt in range(1, 4):
+            res = profiled_ms(lambda: fn(*job["args"], **job["kw"]),
+                              job["reps"], job["mark"], job["counter"],
+                              evict=job["evict"], parts=job["parts"])
+            if res["ms"] is not None:
+                break
+        out[label] = dict(res, attempts=attempt)
     print(json.dumps(out))
     return 0
 
@@ -367,23 +397,39 @@ def marked(table: dict, mark: str) -> tuple[float, int]:
     return sec, sum(v[1] for k, v in table.items() if mark in k)
 
 
-def profiled_ms(fn, reps: int, mark: str, counter: str) -> dict:
+def profiled_ms(fn, reps: int, mark: str, counter: str, evict: bool = False,
+                parts: tuple = ()) -> dict:
     """Mean device time (ms) per call of ``fn`` of the CUDA kernels whose
     name holds ``mark``, from torch.profiler over ``reps`` calls: the kernel
     alone, without the host's launch gaps that CUDA events between
     back-to-back calls also count. The profiler's kernel events are counted
     against the wrapper's launch counter ``counter`` over the same calls;
     where the two differ (the profiler lost launches) ``ms`` is None and
-    both counts are reported."""
+    both counts are reported. With ``evict`` a write of twice the card's L2
+    (a fill kernel, outside the marked ones) precedes each call, so that
+    the call reads its inputs from device memory. ``parts``: kernel names
+    whose device time per call is reported one by one."""
     import torch
+    timed = fn
+    if evict:
+        l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                     0) or 50 << 20
+        scratch = torch.empty(2 * l2, dtype=torch.uint8, device="cuda")
+
+        def timed():
+            scratch.fill_(1)
+            return fn()
     fn()
     torch.cuda.synchronize()
     before = launch_counts()[counter]
-    table, _ = profiled(fn, reps)
+    table, _ = profiled(timed, reps)
     launches = launch_counts()[counter] - before
     sec, events = marked(table, mark)
-    return {"ms": sec * 1e3 / reps if events == launches > 0 else None,
-            "events": events, "launches": launches}
+    ok = events == launches > 0
+    return {"ms": sec * 1e3 / reps if ok else None,
+            "events": events, "launches": launches, "evicted": evict,
+            "parts": {p: marked(table, p)[0] * 1e3 / reps if ok else None
+                      for p in parts}}
 
 
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
@@ -650,6 +696,47 @@ def sass_has(lib: str, kernel: str, op: str) -> bool | None:
     return None if found is None else bool(found)
 
 
+def bf16_library_counts(x, lengths, r, words):
+    """K2's yardstick, a library composition of the same counts: the points
+    rounded to bf16, ``torch.bmm`` (cuBLAS, fp32 accumulation, a bf16
+    product), then the norms, the threshold and the count in torch ops. The
+    product's bf16 rounding may move pairs at the threshold."""
+    import torch
+    from repro_torch.kernels import ref
+    xb = x.to(torch.bfloat16)
+    g = torch.bmm(xb, xb.transpose(1, 2)).float()
+    xf = xb.float()
+    n = (xf * xf).sum(-1)
+    sq = n[:, :, None] + n[:, None, :] - 2.0 * g
+    _, live = ref._live_rows(lengths, x.shape[1], words)
+    joined = (sq <= (r * r)[:, None, None]) & live[:, :, None] \
+        & live[:, None, :]
+    return joined.sum(dim=(1, 2), dtype=torch.int32)
+
+
+def int8_library_counts(x, lengths, r, words):
+    """K2i's yardstick, a library composition of the same counts: the
+    per-subset quantisation in torch ops (``kernels.ref.quantize_int8``,
+    the same roundings), ``torch._int_mm`` (cuBLASLt's int8 product into
+    int32) on each subset's int8 rows, then the threshold count. Raises
+    where ``_int_mm`` refuses the shape."""
+    import torch
+    from repro_torch.kernels import ref
+    s, p, d = x.shape
+    q, scale = ref.quantize_int8(x)
+    q8 = q.to(torch.int8)
+    n2 = (q * q).sum(-1, dtype=torch.int32)
+    thr = ref.int8_threshold(scale, r, d)
+    _, live = ref._live_rows(lengths, p, words)
+    out = []
+    for i in range(s):
+        g = torch._int_mm(q8[i], q8[i].t())
+        sq = n2[i, :, None] + n2[i, None, :] - 2 * g
+        joined = (sq <= thr[i]) & live[i, :, None] & live[i, None, :]
+        out.append(joined.sum(dtype=torch.int32))
+    return torch.stack(out)
+
+
 def prune_row(rec, by_path: dict, profiles: KernelProfiles,
               elig: bool = False) -> dict:
     """K2 at the recorded input (with its eligibility words when ``elig``)
@@ -683,7 +770,13 @@ def prune_row(rec, by_path: dict, profiles: KernelProfiles,
         ms=cuda_ms(lambda: K.join_batched_prune(x, lengths, r, words), 20),
         plain_ms=cuda_ms(lambda: ref.join_batched_counts(x, lengths, r,
                                                          words), 3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: bf16_library_counts(x, lengths, r, words),
+                           5),
+        library="x.to(bfloat16), torch.bmm (cuBLAS) then the norms and a "
+                "count in torch ops",
+        library_count_diff=int((bf16_library_counts(x, lengths, r, words)
+                                - k_k).abs().max()) if s else 0)
     check(row["sass_hgmma"] is not False, "K2's SASS has no HGMMA")
     profiles.add("K2" + (" (elig)" if elig else ""),
                  "pairwise_l2.join_batched_prune", (x, lengths, r, words),
@@ -698,7 +791,10 @@ def prune_int8_row(rec_prune, rec_elig, by_path: dict,
     radii), at the forced price<50 run's K2 input with its eligibility
     words, and at a seeded d=2304 input. Counts equal the plain version's
     bit for bit and are at least K1's fp32 counts at the same radius; the
-    join kernel's SASS holds the tensor cores' integer product (IGMMA)."""
+    join kernel's SASS holds the tensor cores' integer product (IGMMA) and
+    TMA loads (UTMALDG), and ptxas reports no spills in K2i's two kernels.
+    Its yardstick (:func:`int8_library_counts`) is timed where ``_int_mm``
+    takes the shape, and its counts compared."""
     import torch
     from repro_torch.kernels import pairwise_l2 as K
     from repro_torch.kernels import ref
@@ -726,10 +822,20 @@ def prune_int8_row(rec_prune, rec_elig, by_path: dict,
               f"{k_p.tolist()}")
         check(bool((k_k >= k1).all()), f"K2i {label}: counts "
               f"{k_k.tolist()} below K1's {k1.tolist()}")
-        # int8 x int8 products summed in int32: the tensor cores' int8 rate
-        ops_n, in_bytes = self_join_work(x, lengths)
+        # int8 x int8 products summed in int32: the tensor cores' int8 rate;
+        # bytes: each live subset's whole padded block (its scale spans it)
+        ops_n, _ = self_join_work(x, lengths)
+        in_bytes = float((lengths > 0).sum()) * p * d * 4 + s * 8
         extra = words.numel() * 4 if words is not None else 0
         b_ms, b_by = bound(ops_n, in_bytes + extra + s * 4, PEAK_INT8_OPS)
+        try:
+            lib_counts = int8_library_counts(x, lengths, r, words).cpu()
+            lib_ms = cuda_ms(lambda: int8_library_counts(x, lengths, r,
+                                                         words), 5)
+            lib_note = None
+        except RuntimeError as exc:
+            lib_counts, lib_ms = None, None
+            lib_note = f"torch._int_mm refused the shape: {exc}"
         case = dict(case=label, shape=[s, p, d], lengths=lengths.tolist(),
                     counts=k_k.tolist(), k1_counts=k1.tolist(),
                     max_abs_err=int((k_k - k_p).abs().max()) if s else 0,
@@ -737,7 +843,10 @@ def prune_int8_row(rec_prune, rec_elig, by_path: dict,
                         x, lengths, r, words), 20),
                     plain_ms=host_ms(lambda: ref.join_batched_counts_int8(
                         *host), 2), plain_on="cpu",
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    library_counts_equal=None if lib_counts is None
+                    else bool((lib_counts == k_k).all()),
+                    library_note=lib_note)
         out.append((case, (x, lengths, r, words)))
     name = "join_batched_prune_int8"
     row = dict(out[0][0], name=name, route="cuda",
@@ -746,16 +855,24 @@ def prune_int8_row(rec_prune, rec_elig, by_path: dict,
                **row_launches(name, by_path),
                elig_launches_by_path={p: c[name + "_elig"]
                                       for p, c in by_path.items()},
+               library="kernels.ref.quantize_int8 in torch ops, "
+                       "torch._int_mm (cuBLASLt) a subset, then a count",
                sass=sass_ops("pairwise_l2", "prune_int8_kernel",
-                             ("IGMMA", "IMMA", "HGMMA")),
+                             ("IGMMA", "UTMALDG", "IMMA", "HGMMA")),
+               spills=[ln for ln in ptxas_report("pairwise_l2")
+                       if "int8" in ln.split(":")[0] and "spill" in ln],
                cases=[case for case, _ in out])
-    check(row["sass"] is None or bool(row["sass"]),
-          "K2i's SASS has no tensor-core product")
+    check(row["sass"] is None or {"IGMMA", "UTMALDG"} <= set(row["sass"]),
+          f"K2i's join SASS lacks IGMMA or UTMALDG: {row['sass']}")
+    check(bool(row["spills"]) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln
+        for ln in row["spills"]), f"K2i's kernels spill: {row['spills']}")
     for i, (case, args) in enumerate(out):
-        # the kernels' three launches a call: names holding "int8_"
+        # the kernels' two launches a call: names holding "int8_"
         profiles.add(f"K2i {case['case']}",
                      "pairwise_l2.join_batched_prune_int8", args, "int8_",
-                     name, 20, case, *((row,) if i == 0 else ()))
+                     name, 20, case, *((row,) if i == 0 else ()),
+                     parts=("int8_prep_kernel", "prune_int8_kernel"))
     return row
 
 
@@ -1119,17 +1236,24 @@ def serve(args, report: dict) -> tuple:
         be8 = TorchBackend(prune_tier="on", prune_dtype="int8")
         be8.attach(ds.points)
         be8.warmup(ds.dim)
+        calls0 = recs[1].calls
         answers["exact-prune-int8"], wall = drive(
             "exact-prune-int8", lambda: engine.query_batch(
                 queries, k=1, tier="exact", backend=be8))
         st = engine.last_batch_stats
         report["exact-prune-int8"] = batch_report(wall, st)
         n8 = by_path["exact-prune-int8"]
+        report["exact-prune-int8"]["dispatches"] = recs[1].calls - calls0
         print(f"[prune-int8] exact, prune tier forced on in int8: {wall:.3f}s"
               f" = {len(queries) / wall:.2f} QPS; cascade {st.cascade}; K2i "
-              f"launches {n8['join_batched_prune_int8']} (3 kernels a call), "
+              f"launches {n8['join_batched_prune_int8']} for "
+              f"{recs[1].calls - calls0} dispatches (2 kernels a call), "
               f"K2 {n8['join_batched_prune']}, K1 "
               f"{n8['join_batched_masked']}", flush=True)
+        check(n8["join_batched_prune_int8"]
+              == 2 * (recs[1].calls - calls0) > 0,
+              f"K2i launched {n8['join_batched_prune_int8']} kernels for "
+              f"{recs[1].calls - calls0} dispatches, not 2 a dispatch")
         one, _ = drive("pairwise", lambda: forced.pairwise(ds.points[ids],
                                                            ds.points[ids]))
         print(f"[serve] backend.pairwise on {len(ids)} points: launches "
@@ -2851,14 +2975,15 @@ def diameter_row(cases: list, launches_by_path: dict,
 def ptxas_report(name: str) -> list[str]:
     """The register, shared-memory and spill lines nvcc's ``-Xptxas -v``
     printed for the current build of ``csrc/<name>.cu``, each after the
-    kernel it belongs to, and its warnings (C7513: wgmma serialized)."""
+    kernel it belongs to, and its warnings and notes (C7513, C7520: wgmma
+    serialized)."""
     from repro_torch.kernels import build
     log = build.library_path(name).with_suffix(".so.log")
     lines, kernel = [], None
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1] if "'" in line else line
-        elif "registers" in line or "spill" in line \
+        elif "registers" in line or "spill" in line or "(C75" in line \
                 or "warning" in line.lower():
             lines.append(f"{kernel}: {line.strip()}")
     return lines
@@ -2885,17 +3010,24 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
     for r in [rows[1], elig_rows[1]]:
         print(f"[K2] {r['name']} {r['shape']} lengths {r['lengths']}: "
               f"{r['ms']:.4f} ms by events, {r.get('device_ms')} ms device, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SASS HGMMA "
+              f"library {r['library_ms']:.4f} ms ({r['library']}; its counts "
+              f"differ by at most {r['library_count_diff']}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), SASS HGMMA "
               f"{r['sass_hgmma']}", flush=True)
     k2i = next(r for r in rows if r["name"] == "join_batched_prune_int8")
     for case in k2i["cases"]:
         dev = case.get("device_ms")
         share = f", the bound {case['bound_ms'] / dev:.1%} of it" if dev \
             else ""
+        parts = case.get("device", {}).get("parts", {})
+        lib = (f"{case['library_ms']:.4f} ms (counts equal: "
+               f"{case['library_counts_equal']})"
+               if case["library_ms"] is not None else case["library_note"])
         print(f"[K2i] {case['case']} {case['shape']} lengths "
               f"{case['lengths']}: {case['ms']:.4f} ms by events, {dev} ms "
-              f"device (3 kernels), plain {case['plain_ms']:.4f} ms (CPU), "
-              f"bound "
+              f"device (prep {parts.get('int8_prep_kernel')}, join "
+              f"{parts.get('prune_int8_kernel')}), plain "
+              f"{case['plain_ms']:.4f} ms (CPU), library {lib}, bound "
               f"{case['bound_ms']:.5f} ms ({case['bound_by']}{share}); counts "
               f"{case['counts']} (K1 {case['k1_counts']}); SASS "
               f"{k2i['sass']}; launches {k2i['launches_by_path']}",

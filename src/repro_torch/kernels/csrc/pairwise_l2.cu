@@ -115,6 +115,7 @@
 // K1's path input most cells are dead, and the S P^2 4-byte write bounds
 // it.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -124,6 +125,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -415,14 +417,20 @@ constexpr int PR_LANES = 8;                // lanes a row: a 16-byte bf16 chunk
 constexpr int PR_PASSES = ST * PR_LANES / PR_THREADS;   // rows a thread
 constexpr int PR_STEP = PR_THREADS / PR_LANES;          // rows a pass
 constexpr int PR_PANEL = ST * PR_K * 2;    // bytes of one bf16 panel
-// slack, panels A and B, their norms, the walk's prefix table (scan_runs)
-constexpr int PR_SMEM = 1024 + 2 * PR_PANEL + 2 * ST * 4
-                        + (3 * PR_THREADS + 8) * 4;
 constexpr int PR_MIN_BLOCKS = 3;           // 164 registers a thread
 constexpr int PR_RUN = 4;                  // triangle tiles a unit of work
-constexpr int PR_SCAN_MAX = PR_THREADS;    // subsets a walk table holds
 
 static_assert(PR_PANEL % 1024 == 0, "panels keep the swizzle's alignment");
+
+// Ints of a RunTable for a block of NT threads: pre (NT + 1), live, len
+// (NT each), a sum a warp and the total.
+__host__ __device__ constexpr int run_table_ints(int nt) {
+  return 3 * nt + 1 + nt / 32 + 1;
+}
+
+// slack, panels A and B, their norms, the walk's prefix table (scan_runs)
+constexpr int PR_SMEM = 1024 + 2 * PR_PANEL + 2 * ST * 4
+                        + run_table_ints(PR_THREADS) * 4;
 
 // One panel's fp32 coordinates in flight to this thread: pass p holds
 // features k0 + 8 c .. k0 + 8 c + 7 (c = tid % 8) of row tid / 8 + 16 p, as
@@ -498,11 +506,12 @@ __device__ __forceinline__ void store_panel(unsigned char* panel,
   }
 }
 
-// The live points of tile rows (or columns) [p0, p0 + ST) as bits: index <
-// L (p0 < L) and, with eligibility words, eligible.
+// The live points of rows (or columns) [p0, p0 + 64) as bits: index < L
+// and, with eligibility words, eligible.
 __device__ __forceinline__ unsigned long long live_bits(
     const int* __restrict__ es, int p0, int L, int W) {
   const int n = L - p0;
+  if (n <= 0) return 0;
   unsigned long long m = n >= 64 ? ~0ull : (1ull << n) - 1;
   if (es != nullptr) {
     const int w = p0 >> 5;
@@ -518,21 +527,26 @@ __device__ __forceinline__ unsigned long long live_bits(
 // consecutive tiles of the subset's column-by-column enumeration), tile t of
 // the subset and the run's end, (ti, tj) and the subset's length. The live
 // tiles of a subset are the first T(T+1)/2 of its enumeration (T =
-// ceil(L / ST)). A block takes units i = blockIdx.x, + gridDim.x, ...
+// ceil(L / TS), TS the tile's side: ST for K2, QI_T for K2i). A block takes
+// units i = blockIdx.x, + gridDim.x, ...
 struct PruneTile {
   int i, s, t, end, ti, tj, L;
 };
 
-// The walk's table for S <= PR_SCAN_MAX subsets, in shared memory: pre[s]
-// live runs before subset s (pre[S] in all), each subset's live tiles and
-// length. With it unit i is the i-th live run, so that the live runs are
-// shared out evenly whatever the lengths (a batch padded with empty subsets
-// included).
+// The walk's table for S <= NT subsets (NT: the block's threads), in shared
+// memory: pre[s] live runs before subset s (pre[S] in all), each subset's
+// live tiles and length, then the scan's warp sums. With it unit i is the
+// i-th live run, so that the live runs are shared out evenly whatever the
+// lengths (a batch padded with empty subsets included).
 struct RunTable {
   int* pre;
   int* live;
   int* len;
 };
+
+__device__ __forceinline__ RunTable run_table(int* t, int nt) {
+  return RunTable{t, t + nt + 1, t + 2 * nt + 1};
+}
 
 // Block-wide inclusive sum of x over threads (wsum: a word a warp).
 __device__ __forceinline__ int block_scan(int x, int* wsum) {
@@ -549,20 +563,50 @@ __device__ __forceinline__ int block_scan(int x, int* wsum) {
   return x;
 }
 
-// Fills the table and returns the run length: PR_RUN tiles, whose column
+// Fills the table and returns the run length: `run` tiles, whose column
 // panels stay staged, or single tiles where the batch has fewer live tiles
-// than the grid has blocks (runs would then leave blocks idle while others
-// work through several tiles each).
+// than `run_at` (runs would then leave blocks idle while others work through
+// several tiles each). TS: the tile's side; NT: the block's threads.
+template <int TS, int NT>
 __device__ __forceinline__ int scan_runs(const int* __restrict__ lengths,
-                                         int S, int P, RunTable tab) {
+                                         int S, int P, RunTable tab, int run,
+                                         int run_at) {
   const int tid = threadIdx.x;
-  int* wsum = tab.len + PR_THREADS;
+  int* wsum = tab.len + NT;
+  if (S <= 32) {              // one warp, by shuffles: no block-wide scans
+    if (tid < 32) {
+      const int L = tid < S ? min(max(lengths[tid], 0), P) : 0;
+      const int T = (L + TS - 1) / TS, live = T * (T + 1) / 2;
+      auto scan = [&](int x) {
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, x, o);
+          if (tid >= o) x += y;
+        }
+        return x;
+      };
+      const int tiles = __shfl_sync(0xffffffffu, scan(live), 31);
+      const int r = tiles < run_at ? 1 : run;
+      const int x = scan((live + r - 1) / r);
+      if (tid == 0) {
+        tab.pre[0] = 0;
+        wsum[NT / 32] = r;
+      }
+      if (tid < S) {
+        tab.pre[tid + 1] = x;
+        tab.live[tid] = live;
+        tab.len[tid] = L;
+      }
+    }
+    __syncthreads();
+    return wsum[NT / 32];
+  }
   const int L = tid < S ? min(max(lengths[tid], 0), P) : 0;
-  const int T = (L + ST - 1) / ST, live = T * (T + 1) / 2;
+  const int T = (L + TS - 1) / TS, live = T * (T + 1) / 2;
   const int tiles = block_scan(live, wsum);
-  if (tid == PR_THREADS - 1) wsum[4] = tiles;        // the batch's live tiles
+  if (tid == NT - 1) wsum[NT / 32] = tiles;       // the batch's live tiles
   __syncthreads();
-  const int run = wsum[4] >= static_cast<int>(gridDim.x) ? PR_RUN : 1;
+  if (wsum[NT / 32] < run_at) run = 1;
   const int x = block_scan((live + run - 1) / run, wsum);
   if (tid == 0) tab.pre[0] = 0;
   if (tid < S) {
@@ -575,15 +619,17 @@ __device__ __forceinline__ int scan_runs(const int* __restrict__ lengths,
 }
 
 // The block's first live unit at or after index i (stepping by the grid):
-// from the table where there is one, else from the interleaved order i =
-// c S + s over all runs (batches of many subsets have few runs each).
+// from the table where there is one (S <= NT), else from the interleaved
+// order i = c S + s over all runs (batches of many subsets have few runs
+// each).
+template <int TS, int NT>
 __device__ __forceinline__ bool next_unit(int i,
                                           const int* __restrict__ lengths,
                                           int S, int P, int runs, int run,
                                           const RunTable& tab, PruneTile& t) {
   for (;; i += gridDim.x) {
     int s, c, L, live;
-    if (S <= PR_SCAN_MAX) {
+    if (S <= NT) {
       if (i >= tab.pre[S]) return false;
       int lo = 0, hi = S - 1;           // the s with pre[s] <= i < pre[s + 1]
       while (lo < hi) {
@@ -600,7 +646,7 @@ __device__ __forceinline__ bool next_unit(int i,
       s = i % S;
       c = i / S;
       L = min(max(lengths[s], 0), P);
-      const int T = (L + ST - 1) / ST;
+      const int T = (L + TS - 1) / TS;
       live = T * (T + 1) / 2;
       if (c * run >= live) continue;
     }
@@ -639,9 +685,7 @@ prune_join_kernel(const float* __restrict__ x,
   unsigned char* pb = pa + PR_PANEL;
   float* an = reinterpret_cast<float*>(pb + PR_PANEL);  // row norms
   float* bn = an + ST;                                  // column norms
-  int* table = reinterpret_cast<int*>(bn + ST);
-  const RunTable tab{table, table + PR_THREADS + 1,
-                     table + 2 * PR_THREADS + 1};
+  const RunTable tab = run_table(reinterpret_cast<int*>(bn + ST), PR_THREADS);
 
   const int nt = (P + ST - 1) / ST;
   const int runs = (nt * (nt + 1) / 2 + PR_RUN - 1) / PR_RUN;
@@ -650,9 +694,13 @@ prune_join_kernel(const float* __restrict__ x,
                    && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  const int run = S <= PR_SCAN_MAX ? scan_runs(lengths, S, P, tab) : PR_RUN;
+  const int run = S <= PR_THREADS
+      ? scan_runs<ST, PR_THREADS>(lengths, S, P, tab, PR_RUN, gridDim.x)
+      : PR_RUN;
   PruneTile cur;
-  if (!next_unit(blockIdx.x, lengths, S, P, runs, run, tab, cur)) return;
+  if (!next_unit<ST, PR_THREADS>(blockIdx.x, lengths, S, P, runs, run, tab,
+                                 cur))
+    return;
   int k = 0;                                   // the panel of cur
   bool staged = false;                 // cur's column panel is in place
   PanelRegs ra, rb;
@@ -715,8 +763,8 @@ prune_join_kernel(const float* __restrict__ x,
         }
         nstaged = panels == 1 && nxt.tj == cur.tj;
       } else {
-        more = next_unit(cur.i + gridDim.x, lengths, S, P, runs, run, tab,
-                         nxt);
+        more = next_unit<ST, PR_THREADS>(cur.i + gridDim.x, lengths, S, P,
+                                         runs, run, tab, nxt);
       }
     }
     if (more) {
@@ -775,38 +823,75 @@ prune_join_kernel(const float* __restrict__ x,
 // ---- K2i: int8 coarse counts on the tensor cores --------------------------
 //
 // The reference's int8 arm of the prune tier (ops._xla_join_batched_counts
-// with dtype "int8", XLA code there, no pallas_call). Three launches a call:
-//   int8_maxabs_kernel   each subset's largest |x| over its whole padded
-//                        (P, d) block, as fp32 bits by atomicMax (|x| >= 0
-//                        orders as its bits);
-//   int8_quantize_kernel q = round_half_even(x * scale) as int8, a warp a
-//                        row, into rows of dq = ceil(d / 128) * 128 bytes
-//                        (zeros past d), and each row's exact int32 norm;
-//   prune_int8_kernel    K2's triangle walk and prefix table; per 64 x 64
-//                        tile and 128-feature panel the row and column
-//                        points' int8 rows are copied as 16-byte chunks into
-//                        128-byte swizzled K-major panels, and up to four
-//                        wgmma.m64n64k32.s32.s8.s8 sum the exact int32
-//                        Gram; the epilogue compares sq = n_i + n_j - 2 g
-//                        with the integer threshold and counts as K2 does.
+// with dtype "int8", XLA code there, no pallas_call). Two launches a call:
+//   int8_prep_kernel   one cooperative launch on a resident grid. Each
+//                      subset's largest |x| over its whole padded (P, d)
+//                      block, folded into fp32 bits by atomicMax (|x| >= 0
+//                      orders as its bits); one grid-wide barrier; then
+//                      q = round_half_even(x * scale) as int8 into rows of
+//                      `pitch` = ceil(d / 32) * 32 bytes (zeros past d) with
+//                      each row's exact int32 norm, for the live rows only
+//                      (the join masks the others; their norms are 0).
+//                      Subsets with no live point are neither read nor
+//                      written: their counts are 0 whatever their scale.
+//   prune_int8_kernel  K2's triangle walk and prefix table over 128 x 128
+//                      tiles, warp-specialised, one block an SM. A producer
+//                      warp copies the int8 rows (and, with a tile's last
+//                      panel, their norms) by TMA into a ring of QI_STAGES
+//                      row panels and one of column panels, 128 features
+//                      of 128 points each, 128-byte swizzled and K-major,
+//                      guarded by full/empty mbarriers; two consumer
+//                      warpgroups each sum a 64 x 128 half of the exact
+//                      int32 Gram with wgmma.m64n128k32.s32.s8.s8 (the next
+//                      panels' copies in flight) and compare sq = n_i + n_j
+//                      - 2 g with the subset's integer threshold (taken
+//                      once a block), counting as K2 does (the mirrored
+//                      half twice) into per-subset sums in shared memory,
+//                      one global atomic a subset a block. A run's tiles
+//                      of one column share their column panel where
+//                      d <= 128: it is copied once.
 // scale = 127 / max(maxabs, 1e-30) and thr = ceil((r scale + sqrt(d))^2) + 1
 // are fp32 with one rounding an operation (__fdiv_rn, __fmul_rn,
 // __fadd_rn: no contraction into an FMA), so everything but those two
-// roundings is exact and the counts equal kernels.ref's bit for bit.
+// roundings is exact: the counts equal kernels.ref's bit for bit under any
+// tiling.
+// Why two launches: the scale spans the whole padded block, so the int8
+// rows cannot be made while staging (as K2 rounds to bf16) before every
+// block has seen its subset's largest magnitude. Once made, they are the
+// tensor cores' operand type, so TMA feeds them to wgmma with no register
+// pass.
 // Bound: 2 d int8 operations a distinct live pair at 1,979 TOP/s against
-// the live points' fp32 rows read once at 3.35 TB/s: about half a
-// microsecond each at the main path's (8, 2880, 64), far under three
-// launches' latency. This first design stages synchronously (no loads in
-// flight behind the tensor cores) and passes the int8 block through device
-// memory between launches.
+// the live subsets' fp32 blocks read once at 3.35 TB/s: at the main path's
+// (8, 2880, 64) about half a microsecond each, so latency (two launches, a
+// grid barrier, the walk's set-up, a TMA round trip, each tile's epilogue
+// with one tile in flight an SM) is what the time is made of (PERF.md).
 
+constexpr int QI_T = 128;                  // tile rows = tile columns
 constexpr int QI_K = 128;                  // int8 features a panel
-constexpr int QI_PANEL = ST * QI_K;        // bytes of one int8 panel
-constexpr int QI_SMEM = 1024 + 2 * QI_PANEL + 2 * ST * 4
-                        + (3 * PR_THREADS + 8) * 4;
-constexpr int QI_MAX_THREADS = 256;        // the maxabs pass's block
+constexpr int QI_KSTEP = 32;               // int8 features a wgmma k-step
+constexpr int QI_CONSUMERS = 256;          // two warpgroups, 64 rows each
+constexpr int QI_THREADS = QI_CONSUMERS + 32;   // + the producer warp
+constexpr int QI_STAGES = 4;               // panels a ring holds
+constexpr int QI_PANEL = QI_T * QI_K;      // bytes of a panel (16 KB)
+constexpr int QI_NORMS = QI_T * 4;         // bytes of a panel's norms
+constexpr int QI_RUN = 4;                  // triangle tiles a unit of work
+// One block an SM: at two, ptxas allots 96 registers a thread (9 warps a
+// block: 5 on one of the SM's four register quarters) and the 64 int32
+// accumulators spill.
+constexpr int QI_MIN_BLOCKS = 1;
+// slack, the two rings' panels and norms, their full and empty barriers,
+// the walk's table, and a threshold and a count a subset (S <= QI_THREADS)
+constexpr int QI_SMEM = 1024 + 2 * QI_STAGES * (QI_PANEL + QI_NORMS)
+                        + 4 * QI_STAGES * 8
+                        + (run_table_ints(QI_THREADS) + 2 * QI_THREADS) * 4;
+constexpr int QP_THREADS = 256;            // the prep kernel's block
+// Prep blocks an SM: fewer than the 8 that fit shorten its launch and its
+// grid barrier by more than its row pass loses (measured at K2's path input)
+constexpr int QP_BLOCKS_PER_SM = 4;
+constexpr int QP_CHUNK = QP_THREADS * 16;  // values a block folds at a time
 
 static_assert(QI_PANEL % 1024 == 0, "panels keep the swizzle's alignment");
+static_assert(QI_K == 128, "a panel row is one 128-byte swizzle row");
 
 __device__ __forceinline__ float int8_scale(unsigned maxbits) {
   return __fdiv_rn(127.0f, fmaxf(__uint_as_float(maxbits), 1e-30f));
@@ -818,175 +903,377 @@ __device__ __forceinline__ int f2i_sat(float v) {
   return static_cast<int>(v);
 }
 
-// Grid (S, chunks): block (s, c) folds a strided share of subset s's P d
-// values into maxbits[s]. The caller zeroes maxbits (S,).
-__global__ void __launch_bounds__(QI_MAX_THREADS)
-int8_maxabs_kernel(const float* __restrict__ x, long long n,
-                   unsigned* __restrict__ maxbits) {
-  __shared__ float wmax[QI_MAX_THREADS / 32];
-  const float* xs = x + static_cast<size_t>(blockIdx.x) * n;
-  float m = 0.f;
-  for (long long i = blockIdx.y * static_cast<long long>(blockDim.x)
-                     + threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.y) * blockDim.x)
-    m = fmaxf(m, fabsf(__ldg(xs + i)));
+__device__ __forceinline__ int subset_len(const int* __restrict__ lengths,
+                                          int s, int P) {
+  return min(max(lengths[s], 0), P);
+}
+
+// A subset's integer join threshold, ceil((r scale + sqrt(d))^2) + 1, in
+// fp32 with one rounding an operation.
+__device__ __forceinline__ int int8_threshold(unsigned maxbits, float r,
+                                              float sqrtd) {
+  const float rq = __fadd_rn(__fmul_rn(r, int8_scale(maxbits)), sqrtd);
+  return f2i_sat(__fadd_rn(ceilf(__fmul_rn(rq, rq)), 1.0f));
+}
+
+// The caller zeroes maxbits (S,). Writes q (S, P, pitch) int8 and n2 (S, pn)
+// int32 for the subsets with a live point. S P < 2^31 (the launcher checks).
+__global__ void __launch_bounds__(QP_THREADS)
+int8_prep_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                 int S, int P, int d, int pitch, int pn,
+                 unsigned* __restrict__ maxbits, signed char* __restrict__ q,
+                 int* __restrict__ n2) {
+  __shared__ float wmax[QP_THREADS / 32];
+  __shared__ float scale_of[QP_THREADS];  // S <= QP_THREADS: each subset's
+  __shared__ int len_of[QP_THREADS];      // scale and length
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+
+  // 1. Grid-stride over (subset, chunk of QP_CHUNK values): a block folds a
+  // chunk's largest magnitude and adds it by one atomic.
+  const long long n = static_cast<long long>(P) * d;
+  const int per_s = static_cast<int>((n + QP_CHUNK - 1) / QP_CHUNK);
+  const bool vec = aligned && n % 4 == 0;
+  for (int u = blockIdx.x; u < per_s * S; u += gridDim.x) {
+    const int s = u / per_s;
+    if (subset_len(lengths, s, P) == 0) continue;       // block-uniform
+    const float* xs = x + s * n;
+    const long long c0 = static_cast<long long>(u % per_s) * QP_CHUNK;
+    float m = 0.f;
+    if (vec) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+      for (int e = 0; e < 4; ++e) {
+        const long long i = c0 + (e * QP_THREADS + tid) * 4;
+        if (i < n) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(xs + i));
+          m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                             fmaxf(fabsf(v.z), fabsf(v.w))));
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int e = 0; e < 16; ++e) {
+        const long long i = c0 + e * QP_THREADS + tid;
+        if (i < n) m = fmaxf(m, fabsf(__ldg(xs + i)));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) wmax[warp] = m;
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < QP_THREADS / 32; ++w) m = fmaxf(m, wmax[w]);
+      if (m > 0.f) atomicMax(maxbits + s, __float_as_uint(m));
+    }
+    __syncthreads();                              // wmax may be reused
+  }
+
+  cooperative_groups::this_grid().sync();
+
+  const bool small = S <= QP_THREADS;
+  if (small && tid < S) {
+    scale_of[tid] = int8_scale(__ldcg(maxbits + tid));
+    len_of[tid] = subset_len(lengths, tid, P);
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < QI_MAX_THREADS / 32; ++w) m = fmaxf(m, wmax[w]);
-    if (m > 0.f) atomicMax(maxbits + blockIdx.x, __float_as_uint(m));
-  }
-}
-
-// A warp a row of the (S, P) rows: q (S, P, dq) int8 and n2 (S, P) int32.
-__global__ void __launch_bounds__(PR_THREADS)
-int8_quantize_kernel(const float* __restrict__ x,
-                     const unsigned* __restrict__ maxbits, int S, int P,
-                     int d, int dq, signed char* __restrict__ q,
-                     int* __restrict__ n2) {
-  const long long row = static_cast<long long>(blockIdx.x) * (PR_THREADS / 32)
-                        + (threadIdx.x >> 5);
-  if (row >= static_cast<long long>(S) * P) return;
-  const int lane = threadIdx.x & 31;
-  const float scale = int8_scale(maxbits[row / P]);
-  const float* src = x + row * d;
-  signed char* dst = q + row * dq;
-  int acc = 0;
-  for (int f = lane; f < dq; f += 32) {
-    const int v = f < d ? __float2int_rn(__fmul_rn(__ldg(src + f), scale)) : 0;
-    dst[f] = static_cast<signed char>(v);
-    acc += v * v;
-  }
+  // 2. The rows, G lanes a row (a 4-feature word each per pass), 32 / G
+  // rows a warp; each row's norm by a butterfly over its G lanes.
+  const int words = pitch / 4;
+  const int G = words <= 8 ? 8 : words <= 16 ? 16 : 32;
+  const int sub = lane / G, gl = lane % G;
+  const bool vrow = aligned && d % 4 == 0;
+  const int rows = S * P;
+  const int nw = gridDim.x * (QP_THREADS / 32);
+  for (int w = blockIdx.x * (QP_THREADS / 32) + warp; w * (32 / G) < rows;
+       w += nw) {                                    // warp-uniform
+    const int row = w * (32 / G) + sub;
+    const bool ok = row < rows;
+    const int s = ok ? row / P : 0, p = ok ? row - s * P : 0;
+    int acc = 0;
+    if (ok && p < (small ? len_of[s] : subset_len(lengths, s, P))) {
+      const float scale = small ? scale_of[s]
+                                : int8_scale(__ldcg(maxbits + s));
+      const float* src = x + static_cast<long long>(row) * d;
+      unsigned* dst = reinterpret_cast<unsigned*>(
+          q + static_cast<long long>(row) * pitch);
+      for (int wd = gl; wd < words; wd += G) {
+        const int f = 4 * wd;
+        float v[4];
+        if (vrow) {
+          const float4 t = f < d
+              ? __ldg(reinterpret_cast<const float4*>(src + f))
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+          v[0] = t.x;
+          v[1] = t.y;
+          v[2] = t.z;
+          v[3] = t.w;
+        } else {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (lane == 0) n2[row] = acc;
-}
-
-// Rows [p0, p0 + ST) of one subset's int8 block, features [k0, k0 + QI_K),
-// into a 128-byte swizzled K-major panel; rows at or past L stage zeros.
-__device__ __forceinline__ void stage_int8(unsigned char* panel,
-                                           const signed char* __restrict__ qs,
-                                           int p0, int L, int dq, int k0) {
-  for (int e = threadIdx.x; e < ST * 8; e += PR_THREADS) {
-    const int r = e >> 3, c = e & 7;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (p0 + r < L)
-      v = __ldg(reinterpret_cast<const uint4*>(
-          qs + static_cast<size_t>(p0 + r) * dq + k0 + 16 * c));
-    *reinterpret_cast<uint4*>(panel + r * 128 + ((c ^ (r & 7)) << 4)) = v;
+          for (int e = 0; e < 4; ++e)
+            v[e] = f + e < d ? __ldg(src + f + e) : 0.f;
+        }
+        unsigned word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = __float2int_rn(__fmul_rn(v[e], scale));
+          acc += qi * qi;
+          word |= (static_cast<unsigned>(qi) & 0xffu) << (8 * e);
+        }
+        dst[wd] = word;
+      }
+    }
+    for (int o = G / 2; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (ok && gl == 0) n2[static_cast<size_t>(s) * pn + p] = acc;
   }
 }
 
-// K2i's join: the caller zeroes counts.
-__global__ void __launch_bounds__(PR_THREADS, PR_MIN_BLOCKS)
-prune_int8_kernel(const signed char* __restrict__ q,
-                  const int* __restrict__ n2,
+// Whether tile `t`'s column panel stays staged for its unit's next tile:
+// one panel, and that tile lies off the diagonal in the same column.
+__device__ __forceinline__ bool keeps_column(const PruneTile& t, int panels) {
+  return panels == 1 && t.ti + 1 < t.tj && t.t + 1 < t.end;
+}
+
+// The unit's next tile of the column-by-column enumeration.
+__device__ __forceinline__ void next_tile(PruneTile& t) {
+  ++t.t;
+  if (++t.ti > t.tj) {
+    t.ti = 0;
+    ++t.tj;
+  }
+}
+
+__device__ __forceinline__ void release(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// K2i's join: the caller zeroes counts. tq maps the (S, P, pitch) int8 block
+// (boxes of 128 features x 128 rows x 1 subset, 128-byte swizzled), tn the
+// (S, P) norms (boxes of 128 rows x 1 subset); rows past P arrive as zeros.
+__global__ void __launch_bounds__(QI_THREADS, QI_MIN_BLOCKS)
+prune_int8_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tn,
                   const unsigned* __restrict__ maxbits,
                   const int* __restrict__ lengths,
                   const float* __restrict__ radii,
-                  const int* __restrict__ elig, int S, int P, int d, int dq,
-                  int W, int* __restrict__ counts) {
+                  const int* __restrict__ elig, int S, int P, int d, int W,
+                  int* __restrict__ counts) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t sa = (raw + 1023u) & ~1023u;          // swizzle alignment
-  unsigned char* pa = smem_raw + (sa - raw);
-  unsigned char* pb = pa + QI_PANEL;
-  int* an = reinterpret_cast<int*>(pb + QI_PANEL);      // row norms
-  int* bn = an + ST;                                    // column norms
-  int* table = bn + ST;
-  const RunTable tab{table, table + PR_THREADS + 1,
-                     table + 2 * PR_THREADS + 1};
-
-  const int nt = (P + ST - 1) / ST;
-  const int runs = (nt * (nt + 1) / 2 + PR_RUN - 1) / PR_RUN;
-  const int panels = dq / QI_K, steps = (d + 31) / 32;
-  const float sqrtd = __fsqrt_rn(static_cast<float>(d));
+  const uint32_t base = (raw + 1023u) & ~1023u;        // swizzle alignment
+  // row panels [QI_STAGES], column panels [QI_STAGES], their norms in the
+  // same order, the barriers, the walk's table
+  const uint32_t panel_a = base, panel_b = base + QI_STAGES * QI_PANEL;
+  const uint32_t norm_a = base + 2 * QI_STAGES * QI_PANEL;
+  const uint32_t norm_b = norm_a + QI_STAGES * QI_NORMS;
+  const uint32_t bars = norm_b + QI_STAGES * QI_NORMS;
+  const int* norms = reinterpret_cast<const int*>(smem_raw + (norm_a - raw));
+  // full and empty barriers of ring r (0: rows, 1: columns) at stage st
+  auto full = [&](int r, int st) { return bars + 8 * (r * QI_STAGES + st); };
+  auto empty = [&](int r, int st) {
+    return bars + 8 * ((2 + r) * QI_STAGES + st);
+  };
+  int* table =
+      reinterpret_cast<int*>(smem_raw + (bars - raw) + 4 * QI_STAGES * 8);
+  const RunTable tab = run_table(table, QI_THREADS);
+  int* thr_of = table + run_table_ints(QI_THREADS);  // per subset, S <= NT
+  int* cnt_of = thr_of + QI_THREADS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float sqrtd = __fsqrt_rn(static_cast<float>(d));
+  const bool tabled = S <= QI_THREADS;
+  unsigned mb0 = 0;
+  float r0v = 0.f;
+  if (tabled && tid < S) {               // issued ahead of the walk's scan
+    mb0 = __ldg(maxbits + tid);
+    r0v = radii[tid];
+  }
+  if (tid == QI_CONSUMERS) {          // the descriptors' fetch, early
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tq)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tn)) : "memory");
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 2 * QI_STAGES; ++i) {
+      mbar_init(bars + 8 * i, 1);                      // the producer's
+      mbar_init(bars + 8 * (2 * QI_STAGES + i), QI_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int run = S <= PR_SCAN_MAX ? scan_runs(lengths, S, P, tab) : PR_RUN;
+  const int nt = (P + QI_T - 1) / QI_T;
+  const int runs = (nt * (nt + 1) / 2 + QI_RUN - 1) / QI_RUN;
+  const int panels = (d + QI_K - 1) / QI_K;
+  // runs only where every block gets two or more: with fewer, a block's
+  // second run would double the tail that single tiles spread evenly
+  const int run = tabled
+      ? scan_runs<QI_T, QI_THREADS>(lengths, S, P, tab, QI_RUN,
+                                    2 * QI_RUN * static_cast<int>(gridDim.x))
+      : QI_RUN;
+  // With the table, each subset's threshold once, and its count summed in
+  // shared memory: one global atomic a subset a block.
+  if (tabled) {
+    if (tid < S) {
+      thr_of[tid] = int8_threshold(mb0, r0v, sqrtd);
+      cnt_of[tid] = 0;
+    }
+    __syncthreads();
+  }
+  // Both roles walk the same tiles: unit by unit, tile by tile, panel by
+  // panel. A diagonal tile's column panel is its row panel; a held column
+  // panel (keeps_column) is not copied again.
+  int ia = 0, ib = 0;                 // panels taken from each ring
+  bool held = false;
   PruneTile cur;
+
+  if (warp == QI_CONSUMERS / 32) {
+    // The producer warp: few registers; one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (lane != 0) return;
+    for (int i = blockIdx.x;
+         next_unit<QI_T, QI_THREADS>(i, lengths, S, P, runs, run, tab, cur);
+         i = cur.i + gridDim.x) {
+      for (;;) {
+        const bool diag = cur.ti == cur.tj;
+        for (int k = 0; k < panels; ++k) {
+          const uint32_t tx = QI_PANEL + (k + 1 == panels ? QI_NORMS : 0);
+          for (int r = 0; r < 2; ++r) {
+            if (r == 1 && (diag || held)) break;
+            int& it = r == 0 ? ia : ib;
+            const int st = it % QI_STAGES;
+            const int p0 = (r == 0 ? cur.ti : cur.tj) * QI_T;
+            mbar_wait(empty(r, st), ((it / QI_STAGES) & 1) ^ 1);
+            mbar_expect_tx(full(r, st), tx);
+            tma_load_3d((r == 0 ? panel_a : panel_b) + st * QI_PANEL, &tq,
+                        full(r, st), k * QI_K, p0, cur.s);
+            if (k + 1 == panels)
+              tma_load_2d((r == 0 ? norm_a : norm_b) + st * QI_NORMS, &tn,
+                          full(r, st), p0, cur.s);
+            ++it;
+          }
+        }
+        held = keeps_column(cur, panels);
+        if (cur.t + 1 >= cur.end) break;
+        next_tile(cur);
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg takes tile rows 64 wg .. 64 wg + 63. Thread
+  // t of warp w of it holds rows r0 = 64 wg + 16 (w % 4) + t / 4 and r0 + 8,
+  // columns 8 j + 2 (t % 4) and + 1 (j < 16) of the accumulator.
+  const int wg = warp / 4;
+  const int r0 = 64 * wg + 16 * (warp % 4) + (lane >> 2), c0 = 2 * (lane & 3);
+  int sb = 0;                                  // the column panel's stage
   for (int i = blockIdx.x;
-       next_unit(i, lengths, S, P, runs, run, tab, cur);
+       next_unit<QI_T, QI_THREADS>(i, lengths, S, P, runs, run, tab, cur);
        i = cur.i + gridDim.x) {
     for (;;) {
       const bool diag = cur.ti == cur.tj;
-      const signed char* qs = q + static_cast<size_t>(cur.s) * P * dq;
-      int acc[32];
+      // the threshold's loads issued ahead of the products
+      const int thr = tabled ? thr_of[cur.s]
+                             : int8_threshold(__ldg(maxbits + cur.s),
+                                              radii[cur.s], sqrtd);
+      int acc[64];
 #pragma unroll
-      for (int j = 0; j < 32; ++j) acc[j] = 0;
+      for (int j = 0; j < 64; ++j) acc[j] = 0;
+      int sa = 0;
       for (int k = 0; k < panels; ++k) {
-        __syncthreads();           // the previous panel's readers are done
-        stage_int8(pa, qs, cur.ti * ST, cur.L, dq, k * QI_K);
-        if (!diag) stage_int8(pb, qs, cur.tj * ST, cur.L, dq, k * QI_K);
-        if (k == 0) {
-          const int p = (tid < ST ? cur.ti : cur.tj) * ST + (tid % ST);
-          (tid < ST ? an : bn)[tid % ST] =
-              p < cur.L ? n2[static_cast<size_t>(cur.s) * P + p] : 0;
+        sa = ia % QI_STAGES;
+        mbar_wait(full(0, sa), (ia / QI_STAGES) & 1);
+        ++ia;
+        if (!diag && !held) {
+          sb = ib % QI_STAGES;
+          mbar_wait(full(1, sb), (ib / QI_STAGES) & 1);
+          ++ib;
         }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        __syncthreads();
-        // a diagonal tile reads panel A as both operands
-        const uint32_t da = sa, db = diag ? sa : sa + QI_PANEL;
-        const int ks = min(QI_K / 32, steps - k * (QI_K / 32));
+        const uint32_t da = panel_a + sa * QI_PANEL + wg * 64 * QI_K;
+        const uint32_t db = diag ? panel_a + sa * QI_PANEL
+                                 : panel_b + sb * QI_PANEL;
+        // Every k-step of the panel, unconditionally: those past d multiply
+        // the copies' zero fill (at d = 64, two of four; a two-step build
+        // timed within noise of this). A k-step count known only at run time,
+        // or a branch with wgmma in flight, makes ptxas serialise every
+        // wgmma (C7520), so a panel's products retire before the next
+        // branch; the next panels' copies fly meanwhile.
         wgmma_fence();
-        for (int kk = 0; kk < ks; ++kk)
-          wgmma_s8_n64(acc, desc_k_major(da + kk * 32),
-                       desc_k_major(db + kk * 32), k > 0 || kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < QI_K / QI_KSTEP; ++kk)
+          wgmma_s8_n128(acc, desc_k_major(da + kk * QI_KSTEP),
+                        desc_k_major(db + kk * QI_KSTEP), 1);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(acc);
+        if (k + 1 < panels) {
+          release(empty(0, sa));
+          if (!diag) release(empty(1, sb));
+        }
       }
 
+      // The epilogue, from the last panel's norms (copied with it): pair
+      // (i, j) joins iff n_j - 2 g <= thr - n_i, the same integers moved
+      // across (no term overflows int32 for d <= INT8_MAX_D). A dead or
+      // ineligible row takes INT_MIN as its bound (n_j - 2 g never reaches
+      // it); four counters keep the sums' chains short.
+      const int* na = norms + sa * QI_T;
+      const int* nb = diag ? na : norms + (QI_STAGES + sb) * QI_T;
       const int* es = elig ? elig + static_cast<size_t>(cur.s) * W : nullptr;
-      const bool interior = es == nullptr && (cur.tj + 1) * ST <= cur.L;
-      const float scale = int8_scale(maxbits[cur.s]);
-      const float rq = __fadd_rn(__fmul_rn(radii[cur.s], scale), sqrtd);
-      const int thr = f2i_sat(__fadd_rn(ceilf(__fmul_rn(rq, rq)), 1.0f));
-      const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
-      const int a0 = an[r0], a1 = an[r0 + 8];
-      auto joined = [&](int a, int b, int g) { return a + b - 2 * g <= thr; };
-      int cnt = 0;
-      if (interior) {
+      const bool interior = es == nullptr && (cur.tj + 1) * QI_T <= cur.L;
+      auto live = [&](int p) {
+        return p < cur.L && (es == nullptr || elig_bit(es, p));
+      };
+      const int t0 = interior || live(cur.ti * QI_T + r0) ? thr - na[r0]
+                                                          : INT_MIN;
+      const int t1 = interior || live(cur.ti * QI_T + r0 + 8)
+          ? thr - na[r0 + 8] : INT_MIN;
+      int c4[4] = {0, 0, 0, 0};
+      if (interior) {                          // the threshold alone
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = 8 * j + c0;
-          cnt += joined(a0, bn[c], acc[4 * j])
-                 + joined(a0, bn[c + 1], acc[4 * j + 1])
-                 + joined(a1, bn[c], acc[4 * j + 2])
-                 + joined(a1, bn[c + 1], acc[4 * j + 3]);
+        for (int j = 0; j < 16; ++j) {
+          const int2 b = *reinterpret_cast<const int2*>(nb + 8 * j + c0);
+          c4[0] += b.x - 2 * acc[4 * j] <= t0;
+          c4[1] += b.y - 2 * acc[4 * j + 1] <= t0;
+          c4[2] += b.x - 2 * acc[4 * j + 2] <= t1;
+          c4[3] += b.y - 2 * acc[4 * j + 3] <= t1;
         }
       } else {
-        const unsigned long long rl = live_bits(es, cur.ti * ST, cur.L, W);
-        const unsigned long long cl = live_bits(es, cur.tj * ST, cur.L, W);
-        const bool l0 = (rl >> r0) & 1, l1 = (rl >> (r0 + 8)) & 1;
+        const unsigned long long cl[2] = {
+            live_bits(es, cur.tj * QI_T, cur.L, W),
+            live_bits(es, cur.tj * QI_T + 64, cur.L, W)};
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = 8 * j + c0;
-          const bool e0 = (cl >> c) & 1, e1 = (cl >> (c + 1)) & 1;
-          cnt += (l0 && e0 && joined(a0, bn[c], acc[4 * j]))
-                 + (l0 && e1 && joined(a0, bn[c + 1], acc[4 * j + 1]))
-                 + (l1 && e0 && joined(a1, bn[c], acc[4 * j + 2]))
-                 + (l1 && e1 && joined(a1, bn[c + 1], acc[4 * j + 3]));
+        for (int j = 0; j < 16; ++j) {
+          const int e = static_cast<int>(cl[j / 8] >> ((8 * j + c0) & 63));
+          const int2 b = *reinterpret_cast<const int2*>(nb + 8 * j + c0);
+          c4[0] += (b.x - 2 * acc[4 * j] <= t0) & e;
+          c4[1] += (b.y - 2 * acc[4 * j + 1] <= t0) & (e >> 1);
+          c4[2] += (b.x - 2 * acc[4 * j + 2] <= t1) & e;
+          c4[3] += (b.y - 2 * acc[4 * j + 3] <= t1) & (e >> 1);
         }
       }
-      cnt *= diag ? 1 : 2;                     // and the mirrored half
+      int cnt = (c4[0] + c4[1] + c4[2] + c4[3]) * (diag ? 1 : 2);  // mirror
       cnt += __shfl_xor_sync(0xffffffffu, cnt, 16);
       cnt += __shfl_xor_sync(0xffffffffu, cnt, 8);
       cnt += __shfl_xor_sync(0xffffffffu, cnt, 4);
       cnt += __shfl_xor_sync(0xffffffffu, cnt, 2);
       cnt += __shfl_xor_sync(0xffffffffu, cnt, 1);
-      if (lane == 0 && cnt) atomicAdd(counts + cur.s, cnt);
+      if (lane == 0 && cnt)
+        atomicAdd(tabled ? cnt_of + cur.s : counts + cur.s, cnt);
 
-      if (cur.t + 1 >= cur.end) break;         // the unit's next tile
-      ++cur.t;
-      if (++cur.ti > cur.tj) {
-        cur.ti = 0;
-        ++cur.tj;
-      }
+      release(empty(0, sa));
+      held = keeps_column(cur, panels);
+      if (!diag && !held) release(empty(1, sb));
+      if (cur.t + 1 >= cur.end) break;
+      next_tile(cur);
     }
+  }
+  if (tabled) {                 // the block's counts, once a subset
+    asm volatile("bar.sync 1, %0;\n" ::"n"(QI_CONSUMERS) : "memory");
+    for (int i = tid; i < S; i += QI_CONSUMERS)
+      if (cnt_of[i]) atomicAdd(counts + i, cnt_of[i]);
   }
 }
 
@@ -1564,8 +1851,7 @@ int triangle_blocks(int S, int P) {
   return static_cast<int>(tiles < resident ? tiles : resident);
 }
 
-// Blocks of a K2 or K2i join launch: twice as many as the card holds at
-// once (by the
+// Blocks of a K2 launch: twice as many as the card holds at once (by the
 // occupancy of its registers and shared memory), so that the hardware's
 // block scheduler evens out the tail of a walk whose live tiles are uneven
 // across blocks; or one per unit of work if there are fewer.
@@ -1631,33 +1917,82 @@ int join_batched_prune(const float* x, const int* lengths, const float* radii,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2i: maxbits (S,) and counts zeroed by the caller; q (S, P, dq) int8 and
-// n2 (S, P) int32 are scratch, dq = ceil(d / 128) * 128.
+// K2i: counts and maxbits (S each) zeroed by the caller; q (S, P, pitch)
+// int8 and n2 (S, pn) int32 are scratch, pitch = ceil(d / 32) * 32 and pn =
+// ceil(P / 4) * 4 (every TMA stride a multiple of 16 bytes). Two launches:
+// the cooperative prep kernel, then the join. Returns a CUDA error, or
+// minus the CUresult of a tensor map that could not be encoded.
 int join_batched_prune_int8(const float* x, const int* lengths,
                             const float* radii, const int* elig, int S, int P,
-                            int d, unsigned* maxbits, signed char* q, int* n2,
-                            int* counts, void* stream) {
+                            int d, int pitch, int pn, signed char* q, int* n2,
+                            unsigned* maxbits, int* counts, void* stream) {
+  if (pitch != (d + QI_KSTEP - 1) / QI_KSTEP * QI_KSTEP
+      || pn != (P + 3) / 4 * 4 || static_cast<long long>(S) * P > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = (cudaStream_t)stream;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static int prep_per_sm = 0, join_per_sm = 0;
+  if (prep_per_sm == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &prep_per_sm, int8_prep_kernel, QP_THREADS, 0);
+  // The prep grid: resident blocks (a cooperative launch must be), or fewer
+  // where the work is smaller.
   const long long n = static_cast<long long>(P) * d;
-  const long long per_block = QI_MAX_THREADS * 16;    // values a block folds
-  const long long chunks = (n + per_block - 1) / per_block;
-  int8_maxabs_kernel<<<dim3(S, static_cast<unsigned>(
-                                   std::min(chunks, 1024LL))),
-                       QI_MAX_THREADS, 0, st>>>(x, n, maxbits);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const int dq = (d + QI_K - 1) / QI_K * QI_K;
-  const long long rows = static_cast<long long>(S) * P;
-  const long long qblocks = (rows + PR_THREADS / 32 - 1) / (PR_THREADS / 32);
-  int8_quantize_kernel<<<static_cast<unsigned>(qblocks), PR_THREADS, 0, st>>>(
-      x, maxbits, S, P, d, dq, q, n2);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  static int per_sm = 0;
-  prune_int8_kernel<<<walk_blocks(prune_int8_kernel, QI_SMEM, S, P, per_sm),
-                      PR_THREADS, QI_SMEM, st>>>(
-      q, n2, maxbits, lengths, radii, elig, S, P, d, dq, (P + 31) / 32,
-      counts);
+  const long long chunks = (n + QP_CHUNK - 1) / QP_CHUNK * S;
+  const long long row_blocks =
+      (static_cast<long long>(S) * P + QP_THREADS / 32 - 1) / (QP_THREADS / 32);
+  const int prep_blocks = static_cast<int>(std::min(
+      std::max(chunks, row_blocks),
+      static_cast<long long>(sms)
+          * std::min(std::max(prep_per_sm, 1), QP_BLOCKS_PER_SM)));
+  void* args[] = {&x, &lengths, &S, &P, &d, &pitch, &pn, &maxbits, &q, &n2};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(int8_prep_kernel), prep_blocks, QP_THREADS,
+      args, 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  CUtensorMap tq, tn;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint64_t qdims[3] = {static_cast<cuuint64_t>(pitch),
+                               static_cast<cuuint64_t>(P),
+                               static_cast<cuuint64_t>(S)};
+  const cuuint64_t qstrides[2] = {static_cast<cuuint64_t>(pitch),
+                                  static_cast<cuuint64_t>(P) * pitch};
+  const cuuint32_t qbox[3] = {QI_K, QI_T, 1};
+  CUresult res = encode(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q, qdims,
+                        qstrides, qbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return -static_cast<int>(res);
+  const cuuint64_t ndims[2] = {static_cast<cuuint64_t>(P),
+                               static_cast<cuuint64_t>(S)};
+  const cuuint64_t nstrides[1] = {static_cast<cuuint64_t>(pn) * 4};
+  const cuuint32_t nbox[2] = {QI_T, 1};
+  res = encode(&tn, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, n2, ndims, nstrides,
+               nbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return -static_cast<int>(res);
+
+  err = cudaFuncSetAttribute(prune_int8_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             QI_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (join_per_sm == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &join_per_sm, prune_int8_kernel, QI_THREADS, QI_SMEM);
+  // As many blocks as the card holds at once, or one a live tile if fewer.
+  const long long tside = (P + QI_T - 1) / QI_T;
+  const long long tiles = tside * (tside + 1) / 2 * S;
+  const int blocks = static_cast<int>(std::min(
+      tiles, static_cast<long long>(sms) * std::max(join_per_sm, 1)));
+  prune_int8_kernel<<<blocks, QI_THREADS, QI_SMEM, st>>>(
+      tq, tn, maxbits, lengths, radii, elig, S, P, d, (P + 31) / 32, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1686,8 +2021,6 @@ int pairwise_join(const float* a, const float* b, int M, int N, int d, float r,
 }
 
 int join_square_tile() { return ST; }
-// Features of a K2i panel: the caller pads the int8 rows to a multiple.
-int join_int8_panel() { return QI_K; }
 // Dynamic shared memory a K3 or K4 block takes (ptxas reports static only).
 int join_engine_smem() { return RT_SMEM; }
 

@@ -45,23 +45,19 @@ def library() -> ctypes.CDLL:
         lib.join_batched_prune.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
                                            _P]
         lib.join_batched_prune_int8.argtypes = [_P, _P, _P, _P, _I, _I, _I,
-                                                _P, _P, _P, _P, _P]
+                                                _I, _I, _P, _P, _P, _P, _P]
         lib.pairwise_join.argtypes = [_P, _P, _I, _I, _I, ctypes.c_float, _I,
                                       _I, _P, _P, _P]
         lib.join_batched_tiles.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
                                            _P, _P, _P]
         for fn in (lib.join_batched_masked, lib.join_batched_prune,
                    lib.join_batched_prune_int8, lib.pairwise_join,
-                   lib.join_batched_tiles, lib.join_square_tile,
-                   lib.join_int8_panel):
+                   lib.join_batched_tiles, lib.join_square_tile):
             fn.restype = _I
         lib.join_square_tile.argtypes = []
-        lib.join_int8_panel.argtypes = []
         if lib.join_square_tile() != JOIN_SQUARE_TILE:
             raise RuntimeError("the kernels' square tile differs from "
                                "kernels.ref's JOIN_SQUARE_TILE")
-        if lib.join_int8_panel() != INT8_PANEL:
-            raise RuntimeError("K2i's panel differs from INT8_PANEL")
         _LIB = lib
     return _LIB
 
@@ -170,37 +166,54 @@ def join_batched_prune(x: torch.Tensor, lengths: torch.Tensor,
 # Widest rows K2i takes: its integer distances n_i + n_j - 2 g reach
 # 4 d 127^2, which must stay in int32 (as the reference's do).
 INT8_MAX_D = (2 ** 31 - 1) // (4 * 127 * 127)
-# int8 features a K2i panel: the quantised rows are padded to a multiple.
-INT8_PANEL = 128
+# int8 features of a wgmma k-step: K2i's rows are padded to a multiple.
+INT8_K_STEP = 32
+
+
+def int8_layout(s: int, p: int, d: int) -> tuple[int, int, int]:
+    """K2i's scratch for an (s, p, d) input: the int8 rows' pitch (d rounded
+    up to a whole ``wgmma`` k-step of 32 bytes, so that every tensor-map
+    stride is a multiple of 16 bytes), the norms' row stride (p rounded up to
+    4 ints, 16 bytes, for the same reason) and the bytes of the int8 block,
+    after which the (s, stride) int32 norms start on a 16-byte boundary."""
+    pitch = -(-d // INT8_K_STEP) * INT8_K_STEP
+    return pitch, -(-p // 4) * 4, s * p * pitch
 
 
 def join_batched_prune_int8(x: torch.Tensor, lengths: torch.Tensor,
                             r: torch.Tensor,
                             elig: torch.Tensor | None = None) -> torch.Tensor:
     """CUDA kernel K2i — see ``kernels.ref.join_batched_counts_int8``. One
-    call is three launches on the stream, each counted: each subset's
-    largest magnitude, the int8 quantisation with exact int32 norms (into
-    scratch of S P ceil(d/128) 128 bytes and S P ints), and the join on the
-    tensor cores (``wgmma`` s8 x s8 -> s32) over K2's triangle walk.
-    ``elig`` is K1's packed eligibility words."""
+    call is two launches on the stream, both counted: a cooperative prep
+    kernel (each subset's largest magnitude, then the int8 rows with exact
+    int32 norms, into one scratch allocation laid out by
+    :func:`int8_layout`) and the join (TMA into ``wgmma`` s8 x s8 -> s32)
+    over K2's triangle walk of 128 x 128 tiles. ``elig`` is K1's packed
+    eligibility words. The counts are a view of one zeroed int32 buffer
+    that also holds the subsets' largest magnitudes."""
     s, p, d = _check_batched(x, lengths, r, elig)
     check_triangle_tiles(p)
     if d > INT8_MAX_D:
         raise ValueError(f"d={d} overflows K2i's int32 distances "
                          f"(at most {INT8_MAX_D} features)")
+    if s * p > _MAX_INT32:
+        raise ValueError(f"K2i numbers the S P = {s * p} rows in int32")
     dev = x.device
-    counts = torch.zeros(s, dtype=torch.int32, device=dev)
+    zeroed = torch.zeros(2 * s, dtype=torch.int32, device=dev)
+    counts, maxbits = zeroed[:s], zeroed[s:]
     if s and p and d:
-        dq = -(-d // INT8_PANEL) * INT8_PANEL
-        maxbits = torch.zeros(s, dtype=torch.int32, device=dev)
-        q = torch.empty((s, p, dq), dtype=torch.int8, device=dev)
-        n2 = torch.empty((s, p), dtype=torch.int32, device=dev)
+        pitch, pn, q_bytes = int8_layout(s, p, d)
+        scratch = torch.empty(q_bytes + s * pn * 4, dtype=torch.uint8,
+                              device=dev)
         with torch.cuda.device(dev):
             err = library().join_batched_prune_int8(
-                _ptr(x), _ptr(lengths), _ptr(r), _ptr(elig), s, p, d,
-                _ptr(maxbits), _ptr(q), _ptr(n2), _ptr(counts),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _launched("join_batched_prune_int8", err, elig, kernels=3)
+                _ptr(x), _ptr(lengths), _ptr(r), _ptr(elig), s, p, d, pitch,
+                pn, _ptr(scratch), _ptr(scratch) + q_bytes, _ptr(maxbits),
+                _ptr(counts), torch.cuda.current_stream(dev).cuda_stream)
+        if err < 0:
+            raise RuntimeError(f"join_batched_prune_int8: TMA tensor map "
+                               f"encoding failed (CUresult {-err})")
+        _launched("join_batched_prune_int8", err, elig, kernels=2)
     elif d == 0:
         raise ValueError("x must have at least one feature")
     return counts

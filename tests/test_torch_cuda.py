@@ -994,12 +994,21 @@ def test_cost_model_on_card_measures_both_slopes():
 
 # (S, P, d, lengths): K2i's walk and panels — the path's (8, 2880, 64) with
 # the recorded live lengths, a partial second 128-feature panel (d = 130),
-# the embedded corpus's d = 2304, P off the 64-point tile and lengths at the
-# tile's edges.
+# the embedded corpus's d = 2304, P off the 128-point tile and lengths at
+# the tile's edges (and at its 64-row halves); widths at the int8 rows'
+# 32-byte pitch's edges (d = 31 .. 128: one TMA panel, zeros past the
+# pitch); runs of 4 tiles sharing a column panel whose last run of a subset
+# is partial, the walk stepping into the next subset (8 x 2100: 153 tiles
+# a subset, more than 4 a resident block); and more subsets than the walk's
+# table holds (300: the interleaved order).
 INT8_CASES = [(8, 2880, 64, [2779, 2876, 0, 0, 0, 0, 0, 0]),
               (2, 300, 130, None), (2, 256, 2304, None),
               (5, 200, 64, [0, 1, 63, 64, 65]), (4, 97, 17, [97, 96, 33, 0]),
-              (200, 40, 33, None)]
+              (200, 40, 33, None),
+              *[(3, 260, d, [260, 129, 128]) for d in (31, 32, 33, 96, 127,
+                                                        128)],
+              (4, 300, 64, [300, 256, 192, 127]),
+              (8, 2100, 64, None), (300, 130, 20, None)]
 
 
 @pytest.mark.cuda
@@ -1033,8 +1042,34 @@ def test_prune_int8_matches_plain_version_on_card(s, p, d, lengths):
         assert bool((got >= fp32).all()), (got.tolist(), fp32.tolist())
         if w is not None:
             assert int(got[min(1, s - 1)]) == 0
-    assert pairwise_l2.launches["join_batched_prune_int8"] == before + 6
+    assert pairwise_l2.launches["join_batched_prune_int8"] == before + 4
     assert all(int(got[i]) == 0 for i, n in enumerate(lens) if n == 0)
+
+
+@pytest.mark.cuda
+def test_prune_int8_scale_from_a_padded_row_on_card():
+    """The largest magnitude of a subset lies in a padded row past every
+    length: the scale still comes from it (the reference quantises the whole
+    padded block), so the counts equal the plain version's and differ from
+    those of the same subset without that row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dev = torch.device("cuda")
+    s, p, d = 3, 200, 40
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-1, 1, (s, p, d)).astype(np.float32)
+    lens = np.array([150, 63, 129], np.int32)
+    x[:, p - 1, 3] = np.float32(8.0)            # row 199: past every length
+    radii = np.full(s, 4.5, np.float32)         # partial joins either way
+    x_h, l_h, r_h = (torch.from_numpy(a) for a in (x, lens, radii))
+    got = pairwise_l2.join_batched_prune_int8(
+        *(t.to(dev) for t in (x_h, l_h, r_h)))
+    want = ref.join_batched_counts_int8(x_h, l_h, r_h)
+    x_h[:, p - 1, 3] = 0.0
+    without = ref.join_batched_counts_int8(x_h, l_h, r_h)
+    assert got.tolist() == want.tolist()
+    assert all(a != b for a, b in zip(want.tolist(), without.tolist()))
+    assert all(0 < c < n * n for c, n in zip(want.tolist(), lens.tolist()))
 
 
 @pytest.mark.cuda

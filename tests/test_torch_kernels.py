@@ -477,6 +477,20 @@ def test_int8_scale_threshold_rounds_once_per_operation():
     assert (big == 2 ** 31 - 1).all()
 
 
+@pytest.mark.parametrize("d", [1, 31, 32, 33, 64, 96, 127, 128, 130, 2304])
+def test_int8_layout_pitch_and_strides(d):
+    """K2i's scratch: the int8 rows' pitch is d rounded up to whole 32-byte
+    ``wgmma`` k-steps (never to 128), so the tensor map's row stride is a
+    multiple of 16 bytes; the norms' row stride is P rounded up to 4 ints
+    (16 bytes); the norms start on a 16-byte boundary after the int8 block."""
+    for s, p in ((1, 1), (3, 97), (8, 2880), (300, 130)):
+        pitch, pn, q_bytes = pairwise_l2.int8_layout(s, p, d)
+        assert pitch % pairwise_l2.INT8_K_STEP == 0 and pitch % 16 == 0
+        assert d <= pitch < d + pairwise_l2.INT8_K_STEP
+        assert pn % 4 == 0 and p <= pn < p + 4
+        assert q_bytes == s * p * pitch and q_bytes % 16 == 0
+
+
 def test_counts_refuse_unknown_dtype():
     x = torch.zeros((1, 4, 2))
     with pytest.raises(ValueError, match="prune dtype"):
