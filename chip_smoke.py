@@ -133,7 +133,25 @@ Phases:
      engine's over the compacted corpus and the compacted indices equal the
      host build with the pinned geometry. Prints insert points/s and the
      delete and compaction seconds.
-  3e. [tenant] At a reduced size (two tenants of 50,000 synthetic points,
+  3e. [store] ``core.store.build_store`` over the served corpus with the
+     served engine's pinned geometry and bucket synopses (K5: exactly 5
+     launches; the card build, the host synopses and the writes timed
+     apart), then ``NKSEngine.from_store(mmap=True,
+     resident_budget_bytes=256 MiB)`` timed to its first answer: the
+     indices equal the served engine's bit for bit, and the 64 queries in
+     the exact, approx and device tiers and the price<50 and category-3
+     batches answer bit for bit as the served engine did (QPS beside it,
+     the zone and radius prune counters, cold reads).
+  3f. [wal] A fresh engine over the served corpus: ``attach_wal``, 4
+     insert batches of 1,250 with attributes (each fsync'd), ``snapshot()``,
+     4 batches in one ``ingest_group()`` (one fsync), 1,000 deletes,
+     ``compact()``, 2 batches; then a torn tail and ``NKSEngine.recover``,
+     which must replay the 8 ops after the snapshot (K5: 5 launches an
+     insert batch, delete and compaction) and answer in all three tiers and
+     under price<50 bit for bit as the uninterrupted engine did. Both
+     phases write to a fresh temporary directory (its free bytes printed)
+     and remove it.
+  3g. [tenant] At a reduced size (two tenants of 50,000 synthetic points,
      d=64, 1,000 local keywords each): 16 tenant-local 3-keyword queries
      per tenant in the exact, approx and device tiers; results echo the
      local ids, cover the resolved keywords, never reach the other tenant,
@@ -1376,7 +1394,13 @@ def serve(args, report: dict) -> tuple:
           f"of their float64 rescore: q=3 {report['device-q3']['checks']}, "
           f"q=9 {report['device-q9']['checks']}; first {n_cmp} on the card "
           f"equal the CPU's (max err/band {worst:.4g})", flush=True)
-    return recs, by_path, diam_recs, (engine, ds, queries, pinned, rec_k5)
+    # What [store] holds the store's engine to: the served engine's indices
+    # and answers over the served corpus ([stream] compacts this engine).
+    kept = {"index_e": engine.index_e, "index_a": engine.index_a,
+            "answers": {p: answers[p] for p in ("exact", "approx",
+                                                "device-q3")}}
+    return recs, by_path, diam_recs, (engine, ds, queries, pinned, rec_k5,
+                                      kept)
 
 
 def semantics(args, report: dict, served, by_path: dict) -> None:
@@ -1553,7 +1577,7 @@ def stream(args, report: dict, served, by_path: dict) -> None:
     from repro_torch.core.index import build_index
     from repro_torch.data.synthetic import synthetic_attrs
 
-    engine, ds, queries, pinned, _ = served
+    engine, ds, queries, pinned = served[:4]
     more = flickr_like_dataset(n=args.stream_points, u=24_874, t=11, d=64,
                                seed=args.seed + 7)
     more_attrs = synthetic_attrs(more.n, seed=7)
@@ -1686,6 +1710,296 @@ def stream(args, report: dict, served, by_path: dict) -> None:
           f"({st['host_build_s']:.1f}s)", flush=True)
 
 
+def keys_of(results) -> list:
+    return [[(c.ids, c.diameter) for c in r.candidates] for r in results]
+
+
+def disk_room(tmp: str, need: float, label: str) -> int:
+    """Free bytes of the filesystem holding ``tmp``, printed; fails the run
+    when the phase's reckoned bytes (``need``, with a third more for
+    headroom) do not fit."""
+    import shutil
+    free = shutil.disk_usage(tmp).free
+    print(f"[{label}] scratch {tmp}: {free} bytes free, the phase needs "
+          f"about {int(need)}", flush=True)
+    check(free > 1.33 * need, f"[{label}]: {free} bytes free for about "
+          f"{int(need)} of leaves")
+    return free
+
+
+def leaf_bytes(ds, kept, synopsis: bool) -> float:
+    """The store's leaves as the served corpus and indices reckon them: the
+    points, both keyword CSRs, the attribute columns, both indices and, with
+    ``synopsis``, counts, radii and two float64 ranges per numeric column
+    for every bucket of every scale."""
+    total = ds.points.nbytes + ds.kw.nbytes() + ds.ikp.nbytes() \
+        + sum(c.nbytes for c in ds.attrs.values())
+    for index in (kept["index_e"], kept["index_a"]):
+        total += index.nbytes()
+        if synopsis:
+            total += sum(h.n_buckets * (8 + 16 * len(ds.attrs))
+                         for h in index.structures)
+    return float(total)
+
+
+def store_phase(args, report: dict, served, by_path: dict) -> None:
+    """[store] ``build_store`` over the served corpus with the served
+    engine's pinned geometry and bucket synopses (the card build, K5: 5
+    launches; the host synopses; the writes and their fsyncs, timed apart),
+    then ``NKSEngine.from_store(mmap=True, resident_budget_bytes=256 MiB)``
+    timed to its first answer. The loaded indices equal the served engine's
+    bit for bit (synopses apart); the 64 queries in the exact, approx and
+    device tiers and the price<50 and category-3 batches answer exactly as
+    the served engine did (ids and float64 costs, the default backend), so
+    the prunes change nothing. QPS beside the served engine's, the prune
+    counters and the cold reads. Scratch space is a fresh temporary
+    directory, removed at the end."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import NKSEngine
+    from repro_torch.core import store
+    from repro_torch.core.filters import where
+    from repro_torch.core.index_build import BuildStats
+
+    engine, ds, queries, pinned = served[:4]
+    kept = served[5]
+    budget = 256 << 20
+    tmp = tempfile.mkdtemp(prefix="nks-store-")
+    out = {}
+    try:
+        out["reckoned_bytes"] = leaf_bytes(ds, kept, True)
+        out["free_bytes"] = disk_room(tmp, out["reckoned_bytes"], "store")
+        root = os.path.join(tmp, "store")
+        bst = BuildStats()
+        _, build_s = drive_path(by_path, "store-build",
+                                lambda: store.build_store(
+                                    root, ds, synopsis=True, stats=bst,
+                                    **pinned))
+        k5 = by_path["store-build"]["project_and_bin"]
+        check(k5 == 5, f"build_store launched K5 {k5} times, want 5")
+        card_s = bst.t_project_s + bst.t_bin_s + bst.t_settle_s \
+            + bst.t_assemble_s + bst.t_copy_s
+        out.update(build_s=build_s, build_split=bst.as_dict(),
+                   card_build_s=card_s, synopsis_s=bst.t_synopsis_s,
+                   write_s=build_s - card_s - bst.t_synopsis_s,
+                   store_nbytes=store.store_nbytes(root))
+        print(f"[store] build_store over {ds.n} points in {build_s:.3f}s = "
+              f"card build {card_s:.3f}s (K5 {k5} launches, settled "
+              f"{bst.settled}) + host synopses {bst.t_synopsis_s:.3f}s + "
+              f"upload, leaf writes and fsyncs {out['write_s']:.3f}s; "
+              f"store_nbytes {out['store_nbytes']} (reckoned "
+              f"{int(out['reckoned_bytes'])})", flush=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opened = NKSEngine.from_store(root, mmap=True,
+                                      resident_budget_bytes=budget)
+        torch.cuda.synchronize()
+        out["open_s"] = time.perf_counter() - t0
+        check(isinstance(opened.dataset.points, np.memmap)
+              and isinstance(opened.index_e.structures[0].table.values,
+                             np.memmap),
+              "from_store(mmap=True) did not map the points and the tables")
+        check(opened.backend.cache_bytes == budget,
+              f"resident_budget_bytes did not reach the backend: "
+              f"{opened.backend.cache_bytes}")
+        for got, want, label in ((opened.index_e, kept["index_e"], "exact"),
+                                 (opened.index_a, kept["index_a"],
+                                  "approx")):
+            index_equal(got, want, f"store {label} index")
+            check(all(h.synopsis is not None for h in got.structures),
+                  f"store {label} index lost its synopses")
+        flts = {"filter:price<50:exact": where(("price", "<", 50.0)),
+                "filter:cat3,price20-70:exact": where(
+                    ("category", "==", 3),
+                    ("price", "between", (20.0, 70.0)))}
+        served_qps = {
+            "exact": report["exact"]["qps"],
+            "approx": report["approx"]["qps"],
+            "device-q3": report["device-q3"]["qps"],
+            **{k: report["filter"]["results"][k.split(":")[1]]["random"]
+               ["exact"]["qps"] for k in flts}}
+        batches = [("store-exact", "exact", "exact", None),
+                   ("store-approx", "approx", "approx", None),
+                   ("store-device", "device-q3", "device", None)] \
+            + [(f"store-{k[7:]}", k, "exact", f) for k, f in flts.items()]
+        for path, key, tier, flt in batches:
+            got, wall = drive_path(by_path, path, lambda: opened.query_batch(
+                queries, k=1, tier=tier, filter=flt))
+            if path == "store-exact":
+                out["first_answer_s"] = out["open_s"] + wall
+            st = opened.last_batch_stats
+            check(keys_of(got) == keys_of(kept["answers"][key]),
+                  f"{path}: the store's engine answers otherwise than the "
+                  f"served engine")
+            out[path] = {"wall_s": wall, "qps": len(queries) / wall,
+                         "served_qps": served_qps[key],
+                         "launches": by_path[path],
+                         **({} if tier == "device" else
+                            {"tiering": st.tiering, "phases": st.phases})}
+            print(f"[store] {path}: {len(queries) / wall:.2f} QPS (served "
+                  f"engine {served_qps[key]:.2f}); bit for bit the served "
+                  f"engine's; tiering "
+                  f"{out[path].get('tiering')}; launches {by_path[path]}",
+                  flush=True)
+        check(by_path["store-exact"]["join_batched_masked"] > 0,
+              "the store's exact batch launched no masked join")
+        check_star_launches(by_path["store-device"], queries, "store-device")
+        print(f"[store] from_store(mmap=True, resident_budget_bytes={budget})"
+              f" opened in {out['open_s']:.3f}s (points read off their "
+              f"mapped leaf into the card once), first answer after "
+              f"{out['first_answer_s']:.3f}s; indices equal the served "
+              f"engine's bit for bit, synopses on every scale", flush=True)
+        del opened
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["store"] = out
+
+
+def wal_phase(args, report: dict, served, by_path: dict) -> None:
+    """[wal] A fresh engine over the served corpus (``auto_compact=False``),
+    ``attach_wal`` (the genesis snapshot) timed, then, each acknowledged op
+    fsync'd before it returns: 4 attributed insert batches of 1,250, a
+    ``snapshot()`` (it compacts first), 4 batches inside one
+    ``ingest_group()`` (one fsync), 1,000 deletes (half bulk, half delta), a
+    ``compact()`` and 2 more batches. The answers of the 64 queries in all
+    three tiers and of a price<50 batch are recorded, the engine is dropped
+    without ``close()``, half a record is appended to the segment (a torn
+    tail), and ``NKSEngine.recover`` (timed) must replay exactly the 8 ops
+    after the snapshot, report the torn tail, launch K5 5 times a replayed
+    insert batch, delete (its bulk rows) and compaction, and answer as the
+    uninterrupted engine did, bit for bit."""
+    import gc
+    import json
+    import os
+    import shutil
+    import tempfile
+    import zlib
+    import numpy as np
+    import torch
+    from repro_torch import NKSEngine, flickr_like_dataset
+    from repro_torch.core.filters import where
+    from repro_torch.data.synthetic import synthetic_attrs
+    from repro_torch.serve import wal as walmod
+
+    _, ds, queries, pinned = served[:4]
+    kept = served[5]
+    per, n_batches = 1_250, 10
+    more = flickr_like_dataset(n=per * n_batches, u=24_874, t=11, d=64,
+                               seed=args.seed + 9)
+    more_attrs = synthetic_attrs(more.n, seed=9)
+
+    def batch(b):
+        lo, hi = b * per, (b + 1) * per
+        return (more.points[lo:hi], [more.kw.row(i).tolist()
+                                     for i in range(lo, hi)],
+                {k: v[lo:hi] for k, v in more_attrs.items()})
+
+    tmp = tempfile.mkdtemp(prefix="nks-wal-")
+    root = os.path.join(tmp, "wal")
+    out = {}
+    try:
+        # the genesis snapshot, the epoch-1 snapshot and the segments
+        out["free_bytes"] = disk_room(tmp, 2 * leaf_bytes(ds, kept, False),
+                                      "wal")
+        live = NKSEngine(ds, auto_compact=False, **pinned)
+        t0 = time.perf_counter()
+        live.attach_wal(root)
+        out["attach_s"] = time.perf_counter() - t0
+        ins_s, inserted = [], []
+        for b in range(4):
+            t0 = time.perf_counter()
+            inserted += live.insert(*batch(b)[:2], attrs=batch(b)[2]).tolist()
+            ins_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        live.snapshot()
+        out["snapshot_s"] = time.perf_counter() - t0
+        f0 = live.wal_stats.fsyncs
+        t0 = time.perf_counter()
+        group = []
+        with live.ingest_group():
+            for b in range(4, 8):
+                group += live.insert(*batch(b)[:2],
+                                     attrs=batch(b)[2]).tolist()
+        out["group_s"] = time.perf_counter() - t0
+        out["group_fsyncs"] = live.wal_stats.fsyncs - f0
+        check(out["group_fsyncs"] == 1, f"the group of 4 inserts issued "
+              f"{out['group_fsyncs']} fsyncs, want 1")
+        rng = np.random.default_rng(args.seed + 10)
+        doomed = sorted(rng.choice(ds.n, 500, replace=False).tolist()
+                        + rng.choice(group, 500, replace=False).tolist())
+        t0 = time.perf_counter()
+        live.delete(doomed)
+        out["delete_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        live.compact()
+        out["compact_s"] = time.perf_counter() - t0
+        for b in range(8, 10):
+            t0 = time.perf_counter()
+            live.insert(*batch(b)[:2], attrs=batch(b)[2])
+            ins_s.append(time.perf_counter() - t0)
+        out["insert_s"] = ins_s
+        out["insert_fsync_mean_s"] = sum(ins_s) / len(ins_s)
+        flt = where(("price", "<", 50.0))
+        recorded = {tier: keys_of(live.query_batch(queries, k=1, tier=tier))
+                    for tier in ("exact", "approx", "device")}
+        recorded["price<50"] = keys_of(live.query_batch(
+            queries, k=1, tier="exact", filter=flt))
+        out["wal_stats"] = dataclasses.asdict(live.wal_stats)
+        out["ingest"] = live.ingest.as_dict()
+        seg = walmod.wal_path(root, 1)
+        out["segment_bytes"] = os.path.getsize(seg)
+        del live                                # no close(): a crash
+        gc.collect()
+        torch.cuda.empty_cache()
+        payload = json.dumps({"op": "delete", "ids": [1, 2, 3]}).encode()
+        frame = walmod._FRAME.pack(len(payload), zlib.crc32(payload)) \
+            + payload
+        with open(seg, "ab") as f:
+            f.write(frame[:len(frame) // 2])
+        rec, out["recover_s"] = drive_path(
+            by_path, "wal-replay", lambda: NKSEngine.recover(root))
+        ops = out["ingest"]["wal_appends"]
+        out["replayed_ops"] = rec.ingest.replayed_ops
+        out["torn_tail"] = rec.wal_stats.torn_tail
+        check(rec.ingest.replayed_ops == 8, f"recover replayed "
+              f"{rec.ingest.replayed_ops} ops, want the 8 after the snapshot")
+        check(rec.wal_stats.torn_tail, "recover saw no torn tail")
+        k5 = by_path["wal-replay"]["project_and_bin"]
+        # 6 insert batches, the delete's bulk rows, the compaction
+        check(k5 == 5 * 8, f"the replay launched K5 {k5} times, want 40")
+        for tier in ("exact", "approx", "device"):
+            check(keys_of(rec.query_batch(queries, k=1, tier=tier))
+                  == recorded[tier], f"[wal] the recovered engine's {tier} "
+                  f"answers differ from the uninterrupted engine's")
+        check(keys_of(rec.query_batch(queries, k=1, tier="exact",
+                                      filter=flt)) == recorded["price<50"],
+              "[wal] the recovered engine's price<50 answers differ")
+        print(f"[wal] attach_wal (genesis snapshot of {ds.n} points) "
+              f"{out['attach_s']:.3f}s; fsync'd insert of {per} points "
+              f"{out['insert_fsync_mean_s']:.4f}s on average ({ins_s}); "
+              f"snapshot() (compaction first) {out['snapshot_s']:.3f}s; "
+              f"4 inserts in one ingest_group() {out['group_s']:.3f}s with "
+              f"{out['group_fsyncs']} fsync; 1,000 deletes "
+              f"{out['delete_s']:.4f}s; compact() {out['compact_s']:.3f}s; "
+              f"{ops} ops logged, segment {out['segment_bytes']} bytes",
+              flush=True)
+        print(f"[wal] recover with a torn tail: {out['recover_s']:.3f}s, "
+              f"replayed {rec.ingest.replayed_ops} ops (torn tail "
+              f"{rec.wal_stats.torn_tail}); K5 {k5} launches; exact, approx,"
+              f" device and price<50 answers bit for bit the uninterrupted "
+              f"engine's; launches {by_path['wal-replay']}", flush=True)
+        rec.close()
+        del rec
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["wal"] = out
+
+
 class LargestCalls:
     """Wraps a backend's ``self_join_blocks`` and keeps the arguments of the
     ``KEEP`` calls with the most points in finite-radius subsets (the ones
@@ -1772,7 +2086,8 @@ def filtered(args, report: dict, served, by_path: dict) -> tuple:
     from repro_torch.core.filters import where
     from repro_torch.kernels import ops
 
-    engine, ds, queries, _, _ = served
+    engine, ds, queries = served[:3]
+    kept = served[5]["answers"]
     filters = {                                 # filter, packing mode
         "price<50": (where(("price", "<", 50.0)), "fold"),
         "price<10": (where(("price", "<", 10.0)), "dense"),
@@ -1822,6 +2137,9 @@ def filtered(args, report: dict, served, by_path: dict) -> tuple:
                 rep[tier]["cascade"] = st.cascade
             rep[tier]["answered"] = check_filtered_answers(
                 ds, qs, answers[tier], eligible, path)
+            if path in ("filter:price<50:exact",
+                        "filter:cat3,price20-70:exact"):
+                kept[path] = answers[tier]      # for [store]
             print(f"[filter] {prefix[7:]} {tier}: {wall:.3f}s = "
                   f"{len(qs) / wall:.2f} QPS; answered "
                   f"{rep[tier]['answered']} of {len(qs)}; filtering "
@@ -3121,6 +3439,8 @@ def main() -> int:
         semantics(args, report, served, by_path)
         elig_recs = filtered(args, report, served, by_path)
         stream(args, report, served, by_path)
+        store_phase(args, report, served, by_path)
+        wal_phase(args, report, served, by_path)
         tenants(args, report, by_path)
         profiles = KernelProfiles()
         rows = kernel_rows(*recs, by_path, profiles)

@@ -122,6 +122,11 @@ class BackendStats:
     # into full-width tiles, or eligible rows packed densely.
     elig_fold_dispatches: int = 0
     elig_dense_dispatches: int = 0
+    # Out-of-core accounting: bytes of point rows gathered on the host off a
+    # memory-mapped store leaf (the cold tier). The torch backend's device
+    # bins gather from the corpus resident on the card and count nothing;
+    # its host-routed bins gather off the host array and count.
+    cold_bytes_read: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +179,13 @@ class DistanceBackend(abc.ABC):
 
     def __init__(self) -> None:
         self.stats = BackendStats()
+
+    def _note_cold_read(self, points: np.ndarray, n_rows: int) -> None:
+        """Count a row gather against the cold tier when ``points`` is a
+        memory-mapped store leaf (resident corpora cost nothing)."""
+        if isinstance(points, np.memmap):
+            self.stats.cold_bytes_read += \
+                int(n_rows) * int(points.shape[1]) * points.itemsize
 
     @abc.abstractmethod
     def pairwise(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -443,6 +455,7 @@ class NumpyBackend(DistanceBackend):
         out = []
         for ids, r in zip(id_lists, radii):
             pts = points[ids]
+            self._note_cold_read(points, len(ids))
             dist = self.pairwise(pts, pts)
             n_elig = None
             if eligible is None:
@@ -595,6 +608,9 @@ class TorchBackend(DistanceBackend):
         self._edge_cache.clear()
         self._generation = generation
         pts32 = np.ascontiguousarray(points, dtype=np.float32)
+        if not pts32.flags.writeable:
+            # a memory-mapped store leaf: read it once, here
+            pts32 = pts32.copy()
         self._buf = points_dev.contiguous() if points_dev is not None \
             else torch.from_numpy(pts32).to(self.device)
         # float64 squared norms of the fp32 rows: the slack of any subset is
@@ -853,6 +869,7 @@ class TorchBackend(DistanceBackend):
             if dist is None:
                 dist = np.sqrt(_sq_dists_f64(
                     np.asarray(points[ids], np.float64)))
+                self._note_cold_read(points, len(ids))
                 if ck is not None:
                     self.stats.cache_misses += 1
                     self._cache_put(ck, dist, dist.nbytes)

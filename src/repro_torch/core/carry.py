@@ -8,6 +8,7 @@ read from.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.backend import resolve_device
-from repro_torch.core.index import HIStructure, PromishIndex
+from repro_torch.core.index import BucketSynopsis, HIStructure, PromishIndex
 from repro_torch.core.types import KeywordDataset, dataset_from_csr
 from repro_torch.utils.csr import CSR
 
@@ -40,14 +41,20 @@ def index_from_arrays(z: np.ndarray, p_max: float, n_scales: int,
     """A :class:`PromishIndex` from its arrays: the (m, d) projection
     vectors, the projection span and, per scale, ``width``, ``n_buckets``
     and the two CSRs (``table_offsets``/``table_values`` bucket -> points,
-    ``khb_offsets``/``khb_values`` keyword -> buckets)."""
+    ``khb_offsets``/``khb_values`` keyword -> buckets), and optionally
+    ``synopsis``, the keyword arguments of its
+    :class:`~repro_torch.core.index.BucketSynopsis` (the synopsis is carried
+    with its tables: the planner's prunes read it, and a compaction rebuilds
+    it only where the engine's build params ask for one)."""
     if len(scales) != n_scales:
         raise ValueError(f"{n_scales} scales but {len(scales)} given")
     structures = tuple(
         HIStructure(scale=s, width=float(sc["width"]),
                     n_buckets=int(sc["n_buckets"]),
                     table=_csr(sc["table_offsets"], sc["table_values"]),
-                    khb=_csr(sc["khb_offsets"], sc["khb_values"]))
+                    khb=_csr(sc["khb_offsets"], sc["khb_values"]),
+                    synopsis=BucketSynopsis(**sc["synopsis"])
+                    if sc.get("synopsis") is not None else None)
         for s, sc in enumerate(scales))
     return PromishIndex(z=np.ascontiguousarray(z, dtype=np.float32),
                         w0=structures[0].width, n_scales=int(n_scales),
@@ -63,7 +70,9 @@ def index_to_arrays(index: PromishIndex) -> dict:
                              table_offsets=h.table.offsets,
                              table_values=h.table.values,
                              khb_offsets=h.khb.offsets,
-                             khb_values=h.khb.values)
+                             khb_values=h.khb.values,
+                             synopsis=None if h.synopsis is None
+                             else dataclasses.asdict(h.synopsis))
                         for h in index.structures])
 
 

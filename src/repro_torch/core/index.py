@@ -13,6 +13,9 @@ sorts per scale. :func:`build_index` is the flat-array numpy build on the
 host, the oracle of the build on the device (``core.index_build``, which the
 engine runs): both are deterministic in ``seed``, and the same corpus and
 parameters give the same structures as the reference package's build.
+:class:`BucketSynopsis` (``synopsis=True``) summarises each bucket — count,
+bounding radius, attribute and tenant ranges — for the planner's zone and
+radius prunes, built on the host with the reference's arithmetic.
 
 :class:`IndexDelta` is the streaming companion of a frozen index: inserts
 and deletes are binned through K5 (``core.index_build.bin_rows``) and
@@ -34,6 +37,109 @@ from repro_torch.utils.csr import (CSR, csr_from_pairs, ragged_arange,
 
 
 @dataclasses.dataclass(frozen=True)
+class BucketSynopsis:
+    """Per-bucket summary table of one scale's hashtable (zone maps).
+
+    Everything here is a *conservative superset* of the bucket's bulk
+    membership, so consulting it can only ever skip work, never answers:
+
+      * ``radius`` — an upper bound on the distance from the bucket's points
+        to their centroid (f64 max, rounded *up* into f32). ``2 * radius``
+        bounds the diameter of any subset drawn from the bucket, letting the
+        dispatcher substitute an infinite pruning radius (the all-pairs-join
+        fast path) when the bound already beats the live ``r_k``. The
+        centroid itself is a build-time intermediate and is not retained.
+      * ``attr_min`` / ``attr_max`` — per numeric attribute column, the
+        bucket's value range; a conjunctive
+        :class:`~repro_torch.core.filters.Filter` clause provably empty
+        against the range prunes the bucket before its member list is read.
+      * ``tenant_min`` / ``tenant_max`` — same idea for tenant-scoped queries.
+
+    Empty buckets carry ``radius = 0`` and inverted ranges (min=+inf,
+    max=-inf), which every prune rule rejects harmlessly.
+    """
+
+    counts: np.ndarray                          # (n_buckets,) int32
+    radius: np.ndarray                          # (n_buckets,) float32, >= true
+    attr_min: dict                              # name -> (n_buckets,) float64
+    attr_max: dict                              # name -> (n_buckets,) float64
+    tenant_min: np.ndarray | None = None        # (n_buckets,) int32
+    tenant_max: np.ndarray | None = None
+
+    def nbytes(self) -> int:
+        total = self.counts.nbytes + self.radius.nbytes
+        total += sum(a.nbytes for a in self.attr_min.values())
+        total += sum(a.nbytes for a in self.attr_max.values())
+        if self.tenant_min is not None:
+            total += self.tenant_min.nbytes + self.tenant_max.nbytes
+        return total
+
+
+def build_synopsis(dataset: KeywordDataset, table: CSR, n_buckets: int, *,
+                   chunk: int = 1 << 21) -> BucketSynopsis:
+    """Build the per-bucket synopsis of one scale's hashtable, on the host.
+
+    Two vectorised ``reduceat`` passes over the member array (chunked so the
+    d-dimensional gather never materialises more than ~``chunk`` rows): one
+    for per-bucket centroids (sums / counts), one for the max distance to the
+    centroid. Restricting the reduceat starts to *nonempty* buckets makes
+    consecutive segments exactly bucket boundaries. The arithmetic is the
+    reference package's, so the synopses are equal bit for bit.
+    """
+    counts = np.diff(table.offsets).astype(np.int64)
+    radius = np.zeros(n_buckets, dtype=np.float32)
+    nonempty = np.flatnonzero(counts > 0)
+    pts = dataset.points
+    if len(nonempty):
+        csum = np.cumsum(counts[nonempty])
+        b0 = 0
+        while b0 < len(nonempty):
+            base = int(csum[b0 - 1]) if b0 else 0
+            b1 = int(np.searchsorted(csum, base + chunk, side="left")) + 1
+            b1 = min(max(b1, b0 + 1), len(nonempty))
+            sel = nonempty[b0:b1]
+            lo = int(table.offsets[sel[0]])
+            hi = int(table.offsets[sel[-1] + 1])
+            rows = pts[table.values[lo:hi]].astype(np.float64)
+            starts = (table.offsets[sel] - lo).astype(np.int64)
+            cent = np.add.reduceat(rows, starts, axis=0) \
+                / counts[sel][:, None]
+            ent = np.repeat(np.arange(len(sel)), counts[sel])
+            diff = rows - cent[ent]
+            dist = np.sqrt(np.einsum("ij,ij->i", diff, diff))
+            rmax = np.maximum.reduceat(dist, starts).astype(np.float32)
+            # Round up so the f32 bound still dominates the f64 max.
+            radius[sel] = np.nextafter(rmax, np.float32(np.inf))
+            b0 = b1
+
+    def _minmax(col: np.ndarray, lo_fill, hi_fill, dtype):
+        vals = col[table.values]
+        amin = np.full(n_buckets, lo_fill, dtype=dtype)
+        amax = np.full(n_buckets, hi_fill, dtype=dtype)
+        if len(nonempty):
+            starts = table.offsets[nonempty].astype(np.int64)
+            amin[nonempty] = np.minimum.reduceat(vals, starts)
+            amax[nonempty] = np.maximum.reduceat(vals, starts)
+        return amin, amax
+
+    attr_min: dict = {}
+    attr_max: dict = {}
+    for name, col in (dataset.attrs or {}).items():
+        if not np.issubdtype(np.asarray(col).dtype, np.number):
+            continue                      # categorical strings: no zone map
+        attr_min[name], attr_max[name] = _minmax(
+            np.asarray(col, dtype=np.float64), np.inf, -np.inf, np.float64)
+    tenant_min = tenant_max = None
+    if dataset.tenant_of is not None:
+        tenant_min, tenant_max = _minmax(
+            dataset.tenant_of.astype(np.int32),
+            np.iinfo(np.int32).max, np.iinfo(np.int32).min, np.int32)
+    return BucketSynopsis(counts=counts.astype(np.int32), radius=radius,
+                          attr_min=attr_min, attr_max=attr_max,
+                          tenant_min=tenant_min, tenant_max=tenant_max)
+
+
+@dataclasses.dataclass(frozen=True)
 class HIStructure:
     """Hashtable + keyword->bucket inverted index at one scale."""
 
@@ -42,9 +148,13 @@ class HIStructure:
     n_buckets: int
     table: CSR      # bucket -> point ids (a point appears once per distinct bucket)
     khb: CSR        # keyword -> bucket ids containing >=1 point with that keyword
+    synopsis: BucketSynopsis | None = None      # zone maps and radii
 
     def nbytes(self) -> int:
-        return self.table.nbytes() + self.khb.nbytes()
+        total = self.table.nbytes() + self.khb.nbytes()
+        if self.synopsis is not None:
+            total += self.synopsis.nbytes()
+        return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +185,8 @@ class PromishIndex:
 
 
 def _build_scale(dataset: KeywordDataset, projected: np.ndarray, scale: int,
-                 width: float, n_buckets: int, exact: bool) -> HIStructure:
+                 width: float, n_buckets: int, exact: bool,
+                 synopsis: bool = False) -> HIStructure:
     n = dataset.n
     if exact:
         keys2 = proj.bin_keys_overlapping(projected, width)
@@ -104,8 +215,9 @@ def _build_scale(dataset: KeywordDataset, projected: np.ndarray, scale: int,
     kws = dataset.kw.values[idx].astype(np.int64)
     khb = csr_from_pairs(kws, bk_rep.astype(np.int32),
                          dataset.n_keywords, dedup=True)
+    syn = build_synopsis(dataset, table, n_buckets) if synopsis else None
     return HIStructure(scale=scale, width=width, n_buckets=n_buckets,
-                       table=table, khb=khb)
+                       table=table, khb=khb, synopsis=syn)
 
 
 def default_n_buckets(n: int) -> int:
@@ -115,7 +227,8 @@ def default_n_buckets(n: int) -> int:
 
 def build_index(dataset: KeywordDataset, *, m: int = 2, n_scales: int = 5,
                 exact: bool = True, seed: int = 0, w0: float | None = None,
-                n_buckets: int | None = None) -> PromishIndex:
+                n_buckets: int | None = None,
+                synopsis: bool = False) -> PromishIndex:
     """Build a ProMiSH index (paper defaults: m=2, L=5, w0=pMax/2^L).
 
     The hashtable has one bucket per point, rounded up to a power of two
@@ -124,6 +237,11 @@ def build_index(dataset: KeywordDataset, *, m: int = 2, n_scales: int = 5,
     a streaming engine passes both so the bucket ids of points absorbed
     later, and of every rebuild at compaction, stay comparable with a fresh
     build over the same corpus.
+
+    ``synopsis=True`` also builds each scale's :class:`BucketSynopsis` (zone
+    maps and bounding radii), which the planner consults; a streaming
+    engine's compactions rebuild them, since the flag rides in its pinned
+    build params.
     """
     rng = np.random.default_rng(seed)
     z = proj.sample_unit_vectors(rng, m, dataset.dim)
@@ -139,7 +257,7 @@ def build_index(dataset: KeywordDataset, *, m: int = 2, n_scales: int = 5,
         # Fewer, larger buckets are expected at coarse scales; halve the table.
         nb = max(64, n_buckets >> s) if not exact else n_buckets
         structures.append(_build_scale(dataset, projected, s, width, nb,
-                                       exact))
+                                       exact, synopsis))
     return PromishIndex(z=z, w0=float(w0), n_scales=n_scales, exact=exact,
                         structures=tuple(structures), p_max=p_max)
 

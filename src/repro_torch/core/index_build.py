@@ -29,7 +29,11 @@ and written back over K5's keys. The margin, in bin units:
 Signatures hash on the device in int64 (``signatures.*_torch``), the
 (bucket, point) and (keyword, bucket) pairs dedup and sort there
 (``csr_from_pairs_torch``), and the CSRs are copied back to the host, where
-the plan layer reads them.
+the plan layer reads them. With ``synopsis=True`` each scale's bucket
+synopsis (:func:`repro_torch.core.index.build_synopsis`: counts, bounding
+radii, attribute and tenant ranges) is then built on the host from those
+tables, with the host build's own numpy arithmetic, so it equals the host
+build's bit for bit.
 """
 from __future__ import annotations
 
@@ -41,7 +45,8 @@ import torch
 
 from repro_torch.core import projection as proj
 from repro_torch.core import signatures as sig
-from repro_torch.core.index import HIStructure, PromishIndex, default_n_buckets
+from repro_torch.core.index import (HIStructure, PromishIndex,
+                                    build_synopsis, default_n_buckets)
 from repro_torch.core.types import KeywordDataset
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import bin_constants
@@ -62,6 +67,7 @@ class BuildStats:
     t_settle_s: float = 0.0       # margin test, host re-binning, write-back
     t_assemble_s: float = 0.0     # hashing and both CSRs on the device
     t_copy_s: float = 0.0         # CSRs to the host
+    t_synopsis_s: float = 0.0     # host: bucket synopses (synopsis=True)
     k5_launches: int = 0
     settled: list[int] = dataclasses.field(default_factory=list)
 
@@ -139,7 +145,7 @@ def bin_rows(rows_dev: torch.Tensor, rows: np.ndarray, z: np.ndarray,
     delete batch from exactly that product). ``rows_dev`` holds the same
     rows on the device."""
     p_host = proj.project(rows, z)
-    z_dev = torch.from_numpy(z).to(rows_dev.device)
+    z_dev = torch.tensor(z, device=rows_dev.device)
     margin = margin_scale(rows_dev)
     return [bin_scale(rows_dev, z_dev, margin, p_host, w, stats)
             for w in widths]
@@ -177,13 +183,14 @@ def _assemble_scale(dataset: KeywordDataset, h1: torch.Tensor,
                     h2: torch.Tensor, scale: int, width: float,
                     n_buckets: int, kw: tuple[torch.Tensor, torch.Tensor],
                     stats: BuildStats,
-                    flavours: tuple[bool, ...] = (True, False)
-                    ) -> list[HIStructure]:
+                    flavours: tuple[bool, ...] = (True, False),
+                    synopsis: bool = False) -> list[HIStructure]:
     """One scale of the indices in ``flavours`` (True: exact, False:
     approximate) from its bin keys (h1, h2 int64 (n, m) on the device): the
     exact structure hashes all 2^m signatures into ``n_buckets``, the
     approximate one h1 alone into ``n_buckets >> scale`` (at least 64);
-    tables and I_khb are assembled on the device and copied to the host."""
+    tables and I_khb are assembled on the device and copied to the host,
+    where ``synopsis`` builds each table's bucket synopsis."""
     dev = h1.device
     point_ids = torch.arange(dataset.n, dtype=torch.int32, device=dev)
     out = []
@@ -201,13 +208,17 @@ def _assemble_scale(dataset: KeywordDataset, h1: torch.Tensor,
         k_off, k_val = _khb(t_off, t_val, *kw, dataset.n_keywords)
         _sync(dev)
         t2 = time.perf_counter()
-        out.append(HIStructure(scale=scale, width=width, n_buckets=nb,
-                               table=_to_host(t_off, t_val),
-                               khb=_to_host(k_off, k_val)))
+        table = _to_host(t_off, t_val)
+        khb = _to_host(k_off, k_val)
         t3 = time.perf_counter()
+        syn = build_synopsis(dataset, table, nb) if synopsis else None
+        t4 = time.perf_counter()
+        out.append(HIStructure(scale=scale, width=width, n_buckets=nb,
+                               table=table, khb=khb, synopsis=syn))
         stats.t_assemble_s += t2 - t1
         stats.t_copy_s += t3 - t2
-        t1 = t3
+        stats.t_synopsis_s += t4 - t3
+        t1 = t4
     return out
 
 
@@ -215,7 +226,8 @@ def build_indices(dataset: KeywordDataset, points_dev: torch.Tensor, *,
                   m: int = 2, n_scales: int = 5, seed: int = 0,
                   w0: float | None = None, n_buckets: int | None = None,
                   stats: BuildStats | None = None,
-                  build_exact: bool = True, build_approx: bool = True
+                  build_exact: bool = True, build_approx: bool = True,
+                  synopsis: bool = False
                   ) -> tuple[PromishIndex | None, PromishIndex | None]:
     """The ProMiSH indices of ``dataset`` (exact, approximate), equal array
     for array to :func:`repro_torch.core.index.build_index` with the same
@@ -224,7 +236,9 @@ def build_indices(dataset: KeywordDataset, points_dev: torch.Tensor, *,
     hash geometry as there (``n_buckets`` a power of two or below 2^31). Phase
     walls, K5 launches and settled entries accumulate in ``stats``.
     ``build_exact=False`` / ``build_approx=False`` skip that flavour's
-    assembly; its slot in the result is None."""
+    assembly; its slot in the result is None. ``synopsis=True`` attaches
+    each scale's bucket synopsis, built on the host from the copied-back
+    tables (``stats.t_synopsis_s``)."""
     st = stats if stats is not None else BuildStats()
     dev = points_dev.device
     t0 = time.perf_counter()
@@ -249,7 +263,7 @@ def build_indices(dataset: KeywordDataset, points_dev: torch.Tensor, *,
         width = w0 * (2.0 ** s)
         h1, h2 = bin_scale(points_dev, z_dev, margin, p_host, width, st)
         structs.append(_assemble_scale(dataset, h1, h2, s, width, n_buckets,
-                                       kw, st, flavours))
+                                       kw, st, flavours, synopsis))
         del h1, h2
     built = {exact: PromishIndex(z=z, w0=float(w0), n_scales=n_scales,
                                  exact=exact, structures=tuple(per_scale),

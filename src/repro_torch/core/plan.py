@@ -30,14 +30,25 @@ class PlanStats:
     buckets_selected: int = 0
     duplicate_subsets: int = 0
     filtered_subsets: int = 0      # pruned: no point satisfied the predicate
+    buckets_pruned_zonemap: int = 0  # zone map proved no eligible bulk member
 
 
 @dataclasses.dataclass(frozen=True)
 class SubsetTask:
-    """One covering-bucket subset F' queued for search on behalf of a query."""
+    """One covering-bucket subset F' queued for search on behalf of a query.
+
+    ``diam_ub`` bounds the diameter of any subset drawn from the source
+    bucket (``2 * synopsis radius``; +inf without a synopsis or when delta
+    members ride along). When the bound already beats the query's live
+    ``r_k`` every pair joins, so the dispatcher can substitute an infinite
+    pruning radius — the all-ones-mask fast path that skips the device —
+    without changing any result (enumeration settles membership in float64
+    at the live radius either way).
+    """
 
     qidx: int            # position in the batch
     f_ids: np.ndarray    # sorted unique point ids of F'
+    diam_ub: float = float("inf")
 
 
 def query_bitset(dataset: KeywordDataset, query: Sequence[int]) -> np.ndarray:
@@ -109,7 +120,8 @@ def plan_scale(index: PromishIndex, scale: int,
                stats: PlanStats | None = None,
                ctx: BatchPlanContext | None = None,
                delta=None,
-               eligible: np.ndarray | None = None) -> list[SubsetTask]:
+               eligible: np.ndarray | None = None,
+               zone=None) -> list[SubsetTask]:
     """Collect every subset to search at ``scale`` for the active queries.
 
     ``explored`` maps query index -> Algorithm-2 hash set (exact set-hash on
@@ -132,10 +144,22 @@ def plan_scale(index: PromishIndex, scale: int,
     eligible member is pruned here, before any pack or dispatch (counted in
     ``PlanStats.filtered_subsets``). Pruning runs after the Algorithm-2
     dedup, so a fully-ineligible subset is checked once per query, not once
-    per covering bucket. (The reference's zone-map pruning, ``zone=``,
-    belongs to its out-of-core store, which the port does not have.)
+    per covering bucket.
+
+    ``zone`` (a :class:`repro_torch.core.store.ZoneMapPruner`, requires
+    ``eligible``) consults the scale's bucket synopsis *before* the member
+    list is touched: a bucket whose zone map is provably disjoint from the
+    filter — and that has no delta members, which the bulk-built synopsis
+    cannot speak for — is skipped outright (``buckets_pruned_zonemap``),
+    saving the (possibly memory-mapped) member-list read the other prunes
+    would still pay. A zone-rejected bucket's subset is entirely
+    ineligible, so the eligibility prune above would have dropped it anyway:
+    results are bit-identical with ``zone`` on or off. Each task carries its
+    bucket's diameter bound (``SubsetTask.diam_ub``) where the scale has a
+    synopsis.
     """
     hi = index.structures[scale]
+    syn = hi.synopsis
     tasks: list[SubsetTask] = []
     if delta is not None and len(active):
         # Resolve suspect (keyword, bucket) coverage once for the whole
@@ -151,17 +175,28 @@ def plan_scale(index: PromishIndex, scale: int,
         else:
             cover = delta.covering_buckets(scale, queries[qidx])
             d_buckets, d_ids = delta.scale_pairs(scale, bs)
-        for b in cover:
+        rej = zone.reject(syn, cover) \
+            if zone is not None and eligible is not None else None
+        for ci, b in enumerate(cover):
             if stats is not None:
                 stats.buckets_selected += 1
+            dlo = dhi = 0
+            if d_buckets is not None and len(d_buckets):
+                dlo, dhi = np.searchsorted(d_buckets, [b, b + 1])
+            if rej is not None and rej[ci] and dhi == dlo:
+                # The synopsis speaks for the bulk members only; with no
+                # delta members riding along, every point the bucket could
+                # contribute is provably ineligible — skip before the
+                # member-list read.
+                if stats is not None:
+                    stats.buckets_pruned_zonemap += 1
+                continue
             pts = hi.table.row(int(b))
             # table rows are sorted unique point ids (CSR contract), so the
             # bitset filter preserves that — no np.unique on the hot path.
             f = np.ascontiguousarray(pts[bs[pts]], dtype=np.int64)
-            if d_buckets is not None and len(d_buckets):
-                dlo, dhi = np.searchsorted(d_buckets, [b, b + 1])
-                if dhi > dlo:
-                    f = np.concatenate([f, d_ids[dlo:dhi]])
+            if dhi > dlo:
+                f = np.concatenate([f, d_ids[dlo:dhi]])
             if len(f) == 0:
                 continue
             if explored is not None:
@@ -175,7 +210,9 @@ def plan_scale(index: PromishIndex, scale: int,
                 if stats is not None:
                     stats.filtered_subsets += 1
                 continue
-            tasks.append(SubsetTask(qidx=qidx, f_ids=f))
+            diam_ub = 2.0 * float(syn.radius[b]) \
+                if syn is not None and dlo == dhi else float("inf")
+            tasks.append(SubsetTask(qidx=qidx, f_ids=f, diam_ub=diam_ub))
     return tasks
 
 

@@ -62,11 +62,31 @@ queue; keyword weights rescale only the host float64 settlement (the
 device join at the geometric radius stays a superset); scored queues rank by
 coverage over cost. Degenerate semantics give the classic answer exactly;
 the device tier refuses the rest.
+
+**Durability** (``attach_wal`` / ``snapshot`` / ``recover``, see
+:mod:`repro_torch.serve.wal`): every insert, delete and compaction is
+appended to a write-ahead log and fsync'd before it is acknowledged
+(``ingest_group()`` shares one fsync among a run of ops); ``snapshot()``
+rolls the log; ``recover(root)`` loads the latest snapshot and replays the
+log through the same card path as live ops, into an engine that answers as
+the uninterrupted one did, bit for bit.
+
+**Out-of-core serving** (``from_store``, see :mod:`repro_torch.core.store`):
+an engine opens over a bulk store on disk without a rebuild. The keyword
+CSRs and bucket tables stay memory-mapped on the host for the planner; the
+points are read off their mapped leaf once, into the card, where the whole
+corpus stays resident (a corpus that does not fit raises at open). With
+bucket synopses (``synopsis=True``, or a store built with them) the planner
+skips buckets whose zone maps exclude a filter and dispatches subsets whose
+diameter bound already beats the live ``r_k`` through the all-ones fast
+path; answers are bit-identical with the prunes on or off.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import os
 import time
 from typing import Sequence
 
@@ -74,6 +94,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import carry, plan, promish_a, promish_e
+from repro_torch.core import store as storemod
 from repro_torch.core.backend import (DistanceBackend, NumpyBackend,
                                       TorchBackend, resolve_device)
 from repro_torch.core.device_plane import gather_groups, pack_group_ids
@@ -86,6 +107,8 @@ from repro_torch.core.semantics import QuerySemantics
 from repro_torch.core.subset_search import enumerate_with_block, local_groups
 from repro_torch.core.types import (Candidate, KeywordDataset,
                                     StreamingCorpus, TopK, make_dataset)
+from repro_torch.serve import wal as walmod
+from repro_torch.serve.faults import NO_FAULTS, FaultPlan
 
 # Process-global corpus-generation tokens: every (engine, compaction) pair
 # gets a unique token, so a DistanceBackend shared across engines can never
@@ -116,6 +139,11 @@ class ScaleStats:
     dispatches: int = 0          # device/loop distance dispatches this scale
     join_pairs: int = 0
     queries_finished: int = 0
+    # Synopsis prunes (zero without synopses): buckets zone-rejected before
+    # their member lists were read, subsets sent through the all-ones fast
+    # path because their bucket's diameter bound beat the live r_k.
+    buckets_pruned_zonemap: int = 0
+    buckets_pruned_radius: int = 0
 
 
 @dataclasses.dataclass
@@ -184,6 +212,15 @@ class PipelineStats:
     # Flexible semantics: planned subqueries after m-of-k expansion
     # (== batch_size on a classic batch — one subquery per query).
     subqueries: int = 0
+    # Out-of-core tiering: buckets the planner skipped because the filter
+    # was provably disjoint from their zone maps, subsets dispatched through
+    # the all-ones fast path because their bucket's diameter bound already
+    # beat the live r_k, and bytes of point rows the backend gathered off a
+    # memory-mapped store leaf. All zero on an engine without synopses over
+    # a resident corpus.
+    buckets_pruned_zonemap: int = 0
+    buckets_pruned_radius: int = 0
+    cold_bytes_read: int = 0
 
     @property
     def dispatches_per_scale(self) -> list[int]:
@@ -263,6 +300,13 @@ class PipelineStats:
                 "tombstones": self.tombstones,
                 "compactions": self.compactions}
 
+    @property
+    def tiering(self) -> dict:
+        """JSON-ready out-of-core tiering summary."""
+        return {"buckets_pruned_zonemap": self.buckets_pruned_zonemap,
+                "buckets_pruned_radius": self.buckets_pruned_radius,
+                "cold_bytes_read": self.cold_bytes_read}
+
 
 @dataclasses.dataclass
 class IngestStats:
@@ -274,6 +318,9 @@ class IngestStats:
     points_deleted: int = 0
     compactions: int = 0
     generation: int = 0         # == engine.corpus_generation
+    wal_appends: int = 0        # ops made durable before their ack
+    replayed_ops: int = 0       # ops re-applied by the last recover()
+    snapshots: int = 0          # log-rolling snapshots taken
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -306,7 +353,8 @@ _DELTA_FIELDS = ("t_pack_s", "t_dispatch_s", "cache_hits", "cache_misses",
                  "h2d_bytes", "d2h_bytes", "valid_cells", "total_cells",
                  "prune_tier_dispatches", "cells_pruned", "t_prune_s",
                  "t_host_s", "host_routed_dispatches", "host_routed_subsets",
-                 "elig_fold_dispatches", "elig_dense_dispatches")
+                 "elig_fold_dispatches", "elig_dense_dispatches",
+                 "cold_bytes_read")
 
 
 class NKSEngine:
@@ -317,6 +365,8 @@ class NKSEngine:
                  auto_compact: bool = True,
                  build_exact: bool = True, build_approx: bool = True,
                  device: str | torch.device | None = None,
+                 faults: FaultPlan | None = None, synopsis: bool = False,
+                 resident_budget_bytes: int | None = None,
                  _indices: tuple[PromishIndex, PromishIndex] | None = None):
         """Put the corpus on ``device`` (the CUDA card unless the caller
         passes another; see :func:`repro_torch.core.backend.resolve_device`)
@@ -335,14 +385,28 @@ class NKSEngine:
         (``auto_compact=False`` leaves compaction to :meth:`compact`).
 
         ``build_exact=False`` / ``build_approx=False`` skip that index (and
-        its streaming delta and rebuilds); its tier then raises."""
+        its streaming delta and rebuilds); its tier then raises.
+
+        ``synopsis=True`` builds each scale's bucket synopsis (zone maps and
+        bounding radii, on the host from the copied-back tables), and every
+        compaction rebuilds them: the flag rides in the pinned build params.
+        ``resident_budget_bytes`` bounds the torch backend's tile and table
+        cache (``TorchBackend(cache_bytes=)``), the hot tier above the
+        memory-mapped leaves of an engine opened with :meth:`from_store`.
+        ``faults`` (a :class:`~repro_torch.serve.faults.FaultPlan`) arms the
+        ``compact`` and ``wal_ack`` fault points for the durability tests."""
         self.device = resolve_device(device)
         self._bulk = dataset
         self.last_batch_stats: PipelineStats | None = None
         self._build_params = dict(m=m, n_scales=n_scales, seed=seed,
-                                  w0=w0, n_buckets=n_buckets)
+                                  w0=w0, n_buckets=n_buckets,
+                                  synopsis=synopsis)
+        self.resident_budget_bytes = resident_budget_bytes
         self._corpus_token = next(_CORPUS_TOKENS)
-        self.backend = TorchBackend(device=self.device)
+        self.backend = TorchBackend(device=self.device) \
+            if resident_budget_bytes is None else \
+            TorchBackend(device=self.device,
+                         cache_bytes=int(resident_budget_bytes))
         self.backend.attach(dataset.points, self._corpus_token)
         self.build_stats = BuildStats()
         if _indices is not None:
@@ -367,6 +431,14 @@ class NKSEngine:
         self.compact_min = int(compact_min)
         self.auto_compact = bool(auto_compact)
         self.ingest = IngestStats()
+        # Durability (attach_wal / recover): every mutating op is appended —
+        # and fsync'd — before its ack. None = volatile engine (the default).
+        self._faults = faults or NO_FAULTS
+        self._wal: walmod.WriteAheadLog | None = None
+        self._wal_root: str | None = None
+        self._wal_epoch = 0
+        self._wal_group = 0         # ingest_group() nesting depth
+        self._replaying = False
         self.backend.warmup(dataset.dim)
         shape = (2, 128)
         nks_anchor_topk(
@@ -453,6 +525,21 @@ class NKSEngine:
         self._ext_append(ext)
         self.ingest.inserts += 1
         self.ingest.points_inserted += len(ids)
+        # Durability point: the op is in memory; make it survive process
+        # death *before* anything downstream (auto-compaction, the ack) runs.
+        self._wal_append({
+            "op": "insert",
+            "points": walmod.encode_array(
+                np.ascontiguousarray(points, np.float32)),
+            "keywords": [[int(v) for v in ks] for ks in keywords],
+            "attrs": ({name: walmod.encode_array(np.asarray(col))
+                       for name, col in attrs.items()}
+                      if attrs is not None else None),
+            "tenant": (walmod.encode_array(tenant)
+                       if isinstance(tenant, np.ndarray) else tenant),
+            "first_ext": int(ext[0]) if len(ext) else int(self._next_ext),
+            "count": len(ext),
+        })
         self._maybe_compact()
         return ext
 
@@ -479,6 +566,7 @@ class NKSEngine:
         self._view, self._deltas = view, deltas
         self.ingest.deletes += 1
         self.ingest.points_deleted += len(ext)
+        self._wal_append({"op": "delete", "ids": [int(i) for i in ext]})
         self._maybe_compact()
         return len(ext)
 
@@ -501,6 +589,9 @@ class NKSEngine:
                              "before compacting away the last live one")
         version = (view.n, view.n_tombstones)
         bulk = view.compacted_dataset()
+        # Mid-rebuild fault point: the compacted dataset exists, the new
+        # indices do not — a crash here leaves the old generation intact.
+        self._faults.check("compact")
         points_dev = self.backend._points_dev.index_select(
             0, torch.from_numpy(live).to(self.device))
         stats = BuildStats()
@@ -544,6 +635,8 @@ class NKSEngine:
                             points_dev=prep.points_dev)
         self.ingest.compactions += 1
         self.ingest.generation = self.corpus_generation
+        self._wal_append({"op": "compact",
+                          "generation": self.corpus_generation})
         return True
 
     def compact(self) -> bool:
@@ -554,7 +647,9 @@ class NKSEngine:
         return self.compact_commit(self.compact_prepare())
 
     def _maybe_compact(self) -> None:
-        if not self.auto_compact or self._view is None:
+        if not self.auto_compact or self._view is None or self._replaying:
+            # During WAL replay the logged compact records drive compaction:
+            # the cadence already fired once, at its logged position.
             return
         if self._view.n_tombstones >= self._view.n:
             # Everything is dead: nothing to rebuild from. The delete that
@@ -579,6 +674,237 @@ class NKSEngine:
         stats.delta_points = self.delta_points
         stats.tombstones = self.tombstone_count
         stats.compactions = self.ingest.compactions
+
+    # ------------------------------------------------------------ durability
+    def _wal_append(self, record: dict) -> None:
+        if self._wal is None or self._replaying:
+            return
+        # Inside an ingest_group() the fsync is deferred to the group barrier
+        # (one fsync per batch window); the ack ordering contract moves with
+        # it — callers must not ack grouped ops until the group exits.
+        self._wal.append(record, sync=self._wal_group == 0)
+        self.ingest.wal_appends += 1
+
+    @contextlib.contextmanager
+    def ingest_group(self):
+        """Group-commit scope: WAL appends inside the block defer their fsync
+        to one barrier at exit (``WriteAheadLog.sync``), so a run of ingest
+        ops acknowledged together pays a single durability barrier. Every
+        record in the group is durable before the ``with`` block returns, so
+        a caller that acks only after the block never acks a volatile write.
+        Nests (only the outermost exit issues the barrier); on an engine
+        without a WAL it does nothing."""
+        self._wal_group += 1
+        try:
+            yield self
+        finally:
+            self._wal_group -= 1
+            if self._wal_group == 0 and self._wal is not None \
+                    and not self._replaying:
+                # InjectedCrash from the wal_ack fault point propagates from
+                # here — after the fsync, before any caller could ack.
+                self._wal.sync()
+
+    def _engine_meta(self) -> dict:
+        return {
+            "next_ext": int(self._next_ext),
+            "identity_ids": bool(self._identity_ids),
+            "corpus_generation": int(self.corpus_generation),
+            "compact_ratio": self.compact_ratio,
+            "compact_min": self.compact_min,
+            "auto_compact": self.auto_compact,
+            "build_exact": self.index_e is not None,
+            "build_approx": self.index_a is not None,
+            "ingest": self.ingest.as_dict(),
+        }
+
+    def attach_wal(self, root: str, faults: FaultPlan | None = None) -> None:
+        """Make the engine durable under ``root`` (see ``serve.wal``).
+
+        Writes the genesis snapshot (epoch 0: the current frozen state, so
+        recovery always has a base corpus) and opens the WAL segment; from
+        here every insert/delete/compact is fsync'd before its ack. A dirty
+        engine compacts first — a snapshot is a clean generation boundary."""
+        if self._wal is not None:
+            raise RuntimeError(f"WAL already attached at {self._wal_root}")
+        if faults is not None:
+            self._faults = faults
+        if self._streaming_dirty():
+            self.compact()
+        os.makedirs(root, exist_ok=True)
+        self._wal_root = root
+        self._wal_epoch = 0
+        self._write_snapshot(0)
+        walmod.write_manifest(root, 0)
+        self._wal = walmod.WriteAheadLog(walmod.wal_path(root, 0),
+                                         faults=self._faults)
+
+    def _write_snapshot(self, epoch: int) -> None:
+        walmod.save_snapshot(
+            walmod.snap_dir(self._wal_root, epoch),
+            dataset=self._bulk, index_e=self.index_e, index_a=self.index_a,
+            build_params=self._build_params,
+            engine_meta={**self._engine_meta(),
+                         "ext": walmod.encode_array(
+                             np.ascontiguousarray(self._ext_of))})
+
+    def snapshot(self) -> str:
+        """Roll the log: fold the delta (if dirty), persist the full engine
+        state as the next epoch's snapshot, and start an empty WAL segment.
+        After this, recovery replays nothing older — the ack horizon moves
+        from "snapshot + log suffix" to "snapshot". Returns the snapshot
+        directory."""
+        if self._wal is None:
+            raise RuntimeError("snapshot() requires an attached WAL "
+                               "(attach_wal first)")
+        if self._streaming_dirty():
+            self.compact()
+        epoch = self._wal_epoch + 1
+        self._write_snapshot(epoch)
+        self._wal.close()
+        # Ordering: the new (empty) segment must exist before the manifest
+        # names its epoch — recovery reads the manifest first.
+        new_wal = walmod.WriteAheadLog(walmod.wal_path(self._wal_root, epoch),
+                                       faults=self._faults)
+        walmod.write_manifest(self._wal_root, epoch)
+        self._wal = new_wal
+        self._wal_epoch = epoch
+        self.ingest.snapshots += 1
+        walmod.gc_epochs(self._wal_root, epoch)
+        return walmod.snap_dir(self._wal_root, epoch)
+
+    def _replay_record(self, rec: dict) -> None:
+        """Re-apply one logged op through the live entry points (inserts
+        bin through K5 and join the resident corpus, as live ones do)."""
+        op = rec["op"]
+        if op == "insert":
+            attrs = rec["attrs"]
+            if attrs is not None:
+                attrs = {name: walmod.decode_array(col)
+                         for name, col in attrs.items()}
+            tenant = rec["tenant"]
+            if isinstance(tenant, dict) and "__nd__" in tenant:
+                tenant = walmod.decode_array(tenant)
+            ext = self.insert(walmod.decode_array(rec["points"]),
+                              rec["keywords"], attrs=attrs, tenant=tenant)
+            if len(ext) != rec["count"] or \
+                    (len(ext) and int(ext[0]) != rec["first_ext"]):
+                raise IOError(
+                    f"WAL replay diverged: insert assigned ids "
+                    f"{int(ext[0]) if len(ext) else None}+{len(ext)}, log "
+                    f"recorded {rec['first_ext']}+{rec['count']}")
+        elif op == "delete":
+            self.delete(rec["ids"])
+        elif op == "compact":
+            self.compact()
+            if self.corpus_generation != rec["generation"]:
+                raise IOError(
+                    f"WAL replay diverged: compact reached generation "
+                    f"{self.corpus_generation}, log recorded "
+                    f"{rec['generation']}")
+        else:
+            raise IOError(f"unknown WAL record op {op!r}")
+
+    @classmethod
+    def recover(cls, root: str, *, device: str | torch.device | None = None,
+                verify: bool = True,
+                faults: FaultPlan | None = None) -> "NKSEngine":
+        """Rebuild an engine on ``device`` (the card unless the caller asks
+        for another) from its WAL root: latest snapshot + log replay.
+
+        The recovered engine answers **bit-identically** to an uninterrupted
+        engine that executed the same acknowledged op sequence: the snapshot
+        stores the built index structures verbatim, and replay re-runs the
+        deterministic ingest path (K5 binning, the resident corpus append),
+        including logged compactions at their logged positions. A torn tail
+        is truncated before the segment reopens. The WAL stays attached —
+        the engine keeps appending to the recovered segment."""
+        man = walmod.read_manifest(root)
+        epoch = int(man["epoch"])
+        snap = walmod.load_snapshot(walmod.snap_dir(root, epoch),
+                                    verify=verify)
+        bp, em = snap["build_params"], snap["engine"]
+        engine = cls(snap["dataset"],
+                     m=bp["m"], n_scales=bp["n_scales"], seed=bp["seed"],
+                     w0=bp["w0"], n_buckets=bp["n_buckets"],
+                     synopsis=bp.get("synopsis", False),
+                     build_exact=em["build_exact"],
+                     build_approx=em["build_approx"], device=device,
+                     compact_ratio=em["compact_ratio"],
+                     compact_min=em["compact_min"],
+                     auto_compact=em["auto_compact"], faults=faults,
+                     _indices=(snap["index_e"], snap["index_a"]))
+        engine._ext_buf = walmod.decode_array(em["ext"])
+        engine._ext_len = len(engine._ext_buf)
+        engine._next_ext = em["next_ext"]
+        engine._identity_ids = em["identity_ids"]
+        engine.corpus_generation = em["corpus_generation"]
+        for field, value in em["ingest"].items():
+            setattr(engine.ingest, field, value)
+        engine.ingest.replayed_ops = 0
+        engine._wal_root = root
+        engine._wal_epoch = epoch
+        wal_file = walmod.wal_path(root, epoch)
+        rstats = walmod.WalStats()
+        engine._replaying = True
+        try:
+            for rec in walmod.WriteAheadLog.replay(wal_file, rstats):
+                engine._replay_record(rec)
+                engine.ingest.replayed_ops += 1
+        finally:
+            engine._replaying = False
+        if rstats.torn_tail:
+            # A torn tail is an unacknowledged op and replay skipped it, but
+            # its bytes are still on disk: appending after them would plant a
+            # CRC mismatch mid-file, and the *next* recovery would raise
+            # TornRecordError — losing every write acknowledged after this
+            # recovery. Truncate to the last whole record before reopening.
+            with open(wal_file, "rb+") as f:
+                f.truncate(rstats.valid_bytes)
+                f.flush()
+                os.fsync(f.fileno())
+        engine._wal = walmod.WriteAheadLog(wal_file, faults=engine._faults)
+        engine._wal.stats.replayed = rstats.replayed
+        engine._wal.stats.torn_tail = rstats.torn_tail
+        return engine
+
+    @classmethod
+    def from_store(cls, directory: str, *,
+                   device: str | torch.device | None = None,
+                   mmap: bool = True, verify: bool = False,
+                   resident_budget_bytes: int | None = None,
+                   **kw) -> "NKSEngine":
+        """Open an engine on ``device`` (the card unless the caller asks for
+        another) over a bulk store (``core.store``), without a rebuild.
+
+        With ``mmap=True`` (the default) the keyword CSRs and the bucket
+        tables stay on disk as memory-mapped leaves for the planner (the
+        per-bucket synopses load resident); the points are read off their
+        mapped leaf once, into the card, by ``TorchBackend.attach`` — a
+        corpus that does not fit there raises. ``resident_budget_bytes``
+        bounds the backend's tile and table cache. Answers are bit-identical
+        to an engine built with the store's recorded ``build_params``, and
+        streaming absorbs and compactions continue the same sequence. ``kw``
+        goes to the constructor."""
+        st = storemod.load_store(directory, mmap=mmap, verify=verify)
+        bp = st["build_params"] or {}
+        return cls(st["dataset"],
+                   m=bp.get("m", 2), n_scales=bp.get("n_scales", 5),
+                   seed=bp.get("seed", 0), w0=bp.get("w0"),
+                   n_buckets=bp.get("n_buckets"),
+                   synopsis=bp.get("synopsis", False),
+                   build_exact=st["index_e"] is not None,
+                   build_approx=st["index_a"] is not None,
+                   device=device, resident_budget_bytes=resident_budget_bytes,
+                   _indices=(st["index_e"], st["index_a"]), **kw)
+
+    @property
+    def wal_stats(self) -> walmod.WalStats | None:
+        return self._wal.stats if self._wal is not None else None
+
+    def close(self) -> None:
+        if self._wal is not None:
+            self._wal.close()
 
     @classmethod
     def from_arrays(cls, points: np.ndarray, kw_offsets: np.ndarray,
@@ -762,10 +1088,21 @@ class NKSEngine:
         if not prepared:
             return 0, 0, 0
         d0 = backend.stats.dispatches
+        # Radius substitution: when the source bucket's diameter bound
+        # already beats the query's live r_k, every pair in the subset joins
+        # — the backend's infinite-radius path synthesizes the identical
+        # all-ones join without touching the point rows. Result- and
+        # join_count-preserving for both backends.
+        radii = []
+        for t, _ in prepared:
+            r = pqs[t.qidx].kth_diameter()
+            if np.isfinite(r) and t.diam_ub <= r:
+                r = float("inf")
+                stats.buckets_pruned_radius += 1
+            radii.append(r)
         blocks = backend.self_join_blocks(
             self.dataset.points,
-            [t.f_ids for t, _ in prepared],
-            [pqs[t.qidx].kth_diameter() for t, _ in prepared],
+            [t.f_ids for t, _ in prepared], radii,
             keys=[t.f_ids.tobytes() for t, _ in prepared],
             generation=self._corpus_token, eligible=eligible)
         t1 = time.perf_counter()
@@ -834,6 +1171,14 @@ class NKSEngine:
             live = self.dataset.n - self.tombstone_count
             stats.filter_selectivity = round(
                 stats.eligible_points / live, 6) if live else 0.0
+        # Zone-map pruning: with bucket synopses and a filter in play, the
+        # planner skips buckets whose zone maps are provably disjoint from
+        # the predicate before their member lists are read. Results are
+        # bit-identical with the pruner on or off.
+        zone = None
+        if eligible is not None and index.structures[0].synopsis is not None:
+            zp = storemod.ZoneMapPruner(flt, self.dataset)
+            zone = zp if zp.active else None
         stats.t_plan_s += time.perf_counter() - t0
         explored = {i: set() for i in range(len(exec_queries))} if exact \
             else None
@@ -848,19 +1193,23 @@ class NKSEngine:
             t0 = time.perf_counter()
             tasks = plan.plan_scale(index, s, exec_queries, bitsets, active,
                                     explored, pstats, ctx=pctx, delta=delta,
-                                    eligible=eligible)
+                                    eligible=eligible, zone=zone)
             stats.t_plan_s += time.perf_counter() - t0
             sstats.buckets_selected = pstats.buckets_selected
             sstats.duplicate_subsets = pstats.duplicate_subsets
             sstats.filtered_subsets = pstats.filtered_subsets
             stats.filtered_subsets += pstats.filtered_subsets
+            sstats.buckets_pruned_zonemap = pstats.buckets_pruned_zonemap
+            stats.buckets_pruned_zonemap += pstats.buckets_pruned_zonemap
             sstats.tasks_planned = len(tasks)
+            pr0 = stats.buckets_pruned_radius
             searched, dispatches, pairs = self._run_tasks(
                 tasks, exec_queries, exec_pqs, backend, stats, pctx, timers,
                 eligible, exec_weights)
             sstats.tasks_searched = searched
             sstats.dispatches = dispatches
             sstats.join_pairs = pairs
+            sstats.buckets_pruned_radius = stats.buckets_pruned_radius - pr0
             # Per-query termination, exactly as the per-query searches do it:
             # E: Lemma-2 radius test after the scale; A: first full PQ.
             # Termination is a property of the ORIGINAL query's shared queue,

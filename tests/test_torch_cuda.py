@@ -1111,3 +1111,86 @@ def test_prune_int8_raises_on_what_it_does_not_take():
         pairwise_l2.join_batched_prune_int8(
             torch.zeros((1, 1, pairwise_l2.INT8_MAX_D + 1), device=dev),
             lens, r)
+
+
+@pytest.mark.cuda
+def test_store_and_recovery_on_card_match_numpy(tmp_path):
+    """``build_store`` and ``from_store`` with the default device (the
+    card), then a WAL'd engine's inserts, deletes and compaction recovered
+    with the default device: on both engines the torch backend's answers
+    equal the same engine's numpy backend's (ids but for float64 ties
+    within 8 ulps of the rescore; costs to 1e-9), filtered too, and K5
+    runs the store's build (5 launches) and each replayed op (5: an insert
+    batch, a delete's bulk rows, a compaction)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch import NKSEngine, flickr_like_dataset, random_queries
+    from repro_torch.core import store
+    from repro_torch.data.synthetic import attach_attrs, synthetic_attrs
+    from repro_torch.kernels import project_bin
+    ds = attach_attrs(flickr_like_dataset(n=4000, d=64, u=300, t=5, seed=6),
+                      seed=1)
+    more = flickr_like_dataset(n=400, d=64, u=300, t=5, seed=7)
+    more_attrs = synthetic_attrs(more.n, seed=7)
+    queries = random_queries(ds, 3, 10, seed=2)
+    flt = {"where": [["price", "<", 50.0]]}
+
+    def rows(eng, ids):          # answers carry external ids
+        return np.searchsorted(eng._ext_of, np.asarray(ids, np.int64))
+
+    def rescore(eng, ids):
+        pts = np.asarray(eng.dataset.points[rows(eng, ids)], np.float64)
+        return float(np.sqrt(((pts[:, None] - pts[None, :]) ** 2)
+                             .sum(-1).max()))
+
+    def covers(eng, q, ids):
+        return set(q) <= {int(v) for i in rows(eng, ids)
+                          for v in eng.dataset.kw.row(int(i))}
+
+    def same(eng):
+        # The numpy backend scores through the norms identity, the torch
+        # backend through differences: two equally tight sets may swap, so
+        # differing ids must both cover the query and rescore within 8 ulps.
+        for tier in ("exact", "approx"):
+            for kw in ({}, {"filter": flt}):
+                got, want = (eng.query_batch(queries, k=2, tier=tier,
+                                             backend=b, **kw)
+                             for b in ("torch", "numpy"))
+                for q, g, w in zip(queries, got, want):
+                    np.testing.assert_allclose(
+                        [c.diameter for c in g.candidates],
+                        [c.diameter for c in w.candidates], rtol=1e-9)
+                    for x, y in zip(g.candidates, w.candidates):
+                        if x.ids != y.ids:
+                            a, b = rescore(eng, x.ids), rescore(eng, y.ids)
+                            assert covers(eng, q, x.ids) \
+                                and covers(eng, q, y.ids)
+                            assert abs(a - b) <= 8 * np.spacing(max(a, b))
+
+    before = project_bin.launches["project_and_bin"]
+    store.build_store(str(tmp_path / "store"), ds)
+    assert project_bin.launches["project_and_bin"] == before + 5
+    opened = NKSEngine.from_store(str(tmp_path / "store"),
+                                  resident_budget_bytes=1 << 20)
+    assert opened.device.type == "cuda"
+    assert opened.backend.cache_bytes == 1 << 20
+    same(opened)
+
+    live = NKSEngine(ds, auto_compact=False)
+    live.attach_wal(str(tmp_path / "wal"))
+    for lo in range(0, more.n, 200):
+        live.insert(more.points[lo:lo + 200],
+                    [more.kw.row(i).tolist() for i in range(lo, lo + 200)],
+                    attrs={k: v[lo:lo + 200] for k, v in more_attrs.items()})
+    live.delete([5, 17, 4001, 4300])
+    live.compact()
+    before = project_bin.launches["project_and_bin"]
+    rec = NKSEngine.recover(str(tmp_path / "wal"))
+    assert rec.device.type == "cuda" and rec.ingest.replayed_ops == 4
+    assert project_bin.launches["project_and_bin"] == before + 4 * 5
+    same(rec)
+    for tier in ("exact", "approx", "device"):
+        assert [[c.key() for c in r.candidates]
+                for r in rec.query_batch(queries, k=2, tier=tier)] == \
+            [[c.key() for c in r.candidates]
+             for r in live.query_batch(queries, k=2, tier=tier)]
