@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # one CUDA card, the full-size corpus
     python3 chip_smoke.py --n 20000 --embed-docs 64 --embed-long-docs 2 \
-        --stream-points 2000 --stream-deletes 200 --tenant-points 5000
-                                     # a quick check of every phase
+        --stream-points 2000 --stream-deletes 200 --tenant-points 5000 \
+        --runtime-points 2000 --ingest-docs 1500 --launch-docs 300 \
+        --model-docs 32              # a quick check of every phase
 
 Phases:
   1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and report
@@ -151,7 +152,31 @@ Phases:
      under price<50 bit for bit as the uninterrupted engine did. Both
      phases write to a fresh temporary directory (its free bytes printed)
      and remove it.
-  3g. [tenant] At a reduced size (two tenants of 50,000 synthetic points,
+  3g. [runtime] A fresh engine over the served corpus (pinned geometry,
+     attributes; compaction at 10,000 churned points), a WAL, and
+     ``ServingRuntime`` on its default torch backend (max_batch 32,
+     max_queue 1,024, nothing shed): the 64 exact and 64 price<50 requests
+     at once (``runtime-exact``: K1, and K2 where auto arms it), the 64
+     device requests (``runtime-device``: K6 twice a request), (a) the 256
+     requests of the four kinds at once, each bit for bit the engine's own
+     batch; (b) the same as Poisson arrivals at half (a)'s throughput,
+     latency percentiles by kind; (c) 8 fsync'd inserts of 1,250 points
+     among queries, the background compaction with queries and 1,000
+     deletes submitted while it runs, an explicit compaction (K5: 55);
+     then every tier and price<50 bit for bit a fresh engine's over the
+     final rows. No request may fail and no swallowed-error counter move.
+  3h. [ingest] 10,000 flickr-like documents (d_raw 256, u=24,874, t=11)
+     through ``ProjectionEmbedder(64)`` and a 4-worker ``IngestPipeline``
+     into that runtime, one worker killed at its 3rd insert under 10 s
+     leases: the queue drains, no worker thread dies, one row lands per
+     document and is its embedding bit for bit, K5 5 an insert op.
+  3i. [launch] ``python -m repro_torch.launch.serve`` at 10^6 points with
+     ``--runtime --wal --ingest-docs 2000`` on a request file (64 queries,
+     inserts, a delete, health, snapshot, a malformed line, the queries
+     again) in a child process: exit 0, every line parses, the malformed
+     line an error, the first 64 answers equal an engine's in this process
+     fed the same documents; the child's launch counters (K5 660).
+  3j. [tenant] At a reduced size (two tenants of 50,000 synthetic points,
      d=64, 1,000 local keywords each): 16 tenant-local 3-keyword queries
      per tenant in the exact, approx and device tiers; results echo the
      local ids, cover the resolved keywords, never reach the other tenant,
@@ -173,6 +198,15 @@ Phases:
      wall against the bf16 peak, K7's launches and peak device memory. The
      same 64 queries then run on ``tier="device"`` with the checks of 3b (a):
      the fused anchor-star kernel at d=2304.
+  4b. [ingest-model] 256 documents of 512 token ids through a
+     ``ModelEmbedder`` over MiniCPM-2B (the [embed] weights, one document a
+     call) and a 2-worker pipeline into a runtime over the embedded corpus:
+     K7 40 launches a document, K5 5 an insert batch, 8 documents embedded
+     again bit for bit, device and exact answers equal a fresh engine's
+     over the final rows.
+  4c. [examples] ``examples/torch/quickstart.py --n 2000`` and
+     ``examples/torch/ingest_corpus.py`` as child processes on the card:
+     exit 0.
   5. Hold K7 against its plain PyTorch version on the card: on the path's
      own q, k, v of both shapes (recorded during phase 4), causal; the long
      shape again with window 1024; grouped-query heads (36 query, 4 kv,
@@ -2000,6 +2034,767 @@ def wal_phase(args, report: dict, served, by_path: dict) -> None:
     report["wal"] = out
 
 
+def percentiles(values) -> dict:
+    """p50, p95 and p99 of ``values`` (seconds), or None when empty."""
+    import numpy as np
+    if not len(values):
+        return None
+    v = np.asarray(values, dtype=np.float64)
+    return {f"p{q}": float(np.percentile(v, q)) for q in (50, 95, 99)}
+
+
+def cand_keys(candidates) -> list:
+    return [(c.ids, c.diameter) for c in candidates]
+
+
+def runtime_checks(rt, label: str, bg_compactions: int) -> dict:
+    """The runtime's counters after a phase without injected faults: no
+    request failed or was dropped, no dispatch retried, no rebuild error
+    was swallowed, and ``bg_compactions`` is the count the traffic
+    triggers."""
+    st = rt.stats.as_dict()
+    for name in ("errors", "dispatch_failures", "dispatch_retries",
+                 "bg_compaction_errors", "bg_compaction_faults", "crashed",
+                 "expired", "rejected_full", "degraded_queries"):
+        check(st[name] == 0, f"[{label}] runtime stats {name} = {st[name]}")
+    check(st["bg_compactions"] == bg_compactions,
+          f"[{label}] {st['bg_compactions']} background compactions, the "
+          f"traffic triggers {bg_compactions}")
+    check(rt.health()["last_compaction_error"] is None,
+          f"[{label}] {rt.health()['last_compaction_error']}")
+    return st
+
+
+def runtime_phase(args, report: dict, served, by_path: dict) -> tuple:
+    """[runtime] A fresh engine over the served corpus (its pinned
+    geometry and attributes, ``compact_ratio=0.01`` and ``compact_min`` 10,000
+    (``--runtime-points``) so that 10,000 churned points trigger one
+    background compaction), ``attach_wal`` to a fresh
+    temporary directory, then ``ServingRuntime`` on the default ``"torch"``
+    backend, ``max_batch=32``, ``max_queue=1024`` and
+    ``degrade_watermark=1.0`` (nothing shed). Paths: ``runtime-exact`` (the
+    64 exact and the 64 exact price<50 requests at once: K1, and K2 where
+    auto arms it), ``runtime-device`` (the 64 device requests, q=3, k=1: K6
+    twice a request), (a) ``runtime-burst``: the 64 queries in each of the
+    exact, approx and device tiers and exact under price<50, 256 requests
+    submitted at once, every answer bit for bit the engine's own
+    ``query_batch``; (b) ``runtime-paced``: the same 256 as Poisson arrivals
+    (seed 0) at half (a)'s throughput, latency percentiles by kind; (c)
+    ``runtime-ingest``: 8 insert ops of 1,250 attributed points, each
+    acknowledged after its fsync, with exact and approx queries between
+    them, the 8th triggering the background compaction; queries and 1,000
+    deletes submitted while it runs; then an explicit ``compact``. K5 must
+    launch 5 times an insert op, a delete of bulk rows and a compaction.
+    Afterwards the 64 queries in the three tiers and under price<50 equal,
+    bit for bit, a fresh engine's over the final live rows (same order,
+    same geometry), compared by row. Returns (runtime, temporary dir) for
+    [ingest], which closes both."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import NKSEngine, flickr_like_dataset
+    from repro_torch.data.synthetic import synthetic_attrs
+    from repro_torch.serve.runtime import RuntimeConfig, ServingRuntime
+
+    _, ds, queries, pinned = served[:4]
+    out: dict = {}
+    report["runtime"] = out
+    t0 = time.perf_counter()
+    churn = args.runtime_points         # 10,000: compact_ratio 0.01 at 10^6
+    engine = NKSEngine(ds, compact_ratio=churn / ds.n, compact_min=churn,
+                       **pinned)
+    out["engine_build_s"] = time.perf_counter() - t0
+    out["compaction_threshold"] = churn
+    tmp = tempfile.mkdtemp(prefix="nks-runtime-")
+    # the genesis snapshot, the segment and the job journal of [ingest]
+    out["free_bytes"] = disk_room(tmp, 1.25 * leaf_bytes(ds, served[5], False),
+                                  "runtime")
+    engine.attach_wal(os.path.join(tmp, "wal"))
+    flt = {"where": [["price", "<", 50.0]]}
+    kinds = {"exact": dict(tier="exact"), "approx": dict(tier="approx"),
+             "device": dict(tier="device"),
+             "price<50": dict(tier="exact", filter=flt)}
+    t0 = time.perf_counter()
+    direct = {kind: keys_of(engine.query_batch(queries, k=1, **kw))
+              for kind, kw in kinds.items()}
+    out["direct_s"] = time.perf_counter() - t0
+
+    def request(kind, q):
+        return {"op": "query", "keywords": q, "k": 1, **kinds[kind]}
+
+    def answers(tickets):
+        """The responses of (kind, query index, ticket) triples: every one
+        ok and equal, bit for bit, to the engine's own batch."""
+        lat = {kind: [] for kind in kinds}
+        for kind, i, t in tickets:
+            r = t.result(600)
+            check(r.status == "ok" and not r.degraded,
+                  f"[runtime] {kind} request {i}: {r.status} {r.error} "
+                  f"(degraded {r.degraded})")
+            check(cand_keys(r.payload["candidates"]) == direct[kind][i],
+                  f"[runtime] {kind} request {i} differs from the engine's "
+                  f"own batch")
+            lat[kind].append(r.latency_s)
+        return lat
+
+    rt = ServingRuntime(engine, RuntimeConfig(max_batch=32, max_queue=1024,
+                                              degrade_watermark=1.0))
+    for path, group in (("runtime-exact", ("exact", "price<50")),
+                        ("runtime-device", ("device",))):
+        b0 = rt.stats.batches
+        lat, wall = drive_path(by_path, path, lambda: answers(
+            [(kind, i, rt.submit(request(kind, q))) for kind in group
+             for i, q in enumerate(queries)]))
+        n = len(group) * len(queries)
+        out[path] = {"requests": n, "wall_s": wall, "qps": n / wall,
+                     "batches": rt.stats.batches - b0,
+                     "latency": {k: percentiles(v) for k, v in lat.items()
+                                 if v},
+                     "launches": by_path[path]}
+    c = by_path["runtime-exact"]
+    armed = engine.backend._prune_active(ds.dim)
+    check(c["join_batched_masked"] > 0, "runtime-exact: K1 did not launch")
+    check((c["join_batched_prune"] > 0) == armed,
+          f"runtime-exact: K2 launched {c['join_batched_prune']} times with "
+          f"the prune tier armed {armed}")
+    check(c["anchor_star"] == 0 and c["project_and_bin"] == 0,
+          f"runtime-exact: {c}")
+    c = by_path["runtime-device"]
+    check(c["anchor_star"] == 2 * len(queries),
+          f"runtime-device: K6 launched {c['anchor_star']} times, want "
+          f"{2 * len(queries)}")
+    check(not any(c[k] for k in c if k.startswith("join")),
+          f"runtime-device launched a join kernel: {c}")
+    print(f"[runtime] engine over the served corpus {out['engine_build_s']:.3f}s"
+          f", compaction at {churn} churned points, WAL attached; "
+          f"runtime-exact ({len(queries)} exact + {len(queries)} price<50 "
+          f"at once) "
+          f"{out['runtime-exact']['qps']:.2f} QPS in "
+          f"{out['runtime-exact']['batches']} batches, launches "
+          f"{by_path['runtime-exact']}; runtime-device "
+          f"{out['runtime-device']['qps']:.2f} QPS, launches "
+          f"{by_path['runtime-device']}", flush=True)
+
+    order = [(kind, i) for i in range(len(queries)) for kind in kinds]
+    b0, q0 = rt.stats.batches, rt.stats.batched_queries
+    lat, wall = drive_path(by_path, "runtime-burst", lambda: answers(
+        [(kind, i, rt.submit(request(kind, queries[i])))
+         for kind, i in order]))
+    burst = {"requests": len(order), "wall_s": wall,
+             "qps": len(order) / wall, "batches": rt.stats.batches - b0,
+             "mean_batch": (rt.stats.batched_queries - q0)
+             / max(rt.stats.batches - b0, 1),
+             "latency": {k: percentiles(v) for k, v in lat.items()},
+             "launches": by_path["runtime-burst"]}
+    out["burst"] = burst
+    check(by_path["runtime-burst"]["anchor_star"] == 2 * len(queries)
+          and by_path["runtime-burst"]["project_and_bin"] == 0,
+          f"runtime-burst launches {by_path['runtime-burst']}")
+
+    def fmt(lat):
+        return "; ".join(
+            f"{k} " + "/".join(f"{v[p] * 1e3:.1f}" for p in ("p50", "p95",
+                                                             "p99"))
+            for k, v in lat.items() if v)
+
+    print(f"[runtime] (a) burst of {len(order)} requests at once: "
+          f"{burst['qps']:.2f} QPS ({wall:.3f}s), {burst['batches']} batches"
+          f" (mean {burst['mean_batch']:.1f}); latency p50/p95/p99 ms "
+          f"{fmt(burst['latency'])}; launches {by_path['runtime-burst']}; "
+          f"every answer bit for bit the engine's own batch", flush=True)
+
+    rate = 0.5 * burst["qps"]
+    gaps = np.random.default_rng(0).exponential(1.0 / rate, len(order))
+
+    def paced():
+        tickets, start = [], time.perf_counter()
+        for (kind, i), at in zip(order, np.cumsum(gaps)):
+            pause = start + at - time.perf_counter()
+            if pause > 0:
+                time.sleep(pause)
+            tickets.append((kind, i, rt.submit(request(kind, queries[i]))))
+        return answers(tickets)
+
+    b0, q0 = rt.stats.batches, rt.stats.batched_queries
+    lat, wall = drive_path(by_path, "runtime-paced", paced)
+    pace = {"offered_qps": rate, "requests": len(order), "wall_s": wall,
+            "qps": len(order) / wall, "batches": rt.stats.batches - b0,
+            "mean_batch": (rt.stats.batched_queries - q0)
+            / max(rt.stats.batches - b0, 1),
+            "latency": {k: percentiles(v) for k, v in lat.items()},
+            "latency_all": percentiles([x for v in lat.values() for x in v]),
+            "launches": by_path["runtime-paced"]}
+    out["paced"] = pace
+    print(f"[runtime] (b) paced: {len(order)} Poisson arrivals (seed 0) at "
+          f"{rate:.2f} requests/s (half of (a)): served {pace['qps']:.2f} "
+          f"QPS over {wall:.3f}s, {pace['batches']} batches (mean "
+          f"{pace['mean_batch']:.1f}); latency p50/p95/p99 ms "
+          f"{fmt(pace['latency'])}; all "
+          f"{fmt({'': pace['latency_all']})}; answers bit for bit",
+          flush=True)
+
+    more = flickr_like_dataset(n=churn, u=24_874, t=11, d=64,
+                               seed=args.seed + 11)
+    more_attrs = synthetic_attrs(more.n, seed=11)
+    per, n_del = churn // 8, churn // 10
+    rng = np.random.default_rng(args.seed + 12)
+
+    def mixed():
+        acks, qs = [], []
+        fsyncs0 = engine.wal_stats.fsyncs
+        for b in range(8):
+            lo, hi = b * per, (b + 1) * per
+            ticket = rt.submit({
+                "op": "insert", "points": more.points[lo:hi],
+                "keywords": [more.kw.row(i).tolist() for i in range(lo, hi)],
+                "attrs": {k: v[lo:hi] for k, v in more_attrs.items()}})
+            qs += [(kind, i, rt.submit(request(kind, queries[i])))
+                   for i in range(4 * b, 4 * b + 4)
+                   for kind in ("exact", "approx") if i < len(queries)]
+            r = ticket.result(600)
+            check(r.status == "ok", f"[runtime] insert {b}: {r.status} "
+                  f"{r.error}")
+            acks.append(r.latency_s)
+        waited = time.perf_counter()
+        while not rt.health()["compaction_inflight"] \
+                and rt.stats.bg_compactions == 0 \
+                and time.perf_counter() - waited < 5.0:
+            time.sleep(0.001)
+        # the second half of the queries and, after the first 8 pairs, the
+        # deletes, while the compaction runs (the deletes are parked until
+        # its swap if it is still running when they reach the head)
+        inflight = []
+        for j in range(32):
+            i = (32 + j) % len(queries)
+            for kind in ("exact", "approx"):
+                inflight.append(rt.health()["compaction_inflight"])
+                qs.append((kind, i, rt.submit(request(kind, queries[i]))))
+            if j == 8:
+                doomed = sorted(
+                    rng.choice(ds.n, n_del // 2, replace=False).tolist()
+                    + (ds.n + rng.choice(8 * per, n_del - n_del // 2,
+                                         replace=False)).tolist())
+                inflight.append(rt.health()["compaction_inflight"])
+                delete = rt.submit({"op": "delete", "ids": doomed})
+        during = sum(inflight)
+        r = delete.result(600)
+        check(r.status == "ok" and r.payload["deleted"] == n_del,
+              f"[runtime] delete: {r.status} {r.error}")
+        waited = time.perf_counter()
+        while rt.stats.bg_compactions < 1 or rt.health()["compaction_inflight"]:
+            check(time.perf_counter() - waited < 600,
+                  "[runtime] the background compaction did not finish")
+            time.sleep(0.005)
+        r = rt.submit({"op": "compact"}).result(600)
+        check(r.status == "ok" and r.payload["compacted"],
+              f"[runtime] compact: {r.status} {r.error} {r.payload}")
+        # answers during the mix are held to nothing but success: the
+        # corpus moves under them
+        for kind, i, t in qs:
+            rr = t.result(600)
+            check(rr.status == "ok", f"[runtime] {kind} request {i} during "
+                  f"the mix: {rr.status} {rr.error}")
+        return {"ack_s": acks, "queries": len(qs),
+                "submitted_during_compaction": during,
+                "fsyncs": engine.wal_stats.fsyncs - fsyncs0,
+                "query_latency": percentiles(
+                    [t.response.latency_s for _, _, t in qs])}
+
+    mix, wall = drive_path(by_path, "runtime-ingest", mixed)
+    mix["wall_s"] = wall
+    mix["ack_latency"] = percentiles(mix["ack_s"])
+    mix["launches"] = by_path["runtime-ingest"]
+    out["mixed"] = mix
+    k5 = by_path["runtime-ingest"]["project_and_bin"]
+    # 8 insert ops, the delete (its bulk rows), the background and the
+    # explicit compaction
+    check(k5 == 5 * 11, f"runtime-ingest launched K5 {k5} times, want 55")
+    check(mix["submitted_during_compaction"] > 0,
+          "[runtime] no request was submitted while the compaction ran")
+    check(mix["fsyncs"] >= 8, f"[runtime] {mix['fsyncs']} fsyncs for 8 "
+          f"acknowledged insert ops")
+    st = runtime_checks(rt, "runtime", 1)
+    check(engine.ingest.compactions == 2 and engine.corpus_generation == 2,
+          f"[runtime] {engine.ingest.compactions} compactions, generation "
+          f"{engine.corpus_generation}")
+    out["stats"] = st
+    print(f"[runtime] (c) mixed: 8 fsync'd inserts of {per} points, ack "
+          f"latency p50/p95/p99 ms {fmt({'ack': mix['ack_latency']})} "
+          f"({[round(a, 4) for a in mix['ack_s']]} s); {mix['queries']} "
+          f"exact and approx queries between them, "
+          f"{mix['submitted_during_compaction']} requests submitted while "
+          f"the background compaction ran; {n_del} deletes; compact(); "
+          f"{wall:.3f}s; {mix['fsyncs']} fsyncs; deferred ingest "
+          f"{st['deferred_ingest']}, ingest runs {st['ingest_runs']}, "
+          f"bg_compactions {st['bg_compactions']}, mean coalesced batch "
+          f"{rt.stats.mean_batch:.2f}; launches {by_path['runtime-ingest']}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    final = engine.dataset
+    fresh = NKSEngine(final, **pinned)
+    out["fresh_engine_s"] = time.perf_counter() - t0
+    ext = engine._ext_of
+    check(final.n == ds.n + 8 * per - n_del and len(ext) == final.n,
+          f"[runtime] {final.n} live rows")
+
+    def by_row(keys):
+        """External ids to rows of the final corpus (ids ascend with rows)."""
+        return [[(tuple(int(v) for v in np.searchsorted(ext, ids)), d)
+                 for ids, d in row] for row in keys]
+
+    for kind, kw in kinds.items():
+        resp = [t.result(600) for t in [rt.submit(request(kind, q))
+                                        for q in queries]]
+        check(all(r.status == "ok" for r in resp),
+              f"[runtime] {kind} after the mix: "
+              f"{[(r.status, r.error) for r in resp if r.status != 'ok']}")
+        got = [cand_keys(r.payload["candidates"]) for r in resp]
+        want = keys_of(fresh.query_batch(queries, k=1, **kw))
+        check(by_row(got) == want, f"[runtime] after the mix the "
+              f"{kind} answers differ from a fresh engine's over the final "
+              f"rows")
+    runtime_checks(rt, "runtime", 1)
+    del fresh
+    torch.cuda.empty_cache()
+    print(f"[runtime] after the mix: {final.n} live rows; exact, approx, "
+          f"device and price<50 through the runtime equal a fresh engine's "
+          f"over them (same order, same geometry; built in "
+          f"{out['fresh_engine_s']:.3f}s), compared by row", flush=True)
+    return rt, tmp
+
+
+def ingest_phase(args, report: dict, rt, tmp: str, by_path: dict) -> None:
+    """[ingest] ``flickr_like_documents`` (d_raw=256, the served vocabulary
+    u=24,874, t=11, attributes, seed 11) through ``ProjectionEmbedder(64)``
+    and ``IngestPipeline(workers=4)`` into a ``RuntimeSink`` on the
+    [runtime] runtime, one worker killed at its 3rd insert
+    (``FaultPlan(crash={"insert": 3})``) under 10 s leases (a third of the
+    default), so that survivors reclaim its jobs and reconcile its open
+    intent on the card. The lease must outlast every insert: one that does
+    not is reverted while in flight and lands twice, a fault of the
+    reference's design kept by the port (ROADMAP Queue C), which a 2 s
+    lease met once. The queue drains with no failed document, no worker
+    thread dies, exactly one row lands per document and every row equals
+    ``embedder.extract(doc).point`` bit for bit, with its keywords; K5
+    launches 5 times an insert op. Closes the runtime and removes ``tmp``."""
+    import os
+    import shutil
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.data.ingest import (IngestPipeline, JobStore,
+                                         ProjectionEmbedder,
+                                         flickr_like_documents)
+    from repro_torch.serve.faults import FaultPlan
+
+    engine = rt.engine
+    out: dict = {}
+    report["ingest"] = out
+    try:
+        t0 = time.perf_counter()
+        docs, vocab = flickr_like_documents(
+            args.ingest_docs, d_raw=256, u=engine.dataset.n_keywords, t=11,
+            seed=11, with_attrs=True)
+        emb = ProjectionEmbedder(engine.dataset.dim, vocab, d_raw=256,
+                                 seed=11)
+        store = JobStore(os.path.join(tmp, "jobs.jsonl"), lease_s=10.0,
+                         backoff_s=0.01, max_attempts=10)
+        store.add(docs)
+        out["setup_s"] = time.perf_counter() - t0
+        faults = FaultPlan(crash={"insert": 3})
+        pipe = IngestPipeline(store, rt, emb, workers=4, faults=faults)
+        ops0, ext0 = rt.stats.ingest_ops, engine.next_external_id
+        died, hook = [], threading.excepthook
+        threading.excepthook = lambda a: died.append(
+            f"{a.thread.name}: {a.exc_type.__name__}: {a.exc_value}")
+        try:
+            rep, wall = drive_path(by_path, "ingest",
+                                   lambda: pipe.run(timeout_s=600.0))
+        finally:
+            threading.excepthook = hook
+        ops = rt.stats.ingest_ops - ops0
+        out.update({k: rep[k] for k in ("drained", "docs_done",
+                                        "docs_failed", "docs_per_s",
+                                        "retries", "reclaims", "exhausted",
+                                        "dead_workers", "workers")})
+        out["wall_s"], out["insert_ops"] = wall, ops
+        out["launches"] = by_path["ingest"]
+        check(rep["drained"] and rep["docs_failed"] == 0
+              and rep["docs_done"] == len(docs),
+              f"[ingest] the queue did not drain: {rep['counts']}")
+        check(faults.fired.get("insert") == 1
+              and len(rep["dead_workers"]) == 1,
+              f"[ingest] the crash did not fire once: {faults.fired}, dead "
+              f"{rep['dead_workers']}")
+        check(not died, f"[ingest] a worker thread died: {died}")
+        check(engine.next_external_id - ext0 == len(docs),
+              f"[ingest] {engine.next_external_id - ext0} rows landed for "
+              f"{len(docs)} documents")
+        # a batch lands once: acked by its worker, or by another's
+        # reconciliation of its expired intent
+        check(ops == sum(w["batches_inserted"] + w["reconciled_applied"]
+                         for w in rep["workers"].values()),
+              f"[ingest] {ops} insert ops for the workers' batches "
+              f"{rep['workers']}")
+        k5 = by_path["ingest"]["project_and_bin"]
+        check(k5 == 5 * ops, f"[ingest] K5 launched {k5} times for {ops} "
+              f"insert ops, want {5 * ops}")
+        t0 = time.perf_counter()
+        ext2doc = store.ext_map()
+        check(len(ext2doc) == len(docs), f"[ingest] {len(ext2doc)} acked")
+        by_id = {d["doc_id"]: d for d in docs}
+        ext = np.fromiter(ext2doc, np.int64, count=len(ext2doc))
+        rows = np.searchsorted(engine._ext_of, ext)
+        check(bool((engine._ext_of[rows] == ext).all()),
+              "[ingest] an acked external id is not live")
+        recs = [emb.extract(by_id[ext2doc[int(e)]]) for e in ext]
+        view = engine.dataset
+        check(np.array_equal(np.asarray(view.points[rows]),
+                             np.stack([r.point for r in recs])),
+              "[ingest] a document's row differs from its embedding")
+        check(all(sorted(int(v) for v in view.kw.row(int(r))) == rec.keywords
+                  for r, rec in zip(rows, recs)),
+              "[ingest] a document's keywords differ")
+        out["check_s"] = time.perf_counter() - t0
+        runtime_checks(rt, "ingest", 1)
+        print(f"[ingest] {len(docs)} documents (d_raw 256, u "
+              f"{len(vocab)}, t 11) through ProjectionEmbedder(64) and 4 "
+              f"workers into the runtime: {wall:.3f}s = "
+              f"{rep['docs_per_s']:.1f} docs/s, {ops} insert ops; one "
+              f"worker killed at its insert ({rep['dead_workers']}), "
+              f"retries {rep['retries']}, reclaims {rep['reclaims']}, "
+              f"failed {rep['docs_failed']}; every row bit for bit its "
+              f"document's embedding; K5 {k5} launches (5 an insert op); "
+              f"launches {by_path['ingest']}", flush=True)
+    finally:
+        rt.close()
+        engine.close()
+        store.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del rt, engine
+        torch.cuda.empty_cache()
+
+
+LAUNCHER = """
+import json, runpy, sys
+sys.argv[0] = "repro_torch.launch.serve"
+try:
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__",
+                     alter_sys=True)
+finally:
+    from repro_torch.kernels import (diameter, flash_attention, pairwise_l2,
+                                     project_bin)
+    counts = {}
+    for mod in (pairwise_l2, diameter, project_bin, flash_attention):
+        counts.update(mod.launches)
+    print("LAUNCHES " + json.dumps(counts), file=sys.stderr)
+"""
+
+
+def launch_phase(args, report: dict, served, by_path: dict) -> None:
+    """[launch] ``python -m repro_torch.launch.serve --n 1000000 --d 64 --u
+    24874 --t 11 --attrs --tier exact --runtime --wal DIR --requests FILE
+    --ingest-docs 2000`` in a child process on the card (run as ``-m`` runs
+    it, through ``runpy``, so that the child prints its launch counters at
+    exit). FILE holds the 64 queries, 4 attributed insert ops, a delete,
+    ``health``, ``snapshot``, a malformed line and the 64 queries again.
+    The child must exit 0, every output line parse, the malformed line get
+    ``status: error`` and nothing else an error; its first 64 answers must
+    equal this process's engine over the corpus the launcher builds
+    (``flickr_like_dataset(seed=0)``, default geometry), fed the same 2,000
+    documents by the same pipeline, answer by answer (ids translated through
+    both job journals). Meanwhile this process builds that engine."""
+    import argparse
+    import json
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    import torch
+    from repro_torch import NKSEngine, flickr_like_dataset
+    from repro_torch.data.ingest import JobStore
+    from repro_torch.data.synthetic import attach_attrs, synthetic_attrs
+    from repro_torch.launch import serve as launcher
+
+    _, ds, queries = served[:3]
+    out: dict = {}
+    report["launch"] = out
+    tmp = tempfile.mkdtemp(prefix="nks-launch-")
+    try:
+        # the child's genesis snapshot and the one its "snapshot" writes
+        out["free_bytes"] = disk_room(
+            tmp, 2.25 * leaf_bytes(ds, served[5], False), "launch")
+        more = flickr_like_dataset(n=400, u=24_874, t=11, d=64,
+                                   seed=args.seed + 13)
+        more_attrs = synthetic_attrs(more.n, seed=13)
+        lines = [json.dumps({"keywords": q, "k": 1}) for q in queries]
+        for b in range(4):
+            lo, hi = 100 * b, 100 * (b + 1)
+            lines.append(json.dumps({
+                "op": "insert", "points": more.points[lo:hi].tolist(),
+                "keywords": [more.kw.row(i).tolist() for i in range(lo, hi)],
+                "attrs": {k: v[lo:hi].tolist()
+                          for k, v in more_attrs.items()}}))
+        lines += [json.dumps({"op": "delete", "ids": [3, 5, 8, 13]}),
+                  json.dumps({"op": "health"}),
+                  json.dumps({"op": "snapshot"}),
+                  '{"keywords": [1, 2',
+                  *[json.dumps({"keywords": q, "k": 1}) for q in queries]]
+        reqs = os.path.join(tmp, "requests.jsonl")
+        with open(reqs, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        argv = ["--n", str(ds.n), "--d", "64", "--u", "24874", "--t", "11",
+                "--attrs", "--tier", "exact", "--runtime",
+                "--wal", os.path.join(tmp, "wal"), "--requests", reqs,
+                "--ingest-docs", str(args.launch_docs),
+                "--ingest-jobs", os.path.join(tmp, "jobs")]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        ts = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", LAUNCHER, *argv],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env,
+                                 cwd=tmp)
+        try:
+            # The same corpus (the launcher attaches attributes with seed 0)
+            # and the same documents, in this process.
+            t0 = time.perf_counter()
+            mine = attach_attrs(ds, seed=0)
+            engine = NKSEngine(mine, build_approx=False, compact_ratio=0.25,
+                               compact_min=4096)
+            report_in = launcher._run_ingest_pipeline(
+                engine, mine, argparse.Namespace(
+                    ingest_docs=args.launch_docs, u=24_874, t=11,
+                    ingest_workers=2,
+                    ingest_jobs=os.path.join(tmp, "jobs-here")))
+            want = engine.query_batch(queries, k=1, tier="exact")
+            out["in_process_s"] = time.perf_counter() - t0
+        finally:
+            stdout, stderr = child.communicate(timeout=900)
+        out["child_s"] = time.perf_counter() - ts
+        out["rc"] = child.returncode
+        tail = "\n".join(stderr.splitlines()[-20:])
+        check(child.returncode == 0, f"[launch] exit {child.returncode}:\n"
+              f"{tail}")
+        outs = [json.loads(line) for line in stdout.splitlines()]
+        n_q = len(queries)
+        check(len(outs) == len(lines), f"[launch] {len(outs)} responses "
+              f"for {len(lines)} lines")
+        check([o["op"] for o in outs[n_q:n_q + 7]] == [
+              "insert", "insert", "insert", "insert", "delete", "health",
+              "snapshot"], f"[launch] ops {[o['op'] for o in outs]}")
+        bad = outs[n_q + 7]
+        check(bad.get("op") == "parse" and bad.get("status") == "error",
+              f"[launch] the malformed line got {bad}")
+        errs = [(i, o) for i, o in enumerate(outs)
+                if i != n_q + 7 and ("error" in o or o.get("status"))]
+        check(not errs, f"[launch] error responses {errs[:3]}")
+        check(all(o["results"] for i, o in enumerate(outs)
+                  if o["op"] == "query"), "[launch] an empty answer")
+        launches = json.loads(next(
+            line for line in stderr.splitlines()
+            if line.startswith("LAUNCHES "))[len("LAUNCHES "):])
+        by_path["launch"] = launches
+        ingest_line = next((line for line in stderr.splitlines()
+                            if line.startswith("ingest: ")), "")
+        check(f"ingest: {args.launch_docs} docs" in ingest_line
+              and "failed=0" in ingest_line, f"[launch] {ingest_line}")
+        check("device=cuda" in stderr, "[launch] not served on the card")
+        theirs = JobStore(os.path.join(tmp, "jobs", "jobs.jsonl")).ext_map()
+        here = {doc: ext for ext, doc in JobStore(
+            os.path.join(tmp, "jobs-here", "jobs.jsonl")).ext_map().items()}
+        check(len(theirs) == len(here) == args.launch_docs,
+              "[launch] the journals disagree on the documents")
+
+        def mapped(i):
+            return i if i < ds.n else here[theirs[i]]
+
+        for q, o, w in zip(queries, outs[:n_q], want):
+            got = [(sorted(mapped(i) for i in r["ids"]), r["diameter"])
+                   for r in o["results"]]
+            exp = [(sorted(c.ids), launcher._result_row(c)["diameter"])
+                   for c in w.candidates]
+            check(got == exp, f"[launch] query {q}: {got} against {exp}")
+        k5 = launches["project_and_bin"]
+        # build, 125 pipeline batches of 16, 4 insert ops, the delete (bulk
+        # rows), the snapshot's compaction
+        want_k5 = 5 * (1 + -(-args.launch_docs // 16) + 4 + 1 + 1)
+        check(k5 == want_k5, f"[launch] K5 launched {k5} times in the "
+              f"child, want {want_k5}")
+        check(launches["join_batched_masked"] > 0, "[launch] K1 did not "
+              "launch in the child")
+        out.update(responses=len(outs), launches=launches,
+                   ingest=ingest_line, ingest_in_process=report_in)
+        print(f"[launch] python -m repro_torch.launch.serve {' '.join(argv)}"
+              f": exit 0 in {out['child_s']:.1f}s, {len(outs)} responses "
+              f"parsed, the malformed line an error envelope; {ingest_line};"
+              f" the first {n_q} answers equal this process's engine fed the"
+              f" same documents ({out['in_process_s']:.1f}s); child launches "
+              f"{launches}", flush=True)
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ingest_model_phase(args, report: dict, model, by_path: dict) -> None:
+    """[ingest-model] Documents whose payload is 512 token ids through
+    ``ModelEmbedder`` over the port's ``api.embed`` (MiniCPM-2B at full
+    width and depth, the [embed] parameters; one document a call under
+    ``torch.inference_mode``), 2 workers, ``batch_docs=16``, into a serving
+    runtime over the [embed] corpus engine (4,104 x 2,304). K7 must launch
+    40 times a document, K5 5 times an insert batch; 8 documents embedded
+    again give their rows bit for bit; afterwards the 64 device queries
+    through the runtime equal a fresh engine's over the final rows (ids;
+    diameters within the fp32 band, as [embed] checks) and the 64 exact
+    queries on both engines (the numpy backend: the torch backend's exact
+    tier takes about 18 s a batch at d=2304, ROADMAP Queue C) bit for
+    bit."""
+    import os
+    import shutil
+    import tempfile
+    import types
+    import numpy as np
+    import torch
+    from repro_torch import NKSEngine, flickr_like_dataset
+    from repro_torch.data.ingest import IngestPipeline, JobStore, ModelEmbedder
+    from repro_torch.serve.runtime import RuntimeConfig, ServingRuntime
+
+    cfg, api, params, engine, queries = model
+    n_docs, seq = args.model_docs, 512
+    vocab = [f"tag{i:03d}" for i in range(engine.dataset.n_keywords)]
+    rng = np.random.default_rng(args.seed + 12)
+    tags = flickr_like_dataset(n=n_docs, d=1, u=len(vocab), t=3,
+                               seed=args.seed + 12)
+    docs = [{"doc_id": f"doc-{i:06d}",
+             "payload": rng.integers(0, cfg.vocab_size, seq)
+             .astype(np.float32).tolist(),
+             "tags": [vocab[v] for v in tags.kw.row(i)]}
+            for i in range(n_docs)]
+
+    def embed_fn(tokens):
+        # pipeline workers are threads: inference mode is per thread
+        with torch.inference_mode():
+            ids = torch.as_tensor(tokens, device=engine.device).long()
+            return api.embed(params, {"tokens": ids}).float().cpu().numpy()
+
+    emb = ModelEmbedder(embed_fn, cfg.d_model, vocab, d_raw=seq)
+    out: dict = {"docs": n_docs, "tokens": n_docs * seq}
+    report["ingest_model"] = out
+    tmp = tempfile.mkdtemp(prefix="nks-ingest-model-")
+    n0 = engine.dataset.n
+    try:
+        store = JobStore(os.path.join(tmp, "jobs.jsonl"), lease_s=120.0)
+        store.add(docs)
+        rt = ServingRuntime(engine, RuntimeConfig())
+        try:
+            pipe = IngestPipeline(store, rt, emb, workers=2, batch_docs=16)
+            rep, wall = drive_path(by_path, "ingest-model",
+                                   lambda: pipe.run(timeout_s=900.0))
+            ops = rep["workers"]
+            out.update(wall_s=wall, docs_per_s=rep["docs_per_s"],
+                       tokens_per_s=n_docs * seq / wall,
+                       retries=rep["retries"], reclaims=rep["reclaims"],
+                       launches=by_path["ingest-model"])
+            check(rep["drained"] and rep["docs_done"] == n_docs
+                  and rep["docs_failed"] == 0,
+                  f"[ingest-model] the queue did not drain: {rep['counts']}")
+            batches = sum(w["batches_inserted"] for w in ops.values())
+            c = by_path["ingest-model"]
+            check(c["flash_attention"] == cfg.n_layers * n_docs,
+                  f"[ingest-model] K7 launched {c['flash_attention']} times"
+                  f", want {cfg.n_layers} a document")
+            check(c["project_and_bin"] == 5 * batches,
+                  f"[ingest-model] K5 launched {c['project_and_bin']} times"
+                  f" for {batches} insert batches")
+            ext2doc = store.ext_map()
+            by_id = {d["doc_id"]: d for d in docs}
+            pts = engine.dataset.points
+            again = sorted(ext2doc)[:: max(len(ext2doc) // 8, 1)][:8]
+            for e in again:
+                point = emb.extract(by_id[ext2doc[e]]).point
+                check(np.array_equal(pts[e], point), f"[ingest-model] "
+                      f"document {ext2doc[e]} embedded again differs from "
+                      f"its row")
+            t0 = time.perf_counter()
+            dev = [t.result(600) for t in [
+                rt.submit({"op": "query", "keywords": q, "k": 1,
+                           "tier": "device"}) for q in queries]]
+            out["device_s"] = time.perf_counter() - t0
+            check(all(r.status == "ok" for r in dev),
+                  "[ingest-model] a device request failed")
+            runtime_checks(rt, "ingest-model", 0)
+        finally:
+            rt.close()
+        final = engine.dataset.compacted_dataset()
+        check(final.n == n0 + n_docs, f"[ingest-model] {final.n} rows")
+        t0 = time.perf_counter()
+        fresh = NKSEngine(final, m=2, n_scales=5, seed=args.seed,
+                          w0=engine.index_e.w0,
+                          n_buckets=engine.index_e.structures[0].n_buckets)
+        out["fresh_engine_s"] = time.perf_counter() - t0
+        got = engine.query_batch(queries, k=1, tier="exact", backend="numpy")
+        want = fresh.query_batch(queries, k=1, tier="exact", backend="numpy")
+        check(keys_of(got) == keys_of(want), "[ingest-model] exact answers "
+              "differ from a fresh engine's over the final rows")
+        want_dev = fresh.query_batch(queries, k=1, tier="device")
+        dev_res = [types.SimpleNamespace(candidates=r.payload["candidates"])
+                   for r in dev]
+        check([[c.ids for c in r.candidates] for r in dev_res]
+              == [[c.ids for c in r.candidates] for r in want_dev],
+              "[ingest-model] device answers differ from a fresh engine's")
+        out["device_checks"] = check_device_answers(
+            final, queries, dev_res, "ingest-model-device", 1,
+            [r.candidates[0].diameter for r in want])
+        out["device_bit_for_bit"] = keys_of(dev_res) == keys_of(want_dev)
+        print(f"[ingest-model] {n_docs} documents of {seq} tokens through "
+              f"ModelEmbedder({cfg.name}, one document a call) and 2 "
+              f"workers into the runtime over the {n0} x {cfg.d_model} "
+              f"corpus: {wall:.3f}s = {out['docs_per_s']:.2f} docs/s = "
+              f"{out['tokens_per_s']:.0f} tokens/s; {batches} insert "
+              f"batches; retries {rep['retries']}; launches "
+              f"{by_path['ingest-model']}; 8 documents embedded again bit "
+              f"for bit; {len(queries)} device queries through the runtime "
+              f"({out['device_s']:.3f}s) equal a fresh engine's (bit for "
+              f"bit {out['device_bit_for_bit']}; {out['device_checks']}), "
+              f"exact (numpy backend) bit for bit", flush=True)
+        del fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def examples_phase(args, report: dict) -> None:
+    """[examples] ``examples/torch/quickstart.py --n 2000`` and
+    ``examples/torch/ingest_corpus.py`` as child processes on the card (the
+    default device), side by side: each must exit 0."""
+    import os
+    import subprocess
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {"quickstart.py": ["--n", "2000"], "ingest_corpus.py": []}
+    out: dict = {}
+    report["examples"] = out
+    with tempfile.TemporaryDirectory(prefix="nks-examples-") as tmp:
+        env["TMPDIR"] = tmp
+        ts = time.perf_counter()
+        children = {name: subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / "torch" / name), *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=tmp) for name, argv in runs.items()}
+        for name, child in children.items():
+            stdout, stderr = child.communicate(timeout=600)
+            out[name] = {"rc": child.returncode,
+                         "s": time.perf_counter() - ts,
+                         "last": stdout.strip().splitlines()[-1:]}
+            check(child.returncode == 0, f"[examples] {name} exited "
+                  f"{child.returncode}:\n{stderr[-2000:]}")
+            print(f"[examples] {name} {' '.join(runs[name])}: exit 0 after "
+                  f"{out[name]['s']:.1f}s; last line {out[name]['last']}",
+                  flush=True)
+
+
 class LargestCalls:
     """Wraps a backend's ``self_join_blocks`` and keeps the arguments of the
     ``KEEP`` calls with the most points in finite-radius subsets (the ones
@@ -2814,7 +3609,8 @@ def embed(args, report: dict) -> tuple:
           f"{emb['device']['profile'].get('busy_share')}, kernel time by "
           f"kind {emb['device']['profile'].get('share_of_kernel_time')}",
           flush=True)
-    return rec, k7, rec_diam, k6, rec_k5, k5
+    return rec, k7, rec_diam, k6, rec_k5, k5, (cfg, api, params, engine,
+                                                queries)
 
 
 def corpus_geometry(points, d: int, device) -> dict:
@@ -2907,7 +3703,7 @@ def profile_embed(api, params, batches) -> dict:
     return {"batches": len(batches), **prof} if prof else {}
 
 
-def flash_row(rec: ShapeRecorder, k7_launches: int,
+def flash_row(rec: ShapeRecorder, k7_by_path: dict,
               profiles: KernelProfiles) -> dict:
     """K7 against its plain version at the embed path's shapes and two
     variants; timings with CUDA events beside ``F.scaled_dot_product_attention``
@@ -3018,8 +3814,8 @@ def flash_row(rec: ShapeRecorder, k7_launches: int,
     shared.update(dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:99",
-                launches=k7_launches, path="embed",
-                launches_by_path={"embed": k7_launches},
+                launches=k7_by_path["embed"], path="embed",
+                launches_by_path=k7_by_path,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 max_err_over_tol=max(r["max_err_over_tol"] for r in rows),
                 min_dropped_tile_err_over_tol=min(
@@ -3390,6 +4186,19 @@ def main() -> int:
                     help="points deleted there, half bulk and half delta")
     ap.add_argument("--tenant-points", type=int, default=50_000,
                     help="points per tenant of the tenant-scoped check")
+    ap.add_argument("--runtime-points", type=int, default=10_000,
+                    help="points churned through the serving runtime (8 "
+                         "insert ops; a tenth deleted): its compaction "
+                         "threshold")
+    ap.add_argument("--ingest-docs", type=int, default=10_000,
+                    help="documents through the ingest pipeline into the "
+                         "runtime (keep it under the threshold left after "
+                         "the runtime's compactions)")
+    ap.add_argument("--launch-docs", type=int, default=2_000,
+                    help="documents the launcher ingests before serving")
+    ap.add_argument("--model-docs", type=int, default=256,
+                    help="documents of 512 tokens embedded by MiniCPM-2B "
+                         "through the ingest pipeline")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                           / "chip_smoke.json"))
@@ -3441,6 +4250,16 @@ def main() -> int:
         stream(args, report, served, by_path)
         store_phase(args, report, served, by_path)
         wal_phase(args, report, served, by_path)
+        phase_s = report["phase_s"] = {}
+        ts = time.perf_counter()
+        rt, rt_tmp = runtime_phase(args, report, served, by_path)
+        phase_s["runtime"] = time.perf_counter() - ts
+        ingest_phase(args, report, rt, rt_tmp, by_path)
+        phase_s["ingest"] = time.perf_counter() - ts - phase_s["runtime"]
+        del rt
+        ts = time.perf_counter()
+        launch_phase(args, report, served, by_path)
+        phase_s["launch"] = time.perf_counter() - ts
         tenants(args, report, by_path)
         profiles = KernelProfiles()
         rows = kernel_rows(*recs, by_path, profiles)
@@ -3459,8 +4278,21 @@ def main() -> int:
                   f"max_abs_err {row['max_abs_err']}; lengths "
                   f"{row.get('lengths')}; launches {row['launches_by_path']}",
                   flush=True)
-        rec, k7, rec_diam, k6, rec_k5_embed, k5_embed = embed(args, report)
-        rows.append(flash_row(rec, k7, profiles))
+        rec, k7, rec_diam, k6, rec_k5_embed, k5_embed, model = embed(
+            args, report)
+        ts = time.perf_counter()
+        ingest_model_phase(args, report, model, by_path)
+        del model
+        phase_s["ingest-model"] = time.perf_counter() - ts
+        ts = time.perf_counter()
+        examples_phase(args, report)
+        phase_s["examples"] = time.perf_counter() - ts
+        print(f"[phases] seconds of the request-stream phases: "
+              f"{ {k: round(v, 3) for k, v in phase_s.items()} }, "
+              f"{sum(phase_s.values()):.3f} in all", flush=True)
+        rows.append(flash_row(rec, {
+            "embed": k7, **{p: c["flash_attention"] for p, c in by_path.items()
+                            if c["flash_attention"]}}, profiles))
         del rec
         star_by, k6_by = ({p: c[n] for p, c in by_path.items()}
                           for n in ("anchor_star", "tuple_diameters"))

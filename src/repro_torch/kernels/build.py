@@ -14,11 +14,30 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+
+# The serving runtime's worker and compactor and the ingest pipeline's
+# workers launch kernels from several threads: every wrapper module counts
+# its launches through count() and reset(), under this lock.
+_COUNT_LOCK = threading.Lock()
+
+
+def count(launches: dict, name: str, n: int = 1) -> None:
+    """Adds ``n`` to ``launches[name]``, atomically across threads."""
+    with _COUNT_LOCK:
+        launches[name] += n
+
+
+def reset(launches: dict) -> None:
+    """Sets every count of ``launches`` to 0, atomically across threads."""
+    with _COUNT_LOCK:
+        for name in launches:
+            launches[name] = 0
 
 
 def build_dir() -> pathlib.Path:

@@ -124,6 +124,7 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -1851,16 +1852,29 @@ int triangle_blocks(int S, int P) {
   return static_cast<int>(tiles < resident ? tiles : resident);
 }
 
+// Blocks of `kernel` an SM holds at once with `threads` threads and `smem`
+// bytes of dynamic shared memory, asked once into the caller's memo (0
+// until asked). The serving runtime and the ingest pipeline launch from
+// several host threads, so the memo is read and filled under a lock.
+std::mutex occupancy_mutex;
+
+template <class Kernel>
+int blocks_per_sm(int& memo, Kernel kernel, int threads, int smem) {
+  std::lock_guard<std::mutex> lock(occupancy_mutex);
+  if (memo == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&memo, kernel, threads,
+                                                  smem);
+  return memo;
+}
+
 // Blocks of a K2 launch: twice as many as the card holds at once (by the
 // occupancy of its registers and shared memory), so that the hardware's
 // block scheduler evens out the tail of a walk whose live tiles are uneven
 // across blocks; or one per unit of work if there are fewer.
-// per_sm: the caller's memo of the kernel's occupancy (asked once).
+// memo: the caller's memo of the kernel's occupancy (asked once).
 template <class Kernel>
-int walk_blocks(Kernel kernel, int smem, int S, int P, int& per_sm) {
-  if (per_sm == 0)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                  PR_THREADS, smem);
+int walk_blocks(Kernel kernel, int smem, int S, int P, int& memo) {
+  const int per_sm = blocks_per_sm(memo, kernel, PR_THREADS, smem);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1880,12 +1894,19 @@ int resident_blocks(Kernel kernel) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int& n = per_sm[dev % 64];
-  if (n == 0) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         RT_SMEM);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, RT_THREADS,
-                                                  RT_SMEM);
+  int n = 0;
+  {
+    // filled once a device, also when several host threads launch at once
+    std::lock_guard<std::mutex> lock(occupancy_mutex);
+    int& memo = per_sm[dev % 64];
+    if (memo == 0) {
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           RT_SMEM);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&memo, kernel,
+                                                    RT_THREADS, RT_SMEM);
+    }
+    n = memo;
   }
   return sms * (n > 0 ? n : 1);
 }
@@ -1933,10 +1954,9 @@ int join_batched_prune_int8(const float* x, const int* lengths,
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  static int prep_per_sm = 0, join_per_sm = 0;
-  if (prep_per_sm == 0)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &prep_per_sm, int8_prep_kernel, QP_THREADS, 0);
+  static int prep_memo = 0, join_memo = 0;
+  const int prep_per_sm =
+      blocks_per_sm(prep_memo, int8_prep_kernel, QP_THREADS, 0);
   // The prep grid: resident blocks (a cooperative launch must be), or fewer
   // where the work is smaller.
   const long long n = static_cast<long long>(P) * d;
@@ -1983,9 +2003,8 @@ int join_batched_prune_int8(const float* x, const int* lengths,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              QI_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (join_per_sm == 0)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &join_per_sm, prune_int8_kernel, QI_THREADS, QI_SMEM);
+  const int join_per_sm =
+      blocks_per_sm(join_memo, prune_int8_kernel, QI_THREADS, QI_SMEM);
   // As many blocks as the card holds at once, or one a live tile if fewer.
   const long long tside = (P + QI_T - 1) / QI_T;
   const long long tiles = tside * (tside + 1) / 2 * S;

@@ -78,8 +78,9 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapFloatOOBfill);
 
 EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
+  // Asked once: a function-local static is initialised exactly once, also
+  // when several host threads launch at the same time.
+  static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
@@ -89,9 +90,10 @@ EncodeTiled encode_fn() {
     const cudaError_t err = cudaGetDriverEntryPoint(
         "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
 #endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
   return fn;
 }
 

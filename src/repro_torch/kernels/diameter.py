@@ -12,6 +12,7 @@ anything else (``kernels.ops`` routes CPU tensors to the plain versions,
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -27,34 +28,41 @@ MAX_Q = 9
 MAX_R = 1 << 23
 
 _LIB: ctypes.CDLL | None = None
+_LOAD_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    build.reset(launches)
 
 
 def library() -> ctypes.CDLL:
-    """The built and bound kernel library (builds on first use)."""
+    """The built and bound kernel library (builds on first use, once
+    when several threads ask at the same time)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build.build("diameter")))
-        lib.tuple_diameters.argtypes = [_P, ctypes.c_longlong, ctypes.c_int,
-                                        ctypes.c_int, _P, _P]
-        lib.tuple_diameters.restype = ctypes.c_int
-        lib.anchor_star.argtypes = [_P, _P] + [ctypes.c_int] * 4 \
-            + [_P] * 5
-        lib.anchor_star.restype = ctypes.c_int
-        for name in ("tuple_diameters_max_q", "anchor_star_max_r"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-        if lib.tuple_diameters_max_q() != MAX_Q \
-                or lib.anchor_star_max_r() != MAX_R:
-            raise RuntimeError("kernel's largest q or R differs from "
-                               "MAX_Q or MAX_R")
-        _LIB = lib
+        with _LOAD_LOCK:
+            if _LIB is None:
+                _LIB = _bind()
     return _LIB
+
+
+def _bind() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build.build("diameter")))
+    lib.tuple_diameters.argtypes = [_P, ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_int, _P, _P]
+    lib.tuple_diameters.restype = ctypes.c_int
+    lib.anchor_star.argtypes = [_P, _P] + [ctypes.c_int] * 4 \
+        + [_P] * 5
+    lib.anchor_star.restype = ctypes.c_int
+    for name in ("tuple_diameters_max_q", "anchor_star_max_r"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    if lib.tuple_diameters_max_q() != MAX_Q \
+            or lib.anchor_star_max_r() != MAX_R:
+        raise RuntimeError("kernel's largest q or R differs from "
+                           "MAX_Q or MAX_R")
+    return lib
 
 
 def _check_q(q: int) -> None:
@@ -87,7 +95,7 @@ def tuple_diameters(pts: torch.Tensor) -> torch.Tensor:
         if err:
             raise RuntimeError(f"tuple_diameters: kernel launch failed with "
                                f"CUDA error {err}")
-        launches["tuple_diameters"] += 1
+        build.count(launches, "tuple_diameters")
     return out
 
 
@@ -136,5 +144,5 @@ def anchor_star(groups: torch.Tensor, mask: torch.Tensor, *,
     if err:
         raise RuntimeError(f"anchor_star: kernel launch failed with CUDA "
                            f"error {err}")
-    launches["anchor_star"] += 2 if q > 1 else 1
+    build.count(launches, "anchor_star", 2 if q > 1 else 1)
     return nn, worst, diam

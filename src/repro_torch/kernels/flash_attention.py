@@ -13,6 +13,7 @@ CUDA bf16 tensors with head dim 64 or 128 only, and raises on anything else
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -31,24 +32,32 @@ _TMA_MAX_DIM = 2 ** 32 - 1
 _TMA_MAX_STRIDE = 2 ** 40 - 1
 
 _LIB: ctypes.CDLL | None = None
+_LOAD_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    build.reset(launches)
 
 
 def library() -> ctypes.CDLL:
-    """The built and bound kernel library (builds on first use)."""
+    """The built and bound kernel library (builds on first use, once
+    when several threads ask at the same time)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build.build("flash_attention")))
-        lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P] + [_I] * 8 \
-            + [ctypes.c_float, _P]
-        lib.flash_attention_fwd.restype = _I
-        _LIB = lib
+        with _LOAD_LOCK:
+            if _LIB is None:
+                _LIB = _bind()
     return _LIB
+
+
+def _bind() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build.build("flash_attention")))
+    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P] + [_I] * 8 \
+        + [ctypes.c_float, _P]
+    lib.flash_attention_fwd.restype = _I
+    return lib
 
 
 def check_tma_operand(name: str, t: torch.Tensor) -> None:
@@ -122,5 +131,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if err:
             raise RuntimeError(f"flash_attention: kernel launch failed with "
                                f"CUDA error {err}")
-        launches["flash_attention"] += 1
+        build.count(launches, "flash_attention")
     return out

@@ -12,6 +12,7 @@ CPU tensors to the plain versions in ``kernels.ref``).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -26,40 +27,47 @@ launches = {"join_batched_masked": 0, "join_batched_prune": 0,
             "join_batched_prune_int8_elig": 0}
 
 _LIB: ctypes.CDLL | None = None
+_LOAD_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    build.reset(launches)
 
 
 def library() -> ctypes.CDLL:
-    """The built and bound kernel library (builds on first use)."""
+    """The built and bound kernel library (builds on first use, once
+    when several threads ask at the same time)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build.build("pairwise_l2")))
-        lib.join_batched_masked.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
-                                            _P, _P, _P]
-        lib.join_batched_prune.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
-                                           _P]
-        lib.join_batched_prune_int8.argtypes = [_P, _P, _P, _P, _I, _I, _I,
-                                                _I, _I, _P, _P, _P, _P, _P]
-        lib.pairwise_join.argtypes = [_P, _P, _I, _I, _I, ctypes.c_float, _I,
-                                      _I, _P, _P, _P]
-        lib.join_batched_tiles.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
-                                           _P, _P, _P]
-        for fn in (lib.join_batched_masked, lib.join_batched_prune,
-                   lib.join_batched_prune_int8, lib.pairwise_join,
-                   lib.join_batched_tiles, lib.join_square_tile):
-            fn.restype = _I
-        lib.join_square_tile.argtypes = []
-        if lib.join_square_tile() != JOIN_SQUARE_TILE:
-            raise RuntimeError("the kernels' square tile differs from "
-                               "kernels.ref's JOIN_SQUARE_TILE")
-        _LIB = lib
+        with _LOAD_LOCK:
+            if _LIB is None:
+                _LIB = _bind()
     return _LIB
+
+
+def _bind() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build.build("pairwise_l2")))
+    lib.join_batched_masked.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
+                                        _P, _P, _P]
+    lib.join_batched_prune.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P,
+                                       _P]
+    lib.join_batched_prune_int8.argtypes = [_P, _P, _P, _P, _I, _I, _I,
+                                            _I, _I, _P, _P, _P, _P, _P]
+    lib.pairwise_join.argtypes = [_P, _P, _I, _I, _I, ctypes.c_float, _I,
+                                  _I, _P, _P, _P]
+    lib.join_batched_tiles.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P, _P, _P]
+    for fn in (lib.join_batched_masked, lib.join_batched_prune,
+               lib.join_batched_prune_int8, lib.pairwise_join,
+               lib.join_batched_tiles, lib.join_square_tile):
+        fn.restype = _I
+    lib.join_square_tile.argtypes = []
+    if lib.join_square_tile() != JOIN_SQUARE_TILE:
+        raise RuntimeError("the kernels' square tile differs from "
+                           "kernels.ref's JOIN_SQUARE_TILE")
+    return lib
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -85,9 +93,9 @@ def _launched(name: str, err: int, elig: torch.Tensor | None = None,
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    launches[name] += kernels
+    build.count(launches, name, kernels)
     if elig is not None:
-        launches[name + "_elig"] += kernels
+        build.count(launches, name + "_elig", kernels)
 
 
 _MAX_INT32 = 2 ** 31 - 1

@@ -12,6 +12,7 @@ unit vectors with 1 <= m <= 8 only, and raises on anything else
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -24,30 +25,38 @@ launches = {"project_and_bin": 0}
 MAX_M = 8
 
 _LIB: ctypes.CDLL | None = None
+_LOAD_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 
 
 def reset_launches() -> None:
-    launches["project_and_bin"] = 0
+    build.reset(launches)
 
 
 def library() -> ctypes.CDLL:
-    """The built and bound kernel library (builds on first use)."""
+    """The built and bound kernel library (builds on first use, once
+    when several threads ask at the same time)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build.build("project_bin")))
-        lib.project_and_bin.argtypes = [
-            _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            _P, _P, _P, ctypes.c_int, _P]
-        lib.project_and_bin.restype = ctypes.c_int
-        for name in ("project_and_bin_max_m", "project_and_bin_max_smem"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-        if lib.project_and_bin_max_m() != MAX_M:
-            raise RuntimeError("kernel's largest m differs from MAX_M")
-        _LIB = lib
+        with _LOAD_LOCK:
+            if _LIB is None:
+                _LIB = _bind()
     return _LIB
+
+
+def _bind() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build.build("project_bin")))
+    lib.project_and_bin.argtypes = [
+        _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        _P, _P, _P, ctypes.c_int, _P]
+    lib.project_and_bin.restype = ctypes.c_int
+    for name in ("project_and_bin_max_m", "project_and_bin_max_smem"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    if lib.project_and_bin_max_m() != MAX_M:
+        raise RuntimeError("kernel's largest m differs from MAX_M")
+    return lib
 
 
 def project_and_bin(x: torch.Tensor, z: torch.Tensor, w: float, c: int
@@ -94,5 +103,5 @@ def project_and_bin(x: torch.Tensor, z: torch.Tensor, w: float, c: int
         if err:
             raise RuntimeError(f"project_and_bin: kernel launch failed with "
                                f"CUDA error {err}")
-        launches["project_and_bin"] += 1
+        build.count(launches, "project_and_bin")
     return h1, h2, p

@@ -1194,3 +1194,213 @@ def test_store_and_recovery_on_card_match_numpy(tmp_path):
                 for r in rec.query_batch(queries, k=2, tier=tier)] == \
             [[c.key() for c in r.candidates]
              for r in live.query_batch(queries, k=2, tier=tier)]
+
+
+@pytest.mark.cuda
+def test_kernel_launches_counted_exactly_from_four_threads():
+    """K5, K1 and the fused anchor-star kernel launched from 4 host threads
+    at once, 25 times each a thread: every result equals the same call's
+    from one thread, and every launch counter moved by exactly the launches
+    made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import threading
+    from repro_torch.kernels import diameter, ops, project_bin
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((5000, 64), device=dev, generator=gen)
+    z = torch.randn((2, 64), device=dev, generator=gen)
+    xb = torch.randn((4, 300, 16), device=dev, generator=gen)
+    lens = torch.tensor([300, 250, 17, 0], dtype=torch.int32, device=dev)
+    radii = torch.full((4,), 4.0, device=dev)
+    groups = torch.randn((3, 700, 16), device=dev, generator=gen)
+    mask = torch.ones((3, 700), dtype=torch.bool, device=dev)
+    calls = {
+        "project_and_bin": lambda: ops.project_and_bin(x, z, 3.0, 7),
+        "join_batched_masked": lambda: ops.pairwise_l2_join_batched_masked(
+            xb, lens, radii),
+        "anchor_star": lambda: ops.anchor_star(groups, mask)}
+    want = {name: [t.clone() for t in fn()] for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    counters = {"project_and_bin": project_bin.launches,
+                "join_batched_masked": pairwise_l2.launches,
+                "anchor_star": diameter.launches}
+    per_call = {"project_and_bin": 1, "join_batched_masked": 1,
+                "anchor_star": 2}
+    before = {name: counters[name][name] for name in calls}
+    start = threading.Barrier(4)
+    errors = []
+
+    def run():
+        try:
+            start.wait()
+            for i in range(25):
+                for name, fn in calls.items():
+                    got = fn()
+                    if i % 8 == 0:
+                        for a, b in zip(got, want[name]):
+                            assert torch.equal(a, b), name
+        except Exception as exc:         # surfaced by the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for name in calls:
+        assert counters[name][name] - before[name] \
+            == 4 * 25 * per_call[name], name
+
+
+@pytest.mark.cuda
+def test_runtime_on_card_matches_cpu_under_threads(tmp_path):
+    """A serving runtime over a card engine at n=20,000: exact and device
+    queries submitted while inserts and deletes arrive and one background
+    compaction runs, then both tiers again afterwards. The exact answers
+    equal a ``device="cpu"`` engine's over the same ops, the device tier's
+    ids and diameters too, no request fails, and the launch counters moved
+    by exactly the launches of the traffic: K5 5 per insert op, per delete
+    of bulk rows and per compaction, the fused anchor-star kernel 2 per
+    device query."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import time
+    from repro_torch import NKSEngine, flickr_like_dataset, random_queries
+    from repro_torch.data.synthetic import attach_attrs, synthetic_attrs
+    from repro_torch.kernels import diameter, project_bin
+    from repro_torch.serve.runtime import RuntimeConfig, ServingRuntime
+    ds = attach_attrs(flickr_like_dataset(n=20_000, d=64, u=500, t=5,
+                                          seed=8), seed=1)
+    more = flickr_like_dataset(n=1200, d=64, u=500, t=5, seed=9)
+    more_attrs = synthetic_attrs(more.n, seed=9)
+    queries = random_queries(ds, 3, 16, seed=5)
+    opts = dict(compact_ratio=0.05, compact_min=1000)
+    card = NKSEngine(ds, **opts)
+    card.attach_wal(str(tmp_path / "wal"))
+    # the same ops in the same order: its synchronous compaction lands
+    # where the runtime's background one does (after the third insert; the
+    # fourth waits for the swap), so exact ties resolve alike
+    cpu = NKSEngine(ds, device="cpu", **opts)
+    ops = []
+    for lo in range(0, more.n, 300):
+        ops.append({"op": "insert", "points": more.points[lo:lo + 300],
+                    "keywords": [more.kw.row(i).tolist()
+                                 for i in range(lo, lo + 300)],
+                    "attrs": {k: v[lo:lo + 300]
+                              for k, v in more_attrs.items()}})
+    ops.insert(2, {"op": "delete", "ids": list(range(0, 400, 2))})
+    k5 = project_bin.launches["project_and_bin"]
+    star = diameter.launches["anchor_star"]
+    with ServingRuntime(card, RuntimeConfig(max_batch=8)) as rt:
+        during = []
+        for op in ops:
+            ticket = rt.submit(op)
+            during += [rt.submit({"op": "query", "keywords": q, "k": 1,
+                                  "tier": tier})
+                       for q in queries[:4] for tier in ("exact", "device")]
+            assert ticket.result(120).ok
+        for op in ops:
+            if op["op"] == "insert":
+                cpu.insert(op["points"], op["keywords"], attrs=op["attrs"])
+            else:
+                cpu.delete(op["ids"])
+        deadline = time.monotonic() + 120
+        while rt.stats.bg_compactions < 1 or rt._compacting:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        after = {tier: [rt.submit({"op": "query", "keywords": q, "k": 1,
+                                   "tier": tier}) for q in queries]
+                 for tier in ("exact", "device")}
+        resp = [t.result(120) for t in during] \
+            + [t.result(120) for ts in after.values() for t in ts]
+    torch.cuda.synchronize()
+    assert all(r.ok for r in resp)
+    st = rt.stats
+    assert st.errors == st.dispatch_failures == st.bg_compaction_errors \
+        == st.bg_compaction_faults == 0
+    assert st.bg_compactions == 1 and card.corpus_generation == 1
+    # 4 inserts, 1 delete with bulk rows, 1 compaction
+    assert project_bin.launches["project_and_bin"] - k5 == 5 * 6
+    n_device = len(during) // 2 + len(queries)
+    assert diameter.launches["anchor_star"] - star == 2 * n_device
+    assert cpu.corpus_generation == 1 and cpu.delta_points == 300
+    want = cpu.query_batch(queries, k=1, tier="exact")
+    got = [t.response for t in after["exact"]]
+    assert [[c.key() for c in r.payload["candidates"]] for r in got] \
+        == [[c.key() for c in r.candidates] for r in want]
+    from repro_torch.core.device_plane import pack_groups
+    from repro_torch.core.distributed import diameter_band
+    want_dev = cpu.query_batch(queries, k=1, tier="device")
+    for q, r, w in zip(queries, [t.response for t in after["device"]],
+                       want_dev):
+        a, b = r.payload["candidates"], w.candidates
+        assert a and [c.ids for c in a] == [c.ids for c in b]
+        pg = pack_groups(cpu.dataset, q)
+        band = diameter_band(pg.groups, pg.mask)
+        for ca, cb in zip(a, b):
+            assert abs(ca.diameter - cb.diameter) <= band
+    card.close()
+
+
+@pytest.mark.cuda
+def test_ingest_pipeline_with_model_embedder_on_card(tmp_path):
+    """Documents whose payload is token ids go through a ``ModelEmbedder``
+    over the dense model on the card (K7 in every self-attention, one
+    document a call) and a 2-worker pipeline into a serving runtime: the
+    queue drains, K7 launched once a layer a document embedded, every row
+    equals its document's embedding, and embedding a document again gives
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import dataclasses
+    from repro_torch import NKSEngine
+    from repro_torch.configs import get_config
+    from repro_torch.data.ingest import (DONE, IngestPipeline, JobStore,
+                                         ModelEmbedder)
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.api import model_api
+    from repro_torch.serve.runtime import RuntimeConfig, ServingRuntime
+    cfg = dataclasses.replace(get_config("minicpm-2b").smoke(), d_model=256,
+                              n_heads=4, n_kv_heads=4, head_dim=64)
+    api = model_api(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    seq, vocab = 96, [f"tag{i:03d}" for i in range(40)]
+
+    def embed_fn(tokens):
+        with torch.inference_mode():
+            ids = torch.as_tensor(tokens, device="cuda").long()
+            return api.embed(params, {"tokens": ids}).float().cpu().numpy()
+
+    emb = ModelEmbedder(embed_fn, cfg.d_model, vocab, d_raw=seq)
+    rng = np.random.default_rng(0)
+    docs = [{"doc_id": f"doc-{i:04d}",
+             "payload": rng.integers(0, cfg.vocab_size, seq)
+             .astype(np.float32).tolist(),
+             "tags": sorted({vocab[v] for v in rng.integers(0, 40, 3)})}
+            for i in range(72)]
+    seed = [emb.extract(d) for d in docs[:24]]
+    from repro_torch.core.types import make_dataset
+    eng = NKSEngine(make_dataset(np.stack([r.point for r in seed]),
+                                 [r.keywords for r in seed],
+                                 n_keywords=len(vocab)), n_scales=3)
+    store = JobStore(str(tmp_path / "jobs.jsonl"), lease_s=30.0)
+    store.add(docs[24:])
+    k7 = flash_attention.launches["flash_attention"]
+    with ServingRuntime(eng, RuntimeConfig()) as rt:
+        report = IngestPipeline(store, rt, emb, workers=2,
+                                batch_docs=8).run(timeout_s=300)
+    assert report["drained"] and report["docs_failed"] == 0, report
+    assert flash_attention.launches["flash_attention"] - k7 \
+        == cfg.n_layers * 48
+    ext2doc = {i: d["doc_id"] for i, d in enumerate(docs[:24])}
+    ext2doc.update(store.ext_map())
+    by_id = {d["doc_id"]: d for d in docs}
+    pts = np.asarray(eng.dataset.points)
+    for row, ext in enumerate(np.asarray(eng._ext_of)):
+        np.testing.assert_array_equal(
+            pts[row], emb.extract(by_id[ext2doc[int(ext)]]).point)
+    assert store.counts()[DONE] == 48
+    store.close()

@@ -61,10 +61,14 @@ def test_cpu_query_batch_runs_with_jax_blocked():
 
 
 def test_port_sources_name_no_reference_or_jax():
+    """The port's sources, ``chip_smoke.py`` and the port's examples."""
     pattern = re.compile(r"\brepro\.|jax", re.IGNORECASE)
     files = [p for p in (ROOT / "src" / "repro_torch").rglob("*")
              if p.is_file() and p.suffix in (".py", ".cu", ".cuh", ".h")]
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert len(examples) >= 2
+    files += examples
     assert len(files) > 10
     offenders = [f"{p.relative_to(ROOT)}:{i}"
                  for p in files
