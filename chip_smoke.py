@@ -527,11 +527,13 @@ class Recorder:
 
 class FirstCall:
     """Wraps ``kernels.ops.project_and_bin`` while a path runs: keeps the
-    arguments of its first call (references: the callers never write to
-    them afterwards) and the width of every call."""
+    arguments of its first call and the width of every call. The arguments
+    are kept as references where the callers never write to them
+    afterwards (an index build), else as copies (``clone=True``: an insert
+    batch, whose buffers the engine goes on using)."""
 
-    def __init__(self, ops, name: str):
-        self.ops, self.name = ops, name
+    def __init__(self, ops, name: str, clone: bool = False):
+        self.ops, self.name, self.clone = ops, name, clone
         self.fn = getattr(ops, name)
         self.first = None
         self.widths: list[float] = []
@@ -539,9 +541,14 @@ class FirstCall:
 
     def __call__(self, *args, **kw):
         if self.first is None:
-            self.first = args
+            self.first = tuple(a.clone() if self.clone and hasattr(a, "clone")
+                               else a for a in args)
         self.widths.append(args[2])
         return self.fn(*args, **kw)
+
+    def first_widths(self) -> list[float]:
+        """The widths of the calls, each once, in the order first called."""
+        return list(dict.fromkeys(self.widths))
 
     def restore(self) -> None:
         setattr(self.ops, self.name, self.fn)
@@ -2365,29 +2372,49 @@ def runtime_phase(args, report: dict, served, by_path: dict) -> tuple:
     return rt, tmp
 
 
-def ingest_phase(args, report: dict, rt, tmp: str, by_path: dict) -> None:
+def ingest_phase(args, report: dict, rt, tmp: str, by_path: dict):
     """[ingest] ``flickr_like_documents`` (d_raw=256, the served vocabulary
     u=24,874, t=11, attributes, seed 11) through ``ProjectionEmbedder(64)``
     and ``IngestPipeline(workers=4)`` into a ``RuntimeSink`` on the
     [runtime] runtime, one worker killed at its 3rd insert
     (``FaultPlan(crash={"insert": 3})``) under 10 s leases (a third of the
-    default), so that survivors reclaim its jobs and reconcile its open
-    intent on the card. The lease must outlast every insert: one that does
-    not is reverted while in flight and lands twice, a fault of the
-    reference's design kept by the port (ROADMAP Queue C), which a 2 s
-    lease met once. The queue drains with no failed document, no worker
-    thread dies, exactly one row lands per document and every row equals
-    ``embedder.extract(doc).point`` bit for bit, with its keywords; K5
-    launches 5 times an insert op. Closes the runtime and removes ``tmp``."""
+    default), so that survivors reclaim the leases that lapse while the
+    dead worker's intent holds the insert fence (``reclaims`` >= 1) and
+    reconcile that intent on the card. The lease must outlast every
+    insert: one that does not is reverted while in flight and lands twice,
+    a fault of the reference's design kept by the port (ROADMAP Queue C),
+    which a 2 s lease met once. So each insert is timed from its submission
+    to the runtime to its terminal response, and the slowest must stay
+    within half the lease. The queue drains with no failed document, no
+    worker thread dies, exactly one row lands per document and every row
+    equals ``embedder.extract(doc).point`` bit for bit, with its keywords;
+    K5 launches 5 times an insert op. Closes the runtime and removes
+    ``tmp``. Returns the ``FirstCall`` of K5 (its first insert batch)."""
     import os
     import shutil
     import threading
     import numpy as np
     import torch
     from repro_torch.data.ingest import (IngestPipeline, JobStore,
-                                         ProjectionEmbedder,
+                                         ProjectionEmbedder, RuntimeSink,
                                          flickr_like_documents)
+    from repro_torch.kernels import ops as kernel_ops
     from repro_torch.serve.faults import FaultPlan
+
+    class TimedSink(RuntimeSink):
+        """The pipeline's runtime sink, with each insert's seconds from
+        submission to terminal response."""
+
+        def __init__(self, runtime):
+            super().__init__(runtime)
+            self.insert_s: list[float] = []
+
+        def insert(self, *batch):
+            ts = time.perf_counter()
+            try:
+                return super().insert(*batch)
+            finally:
+                self.insert_s.append(time.perf_counter() - ts)
 
     engine = rt.engine
     out: dict = {}
@@ -2404,15 +2431,18 @@ def ingest_phase(args, report: dict, rt, tmp: str, by_path: dict) -> None:
         store.add(docs)
         out["setup_s"] = time.perf_counter() - t0
         faults = FaultPlan(crash={"insert": 3})
-        pipe = IngestPipeline(store, rt, emb, workers=4, faults=faults)
+        sink = TimedSink(rt)
+        pipe = IngestPipeline(store, sink, emb, workers=4, faults=faults)
         ops0, ext0 = rt.stats.ingest_ops, engine.next_external_id
         died, hook = [], threading.excepthook
         threading.excepthook = lambda a: died.append(
             f"{a.thread.name}: {a.exc_type.__name__}: {a.exc_value}")
+        rec_k5 = FirstCall(kernel_ops, "project_and_bin", clone=True)
         try:
             rep, wall = drive_path(by_path, "ingest",
                                    lambda: pipe.run(timeout_s=600.0))
         finally:
+            rec_k5.restore()
             threading.excepthook = hook
         ops = rt.stats.ingest_ops - ops0
         out.update({k: rep[k] for k in ("drained", "docs_done",
@@ -2421,9 +2451,19 @@ def ingest_phase(args, report: dict, rt, tmp: str, by_path: dict) -> None:
                                         "dead_workers", "workers")})
         out["wall_s"], out["insert_ops"] = wall, ops
         out["launches"] = by_path["ingest"]
+        ins = np.asarray(sink.insert_s)
+        out["lease_s"] = store.lease_s
+        out["insert_s"] = dict(
+            n=len(ins), max=float(ins.max()),
+            **{f"p{q}": float(np.percentile(ins, q)) for q in (50, 99)})
+        out["slowest_insert_over_lease"] = float(ins.max()) / store.lease_s
         check(rep["drained"] and rep["docs_failed"] == 0
               and rep["docs_done"] == len(docs),
               f"[ingest] the queue did not drain: {rep['counts']}")
+        check(out["slowest_insert_over_lease"] <= 0.5,
+              f"[ingest] the slowest insert took {ins.max():.3f}s, over "
+              f"half the {store.lease_s:.0f}s lease")
+        check(rep["reclaims"] >= 1, "[ingest] no lapsed lease was reclaimed")
         check(faults.fired.get("insert") == 1
               and len(rep["dead_workers"]) == 1,
               f"[ingest] the crash did not fire once: {faults.fired}, dead "
@@ -2465,7 +2505,12 @@ def ingest_phase(args, report: dict, rt, tmp: str, by_path: dict) -> None:
               f"{rep['docs_per_s']:.1f} docs/s, {ops} insert ops; one "
               f"worker killed at its insert ({rep['dead_workers']}), "
               f"retries {rep['retries']}, reclaims {rep['reclaims']}, "
-              f"failed {rep['docs_failed']}; every row bit for bit its "
+              f"failed {rep['docs_failed']}; {len(ins)} inserts from "
+              f"submission to response p50/p99/max "
+              f"{out['insert_s']['p50'] * 1e3:.1f}/"
+              f"{out['insert_s']['p99'] * 1e3:.1f}/{ins.max() * 1e3:.1f} ms, "
+              f"the slowest {out['slowest_insert_over_lease']:.4f} of the "
+              f"{store.lease_s:.0f}s lease; every row bit for bit its "
               f"document's embedding; K5 {k5} launches (5 an insert op); "
               f"launches {by_path['ingest']}", flush=True)
     finally:
@@ -2475,6 +2520,7 @@ def ingest_phase(args, report: dict, rt, tmp: str, by_path: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
         del rt, engine
         torch.cuda.empty_cache()
+    return rec_k5
 
 
 LAUNCHER = """
@@ -2638,7 +2684,7 @@ def launch_phase(args, report: dict, served, by_path: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def ingest_model_phase(args, report: dict, model, by_path: dict) -> None:
+def ingest_model_phase(args, report: dict, model, by_path: dict) -> tuple:
     """[ingest-model] Documents whose payload is 512 token ids through
     ``ModelEmbedder`` over the port's ``api.embed`` (MiniCPM-2B at full
     width and depth, the [embed] parameters; one document a call under
@@ -2650,7 +2696,9 @@ def ingest_model_phase(args, report: dict, model, by_path: dict) -> None:
     diameters within the fp32 band, as [embed] checks) and the 64 exact
     queries on both engines (the numpy backend: the torch backend's exact
     tier takes about 18 s a batch at d=2304, ROADMAP Queue C) bit for
-    bit."""
+    bit. Returns the ``ShapeRecorder`` of K7 and the ``FirstCall`` of K5
+    (its first insert batch) on this path, for their checks against the
+    plain versions."""
     import os
     import shutil
     import tempfile
@@ -2659,6 +2707,7 @@ def ingest_model_phase(args, report: dict, model, by_path: dict) -> None:
     import torch
     from repro_torch import NKSEngine, flickr_like_dataset
     from repro_torch.data.ingest import IngestPipeline, JobStore, ModelEmbedder
+    from repro_torch.kernels import ops as kernel_ops
     from repro_torch.serve.runtime import RuntimeConfig, ServingRuntime
 
     cfg, api, params, engine, queries = model
@@ -2690,8 +2739,17 @@ def ingest_model_phase(args, report: dict, model, by_path: dict) -> None:
         rt = ServingRuntime(engine, RuntimeConfig())
         try:
             pipe = IngestPipeline(store, rt, emb, workers=2, batch_docs=16)
-            rep, wall = drive_path(by_path, "ingest-model",
-                                   lambda: pipe.run(timeout_s=900.0))
+            rec_k7 = ShapeRecorder(kernel_ops)
+            rec_k5 = FirstCall(kernel_ops, "project_and_bin", clone=True)
+            try:
+                rep, wall = drive_path(by_path, "ingest-model",
+                                       lambda: pipe.run(timeout_s=900.0))
+            finally:
+                rec_k5.restore()
+                rec_k7.restore()
+            check(list(rec_k7.calls) == [(1, seq, cfg.n_heads,
+                                           cfg.resolved_head_dim)],
+                  f"[ingest-model] K7 ran at {rec_k7.calls}")
             ops = rep["workers"]
             out.update(wall_s=wall, docs_per_s=rep["docs_per_s"],
                        tokens_per_s=n_docs * seq / wall,
@@ -2763,6 +2821,7 @@ def ingest_model_phase(args, report: dict, model, by_path: dict) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
+    return rec_k7, rec_k5
 
 
 def examples_phase(args, report: dict) -> None:
@@ -3365,20 +3424,24 @@ def k5_row(cases, launches_by_path: dict, profiles: KernelProfiles) -> dict:
 
 
 class ShapeRecorder:
-    """Wraps ``kernels.ops.flash_attention`` during the embed path: counts
-    calls per q shape and keeps a copy of the first (q, k, v) of each."""
+    """Wraps ``kernels.ops.flash_attention`` while an embed path runs:
+    counts calls per q shape and keeps a copy of the first (q, k, v) of
+    each, also when pipeline workers call it from several threads."""
 
     def __init__(self, ops):
+        import threading
         self.ops, self.fn = ops, ops.flash_attention
         self.calls: dict[tuple, int] = {}
         self.first: dict[tuple, tuple] = {}
+        self.lock = threading.Lock()
         ops.flash_attention = self
 
     def __call__(self, q, k, v, **kw):
         key = tuple(q.shape)
-        self.calls[key] = self.calls.get(key, 0) + 1
-        if key not in self.first:
-            self.first[key] = (q.clone(), k.clone(), v.clone())
+        with self.lock:
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if key not in self.first:
+                self.first[key] = (q.clone(), k.clone(), v.clone())
         return self.fn(q, k, v, **kw)
 
     def restore(self) -> None:
@@ -3704,12 +3767,14 @@ def profile_embed(api, params, batches) -> dict:
 
 
 def flash_row(rec: ShapeRecorder, k7_by_path: dict,
-              profiles: KernelProfiles) -> dict:
-    """K7 against its plain version at the embed path's shapes and two
-    variants; timings with CUDA events beside ``F.scaled_dot_product_attention``
-    on the same inputs, and the kernel's device time from the fresh-process
-    profiler. The row's own numbers are those of the shape the path
-    launched most."""
+              profiles: KernelProfiles, extra=()) -> dict:
+    """K7 against its plain version at the embed path's shapes, two
+    variants and the ``extra`` cases (label, (q, k, v), window) that other
+    paths recorded; timings with CUDA events beside
+    ``F.scaled_dot_product_attention`` on the same inputs, and the kernel's
+    device time from the fresh-process profiler. Each case has its own
+    numbers; the row's own are those of the shape the embed path launched
+    most."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -3747,6 +3812,7 @@ def flash_row(rec: ShapeRecorder, k7_by_path: dict,
     cases = [("path", rec.first[sh], None) for sh in shapes]
     cases.append(("path+window", rec.first[longest], 1024))
     cases.append(("gqa", gqa, None))
+    cases += list(extra)
     rows = []
     shared: dict = {}        # the row; the profiler fills its device_ms too
     for label, (q, k, v), window in cases:
@@ -4254,7 +4320,7 @@ def main() -> int:
         ts = time.perf_counter()
         rt, rt_tmp = runtime_phase(args, report, served, by_path)
         phase_s["runtime"] = time.perf_counter() - ts
-        ingest_phase(args, report, rt, rt_tmp, by_path)
+        rec_k5_ingest = ingest_phase(args, report, rt, rt_tmp, by_path)
         phase_s["ingest"] = time.perf_counter() - ts - phase_s["runtime"]
         del rt
         ts = time.perf_counter()
@@ -4281,7 +4347,8 @@ def main() -> int:
         rec, k7, rec_diam, k6, rec_k5_embed, k5_embed, model = embed(
             args, report)
         ts = time.perf_counter()
-        ingest_model_phase(args, report, model, by_path)
+        rec_k7_model, rec_k5_model = ingest_model_phase(args, report, model,
+                                                        by_path)
         del model
         phase_s["ingest-model"] = time.perf_counter() - ts
         ts = time.perf_counter()
@@ -4292,8 +4359,10 @@ def main() -> int:
               f"{sum(phase_s.values()):.3f} in all", flush=True)
         rows.append(flash_row(rec, {
             "embed": k7, **{p: c["flash_attention"] for p, c in by_path.items()
-                            if c["flash_attention"]}}, profiles))
-        del rec
+                            if c["flash_attention"]}}, profiles,
+            [("ingest-model", qkv, None)
+             for qkv in rec_k7_model.first.values()]))
+        del rec, rec_k7_model
         star_by, k6_by = ({p: c[n] for p, c in by_path.items()}
                           for n in ("anchor_star", "tuple_diameters"))
         star_by["embed-device"] = k6["anchor_star"]
@@ -4308,7 +4377,11 @@ def main() -> int:
         rec_k5 = served[4]
         rows.append(k5_row([
             ("path", *rec_k5.first[:2], rec_k5.widths),
-            ("d2304", *rec_k5_embed.first[:2], rec_k5_embed.widths)],
+            ("d2304", *rec_k5_embed.first[:2], rec_k5_embed.widths),
+            ("ingest", *rec_k5_ingest.first[:2],
+             rec_k5_ingest.first_widths()),
+            ("ingest-model", *rec_k5_model.first[:2],
+             rec_k5_model.first_widths())],
             k5_by_path, profiles))
         report["kernel_profiles"] = profiles.run()
         redesigned_summary(rows, elig_rows)

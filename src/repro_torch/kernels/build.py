@@ -40,6 +40,22 @@ def reset(launches: dict) -> None:
             launches[name] = 0
 
 
+_LOAD_LOCK = threading.Lock()
+_LOADED: dict = {}
+
+
+def load(name: str, bind):
+    """The library of ``csrc/<name>.cu`` as ``bind()`` builds, opens and
+    binds it, on first use; once when several threads ask at the same time."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                lib = _LOADED[name] = bind()
+    return lib
+
+
 def build_dir() -> pathlib.Path:
     env = os.environ.get("REPRO_TORCH_BUILD_DIR")
     if env:

@@ -87,7 +87,8 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <mutex>
+
+#include "occupancy.cuh"
 
 namespace {
 
@@ -618,9 +619,6 @@ int tiles_per_unit(int ct, int q, int R, int d, int resident) {
   return static_cast<int>(c > 1 ? c : 1);
 }
 
-// Guards the neighbour kernels' occupancy memos (launch_nn).
-std::mutex occupancy_mutex;
-
 template <int KP, bool RES>
 int launch_nn(const float* groups, const unsigned char* mask, int q, int R,
               int d, int ct, unsigned long long* keys, cudaStream_t stream) {
@@ -629,17 +627,8 @@ int launch_nn(const float* groups, const unsigned char* mask, int q, int R,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // A property of the kernel: asked once, under a lock, since the serving
-  // runtime launches from several host threads.
-  static int memo = 0;
-  int per_sm = 0;
-  {
-    std::lock_guard<std::mutex> lock(occupancy_mutex);
-    if (memo == 0)
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&memo, kernel,
-                                                    NN_THREADS, L::BYTES);
-    per_sm = memo;
-  }
+  static int memo = 0;  // a property of the kernel, asked once
+  const int per_sm = blocks_per_sm(memo, kernel, NN_THREADS, L::BYTES);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -124,8 +124,8 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
-#include <mutex>
 
+#include "occupancy.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -1852,21 +1852,6 @@ int triangle_blocks(int S, int P) {
   return static_cast<int>(tiles < resident ? tiles : resident);
 }
 
-// Blocks of `kernel` an SM holds at once with `threads` threads and `smem`
-// bytes of dynamic shared memory, asked once into the caller's memo (0
-// until asked). The serving runtime and the ingest pipeline launch from
-// several host threads, so the memo is read and filled under a lock.
-std::mutex occupancy_mutex;
-
-template <class Kernel>
-int blocks_per_sm(int& memo, Kernel kernel, int threads, int smem) {
-  std::lock_guard<std::mutex> lock(occupancy_mutex);
-  if (memo == 0)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&memo, kernel, threads,
-                                                  smem);
-  return memo;
-}
-
 // Blocks of a K2 launch: twice as many as the card holds at once (by the
 // occupancy of its registers and shared memory), so that the hardware's
 // block scheduler evens out the tail of a walk whose live tiles are uneven
@@ -1890,24 +1875,14 @@ int walk_blocks(Kernel kernel, int smem, int S, int P, int& memo) {
 // 48 KB once a device).
 template <class Kernel>
 int resident_blocks(Kernel kernel) {
-  static int per_sm[64] = {};
+  static int per_sm[64] = {};  // a memo a device
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int n = 0;
-  {
-    // filled once a device, also when several host threads launch at once
-    std::lock_guard<std::mutex> lock(occupancy_mutex);
-    int& memo = per_sm[dev % 64];
-    if (memo == 0) {
-      cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           RT_SMEM);
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&memo, kernel,
-                                                    RT_THREADS, RT_SMEM);
-    }
-    n = memo;
-  }
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       RT_SMEM);
+  const int n =
+      blocks_per_sm(per_sm[dev % 64], kernel, RT_THREADS, RT_SMEM);
   return sms * (n > 0 ? n : 1);
 }
 

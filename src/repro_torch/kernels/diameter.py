@@ -12,7 +12,6 @@ anything else (``kernels.ops`` routes CPU tensors to the plain versions,
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -27,8 +26,6 @@ MAX_Q = 9
 # The most points a group may hold (the kernel's bitmap of anchor tiles).
 MAX_R = 1 << 23
 
-_LIB: ctypes.CDLL | None = None
-_LOAD_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 
 
@@ -37,14 +34,8 @@ def reset_launches() -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The built and bound kernel library (builds on first use, once
-    when several threads ask at the same time)."""
-    global _LIB
-    if _LIB is None:
-        with _LOAD_LOCK:
-            if _LIB is None:
-                _LIB = _bind()
-    return _LIB
+    """The built and bound kernel library (built on first use)."""
+    return build.load("diameter", _bind)
 
 
 def _bind() -> ctypes.CDLL:

@@ -13,7 +13,6 @@ CUDA bf16 tensors with head dim 64 or 128 only, and raises on anything else
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -31,8 +30,6 @@ _MAX_UNITS = 2 ** 31 - 1
 _TMA_MAX_DIM = 2 ** 32 - 1
 _TMA_MAX_STRIDE = 2 ** 40 - 1
 
-_LIB: ctypes.CDLL | None = None
-_LOAD_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -42,14 +39,8 @@ def reset_launches() -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The built and bound kernel library (builds on first use, once
-    when several threads ask at the same time)."""
-    global _LIB
-    if _LIB is None:
-        with _LOAD_LOCK:
-            if _LIB is None:
-                _LIB = _bind()
-    return _LIB
+    """The built and bound kernel library (built on first use)."""
+    return build.load("flash_attention", _bind)
 
 
 def _bind() -> ctypes.CDLL:

@@ -12,7 +12,6 @@ CPU tensors to the plain versions in ``kernels.ref``).
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -26,8 +25,6 @@ launches = {"join_batched_masked": 0, "join_batched_prune": 0,
             "join_batched_masked_elig": 0, "join_batched_prune_elig": 0,
             "join_batched_prune_int8_elig": 0}
 
-_LIB: ctypes.CDLL | None = None
-_LOAD_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -37,14 +34,8 @@ def reset_launches() -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The built and bound kernel library (builds on first use, once
-    when several threads ask at the same time)."""
-    global _LIB
-    if _LIB is None:
-        with _LOAD_LOCK:
-            if _LIB is None:
-                _LIB = _bind()
-    return _LIB
+    """The built and bound kernel library (built on first use)."""
+    return build.load("pairwise_l2", _bind)
 
 
 def _bind() -> ctypes.CDLL:

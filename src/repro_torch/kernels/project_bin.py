@@ -12,7 +12,6 @@ unit vectors with 1 <= m <= 8 only, and raises on anything else
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -24,8 +23,6 @@ launches = {"project_and_bin": 0}
 
 MAX_M = 8
 
-_LIB: ctypes.CDLL | None = None
-_LOAD_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 
 
@@ -34,14 +31,8 @@ def reset_launches() -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The built and bound kernel library (builds on first use, once
-    when several threads ask at the same time)."""
-    global _LIB
-    if _LIB is None:
-        with _LOAD_LOCK:
-            if _LIB is None:
-                _LIB = _bind()
-    return _LIB
+    """The built and bound kernel library (built on first use)."""
+    return build.load("project_bin", _bind)
 
 
 def _bind() -> ctypes.CDLL:

@@ -2,8 +2,8 @@
 
 The serving runtime's worker and compactor and the ingest pipeline's
 workers launch kernels from several threads: each wrapper module loads its
-library once (``library()`` under a lock) and counts its launches through
-``build.count``, atomically. Here the loader's ``_bind`` is replaced by a
+library once (``library()`` through ``build.load``, under a lock) and counts
+its launches through ``build.count``, atomically. Here the loader's ``_bind`` is replaced by a
 slow stand-in (the CPU has no nvcc), and the counter is driven directly;
 the launches themselves are counted on the card (``tests/test_torch_cuda.py``).
 """
@@ -28,7 +28,7 @@ def test_library_binds_once_under_threads(monkeypatch, mod):
         time.sleep(0.05)            # a build in flight while others ask
         return sentinel
 
-    monkeypatch.setattr(mod, "_LIB", None)
+    monkeypatch.setattr(build, "_LOADED", {})
     monkeypatch.setattr(mod, "_bind", slow_bind)
     start = threading.Barrier(8)
     got = []
