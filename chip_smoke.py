@@ -5,7 +5,7 @@
     python3 chip_smoke.py --n 20000 --embed-docs 64 --embed-long-docs 2 \
         --stream-points 2000 --stream-deletes 200 --tenant-points 5000 \
         --runtime-points 2000 --ingest-docs 1500 --launch-docs 300 \
-        --model-docs 32              # a quick check of every phase
+        --model-docs 32 --launch-points 20000   # a quick check of every phase
 
 Phases:
   1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and report
@@ -22,7 +22,8 @@ Phases:
      the settlement of near-edge entries from the host product, hashing
      and CSR assembly on the card and the copy back, each timed. Both
      indices must equal ``core.index.build_index`` on the host array for
-     array, bit for bit.
+     array, bit for bit (its steps run one scale of one index a child
+     process, all at once).
   2. Serve the main path at full size on that engine. Four paths,
      each driven with the launch counters set to 0 just before it and read
      just after: a batch of 64 random 3-keyword queries (k=1) in the exact
@@ -123,6 +124,21 @@ Phases:
      price < 50 on one fold-mode backend, reads back the same bytes and
      ships only radii and eligibility words.
 
+  3c'. [plane] The sharded serving plane at full width: an 8-shard
+     ``DevicePlane(make_serving_mesh(data=8))`` (shards dealt over the
+     cards there are: eight ``cuda:0`` shards on one card) and
+     ``NKSEngine(mesh=plane)`` over the served corpus with the served
+     engine's indices (no second build). Each a path of its own: the 64
+     queries exact and approx at k=1, exact forced onto the device with
+     the bf16 prune tier, exact with the int8 prune tier, exact under
+     price < 50, the device tier at q=3, k=1 and q=9, k=10. Every answer
+     equals the single-shard engine's same-route answer bit for bit (the
+     device tier's ids and float64 diameters too); K1, K2 and K2i launch
+     once a slab of a sharded dispatch (counted against the plane's
+     calls), the exact paths dispatch on shards 1-7, K6's two kernels
+     launch once a shard a query. Prints QPS beside the single-shard
+     figure, sharded of total dispatches, dispatches a shard, shard
+     utilisation and the collective wall, and each shard's device.
   3d. [stream] On the same engine: insert 10,000 flickr-like points
      (another seed) with attribute columns in 8 batches (K5: exactly 5
      launches per batch), delete 1,000 (half bulk, half delta), then the 64
@@ -170,13 +186,19 @@ Phases:
      into that runtime, one worker killed at its 3rd insert under 10 s
      leases: the queue drains, no worker thread dies, one row lands per
      document and is its embedding bit for bit, K5 5 an insert op.
-  3i. [launch] ``python -m repro_torch.launch.serve`` at 10^6 points with
-     ``--runtime --wal --ingest-docs 2000`` on a request file (64 queries,
+  3i. [examples] ``examples/torch/quickstart.py --n 2000`` and
+     ``examples/torch/ingest_corpus.py`` as child processes on the card:
+     exit 0. Beside it, and beside no phase that reports a time, the host
+     build of 3d's compacted indices runs in child processes (a scale of
+     an index each), waited for before [launch].
+  3j. [launch] ``python -m repro_torch.launch.serve`` at 10^5 points
+     (``--launch-points``) with ``--runtime --wal --ingest-docs 2000`` on a
+     request file (64 queries,
      inserts, a delete, health, snapshot, a malformed line, the queries
      again) in a child process: exit 0, every line parses, the malformed
      line an error, the first 64 answers equal an engine's in this process
      fed the same documents; the child's launch counters (K5 660).
-  3j. [tenant] At a reduced size (two tenants of 50,000 synthetic points,
+  3k. [tenant] At a reduced size (two tenants of 50,000 synthetic points,
      d=64, 1,000 local keywords each): 16 tenant-local 3-keyword queries
      per tenant in the exact, approx and device tiers; results echo the
      local ids, cover the resolved keywords, never reach the other tenant,
@@ -184,7 +206,7 @@ Phases:
      dictionary raises.
 
   4. Embed at full width: MiniCPM-2B (40 layers, d_model 2304, 36 heads of
-     64; random weights from a seeded generator on the card) embeds 4,096
+     64; random weights from a seeded generator on the card) embeds 2,048
      documents of 512 tokens in batches of 32 and 8 documents of its 4,096
      context in batches of 2 through ``NKSEngine.ingest_embeddings``; every
      self-attention runs the hand-written kernel K7, which must launch 40
@@ -198,15 +220,12 @@ Phases:
      wall against the bf16 peak, K7's launches and peak device memory. The
      same 64 queries then run on ``tier="device"`` with the checks of 3b (a):
      the fused anchor-star kernel at d=2304.
-  4b. [ingest-model] 256 documents of 512 token ids through a
+  4b. [ingest-model] 64 documents of 512 token ids through a
      ``ModelEmbedder`` over MiniCPM-2B (the [embed] weights, one document a
      call) and a 2-worker pipeline into a runtime over the embedded corpus:
      K7 40 launches a document, K5 5 an insert batch, 8 documents embedded
      again bit for bit, device and exact answers equal a fresh engine's
      over the final rows.
-  4c. [examples] ``examples/torch/quickstart.py --n 2000`` and
-     ``examples/torch/ingest_corpus.py`` as child processes on the card:
-     exit 0.
   5. Hold K7 against its plain PyTorch version on the card: on the path's
      own q, k, v of both shapes (recorded during phase 4), causal; the long
      shape again with window 1024; grouped-query heads (36 query, 4 kv,
@@ -229,7 +248,11 @@ Phases:
      diameters of the kernel's own tuples. Time kernel, plain version and
      the composition it replaced (cuBLAS product, torch passes, argmin and
      the standalone K6) with CUDA events, and the kernel by the fresh-process
-     profiler. Then hold the standalone K6 (``tuple_diameters``) against its
+     profiler. Also at shard 1's anchor range of 8 of the q=9 input (the
+     anchors a plane's second shard scores; a0 = R/8, not a multiple of
+     128): within the band of its plain version over the same range, and
+     its valid rows bit for bit the same rows of the whole call. Then hold
+     the standalone K6 (``tuple_diameters``) against its
      plain version at the (R, q, d) tuples those neighbours form: max
      |kernel - plain| over the per-tuple band of the norms identity
      ``sqrt((64 + 4d) eps32 max|x|^2)`` at most 1; time kernel, plain
@@ -254,7 +277,8 @@ whose bound is by bytes is timed there with L2 evicted before each call (a
 write of twice the card's L2 between calls, outside the timed kernel), and
 a device time under a kernel's bound fails the run.
 
-Prints the kernels' JSON line, the card line, and last
+Prints ``[phases]`` (the seconds of every phase), the kernels' JSON line,
+the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when a
 phase fails, when there is no CUDA device, or when the port's sources are
 not beside this file. Details go to ``chiprun_out/chip_smoke.json``.
@@ -417,6 +441,105 @@ class KernelProfiles:
                       f"{bnd} ms ({target.get('bound_by')}): an impossible "
                       f"reading")
         return results
+
+
+class HostBuild:
+    """The host numpy build of both indices over a corpus, as
+    ``core.index.build_index`` makes it, one scale of one index a child
+    process (``--host-build-job``), all at once: at 10^6 points the whole
+    build takes a minute of one core, a scale a few seconds. Started where
+    nothing is timed, or beside a phase that reports no time. :meth:`check`
+    waits for the children and holds the card's indices to their build bit
+    for bit; :meth:`close` ends them and removes their files."""
+
+    KINDS = ("exact", "approx")
+
+    def __init__(self, ds, params: dict, label: str):
+        import pickle
+        self.label = label
+        self.n_scales = params.get("n_scales", 5)
+        self.path = ROOT / "build" / f"host_build_{label}.pkl"
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        with open(self.path, "wb") as f:
+            pickle.dump((ds, params), f, protocol=pickle.HIGHEST_PROTOCOL)
+        self.procs = {(kind, s): subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--host-build-job",
+             f"{kind}:{s}:{self.path}"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for kind in self.KINDS for s in range(self.n_scales)}
+
+    def _out(self, kind: str, s: int) -> pathlib.Path:
+        return pathlib.Path(f"{self.path}.{kind}{s}")
+
+    def check(self, indices) -> float:
+        """Waits for the children; the indices (exact, approx) must equal
+        their build. Returns the longest child's build seconds."""
+        import pickle
+        from repro_torch.core.index import PromishIndex
+        parts, seconds = {}, []
+        try:
+            for (kind, s), proc in self.procs.items():
+                _, err = proc.communicate(timeout=900)
+                check(proc.returncode == 0, f"{self.label}: the host build "
+                      f"child ({kind}, scale {s}) failed: "
+                      f"{err.strip()[-2000:]}")
+                with open(self._out(kind, s), "rb") as f:
+                    *parts[kind, s], sec = pickle.load(f)
+                seconds.append(sec)
+        finally:
+            self.close()
+        for got, kind in zip(indices, self.KINDS):
+            z, w0, p_max, _ = parts[kind, 0]
+            want = PromishIndex(
+                z=z, w0=w0, n_scales=self.n_scales, exact=kind == "exact",
+                structures=tuple(parts[kind, s][3]
+                                 for s in range(self.n_scales)),
+                p_max=p_max)
+            index_equal(got, want, f"{self.label} {kind} index")
+        return max(seconds)
+
+    def close(self) -> None:
+        """Ends any child still running and removes the input and outputs."""
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        for p in (self.path, *(self._out(*job) for job in self.procs)):
+            p.unlink(missing_ok=True)
+
+
+def run_host_build_job(job: str) -> int:
+    """A child of :class:`HostBuild`: ``job`` is ``<kind>:<scale>:<path>``;
+    builds that scale of that index (``exact`` or ``approx``) on the host by
+    ``core.index.build_index``'s steps (the seeded projection, w0 and table
+    size unless pinned, then ``_build_scale``) and pickles (z, w0, p_max,
+    the scale's structure, seconds) beside its input."""
+    import pickle
+    import numpy as np
+    from repro_torch.core import projection as proj
+    from repro_torch.core.index import _build_scale, default_n_buckets
+    kind, scale, path = job.split(":", 2)
+    s, exact = int(scale), kind == "exact"
+    with open(path, "rb") as f:
+        ds, params = pickle.load(f)
+    ts = time.perf_counter()
+    rng = np.random.default_rng(params.get("seed", 0))
+    z = proj.sample_unit_vectors(rng, params.get("m", 2), ds.dim)
+    projected = proj.project(ds.points, z)
+    p_max = proj.projection_span(projected)
+    w0 = params.get("w0")
+    if w0 is None:
+        w0 = p_max / (2.0 ** params.get("n_scales", 5))
+    n_buckets = params.get("n_buckets")
+    if n_buckets is None:
+        n_buckets = default_n_buckets(ds.n)
+    nb = n_buckets if exact else max(64, n_buckets >> s)
+    structure = _build_scale(ds, projected, s, w0 * (2.0 ** s), nb, exact,
+                             params.get("synopsis", False))
+    with open(f"{path}.{kind}{s}", "wb") as f:
+        pickle.dump((z, w0, p_max, structure, time.perf_counter() - ts), f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    return 0
 
 
 def run_profile_jobs(path: str) -> int:
@@ -1144,7 +1267,7 @@ def serve(args, report: dict) -> tuple:
     from repro_torch.core.backend import TorchBackend
     from repro_torch.core.device_plane import pack_groups
     from repro_torch.core.distributed import diameter_band, nks_anchor_topk
-    from repro_torch.core.index import build_index, default_n_buckets
+    from repro_torch.core.index import default_n_buckets
     from repro_torch.data.synthetic import attach_attrs
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_l2 as K
@@ -1201,14 +1324,16 @@ def serve(args, report: dict) -> tuple:
           f"the engine build launched K5 {build_launches['project_and_bin']}"
           f" times, want 5 (one per scale for both indices)")
     ts = time.perf_counter()
-    for index, exact in ((engine.index_e, True), (engine.index_a, False)):
-        index_equal(index, build_index(ds, m=2, n_scales=5, exact=exact,
-                                       seed=args.seed),
-                    f"10^6 {'exact' if exact else 'approx'} index")
+    host_build = HostBuild(ds, dict(m=2, n_scales=5, seed=args.seed),
+                           "served")
+    report["setup"]["host_build_child_s"] = host_build.check(
+        (engine.index_e, engine.index_a))
     report["setup"]["host_build_s"] = time.perf_counter() - ts
     print(f"[build] both indices equal the host numpy build bit for bit "
           f"(z, w0, p_max, every table and khb); the host build took "
-          f"{report['setup']['host_build_s']:.1f}s", flush=True)
+          f"{report['setup']['host_build_s']:.1f}s (a scale of an index a "
+          f"child process, the longest "
+          f"{report['setup']['host_build_child_s']:.1f}s)", flush=True)
 
     recs = (Recorder(ops, "pairwise_l2_join_batched_masked", batched_cells),
             Recorder(ops, "pairwise_l2_join_batched_counts", batched_cells),
@@ -1439,14 +1564,21 @@ def serve(args, report: dict) -> tuple:
     # and answers over the served corpus ([stream] compacts this engine).
     kept = {"index_e": engine.index_e, "index_a": engine.index_a,
             "answers": {p: answers[p] for p in ("exact", "approx",
-                                                "device-q3")}}
+                                                "device-q3", "device-q9",
+                                                "exact-prune-int8")},
+            "queries9": queries9, "qps": {
+                p: report[p]["qps"] for p in (
+                    "exact", "approx", "exact-prune-int8", "device-q3",
+                    "device-q9")}}
+    kept["answers"]["forced"] = forced_ans
+    kept["qps"]["forced"] = report["exact_forced_device_prune"]["qps"]
     return recs, by_path, diam_recs, (engine, ds, queries, pinned, rec_k5,
                                       kept)
 
 
 def semantics(args, report: dict, served, by_path: dict) -> None:
     """[semantics] Flexible query semantics on the served engine: the
-    batch's queries (3 keywords, k=2)
+    first ``--semantics-queries`` of the batch's queries (3 keywords, k=2)
     under the four variants of the reference's semantics bench — classic,
     m-of-k (m=2), weighted (the two lowest keyword ids of the batch boosted
     to 3.0) and scored (m=2) — in the exact and approx tiers, each a path
@@ -1468,7 +1600,7 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
     from repro_torch.core.semantics import QuerySemantics
 
     engine, ds, queries = served[:3]
-    qs = queries
+    qs = queries[:args.semantics_queries]
     k = 2
     boosted = sorted({v for q in qs for v in q})[:2]
     variants = {"classic": None, "m_of_k": {"m": 2},
@@ -1605,17 +1737,241 @@ def semantics(args, report: dict, served, by_path: dict) -> None:
           f"{out['wall_s']:.1f}s", flush=True)
 
 
+class SlabCalls:
+    """Counts, while a path runs, the calls of the plane's two sharded joins
+    and of the ``kernels.ops`` joins they make a slab, apart from the ops
+    calls made outside the plane (single-device dispatches). With it a path
+    checks that the plane launched its kernel once a slab."""
+
+    OPS = ("pairwise_l2_join_batched_masked",
+           "pairwise_l2_join_batched_counts")
+
+    def __init__(self, plane, ops):
+        self.plane, self.ops = plane, ops
+        self.plane_calls = {n: 0 for n in self.OPS}
+        self.slab_calls = {n: 0 for n in self.OPS}
+        self.direct_calls = {n: 0 for n in self.OPS}
+        self.depth = 0
+        self.saved = []
+        for op, meth in zip(self.OPS, ("join_batched_masked",
+                                       "join_batched_counts")):
+            self._wrap_ops(op)
+            self._wrap_plane(meth, op)
+
+    def _wrap_ops(self, name):
+        fn = getattr(self.ops, name)
+
+        def call(*args, **kw):
+            (self.slab_calls if self.depth else self.direct_calls)[name] += 1
+            return fn(*args, **kw)
+        self.saved.append((self.ops, name, fn))
+        setattr(self.ops, name, call)
+
+    def _wrap_plane(self, meth, op):
+        fn = getattr(self.plane, meth)
+
+        def call(*args, **kw):
+            self.plane_calls[op] += 1
+            self.depth += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.depth -= 1
+        self.saved.append((self.plane, meth, None))
+        setattr(self.plane, meth, call)
+
+    def restore(self) -> None:
+        for obj, name, fn in self.saved:
+            if fn is None:
+                delattr(obj, name)              # the instance's wrapper
+            else:
+                setattr(obj, name, fn)
+
+    def as_dict(self) -> dict:
+        return {"plane_calls": dict(self.plane_calls),
+                "slab_calls": dict(self.slab_calls),
+                "direct_calls": dict(self.direct_calls)}
+
+
+def plane_phase(args, report: dict, served, by_path: dict) -> None:
+    """[plane] The sharded serving plane at full width: an 8-shard
+    ``DevicePlane(make_serving_mesh(data=8))`` (the shards dealt over the
+    cards there are: eight on ``cuda:0`` with one card) and
+    ``NKSEngine(mesh=plane)`` over the served 10^6-point corpus, reusing the
+    served engine's indices (``_indices=``, no second build). Each path with
+    the counters set to 0 just before it: the 64 queries exact and approx at
+    k=1 (default backend), exact forced onto the device with the bf16 prune
+    tier armed, exact with ``prune_dtype="int8"``, exact under price < 50,
+    and the device tier at q=3, k=1 and q=9, k=10. Every answer equals the
+    served single-shard engine's on the same route bit for bit (ids and
+    float64 diameters, the device tier's too). K1, K2 and K2i launch once a
+    slab of each sharded dispatch (K2i's two kernels), counted against the
+    plane's calls; the exact paths dispatch on shards 1-7; K6's two kernels
+    launch once a shard a query (16 a query). Prints QPS beside the
+    single-shard figure (the served engine on the same route, run again
+    just before the plane's run, both warm), sharded of total dispatches,
+    dispatches a shard, shard utilisation and the collective wall."""
+    import torch
+    from repro_torch import NKSEngine
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.device_plane import DevicePlane
+    from repro_torch.core.filters import where
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    engine, ds, queries, pinned, _, kept = served
+    queries9 = kept["queries9"]
+    plane = DevicePlane(make_serving_mesh(data=8))
+    n = plane.n_shards
+    check(n == 8 and all(d.type == "cuda" for d in plane.devices),
+          f"[plane] want 8 CUDA shards, got {plane.devices}")
+    out: dict = {"devices": [str(d) for d in plane.devices], "paths": {}}
+    report["plane"] = out
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    eng8 = NKSEngine(ds, **pinned, mesh=plane,
+                     _indices=(engine.index_e, engine.index_a))
+    torch.cuda.synchronize()
+    out["engine_s"] = time.perf_counter() - ts
+    model = eng8.backend._model
+    out["cost_model_prune_over_dev"] = model.prune_cell_s / model.dev_cell_s
+    print(f"[plane] {n} shards on {sorted(set(out['devices']))}; engine over "
+          f"the served corpus with its indices in {out['engine_s']:.3f}s "
+          f"(upload, cost model, warm-up; no build); its cost model's "
+          f"prune/dev {out['cost_model_prune_over_dev']:.4f} (the served "
+          f"engine's {report['default_backend']['prune_over_dev_cell']:.4f})",
+          flush=True)
+    # the sharded and the single-shard backends of the forced and int8
+    # routes, corpus uploaded (and the int8 arm's cost model calibrated)
+    # outside the timing
+    backends = {}
+    for name, kw in (("forced", dict(route="device", prune_tier="on")),
+                     ("int8", dict(prune_tier="on", prune_dtype="int8"))):
+        for sharded in (True, False):
+            be = TorchBackend(plane=plane, **kw) if sharded \
+                else TorchBackend(**kw)
+            be.attach(ds.points)
+            be.warmup(ds.dim)
+            backends[name, sharded] = be
+    price50 = where(("price", "<", 50.0))
+    runs = [  # path, tier, k, queries, backend, filter, single-shard key
+        ("plane-exact", "exact", 1, queries, "torch", None, "exact"),
+        ("plane-approx", "approx", 1, queries, "torch", None, "approx"),
+        ("plane-forced", "exact", 1, queries, "forced", None, "forced"),
+        ("plane-int8", "exact", 1, queries, "int8", None, "exact-prune-int8"),
+        ("plane-price<50", "exact", 1, queries, "torch", price50,
+         "filter:price<50:exact"),
+        ("plane-device-q3", "device", 1, queries, "torch", None, "device-q3"),
+        ("plane-device-q9", "device", 10, queries9, "torch", None,
+         "device-q9")]
+    for path, tier, k, qs, be, flt, key in runs:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        again = engine.query_batch(qs, k=k, tier=tier, filter=flt,
+                                   backend=backends.get((be, False), be))
+        torch.cuda.synchronize()
+        single_wall = time.perf_counter() - ts
+        be = backends.get((be, True), be)
+        calls = SlabCalls(plane, ops)
+        try:
+            res, wall = drive_path(by_path, path, lambda: eng8.query_batch(
+                qs, k=k, tier=tier, backend=be, filter=flt))
+        finally:
+            calls.restore()
+        st = eng8.last_batch_stats
+        launches = by_path[path]
+        want = kept["answers"][key]
+        same = [[(c.ids, c.diameter) for c in r.candidates] for r in res] \
+            == [[(c.ids, c.diameter) for c in r.candidates] for r in want]
+        same = same and [[(c.ids, c.diameter) for c in r.candidates]
+                         for r in again] \
+            == [[(c.ids, c.diameter) for c in r.candidates] for r in want]
+        rep = out["paths"][path] = {
+            "queries": len(qs), "k": k, "wall_s": wall,
+            "qps": len(qs) / wall, "single_shard_qps": len(qs) / single_wall,
+            "single_shard_qps_served": kept["qps"][key],
+            "sharded_dispatches": st.sharded_dispatches,
+            "total_dispatches": st.total_dispatches if tier != "device"
+            else len(qs),
+            "shard_dispatches": list(st.shard_dispatches),
+            "shard_utilisation": st.shard_utilisation,
+            "t_collective_s": st.t_collective_s, "phases": st.phases,
+            "sharding": st.sharding, "launches": launches,
+            "calls": calls.as_dict(), "identical": same}
+        print(f"[plane] {path}: {len(qs)} queries at k={k} in {wall:.4f}s = "
+              f"{rep['qps']:.2f} QPS (single shard just before "
+              f"{rep['single_shard_qps']:.2f}, in its own phase "
+              f"{rep['single_shard_qps_served']:.2f}); sharded "
+              f"{st.sharded_dispatches} of "
+              f"{rep['total_dispatches']} dispatches; shard_dispatches "
+              f"{st.shard_dispatches}; shard_utilisation "
+              f"{st.shard_utilisation}; t_collective_s "
+              f"{st.t_collective_s:.4f}; phases {st.phases}; launches "
+              f"{ {k2: v for k2, v in launches.items() if v} }; plane and "
+              f"slab calls {calls.as_dict()}", flush=True)
+        check(same, f"[plane] {path}: answers differ from the single-shard "
+              f"engine's {key} run")
+        if tier == "device":
+            check(launches["anchor_star"] == 2 * n * len(qs),
+                  f"[plane] {path}: K6 launched {launches['anchor_star']} "
+                  f"kernels for {len(qs)} queries, want {2 * n} a query")
+            check(st.shard_dispatches == [len(qs)] * n
+                  and st.sharded_dispatches == len(qs)
+                  and st.backend == "device-plane",
+                  f"[plane] {path}: shard accounting {st.sharding}")
+            continue
+        check(launches["anchor_star"] == 0, f"[plane] {path}: K6 launched")
+        for op, kernels in (
+                ("pairwise_l2_join_batched_masked",
+                 launches["join_batched_masked"]),
+                ("pairwise_l2_join_batched_counts",
+                 launches["join_batched_prune"]
+                 + launches["join_batched_prune_int8"] // 2)):
+            check(calls.slab_calls[op] == n * calls.plane_calls[op]
+                  and kernels == calls.slab_calls[op]
+                  + calls.direct_calls[op],
+                  f"[plane] {path}: {op} launched {kernels} kernels for "
+                  f"{calls.plane_calls[op]} sharded calls and "
+                  f"{calls.direct_calls[op]} single-device calls "
+                  f"({calls.as_dict()}): not once a slab")
+        if tier == "exact":
+            check(st.sharded_dispatches > 0
+                  and len(st.shard_dispatches) == n
+                  and all(st.shard_dispatches[1:]),
+                  f"[plane] {path}: no sharded dispatch on every shard: "
+                  f"{st.sharding}")
+            check(0.0 < st.t_collective_s <= st.t_dispatch_s,
+                  f"[plane] {path}: collective wall {st.t_collective_s} not "
+                  f"in (0, dispatch {st.t_dispatch_s}]")
+        check(all(0.0 <= u <= 1.0 for u in st.shard_utilisation),
+              f"[plane] {path}: utilisation {st.shard_utilisation}")
+    check(by_path["plane-forced"]["join_batched_prune"] > 0,
+          "[plane] the forced run launched no K2")
+    check(by_path["plane-int8"]["join_batched_prune_int8"] > 0
+          and by_path["plane-int8"]["join_batched_prune"] == 0,
+          f"[plane] the int8 run did not run K2i alone: "
+          f"{by_path['plane-int8']}")
+    check(by_path["plane-price<50"]["join_batched_masked_elig"] > 0,
+          "[plane] price<50 launched K1 without eligibility words")
+    del eng8, backends
+    torch.cuda.empty_cache()
+    shards = ", ".join(f"shard {i} {d}" for i, d in enumerate(out["devices"]))
+    print(f"[plane] every path bit for bit the single-shard engine's; "
+          f"shard devices: {shards}", flush=True)
+
+
 def stream(args, report: dict, served, by_path: dict) -> None:
     """Inserts, deletes and a compaction on the served engine, each a path
     of its own: K5 must launch 5 times per insert batch and per compaction;
     answers on the dirty corpus equal the numpy backend's on the same
     engine, and after compaction a fresh engine's over the compacted corpus;
-    the compacted indices equal the host build with the pinned geometry."""
+    the compacted indices equal the host build with the pinned geometry
+    (built by :class:`HostBuild` children beside ``[examples]``; this
+    returns the compacted corpus and indices for them)."""
     import numpy as np
     import torch
     from repro_torch import NKSEngine, flickr_like_dataset
     from repro_torch.core.filters import where
-    from repro_torch.core.index import build_index
     from repro_torch.data.synthetic import synthetic_attrs
 
     engine, ds, queries, pinned = served[:4]
@@ -1737,18 +2093,14 @@ def stream(args, report: dict, served, by_path: dict) -> None:
               f"engine's")
     del fresh
     torch.cuda.empty_cache()
-    ts = time.perf_counter()
-    for index, exact in ((engine.index_e, True), (engine.index_a, False)):
-        index_equal(index, build_index(engine.dataset, exact=exact, **pinned),
-                    f"compacted {'exact' if exact else 'approx'} index")
-    st["host_build_s"] = time.perf_counter() - ts
     report["stream"] = st
     print(f"[stream] compaction of {engine.dataset.n} live points in "
           f"{compact_s:.3f}s (launches {by_path['compact']}; split "
           f"{st['compact_build_split']}); answers equal a fresh engine's "
           f"over the compacted corpus ({st['fresh_engine_s']:.2f}s to "
-          f"build); compacted indices equal the pinned host build "
-          f"({st['host_build_s']:.1f}s)", flush=True)
+          f"build); the compacted indices go to the pinned host build in "
+          f"child processes", flush=True)
+    return engine.dataset, (engine.index_e, engine.index_a), pinned
 
 
 def keys_of(results) -> list:
@@ -2540,18 +2892,21 @@ finally:
 
 
 def launch_phase(args, report: dict, served, by_path: dict) -> None:
-    """[launch] ``python -m repro_torch.launch.serve --n 1000000 --d 64 --u
+    """[launch] ``python -m repro_torch.launch.serve --n 100000 --d 64 --u
     24874 --t 11 --attrs --tier exact --runtime --wal DIR --requests FILE
     --ingest-docs 2000`` in a child process on the card (run as ``-m`` runs
     it, through ``runpy``, so that the child prints its launch counters at
-    exit). FILE holds the 64 queries, 4 attributed insert ops, a delete,
-    ``health``, ``snapshot``, a malformed line and the 64 queries again.
-    The child must exit 0, every output line parse, the malformed line get
-    ``status: error`` and nothing else an error; its first 64 answers must
-    equal this process's engine over the corpus the launcher builds
-    (``flickr_like_dataset(seed=0)``, default geometry), fed the same 2,000
-    documents by the same pipeline, answer by answer (ids translated through
-    both job journals). Meanwhile this process builds that engine."""
+    exit). The corpus is ``--launch-points`` (cut from the served 10^6 for
+    time: ``[runtime]`` already serves that size; the child only proves the
+    launcher end to end). FILE holds 64 random 3-keyword queries over that
+    corpus, 4 attributed insert ops, a delete, ``health``, ``snapshot``, a
+    malformed line and the 64 queries again. The child must exit 0, every
+    output line parse, the malformed line get ``status: error`` and nothing
+    else an error; its first 64 answers must equal this process's engine
+    over the corpus the launcher builds (``flickr_like_dataset(seed=0)``,
+    default geometry), fed the same 2,000 documents by the same pipeline,
+    answer by answer (ids translated through both job journals). Meanwhile
+    this process builds that engine."""
     import argparse
     import json
     import os
@@ -2559,19 +2914,23 @@ def launch_phase(args, report: dict, served, by_path: dict) -> None:
     import subprocess
     import tempfile
     import torch
-    from repro_torch import NKSEngine, flickr_like_dataset
+    from repro_torch import NKSEngine, flickr_like_dataset, random_queries
     from repro_torch.data.ingest import JobStore
     from repro_torch.data.synthetic import attach_attrs, synthetic_attrs
     from repro_torch.launch import serve as launcher
 
-    _, ds, queries = served[:3]
-    out: dict = {}
+    # The corpus the launcher builds: flickr_like_dataset(seed=0) with
+    # attribute columns of seed 0.
+    ds = attach_attrs(flickr_like_dataset(n=args.launch_points, u=24_874,
+                                          t=11, d=64, seed=0), seed=0)
+    queries = random_queries(ds, 3, args.queries, seed=args.seed + 1)
+    out: dict = {"points": ds.n}
     report["launch"] = out
     tmp = tempfile.mkdtemp(prefix="nks-launch-")
     try:
         # the child's genesis snapshot and the one its "snapshot" writes
         out["free_bytes"] = disk_room(
-            tmp, 2.25 * leaf_bytes(ds, served[5], False), "launch")
+            tmp, 2.25 * leaf_bytes(served[1], served[5], False), "launch")
         more = flickr_like_dataset(n=400, u=24_874, t=11, d=64,
                                    seed=args.seed + 13)
         more_attrs = synthetic_attrs(more.n, seed=13)
@@ -2606,11 +2965,10 @@ def launch_phase(args, report: dict, served, by_path: dict) -> None:
             # The same corpus (the launcher attaches attributes with seed 0)
             # and the same documents, in this process.
             t0 = time.perf_counter()
-            mine = attach_attrs(ds, seed=0)
-            engine = NKSEngine(mine, build_approx=False, compact_ratio=0.25,
+            engine = NKSEngine(ds, build_approx=False, compact_ratio=0.25,
                                compact_min=4096)
             report_in = launcher._run_ingest_pipeline(
-                engine, mine, argparse.Namespace(
+                engine, ds, argparse.Namespace(
                     ingest_docs=args.launch_docs, u=24_874, t=11,
                     ingest_workers=2,
                     ingest_jobs=os.path.join(tmp, "jobs-here")))
@@ -2993,7 +3351,8 @@ def filtered(args, report: dict, served, by_path: dict) -> tuple:
                 ds, qs, answers[tier], eligible, path)
             if path in ("filter:price<50:exact",
                         "filter:cat3,price20-70:exact"):
-                kept[path] = answers[tier]      # for [store]
+                kept[path] = answers[tier]      # for [store] and [plane]
+                served[5]["qps"][path] = rep[tier]["qps"]
             print(f"[filter] {prefix[7:]} {tier}: {wall:.3f}s = "
                   f"{len(qs) / wall:.2f} QPS; answered "
                   f"{rep[tier]['answered']} of {len(qs)}; filtering "
@@ -3046,7 +3405,7 @@ def filtered(args, report: dict, served, by_path: dict) -> tuple:
     try:
         for name, (flt, mode) in filters.items():
             eligible = flt.evaluate(ds)
-            fq, pool = feasible_queries(ds, eligible, len(queries),
+            fq, pool = feasible_queries(ds, eligible, args.filter_feasible,
                                         args.seed + 3)
             rep = out[name] = {"eligible_points": int(eligible.sum()),
                                "mode": mode, "feasible_pool": pool}
@@ -3953,21 +4312,23 @@ def adaptive_reps(fn, budget_ms: float = 1500.0, cap: int = 50) -> int:
     return max(2, min(cap, int(budget_ms / max(t, 1e-3))))
 
 
-def star_check(groups, mask, got, want, label: str) -> dict:
+def star_check(groups, mask, got, want, label: str,
+               anchor_range=None) -> dict:
     """The fused kernel's outputs against the plain version's on the valid
-    anchors (phase 6): each neighbour's float64 distance to its anchor
-    within the query's band of the plain one's, worst_nn likewise, and the
-    diameters within rtol 1e-5 plus the band of the plain diameters of the
-    kernel's own tuples."""
+    anchors (of ``anchor_range`` ``(a0, count)``, default all; phase 6):
+    each neighbour's float64 distance to its anchor within the query's band
+    of the plain one's, worst_nn likewise, and the diameters within rtol
+    1e-5 plus the band of the plain diameters of the kernel's own tuples."""
     import torch
     from repro_torch.kernels import ref
-    q, _, d = groups.shape
+    q, r, d = groups.shape
+    a0, count = anchor_range or (0, r)
     pts = groups[mask].double()
     band = float(((64.0 + 4.0 * d) * EPS32 * (pts - pts.mean(0)).square()
                   .sum(-1).max()).sqrt()) if len(pts) else 0.0
     (nn, worst, diam), (nn_p, worst_p, _) = got, want
-    valid = mask[0]
-    a64 = groups[0].double()[valid]
+    valid = mask[0, a0:a0 + count]
+    a64 = groups[0, a0:a0 + count].double()[valid]
     nn_err, differ = 0.0, 0
     for j in range(1, q):
         g64 = groups[j].double()
@@ -3996,7 +4357,7 @@ def star_check(groups, mask, got, want, label: str) -> dict:
                 max_abs_err=max(nn_err, w_err, diam_err))
 
 
-def composition(groups, mask):
+def composition(groups, mask, anchor_range=None):
     """The device tier's neighbour stage as it was before the fused kernel:
     the plain version's cuBLAS products, torch passes and argmin, with the
     standalone K6 kernel for the diameters (the yardstick ``library_ms``)."""
@@ -4005,7 +4366,7 @@ def composition(groups, mask):
     plain = ref.tuple_diameters
     ref.tuple_diameters = D.tuple_diameters
     try:
-        return ref.anchor_star(groups, mask)
+        return ref.anchor_star(groups, mask, anchor_range=anchor_range)
     finally:
         ref.tuple_diameters = plain
 
@@ -4013,37 +4374,59 @@ def composition(groups, mask):
 def anchor_star_row(cases: list, launches_by_path: dict,
                     profiles: KernelProfiles) -> tuple[dict, list]:
     """The fused anchor-star kernel against its plain version at each
-    recorded input (label, Recorder of ``ops.anchor_star``); timings with
-    CUDA events beside the plain version and the composition it replaced;
-    the bound counts this input's valid anchors and points. Returns the row
-    (its own numbers those of the first case, the main device batch's
-    largest input) and, per case, the (R, q, d) tuples its neighbours form
-    (the standalone K6's inputs)."""
+    recorded input (label, Recorder of ``ops.anchor_star``, shard): timings
+    with CUDA events beside the plain version and the composition it
+    replaced; the bound counts this input's valid anchors and points. A
+    case with ``shard`` ``(i, n)`` scores only shard i's anchor range of n
+    (a0 = i R / n, as the plane gives it); its valid rows must equal the
+    same rows of the whole call bit for bit. Returns the row (its own
+    numbers those of the first case, the main device batch's largest input)
+    and, per whole case, the (R, q, d) tuples its neighbours form (the
+    standalone K6's inputs)."""
     import torch
     from repro_torch.kernels import diameter as D
     from repro_torch.kernels import ref
 
     rows, tuples = [], []
-    for label, rec in cases:
+    for label, rec, shard in cases:
         groups, mask = rec.best[:2]
         q, r, d = groups.shape
-        got = D.anchor_star(groups, mask)
-        want = ref.anchor_star(groups, mask)
+        rng = None if shard is None \
+            else (shard[0] * r // shard[1], r // shard[1])
+        a0, count = rng or (0, r)
+        got = D.anchor_star(groups, mask, anchor_range=rng)
+        want = ref.anchor_star(groups, mask, anchor_range=rng)
         torch.cuda.synchronize()
-        res = star_check(groups, mask, got, want, label)
+        res = star_check(groups, mask, got, want, label, rng)
         nn = got[0]
-        tuples.append((label, torch.stack(
-            [groups[j][nn[:, j].long()] for j in range(q)], 1).contiguous()))
-        a_valid = int(mask[0].sum())
+        if rng is None:
+            tuples.append((label, torch.stack(
+                [groups[j][nn[:, j].long()] for j in range(q)],
+                1).contiguous()))
+        else:
+            whole = D.anchor_star(groups, mask)
+            live = mask[0, a0:a0 + count]
+            same = all(torch.equal(g[live], w[a0:a0 + count][live])
+                       for g, w in zip(got, whole))
+            check(a0 % 128 != 0 and same,
+                  f"K6 {label}: the range ({a0}, {count}) rows differ from "
+                  f"the same rows of the whole call, or a0 is a multiple "
+                  f"of 128")
+            res["rows_equal_whole_call"] = same
+            res["anchor_range"] = [a0, count]
+        a_valid = int(mask[0, a0:a0 + count].sum())
         r_valid = [int(mask[j].sum()) for j in range(1, q)]
         flops = 2.0 * a_valid * d * sum(r_valid) + 2.0 * a_valid * q * q * d
-        nbytes = (a_valid + sum(r_valid)) * d * 4.0 + q * r + r * (4.0 * q + 8)
+        nbytes = (a_valid + sum(r_valid)) * d * 4.0 + q * r \
+            + count * (4.0 * q + 8)
         b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
-        pad_ms, _ = bound(2.0 * r * d * (q - 1) * r, q * r * (d * 4.0 + 1),
-                          PEAK_FP32_FLOPS)
-        kernel = lambda: D.anchor_star(groups, mask)          # noqa: E731
-        plain = lambda: ref.anchor_star(groups, mask)         # noqa: E731
-        lib = lambda: composition(groups, mask)               # noqa: E731
+        pad_ms, _ = bound(2.0 * count * d * (q - 1) * r,
+                          q * r * (d * 4.0 + 1), PEAK_FP32_FLOPS)
+        kernel = lambda: D.anchor_star(groups, mask,          # noqa: E731
+                                       anchor_range=rng)
+        plain = lambda: ref.anchor_star(groups, mask,         # noqa: E731
+                                        anchor_range=rng)
+        lib = lambda: composition(groups, mask, rng)          # noqa: E731
         reps_k, reps_p = adaptive_reps(kernel), adaptive_reps(plain, 3000.0)
         rows.append(dict(
             case=label, shape=[q, r, d], valid_anchors=a_valid,
@@ -4053,8 +4436,10 @@ def anchor_star_row(cases: list, launches_by_path: dict,
             padded_bound_ms=pad_ms, reps=reps_k))
         c = rows[-1]
         c["library_over_kernel"] = c["library_ms"] / c["ms"]
-        print(f"[kernel] anchor_star {label} (q, R, d) {c['shape']}, valid "
-              f"anchors {a_valid}, valid points {r_valid}: {c['ms']:.4f} ms "
+        print(f"[kernel] anchor_star {label} (q, R, d) {c['shape']}"
+              f"{'' if rng is None else f', anchors {a0}..{a0 + count - 1}'}"
+              f", valid anchors {a_valid}, valid points {r_valid}: "
+              f"{c['ms']:.4f} ms "
               f"(plain {c['plain_ms']:.4f} ms, composition "
               f"{c['library_ms']:.4f} ms = {c['library_over_kernel']:.2f}x "
               f"the kernel, bound {b_ms:.5f} ms by {b_by}, at the padded "
@@ -4064,7 +4449,8 @@ def anchor_star_row(cases: list, launches_by_path: dict,
               f"{res['diam_err']:.3g}, band {res['band']:.3g}", flush=True)
         profiles.add(f"K6 anchor_star {label}", "diameter.anchor_star",
                      (groups, mask), "anchor_star_", "anchor_star",
-                     max(3, min(50, int(1000.0 / c["ms"]))), c)
+                     max(3, min(50, int(1000.0 / c["ms"]))), c,
+                     **({} if rng is None else {"anchor_range": rng}))
     main_case = rows[0]
     row = dict(name="anchor_star", route="cuda",
                source="src/repro_torch/kernels/csrc/diameter.cu",
@@ -4240,9 +4626,14 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="corpus points (default: Table III's 10^6)")
     ap.add_argument("--queries", type=int, default=64)
+    ap.add_argument("--semantics-queries", type=int, default=32,
+                    help="queries of the batch run under each semantics "
+                         "variant on both backends")
+    ap.add_argument("--filter-feasible", type=int, default=32,
+                    help="feasible queries drawn per filter")
     ap.add_argument("--compare", type=int, default=8,
                     help="queries per tier held to the numpy backend")
-    ap.add_argument("--embed-docs", type=int, default=4096,
+    ap.add_argument("--embed-docs", type=int, default=2048,
                     help="documents of 512 tokens to embed (batches of 32)")
     ap.add_argument("--embed-long-docs", type=int, default=8,
                     help="documents of 4096 tokens to embed (batches of 2)")
@@ -4256,19 +4647,22 @@ def main() -> int:
                     help="points churned through the serving runtime (8 "
                          "insert ops; a tenth deleted): its compaction "
                          "threshold")
-    ap.add_argument("--ingest-docs", type=int, default=10_000,
+    ap.add_argument("--ingest-docs", type=int, default=5_000,
                     help="documents through the ingest pipeline into the "
                          "runtime (keep it under the threshold left after "
                          "the runtime's compactions)")
     ap.add_argument("--launch-docs", type=int, default=2_000,
                     help="documents the launcher ingests before serving")
-    ap.add_argument("--model-docs", type=int, default=256,
+    ap.add_argument("--launch-points", type=int, default=100_000,
+                    help="corpus points of the launcher's child process")
+    ap.add_argument("--model-docs", type=int, default=64,
                     help="documents of 512 tokens embedded by MiniCPM-2B "
                          "through the ingest pipeline")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                           / "chip_smoke.json"))
     ap.add_argument("--profile-jobs", help=argparse.SUPPRESS)
+    ap.add_argument("--host-build-job", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4284,9 +4678,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.profile_jobs:
         return run_profile_jobs(args.profile_jobs)
+    if args.host_build_job:
+        return run_host_build_job(args.host_build_job)
     from repro_torch.kernels import build
 
     report: dict = {}
+    host_build = None
     try:
         t0 = time.perf_counter()
         # one nvcc per source, all started together
@@ -4310,23 +4707,44 @@ def main() -> int:
         print(f"[ptxas] pairwise_l2: pairwise_join_kernel and "
               f"batched_tiles_kernel take {report['k3_k4_dynamic_smem']} "
               f"bytes of dynamic shared memory a block", flush=True)
-        recs, by_path, diam_recs, served = serve(args, report)
-        semantics(args, report, served, by_path)
-        elig_recs = filtered(args, report, served, by_path)
-        stream(args, report, served, by_path)
-        store_phase(args, report, served, by_path)
-        wal_phase(args, report, served, by_path)
-        phase_s = report["phase_s"] = {}
-        ts = time.perf_counter()
-        rt, rt_tmp = runtime_phase(args, report, served, by_path)
-        phase_s["runtime"] = time.perf_counter() - ts
-        rec_k5_ingest = ingest_phase(args, report, rt, rt_tmp, by_path)
-        phase_s["ingest"] = time.perf_counter() - ts - phase_s["runtime"]
+        phase_s = report["phase_s"] = {"kernel-build": report["build_s"]}
+
+        def phase(name, fn, *a):
+            ts = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                phase_s[name] = time.perf_counter() - ts
+
+        recs, by_path, diam_recs, served = phase("serve", serve, args,
+                                                 report)
+        phase("semantics", semantics, args, report, served, by_path)
+        elig_recs = phase("filter", filtered, args, report, served, by_path)
+        phase("plane", plane_phase, args, report, served, by_path)
+        compacted = phase("stream", stream, args, report, served, by_path)
+        phase("store", store_phase, args, report, served, by_path)
+        phase("wal", wal_phase, args, report, served, by_path)
+        rt, rt_tmp = phase("runtime", runtime_phase, args, report, served,
+                           by_path)
+        rec_k5_ingest = phase("ingest", ingest_phase, args, report, rt,
+                              rt_tmp, by_path)
         del rt
+        # the compacted indices' host oracle beside [examples], which
+        # reports no time, and waited for before the next phase
+        host_build = HostBuild(compacted[0], compacted[2], "compacted")
+        phase("examples", examples_phase, args, report)
         ts = time.perf_counter()
-        launch_phase(args, report, served, by_path)
-        phase_s["launch"] = time.perf_counter() - ts
-        tenants(args, report, by_path)
+        report["stream"]["host_build_s"] = host_build.check(compacted[1])
+        phase_s["stream-host-build-wait"] = time.perf_counter() - ts
+        del compacted
+        host_build = None
+        print(f"[stream] the compacted indices equal the pinned host build "
+              f"bit for bit ({report['stream']['host_build_s']:.1f}s in the "
+              f"longest of its child processes, waited "
+              f"{phase_s['stream-host-build-wait']:.1f}s)", flush=True)
+        phase("launch", launch_phase, args, report, served, by_path)
+        phase("tenant", tenants, args, report, by_path)
+        ts = time.perf_counter()
         profiles = KernelProfiles()
         rows = kernel_rows(*recs, by_path, profiles)
         rows.append(k4_row(recs[0], by_path, profiles))
@@ -4344,19 +4762,13 @@ def main() -> int:
                   f"max_abs_err {row['max_abs_err']}; lengths "
                   f"{row.get('lengths')}; launches {row['launches_by_path']}",
                   flush=True)
-        rec, k7, rec_diam, k6, rec_k5_embed, k5_embed, model = embed(
-            args, report)
-        ts = time.perf_counter()
-        rec_k7_model, rec_k5_model = ingest_model_phase(args, report, model,
-                                                        by_path)
+        phase_s["kernel-rows"] = time.perf_counter() - ts
+        rec, k7, rec_diam, k6, rec_k5_embed, k5_embed, model = phase(
+            "embed", embed, args, report)
+        rec_k7_model, rec_k5_model = phase(
+            "ingest-model", ingest_model_phase, args, report, model, by_path)
         del model
-        phase_s["ingest-model"] = time.perf_counter() - ts
         ts = time.perf_counter()
-        examples_phase(args, report)
-        phase_s["examples"] = time.perf_counter() - ts
-        print(f"[phases] seconds of the request-stream phases: "
-              f"{ {k: round(v, 3) for k, v in phase_s.items()} }, "
-              f"{sum(phase_s.values()):.3f} in all", flush=True)
         rows.append(flash_row(rec, {
             "embed": k7, **{p: c["flash_attention"] for p, c in by_path.items()
                             if c["flash_attention"]}}, profiles,
@@ -4368,8 +4780,10 @@ def main() -> int:
         star_by["embed-device"] = k6["anchor_star"]
         k6_by["embed-device"] = k6["tuple_diameters"]
         star_row, tuples = anchor_star_row(
-            [("path", diam_recs["device-q3"]), ("q9", diam_recs["device-q9"]),
-             ("d2304", rec_diam)], star_by, profiles)
+            [("path", diam_recs["device-q3"], None),
+             ("q9", diam_recs["device-q9"], None),
+             ("q9 shard 1 of 8", diam_recs["device-q9"], (1, 8)),
+             ("d2304", rec_diam, None)], star_by, profiles)
         rows.append(star_row)
         rows.append(diameter_row(tuples, k6_by, profiles))
         k5_by_path = {p: c["project_and_bin"] for p, c in by_path.items()}
@@ -4383,12 +4797,18 @@ def main() -> int:
             ("ingest-model", *rec_k5_model.first[:2],
              rec_k5_model.first_widths())],
             k5_by_path, profiles))
-        report["kernel_profiles"] = profiles.run()
+        phase_s["kernel-rows"] += time.perf_counter() - ts
+        report["kernel_profiles"] = phase("profiles", profiles.run)
         redesigned_summary(rows, elig_rows)
+        print(f"[phases] seconds of every phase: "
+              f"{ {k: round(v, 3) for k, v in phase_s.items()} }, "
+              f"{sum(phase_s.values()):.3f} in all", flush=True)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
+        if host_build is not None:
+            host_build.close()
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(report, indent=1, default=str))

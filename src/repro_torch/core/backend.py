@@ -51,29 +51,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.device_plane import balance_order
 from repro_torch.core.subset_search import (_sq_dists_f64, pack_join_mask,
                                             pairwise_l2_numpy)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import JOIN_SQUARE_TILE
+from repro_torch.launch.mesh import resolve_device
 
 _EPS32 = float(np.finfo(np.float32).eps)
-
-
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for another. With no CUDA device and no explicit choice this raises —
-    there is no silent host path."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run "
-                               "the plain PyTorch versions on the host")
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def _sync(device: torch.device) -> None:
@@ -127,6 +112,19 @@ class BackendStats:
     # bins gather from the corpus resident on the card and count nothing;
     # its host-routed bins gather off the host array and count.
     cold_bytes_read: int = 0
+    # Sharded-dispatch accounting (a DevicePlane routes the dispatch over
+    # its shards; lists are indexed by shard position and sized on the
+    # first device dispatch; a single-device dispatch lands on shard 0).
+    sharded_dispatches: int = 0            # dispatches split over shards
+    t_collective_s: float = 0.0            # wall of their fp32 join stage
+    shard_dispatches: list = dataclasses.field(default_factory=list)
+    shard_valid_cells: list = dataclasses.field(default_factory=list)
+    shard_total_cells: list = dataclasses.field(default_factory=list)
+
+    def ensure_shards(self, n: int) -> None:
+        for lst in (self.shard_dispatches, self.shard_valid_cells,
+                    self.shard_total_cells):
+            lst.extend([0] * (n - len(lst)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -498,6 +496,17 @@ class TorchBackend(DistanceBackend):
     On a CUDA device the joins run the hand-written kernels; on the CPU
     (``device="cpu"``) their plain PyTorch versions. ``cache_bytes`` bounds
     the device-tile / host-table LRU.
+
+    ``plane`` (a :class:`~repro_torch.core.device_plane.DevicePlane`) makes
+    multi-device execution a property of this backend: a device-routed bin
+    that packs at least one subset a shard is split over the plane's shards
+    (subsets dealt to slabs in snake order of packed size), one kernel
+    launch a slab, and the masks and counts gathered back; per-shard
+    utilisation lands in the stats. Thinner bins, and bins whose shard-rounded tile would exceed
+    ``max_block_bytes``, keep the single-device dispatch. Each subset's join
+    is computed alone, so blocks are bit-identical across routes. The
+    resident corpus lives on the plane's first device, which is the
+    backend's ``device``.
     """
 
     name = "torch"
@@ -513,6 +522,7 @@ class TorchBackend(DistanceBackend):
                  prune_dtype: str = "bf16",
                  prune_eps: float = 0.05,
                  elig_pack_threshold: float = 0.25,
+                 plane=None,
                  cost_model: DispatchCostModel | None = None) -> None:
         super().__init__()
         # quantum: subset counts and pad widths round up to it (tile-shape
@@ -533,6 +543,7 @@ class TorchBackend(DistanceBackend):
         # elig_pack_threshold: below this filter selectivity (eligible share
         #   of a call's subset points), tiles pack the eligible rows densely
         #   instead of folding eligibility words into full-width tiles.
+        # plane: a DevicePlane whose shards take the device-routed bins.
         # cost_model: a fixed routing model in place of the calibrated one.
         if bin_strategy not in ("quantile", "pow2"):
             raise ValueError(f"unknown bin_strategy: {bin_strategy!r}")
@@ -542,7 +553,11 @@ class TorchBackend(DistanceBackend):
             raise ValueError(f"unknown prune_tier: {prune_tier!r}")
         if prune_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown prune_dtype: {prune_dtype!r}")
+        if plane is not None:
+            plane.check_device(device)
+            device = plane.device
         self.device = resolve_device(device)
+        self.plane = plane
         self.quantum = quantum
         self.max_block_bytes = max_block_bytes
         self.cache_bytes = cache_bytes
@@ -897,17 +912,20 @@ class TorchBackend(DistanceBackend):
         return out
 
     def _pack_tile(self, id_lists: Sequence[np.ndarray], s_pad: int,
-                   p_pad: int) -> torch.Tensor:
+                   p_pad: int, rows: np.ndarray | None = None
+                   ) -> torch.Tensor:
         """(s_pad, p_pad, d) fp32 tile gathered on the device from the
-        resident corpus: subset i's rows land at slots [0, len) of row i,
-        the rest stay zero. Only the id lists cross to the device."""
+        resident corpus: subset i's rows land at slots [0, len) of tile row
+        ``rows[i]`` (default i), the rest stay zero. Only the id lists cross
+        to the device."""
         d = self._points_dev.shape[1]
         lens = np.fromiter((len(ids) for ids in id_lists), np.int64,
                            count=len(id_lists))
         ids = np.concatenate(id_lists).astype(np.int64, copy=False) \
             if len(id_lists) else np.zeros(0, np.int64)
-        starts = np.repeat(np.arange(len(id_lists), dtype=np.int64) * p_pad,
-                           lens)
+        if rows is None:
+            rows = np.arange(len(id_lists), dtype=np.int64)
+        starts = np.repeat(np.asarray(rows, np.int64) * p_pad, lens)
         offs = np.arange(len(ids), dtype=np.int64) \
             - np.repeat(np.cumsum(lens) - lens, lens)
         slots = starts + offs
@@ -937,13 +955,47 @@ class TorchBackend(DistanceBackend):
             pack_ids = [ids[rw] for ids, rw in zip(id_lists, row_lists)]
         lengths = np.fromiter((len(ids) for ids in pack_ids), np.int32,
                               count=n_subsets)
+        # Shard the bin over the plane when it packs at least one subset per
+        # shard; thinner bins stay on one device (sharding them would only
+        # ship empty slabs).
+        plane = self.plane
+        sharded = plane is not None and n_subsets >= plane.n_shards
         s_pad = self._round(n_subsets)
-        if s_pad * p_pad * p_pad > self.max_block_bytes // 4:
-            # Shape-reuse rounding must not blow the budget.
-            s_pad = n_subsets
+        if sharded:
+            s_pad = plane.shard_pad(s_pad)
+        budget_cells = max(1, self.max_block_bytes // 4)
+        if s_pad * p_pad * p_pad > budget_cells:
+            # Shape-reuse rounding must not blow the budget. Sharding needs a
+            # shard multiple; if even the minimal one is over budget, the bin
+            # drops to the single-device route at its exact size.
+            s_pad = plane.shard_pad(n_subsets) if sharded else n_subsets
+            if sharded and s_pad * p_pad * p_pad > budget_cells:
+                sharded = False
+                s_pad = n_subsets
+        lens_pad = np.zeros(s_pad, np.int32)
+        lens_pad[:n_subsets] = lengths
+        # Shard placement: deal subsets to tile rows in snake order of packed
+        # size so each shard's contiguous slab carries level work
+        # (``device_plane.balance_order``). The permutation is a pure
+        # function of the packed lengths — radius-independent, so cached
+        # tiles stay valid — and ``inv[i]`` is subset i's tile row.
+        inv = None
+        if sharded:
+            perm = balance_order(lens_pad, plane.n_shards)
+            inv = np.empty(s_pad, np.int64)
+            inv[perm] = np.arange(s_pad)
+
+        def to_rows(arr: np.ndarray) -> np.ndarray:
+            if inv is None:
+                return arr
+            out = np.zeros_like(arr)
+            out[inv] = arr
+            return out
+
+        lens_ship = to_rows(lens_pad)
         tile_key = None
         if not elig_dense and not any(k is None for k in keys):
-            tile_key = ("tile", tuple(keys), s_pad, p_pad)
+            tile_key = ("tile", tuple(keys), s_pad, p_pad, sharded)
         cached_tile = self._cache_get(tile_key) if tile_key else None
         if cached_tile is not None:
             # Packed tile already on the device: skip gather and packing;
@@ -951,28 +1003,38 @@ class TorchBackend(DistanceBackend):
             # Hit counters are per *subset* (a tile hit serves every subset
             # it packs).
             self.stats.cache_hits += n_subsets
-            x_dev, lens_dev, slacks = cached_tile
+            x_dev, lens_dev, slacks, slabs = cached_tile
         else:
             slacks = np.array([self._slack(ids, d) for ids in pack_ids],
                               np.float64)
-            x_dev = self._pack_tile(pack_ids, s_pad, p_pad)
-            lens_pad = np.zeros(s_pad, np.int32)
-            lens_pad[:n_subsets] = lengths
-            lens_dev = torch.from_numpy(lens_pad).to(dev)
-            self.stats.h2d_bytes += lens_pad.nbytes
+            x_dev = self._pack_tile(pack_ids, s_pad, p_pad,
+                                    None if inv is None
+                                    else inv[:n_subsets])
+            lens_dev = torch.from_numpy(lens_ship).to(dev)
+            self.stats.h2d_bytes += lens_ship.nbytes
+            slabs = None
+            nbytes = x_dev.numel() * 4 + slacks.nbytes
+            if sharded:
+                # The shards' slabs of the committed tile, on their devices
+                # (views where a shard shares the first device).
+                slabs = plane.put_sharded(x_dev, lens_dev)
+                nbytes += sum(t.numel() * 4 for t in slabs[0]
+                              if t.device != dev)
             if tile_key is not None:
                 self.stats.cache_misses += n_subsets
-                self._cache_put(tile_key, (x_dev, lens_dev, slacks),
-                                x_dev.numel() * 4 + slacks.nbytes)
+                self._cache_put(tile_key, (x_dev, lens_dev, slacks, slabs),
+                                nbytes)
 
         # Pruning radius r + slack, rounded *up* to fp32 so the device
         # comparison can never be tighter than the published slack contract.
+        # ``r_pad`` is indexed by subset, the shipped vectors by tile row.
         r_pad = np.zeros(s_pad, np.float32)
         r_mask = np.asarray(radii, np.float64) + slacks
         with np.errstate(over="ignore"):    # nextafter(f32max) saturates to inf
             r_pad[:n_subsets] = np.nextafter(r_mask.astype(np.float32),
                                              np.float32(np.inf))
         r_pad[:n_subsets][~np.isfinite(r_mask)] = np.float32(np.inf)
+        r_ship = to_rows(r_pad)
         # Filtered dispatch (fold mode): pack each subset's eligibility bits
         # into the mask word layout. These words are the *only* extra traffic
         # a filter adds — the tile (cached or not) is filter-independent, and
@@ -984,13 +1046,13 @@ class TorchBackend(DistanceBackend):
             el_counts = np.zeros(n_subsets, np.int64)
             for i, ids in enumerate(id_lists):
                 eli = eligible[ids]
-                el[i, :len(ids)] = eli
+                el[i if inv is None else inv[i], :len(ids)] = eli
                 el_counts[i] = int(eli.sum())
             words = pack_join_mask(el).view(np.int32)   # (s_pad, p_pad/32)
             elig_words = torch.from_numpy(words).to(dev)
             self.stats.h2d_bytes += words.nbytes
         self.stats.t_pack_s += time.perf_counter() - t0
-        self.stats.h2d_bytes += r_pad.nbytes
+        self.stats.h2d_bytes += r_ship.nbytes
         # The diagonal bound of the empty-join test: eligible counts under a
         # fold, packed lengths otherwise.
         n_live = lengths.astype(np.int64) if el_counts is None else el_counts
@@ -1018,18 +1080,26 @@ class TorchBackend(DistanceBackend):
             with np.errstate(over="ignore"):
                 rc_pad[:n_subsets] = np.nextafter(
                     r_c.astype(np.float32), np.float32(np.inf))
+            rc_ship = to_rows(rc_pad)
             t_p = time.perf_counter()
-            cnt_c = ops.pairwise_l2_join_batched_counts(
-                x_dev, lens_dev, torch.from_numpy(rc_pad).to(dev), elig_words,
-                dtype=self.prune_dtype)
+            rc_dev = torch.from_numpy(rc_ship).to(dev)
+            if sharded:
+                cnt_c = plane.join_batched_counts(
+                    slabs[0], slabs[1], rc_dev, elig_words,
+                    dtype=self.prune_dtype)
+            else:
+                cnt_c = ops.pairwise_l2_join_batched_counts(
+                    x_dev, lens_dev, rc_dev, elig_words,
+                    dtype=self.prune_dtype)
             counts_c = cnt_c.cpu().numpy()
             dtp = time.perf_counter() - t_p
             self.stats.t_prune_s += dtp
             self.stats.t_dispatch_s += dtp
             self.stats.prune_tier_dispatches += 1
-            self.stats.h2d_bytes += rc_pad.nbytes
+            self.stats.h2d_bytes += rc_ship.nbytes
             self.stats.d2h_bytes += counts_c.nbytes
-            cc = counts_c[:n_subsets]
+            cc = counts_c[:n_subsets] if inv is None \
+                else counts_c[inv[:n_subsets]]
             pruned = cc <= n_live
             self.stats.cells_pruned += int(pruned.sum()) * p_pad * p_pad
 
@@ -1040,12 +1110,17 @@ class TorchBackend(DistanceBackend):
             t1 = time.perf_counter()
             if pruned is not None and pruned.any():
                 # Survivor sub-dispatch: gather surviving rows out of the
-                # committed tile on the device (no re-pack).
+                # committed tile on the device (no re-pack); it shards again
+                # when it still holds a subset a shard.
                 surv = np.flatnonzero(~pruned)
+                rows_surv = surv if inv is None else inv[surv]
                 n_surv = len(surv)
                 s_sub = self._round(n_surv)
+                sub_sharded = sharded and n_surv >= plane.n_shards
+                if sub_sharded:
+                    s_sub = plane.shard_pad(s_sub)
                 idx_pad = np.zeros(s_sub, np.int64)
-                idx_pad[:n_surv] = surv
+                idx_pad[:n_surv] = rows_surv
                 lens_sub = np.zeros(s_sub, np.int32)
                 lens_sub[:n_surv] = lengths[surv]
                 r_sub = np.zeros(s_sub, np.float32)
@@ -1056,18 +1131,26 @@ class TorchBackend(DistanceBackend):
                 x_sub = x_dev.index_select(0, idx_dev)
                 elig_sub = None if elig_words is None \
                     else elig_words.index_select(0, idx_dev)
-                m, c = ops.pairwise_l2_join_batched_masked(
-                    x_sub, torch.from_numpy(lens_sub).to(dev),
-                    torch.from_numpy(r_sub).to(dev), elig_sub)
+                join = plane.join_batched_masked if sub_sharded \
+                    else ops.pairwise_l2_join_batched_masked
+                m, c = join(x_sub, torch.from_numpy(lens_sub).to(dev),
+                            torch.from_numpy(r_sub).to(dev), elig_sub)
                 sub_rows = {int(i): j for j, i in enumerate(surv)}
+            elif sharded:
+                m, c = plane.join_batched_masked(
+                    slabs[0], slabs[1], torch.from_numpy(r_ship).to(dev),
+                    elig_words)
             else:
                 m, c = ops.pairwise_l2_join_batched_masked(
-                    x_dev, lens_dev, torch.from_numpy(r_pad).to(dev),
+                    x_dev, lens_dev, torch.from_numpy(r_ship).to(dev),
                     elig_words)
             mask = _to_uint32(m)
             counts = c.cpu().numpy()
-            self.stats.t_dispatch_s += time.perf_counter() - t1
+            dt = time.perf_counter() - t1
+            self.stats.t_dispatch_s += dt
             self.stats.d2h_bytes += mask.nbytes + counts.nbytes
+            if sharded:
+                self.stats.t_collective_s += dt
 
         valid = int(lengths.sum())
         self.stats.dispatches += 1
@@ -1083,6 +1166,25 @@ class TorchBackend(DistanceBackend):
                                         bp[1] + s_pad * p_pad - valid)
         self.stats.valid_cells += int((lengths.astype(np.int64) ** 2).sum())
         self.stats.total_cells += s_pad * p_pad * p_pad
+        if sharded:
+            # Per-shard accounting: every shard took a slab; utilisation is
+            # valid against total join-block cells of each slab (on the
+            # shipped, placement-permuted lengths).
+            self.stats.sharded_dispatches += 1
+            self.stats.ensure_shards(plane.n_shards)
+            valid_sh, total_sh = plane.shard_cells(lens_ship, p_pad)
+            for i in range(plane.n_shards):
+                self.stats.shard_dispatches[i] += 1
+                self.stats.shard_valid_cells[i] += valid_sh[i]
+                self.stats.shard_total_cells[i] += total_sh[i]
+        else:
+            # A single-device dispatch lands on the first device (shard 0
+            # of the plane when one is attached).
+            self.stats.ensure_shards(plane.n_shards if plane else 1)
+            self.stats.shard_dispatches[0] += 1
+            self.stats.shard_valid_cells[0] += int(
+                (lengths.astype(np.int64) ** 2).sum())
+            self.stats.shard_total_cells[0] += s_pad * p_pad * p_pad
 
         out = []
         for i in range(n_subsets):
@@ -1098,7 +1200,10 @@ class TorchBackend(DistanceBackend):
                     n=n, slack=float(slacks[i]), rescore=True,
                     join_count=int(cc[i]), n_eligible=n_elig, rows=rows_i))
                 continue
-            row = i if sub_rows is None else sub_rows[i]
+            if sub_rows is not None:
+                row = sub_rows[i]
+            else:
+                row = i if inv is None else int(inv[i])
             npk = int(lengths[i])
             words = (npk + 31) // 32
             self.stats.join_pairs += int(counts[row])

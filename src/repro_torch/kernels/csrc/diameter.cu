@@ -50,11 +50,18 @@
 // of a handful of points padded to R (a q=9 query: 40,129 anchors against
 // groups of 2,961, 23, 4, 2, 2, 1, 2 and 1 points in R = 40,192), so the
 // kernel works by what is valid, read from the mask: a block votes the
-// liveness of every anchor tile into a shared bitmap at its start, skips a
-// run of column tiles with no valid point in one step (to its first unit
-// of the next run), walks only the live tiles of a run, and within a tile
-// multiplies only the live 32-column sub-tiles (a warp holds all 128
-// columns, so its votes need no barrier). A tile with no valid anchor
+// liveness of every anchor tile, and of every column tile of the other
+// groups, into shared bitmaps at its start, skips a run of column tiles
+// with no valid point in one step (to its first unit of the next run),
+// walks only the live tiles of a run, and within a tile multiplies only the
+// live 32-column sub-tiles (a warp holds all 128 columns, so its votes need
+// no barrier). Where few runs are live (the q=9 query's groups fill 8 of
+// 80 runs of 32 column tiles, one of them with 24 live tiles), a unit
+// takes one of S parts of its run's live tiles, split by rank: S is the
+// least that gives NN_UNITS_PER_BLOCK live units a resident block, counted
+// from the votes, so a shard's eighth of the anchors still fills the card.
+// Every block computes the same S from the same votes, and the split
+// changes no result. A tile with no valid anchor
 // keeps the all-ones keys and reads as index 0 at BIG, so those anchors are
 // ranked out as invalid. The second launch decodes the keys, one warp an
 // anchor, and computes the tuple's diameter straight from the group rows
@@ -65,6 +72,14 @@
 // unit, so equal points give equal sq bits wherever they lie, and a point
 // equal to the anchor gives exactly 0. The units of a row may run in any
 // order; atomicMin on the key is order-free.
+//
+// Anchor ranges. A call may score only anchors a0 .. a0 + A - 1 of group 0
+// (a shard's slice on the serving plane): its anchor tiles start at a0,
+// which need not be a multiple of 128, while the other groups stay whole.
+// An anchor's arithmetic depends on nothing but its own row and the
+// columns, so the rows of a range equal the same rows of the whole call bit
+// for bit, wherever its valid anchors fall; only the rows of anchors whose
+// whole tile is masked, which the caller ranks out, may differ.
 //
 // Bound on the card. The neighbour stage needs 2 d flops per (valid anchor,
 // valid point of another group) pair: at d = 64 that is 1.9 ps per pair at
@@ -175,11 +190,18 @@ static_assert(NN_RT == 8 && NN_CT == 8, "an 8 x 8 register tile a thread");
 // at most 2^23 points (8,388,608).
 constexpr int NN_MAP_WORDS = 2048;
 constexpr int NN_MAX_R = 32 * NN_MAP_WORDS * NN_TILE;
+// Words of the block's table of live column tiles, one a run of each other
+// group: the table (and the split of runs into parts) is used where the
+// runs fit, else each run is voted when a block reaches it, in one part.
+constexpr int NN_RUN_WORDS = 512;
+// The live units a resident block that the split of runs aims at.
+constexpr int NN_UNITS_PER_BLOCK = 4;
 
 // Shared memory of anchor_star_nn_kernel<KP, RES>: the anchor tile (one
 // copy of all KP features if RES, else a ring of KP-feature panels), a ring
 // of STAGES column-tile stages, the squared norms of the anchors and of
-// the current column tile, and the bitmap of live anchor tiles. Rows are
+// the current column tile, the bitmap of live anchor tiles, the table of
+// live column tiles a run and a histogram of its counts. Rows are
 // KP + 4 floats (4 mod 32 for KP a multiple of 32): a warp's 16 column rows
 // read as float4 fall in distinct banks, two wavefronts. The ring is as
 // deep as 227 KB allows.
@@ -190,7 +212,8 @@ struct NnLayout {
   static constexpr int A_ROWS = (RES ? 1 : STAGES) * NN_TILE;
   static constexpr int B_ROWS = STAGES * NN_TILE;
   static constexpr int BYTES =
-      ((A_ROWS + B_ROWS) * LD + 2 * NN_TILE + NN_MAP_WORDS) * 4;
+      ((A_ROWS + B_ROWS) * LD + 2 * NN_TILE + NN_MAP_WORDS + NN_RUN_WORDS
+       + 33) * 4;
 };
 
 // A unit's stages in order: panel p of column tile t, for each live tile
@@ -353,12 +376,17 @@ __device__ __forceinline__ void gram_sub(float (&acc)[NN_RT][NN_CT],
   }
 }
 
-// The neighbour stage. Unit u = ((j - 1) n_chunks + c) n_at + at covers
-// anchor tile at against column tiles [c ct, (c + 1) ct) of group j
-// (ct <= NN_MAX_TILES). A block takes units blockIdx.x + k gridDim.x; it
-// holds the liveness of its current column chunk, and skips a chunk with
-// no valid point at once, and the liveness of every anchor tile, voted once
-// at its start into a bitmap. KP is the features a stage holds; RES
+// The neighbour stage over the anchor range [a0, a0 + A) of group 0, in
+// tiles of 128 anchors that start at a0 (n_at = ceil(A / 128) of them).
+// Unit u = (((j - 1) n_chunks + c) S + s) n_at + at covers anchor tile at
+// against part s of S of the live tiles among column tiles [c ct,
+// (c + 1) ct) of group j (ct <= NN_MAX_TILES), the parts split by rank;
+// the column tiles cover all R points of group j whatever the range. A
+// block takes units blockIdx.x + k gridDim.x. At its start it votes the
+// liveness of every anchor tile into a bitmap and, where the (q - 1)
+// n_chunks runs fit NN_RUN_WORDS, of every column tile into a table a run,
+// from which it chooses S (else S = 1 and it votes a run when it reaches
+// it); it skips a run with no valid point at once. KP is the features a stage holds; RES
 // (d <= KP): the anchor tile is staged once a unit and a column tile is one
 // stage; else (KP = 64) a tile takes ceil(d / 64) stages of both. The
 // stages of a unit stream through the ring STAGES - 1 ahead of the one in
@@ -367,7 +395,7 @@ template <int KP, bool RES>
 __global__ void __launch_bounds__(NN_THREADS, 1)
 anchor_star_nn_kernel(const float* __restrict__ groups,
                       const unsigned char* __restrict__ mask, int q, int R,
-                      int d, int ct, int n_chunks,
+                      int d, int a0, int A, int ct, int n_chunks,
                       unsigned long long* __restrict__ keys) {
   using L = NnLayout<KP, RES>;
   constexpr int LD = L::LD;
@@ -381,22 +409,60 @@ anchor_star_nn_kernel(const float* __restrict__ groups,
   const int tid = threadIdx.x;
   const int rg = tid / NN_CG, cg = tid % NN_CG;
   const int n_tiles = (R + NN_TILE - 1) / NN_TILE;
+  const int n_at = (A + NN_TILE - 1) / NN_TILE;
   const int panels = RES ? 1 : (d + KP - 1) / KP;
+  // vec holds for the anchors too: a0 d floats keep a 16-byte alignment
+  // when d % 4 == 0.
   const bool vec = d % 4 == 0
                    && reinterpret_cast<uintptr_t>(groups) % 16 == 0;
-  const long long units = (long long)(q - 1) * n_tiles * n_chunks;
-  const float* g0 = groups;
-  unsigned* s_map = reinterpret_cast<unsigned*>(s_bn + NN_TILE);
-  for (int w = tid >> 5; w < (n_tiles + 31) / 32; w += NN_THREADS / 32)
-    s_map[w] = live_tiles(mask, 32 * w, min(32, n_tiles - 32 * w), R);
-  __syncthreads();
-
+  const int n_runs = (q - 1) * n_chunks;
+  const bool table = n_runs <= NN_RUN_WORDS;
   const long long G = gridDim.x;
-  long long cached = -1;                         // the chunk `live` is of
+  const float* g0 = groups + (size_t)a0 * d;     // anchor a0 first
+  const unsigned char* m0 = mask + a0;
+  unsigned* s_map = reinterpret_cast<unsigned*>(s_bn + NN_TILE);
+  unsigned* s_run = s_map + NN_MAP_WORDS;        // live tiles a run
+  int* s_hist = reinterpret_cast<int*>(s_run + NN_RUN_WORDS);
+  if (tid <= 32) s_hist[tid] = 0;                // runs by live tiles
+  __syncthreads();
+  for (int w = tid >> 5; w < (n_at + 31) / 32; w += NN_THREADS / 32)
+    s_map[w] = live_tiles(m0, 32 * w, min(32, n_at - 32 * w), A);
+  if (table) {
+    for (int w = tid >> 5; w < n_runs; w += NN_THREADS / 32) {
+      const int j = 1 + w / n_chunks, t0 = (w % n_chunks) * ct;
+      const unsigned v =
+          live_tiles(mask + (size_t)j * R, t0, min(ct, n_tiles - t0), R);
+      if ((tid & 31) == 0) {
+        s_run[w] = v;
+        atomicAdd(&s_hist[__popc(v)], 1);
+      }
+    }
+  }
+  __syncthreads();
+  // S: the least split whose live units, sum over runs of min(live tiles,
+  // S) n_at, reach NN_UNITS_PER_BLOCK a block (at most ct, and at most the
+  // live tiles of the fullest run: more parts would all be empty).
+  int S = 1;
+  if (table) {
+    int max_l = 0;
+    for (int l = 1; l <= 32; ++l)
+      if (s_hist[l]) max_l = l;
+    for (; S < ct && S < max_l; ++S) {
+      long long live_units = 0;
+      for (int l = 1; l <= 32; ++l)
+        live_units += (long long)s_hist[l] * min(l, S);
+      if (live_units * n_at >= NN_UNITS_PER_BLOCK * G) break;
+    }
+  }
+  const long long units = (long long)n_runs * S * n_at;
+
+  long long cached = -1;                         // the run `live` is of
   unsigned live = 0;
   for (long long u = blockIdx.x; u < units; u += G) {
-    const long long jc = u / n_tiles;            // (j - 1) n_chunks + c
-    const int at = static_cast<int>(u - jc * n_tiles);
+    const long long js = u / n_at;               // jc S + s
+    const int at = static_cast<int>(u - js * n_at);
+    const long long jc = js / S;                 // (j - 1) n_chunks + c
+    const int s = static_cast<int>(js - jc * S);
     const int c = static_cast<int>(jc % n_chunks);
     const int j = 1 + static_cast<int>(jc / n_chunks);
     const int row0 = at * NN_TILE;
@@ -404,26 +470,37 @@ anchor_star_nn_kernel(const float* __restrict__ groups,
     const unsigned char* mj = mask + (size_t)j * R;
     const int t0 = c * ct;
     if (jc != cached) {
-      live = live_tiles(mj, t0, min(ct, n_tiles - t0), R);
+      live = table ? s_run[jc]
+                   : live_tiles(mj, t0, min(ct, n_tiles - t0), R);
       cached = jc;
     }
     if (!live) {         // no valid point: on to our first unit of the next
-      const long long base = (jc + 1) * n_tiles;       // chunk
+      const long long base = (jc + 1) * S * n_at;      // run
       u = base + ((blockIdx.x - base) % G + G) % G - G;
       continue;
     }
     if (!(s_map[at >> 5] >> (at & 31) & 1)) continue;   // no valid anchor
+    unsigned part = live;                        // the live tiles of rank
+    if (S > 1) {                                 // [s L / S, (s + 1) L / S)
+      const int L = __popc(live);
+      const int lo = s * L / S, hi = (s + 1) * L / S;
+      if (lo == hi) continue;
+      for (int k = 0; k < lo; ++k) part &= part - 1;
+      unsigned rest = part;
+      for (int k = lo; k < hi; ++k) rest &= rest - 1;
+      part ^= rest;
+    }
 
     // Prologue: the anchor tile (RES) and the first NS - 1 stages, one
     // commit group each (empty past the last stage).
-    StageWalk prod{t0 + __ffs(live) - 1, 0, live & (live - 1), true};
+    StageWalk prod{t0 + __ffs(part) - 1, 0, part & (part - 1), true};
     StageWalk cons = prod;
-    if (RES) stage_rows<KP, LD>(sa, g0, row0, R, d, 0, vec);
+    if (RES) stage_rows<KP, LD>(sa, g0, row0, A, d, 0, vec);
 #pragma unroll
     for (int st = 0; st < NS - 1; ++st) {
       if (prod.valid) {
         if (!RES)
-          stage_rows<KP, LD>(sa + st * NN_TILE * LD, g0, row0, R, d,
+          stage_rows<KP, LD>(sa + st * NN_TILE * LD, g0, row0, A, d,
                              prod.p * KP, vec);
         stage_rows<KP, LD>(sb + st * NN_TILE * LD, gj, prod.t * NN_TILE, R,
                            d, prod.p * KP, vec);
@@ -461,7 +538,7 @@ anchor_star_nn_kernel(const float* __restrict__ groups,
         const int ps = slot == 0 ? NS - 1 : slot - 1;
         if (prod.valid) {
           if (!RES)
-            stage_rows<KP, LD>(sa + ps * NN_TILE * LD, g0, row0, R, d,
+            stage_rows<KP, LD>(sa + ps * NN_TILE * LD, g0, row0, A, d,
                                prod.p * KP, vec);
           stage_rows<KP, LD>(sb + ps * NN_TILE * LD, gj, prod.t * NN_TILE,
                              R, d, prod.p * KP, vec);
@@ -548,8 +625,8 @@ anchor_star_nn_kernel(const float* __restrict__ groups,
           bi = oi;
         }
       }
-      const int row = row0 + rg + NN_RG * i;
-      if (cg == 0 && row < R && bi < R) {        // bi < R: a candidate
+      const int row = row0 + rg + NN_RG * i;     // in the range
+      if (cg == 0 && row < A && bi < R) {        // bi < R: a candidate
         const unsigned long long key =
             (static_cast<unsigned long long>(__float_as_uint(bv)) << 32)
             | static_cast<unsigned>(bi);
@@ -559,22 +636,23 @@ anchor_star_nn_kernel(const float* __restrict__ groups,
   }
 }
 
-// The diameter stage: one warp an anchor. Decodes its q - 1 keys into the
-// neighbour indices and the worst squared distance, and takes the tuple's
-// diameter from the group rows themselves.
+// The diameter stage: one warp an anchor of the range [a0, a0 + A). Decodes
+// its q - 1 keys into the neighbour indices and the worst squared distance,
+// and takes the tuple's diameter from the group rows themselves. Output row
+// a is anchor a0 + a; nn holds indices into the groups (nn[a][0] = a0 + a).
 template <int Q>
 __global__ void __launch_bounds__(THREADS)
 anchor_star_diam_kernel(const float* __restrict__ groups,
                         const unsigned long long* __restrict__ keys, int R,
-                        int d, int* __restrict__ nn,
+                        int d, int a0, int A, int* __restrict__ nn,
                         float* __restrict__ worst, float* __restrict__ diam) {
   const int lane = threadIdx.x & 31;
   const long long a = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (a >= R) return;
+  if (a >= A) return;
   const float* rows[Q];
   int idx[Q];
-  rows[0] = groups + (size_t)a * d;
-  idx[0] = static_cast<int>(a);
+  rows[0] = groups + (size_t)(a0 + a) * d;
+  idx[0] = static_cast<int>(a0 + a);
   float w = 0.f;
 #pragma unroll
   for (int j = 1; j < Q; ++j) {
@@ -608,10 +686,13 @@ int launch_diameters(const float* pts, long long T, int d, float* out,
 // Column tiles a unit: about 2^18 floats of column points (32 tiles at
 // d = 64, one at d >= 2048), fewer where that would leave under four units a
 // resident block; a positive `ct` is taken as given; at most NN_MAX_TILES.
-int tiles_per_unit(int ct, int q, int R, int d, int resident) {
+// The split changes no result: each anchor's value and index are the same
+// whichever unit, tile or range holds its columns.
+int tiles_per_unit(int ct, int q, int R, int A, int d, int resident) {
   if (ct > 0) return ct < NN_MAX_TILES ? ct : NN_MAX_TILES;
   const long long n = (R + NN_TILE - 1) / NN_TILE;
-  const long long tiles = (long long)(q - 1) * n * n;
+  const long long tiles = (long long)(q - 1) * ((A + NN_TILE - 1) / NN_TILE)
+                          * n;
   long long c = (1 << 18) / ((long long)NN_TILE * d);
   c = c < tiles / (4LL * resident) ? c : tiles / (4LL * resident);
   c = c < n ? c : n;
@@ -621,7 +702,8 @@ int tiles_per_unit(int ct, int q, int R, int d, int resident) {
 
 template <int KP, bool RES>
 int launch_nn(const float* groups, const unsigned char* mask, int q, int R,
-              int d, int ct, unsigned long long* keys, cudaStream_t stream) {
+              int d, int a0, int A, int ct, unsigned long long* keys,
+              cudaStream_t stream) {
   using L = NnLayout<KP, RES>;
   auto kernel = anchor_star_nn_kernel<KP, RES>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -633,34 +715,39 @@ int launch_nn(const float* groups, const unsigned char* mask, int q, int R,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int resident = sms * (per_sm > 0 ? per_sm : 1);
-  ct = tiles_per_unit(ct, q, R, d, resident);
+  ct = tiles_per_unit(ct, q, R, A, d, resident);
   const int n = (R + NN_TILE - 1) / NN_TILE;
   const int n_chunks = (n + ct - 1) / ct;
-  const long long units = (long long)(q - 1) * n * n_chunks;
+  // The kernel splits a run into at most ct parts.
+  const long long units =
+      (long long)(q - 1) * ((A + NN_TILE - 1) / NN_TILE) * n_chunks * ct;
   const int grid = static_cast<int>(units < resident ? units : resident);
-  kernel<<<grid, NN_THREADS, L::BYTES, stream>>>(groups, mask, q, R, d, ct,
-                                                 n_chunks, keys);
+  kernel<<<grid, NN_THREADS, L::BYTES, stream>>>(groups, mask, q, R, d, a0, A,
+                                                 ct, n_chunks, keys);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int Q>
 int launch_star(const float* groups, const unsigned char* mask, int R, int d,
-                int ct, unsigned long long* keys, int* nn, float* worst,
-                float* diam, cudaStream_t stream) {
+                int a0, int A, int ct, unsigned long long* keys, int* nn,
+                float* worst, float* diam, cudaStream_t stream) {
   if (Q > 1) {
     cudaError_t err = cudaMemsetAsync(
-        keys, 0xff, (size_t)R * (Q - 1) * sizeof(unsigned long long), stream);
+        keys, 0xff, (size_t)A * (Q - 1) * sizeof(unsigned long long), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int res =
-        d <= 64 ? launch_nn<64, true>(groups, mask, Q, R, d, ct, keys, stream)
+        d <= 64
+            ? launch_nn<64, true>(groups, mask, Q, R, d, a0, A, ct, keys,
+                                  stream)
         : d <= 128
-            ? launch_nn<128, true>(groups, mask, Q, R, d, ct, keys, stream)
-            : launch_nn<NN_PANEL, false>(groups, mask, Q, R, d, ct, keys,
-                                         stream);
+            ? launch_nn<128, true>(groups, mask, Q, R, d, a0, A, ct, keys,
+                                   stream)
+            : launch_nn<NN_PANEL, false>(groups, mask, Q, R, d, a0, A, ct,
+                                         keys, stream);
     if (res) return res;
   }
-  anchor_star_diam_kernel<Q><<<(R + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
-      groups, keys, R, d, nn, worst, diam);
+  anchor_star_diam_kernel<Q><<<(A + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
+      groups, keys, R, d, a0, A, nn, worst, diam);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -690,20 +777,22 @@ int tuple_diameters(const float* pts, long long T, int q, int d, float* out,
 }
 
 // groups (q, R, d) fp32 contiguous, mask (q, R) bytes (0 or 1),
-// 1 <= R <= anchor_star_max_r(); keys (R, q - 1) uint64 scratch (unused for
-// q = 1); outputs nn (R, q) int32, worst (R,) and diam (R,) fp32. ct > 0
-// fixes the column tiles a unit of the neighbour stage (at most 32; else
-// chosen from the shape). Launches the neighbour stage (q >= 2, after a
-// memset of keys) and the diameter stage.
+// 1 <= R <= anchor_star_max_r(); the anchors a0 .. a0 + A - 1 of group 0,
+// 0 <= a0, 1 <= A, a0 + A <= R; keys (A, q - 1) uint64 scratch (unused for
+// q = 1); outputs nn (A, q) int32, worst (A,) and diam (A,) fp32, row a for
+// anchor a0 + a. ct > 0 fixes the column tiles a unit of the neighbour
+// stage (at most 32; else chosen from the shape). Launches the neighbour
+// stage (q >= 2, after a memset of keys) and the diameter stage.
 int anchor_star(const float* groups, const unsigned char* mask, int q, int R,
-                int d, int ct, unsigned long long* keys, int* nn,
-                float* worst, float* diam, void* stream) {
+                int d, int a0, int A, int ct, unsigned long long* keys,
+                int* nn, float* worst, float* diam, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (R < 1 || R > NN_MAX_R) return static_cast<int>(cudaErrorInvalidValue);
+  if (R < 1 || R > NN_MAX_R || a0 < 0 || A < 1 || a0 > R - A)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (q) {
 #define STAR(Q) \
-    case Q: return launch_star<Q>(groups, mask, R, d, ct, keys, nn, worst, \
-                                  diam, s);
+    case Q: return launch_star<Q>(groups, mask, R, d, a0, A, ct, keys, nn, \
+                                  worst, diam, s);
     STAR(1) STAR(2) STAR(3) STAR(4) STAR(5) STAR(6) STAR(7) STAR(8) STAR(9)
 #undef STAR
     default: return static_cast<int>(cudaErrorInvalidValue);

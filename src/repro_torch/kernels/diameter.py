@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import check_anchor_range
 
 # Kernel launches since the last reset_launches(): ``anchor_star`` counts
 # both of its kernels (the neighbour stage, for q >= 2, and the diameter
@@ -43,7 +44,7 @@ def _bind() -> ctypes.CDLL:
     lib.tuple_diameters.argtypes = [_P, ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_int, _P, _P]
     lib.tuple_diameters.restype = ctypes.c_int
-    lib.anchor_star.argtypes = [_P, _P] + [ctypes.c_int] * 4 \
+    lib.anchor_star.argtypes = [_P, _P] + [ctypes.c_int] * 6 \
         + [_P] * 5
     lib.anchor_star.restype = ctypes.c_int
     for name in ("tuple_diameters_max_q", "anchor_star_max_r"):
@@ -91,18 +92,24 @@ def tuple_diameters(pts: torch.Tensor) -> torch.Tensor:
 
 
 def anchor_star(groups: torch.Tensor, mask: torch.Tensor, *,
-                tiles_per_unit: int = 0
+                tiles_per_unit: int = 0,
+                anchor_range: tuple[int, int] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused anchor-star kernel — see ``kernels.ref.anchor_star``.
 
     groups (q, R, d) contiguous fp32 and mask (q, R) contiguous bool, both
     on one CUDA device, 1 <= q <= :data:`MAX_Q`, 1 <= R <= :data:`MAX_R`,
-    d >= 1. Returns (nn (R, q) int32, worst_nn (R,) fp32, diam (R,) fp32).
-    Rows of anchors outside ``mask[0]`` are unspecified where their whole
-    128-anchor tile is masked (the kernel skips it: nn 0, worst_nn BIG).
-    ``tiles_per_unit`` > 0 fixes how many 128-point column tiles (at most 32) one unit of the
-    neighbour stage covers (the split of R across blocks; 0 chooses from
-    the shape)."""
+    d >= 1. ``anchor_range`` ``(a0, count)`` scores only anchors a0 ..
+    a0 + count - 1 of group 0 (default: all R), in 128-anchor tiles that
+    start at a0; the other groups stay whole. Returns (nn (count, q) int32,
+    worst_nn (count,) fp32, diam (count,) fp32), row i for anchor a0 + i,
+    ``nn`` indexing the groups (``nn[i, 0] = a0 + i``). A valid anchor's row
+    is the same bits whatever range holds it. Rows of anchors outside
+    ``mask[0]`` are unspecified where their whole 128-anchor tile is masked
+    (the kernel skips it: nn 0, worst_nn BIG). ``tiles_per_unit`` > 0 fixes
+    how many 128-point column tiles (at most 32) one unit of the neighbour
+    stage covers (the split of R across blocks; 0 chooses from the
+    shape)."""
     if groups.device.type != "cuda" or mask.device != groups.device:
         raise ValueError(f"groups and mask must be on one CUDA device, got "
                          f"{groups.device} and {mask.device}")
@@ -122,16 +129,20 @@ def anchor_star(groups: torch.Tensor, mask: torch.Tensor, *,
     if not 1 <= r <= MAX_R or d < 1:
         raise ValueError(f"need 1 <= R <= {MAX_R} and d >= 1, got R={r}, "
                          f"d={d}")
+    a0, count = check_anchor_range(anchor_range, r)
     dev = groups.device
-    keys = torch.empty((r, max(q - 1, 1)), dtype=torch.int64, device=dev)
-    nn = torch.empty((r, q), dtype=torch.int32, device=dev)
-    worst = torch.empty(r, dtype=torch.float32, device=dev)
-    diam = torch.empty(r, dtype=torch.float32, device=dev)
+    nn = torch.empty((count, q), dtype=torch.int32, device=dev)
+    worst = torch.empty(count, dtype=torch.float32, device=dev)
+    diam = torch.empty(count, dtype=torch.float32, device=dev)
+    if not count:
+        return nn, worst, diam
+    keys = torch.empty((count, max(q - 1, 1)), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = library().anchor_star(
-            groups.data_ptr(), mask.data_ptr(), q, r, d, int(tiles_per_unit),
-            keys.data_ptr(), nn.data_ptr(), worst.data_ptr(),
-            diam.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            groups.data_ptr(), mask.data_ptr(), q, r, d, a0, count,
+            int(tiles_per_unit), keys.data_ptr(), nn.data_ptr(),
+            worst.data_ptr(), diam.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"anchor_star: kernel launch failed with CUDA "
                            f"error {err}")

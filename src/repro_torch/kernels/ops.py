@@ -8,7 +8,10 @@ fallback from the card to the host.
 
   * :func:`pairwise_l2_join_batched_masked` — the fp32 masked self-join of a
     batch of padded subsets (the serving hot path), with the optional
-    eligibility fold.
+    eligibility fold. The reference's ``join_batched_masked_local`` and
+    ``join_batched_counts_local`` (the bodies its ``shard_map`` nests) have
+    no counterpart: these ops are plain functions on tensors, and
+    ``core.device_plane.DevicePlane`` calls them once a slab.
   * :func:`pairwise_l2_join_batched_counts` — the bf16 (K2) or int8 (K2i)
     coarse counts of the cascade's prune tier.
   * :func:`pairwise_l2_join` — one (M, d) x (N, d) join.
@@ -115,19 +118,24 @@ def pairwise_l2_join(a: torch.Tensor, b: torch.Tensor,
 
 
 def anchor_star(groups: torch.Tensor, mask: torch.Tensor, *,
-                block_bytes: int = ref.ANCHOR_BLOCK_BYTES
+                block_bytes: int = ref.ANCHOR_BLOCK_BYTES,
+                anchor_range: tuple[int, int] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest valid neighbour of every anchor (``groups[0]``) in each other
     group, the worst of those squared distances and each anchor tuple's
     diameter: groups (q, R, d) fp32, mask (q, R) bool -> (nn (R, q) int32,
     worst_nn (R,) fp32, diam (R,) fp32); see ``kernels.ref.anchor_star``.
-    On the card only contiguous fp32 groups and bool mask with 1 <= q <= 9
-    are taken (anything else raises), and anchors of a wholly masked
-    128-anchor tile are left at nn 0, worst_nn BIG. ``block_bytes`` bounds
-    the plain version's (anchors, R) blocks; the kernel has none."""
+    ``anchor_range`` ``(a0, count)`` scores only anchors a0 .. a0 + count -
+    1 (a shard's slice; the outputs have ``count`` rows, ``nn`` still
+    indexes the groups); default every anchor. On the card only contiguous
+    fp32 groups and bool mask with 1 <= q <= 9 are taken (anything else
+    raises), and anchors of a wholly masked 128-anchor tile (tiles start at
+    a0) are left at nn 0, worst_nn BIG. ``block_bytes`` bounds the plain
+    version's (anchors, R) blocks; the kernel has none."""
     if _route(groups) == "cuda":
-        return _diameter.anchor_star(groups, mask)
-    return ref.anchor_star(groups, mask, block_bytes=block_bytes)
+        return _diameter.anchor_star(groups, mask, anchor_range=anchor_range)
+    return ref.anchor_star(groups, mask, block_bytes=block_bytes,
+                           anchor_range=anchor_range)
 
 
 def tuple_diameters(pts: torch.Tensor) -> torch.Tensor:

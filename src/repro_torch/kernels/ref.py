@@ -272,34 +272,54 @@ def _masked_sq_dists(a: torch.Tensor, b: torch.Tensor,
     return sq.masked_fill_(~b_mask[None, :], BIG)
 
 
+def check_anchor_range(anchor_range: tuple[int, int] | None,
+                       r: int) -> tuple[int, int]:
+    """``(a0, count)`` of an anchor range over R anchors (None: all of
+    them); raises unless 0 <= a0 and a0 + count <= R."""
+    if anchor_range is None:
+        return 0, r
+    a0, count = (int(v) for v in anchor_range)
+    if a0 < 0 or count < 0 or a0 + count > r:
+        raise ValueError(f"anchor range {(a0, count)} outside the {r} "
+                         f"anchors")
+    return a0, count
+
+
 def anchor_star(groups: torch.Tensor, mask: torch.Tensor, *,
-                block_bytes: int = ANCHOR_BLOCK_BYTES
+                block_bytes: int = ANCHOR_BLOCK_BYTES,
+                anchor_range: tuple[int, int] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The anchor-star search of one query (kernel ``anchor_star`` in
     ``csrc/diameter.cu``).
 
     groups (q, R, d) fp32 (centred by the caller), mask (q, R) bool; the
-    anchors are ``groups[0]``. Returns nn (R, q) int32 — ``nn[a, 0] = a``
-    and ``nn[a, j]`` the nearest valid point of group j by
+    anchors are ``groups[0]``, or with ``anchor_range`` ``(a0, count)`` its
+    rows a0 .. a0 + count - 1 (the other groups stay whole), and row i of
+    each output is anchor a0 + i. Returns nn (count, q) int32 —
+    ``nn[i, 0] = a0 + i`` and ``nn[i, j]`` the nearest valid point of group
+    j by
     :func:`_masked_sq_dists` (the lowest index among equal minima,
     ``torch.argmin``'s rule; index 0 at BIG when the group has no valid
-    point) — worst_nn (R,) fp32, the largest of those squared distances (0
-    for q = 1), and diam (R,) fp32, the diameter of each anchor's tuple by
-    :func:`tuple_diameters`.
+    point) — worst_nn (count,) fp32, the largest of those squared distances
+    (0 for q = 1), and diam (count,) fp32, the diameter of each anchor's
+    tuple by :func:`tuple_diameters`.
 
     Anchors are taken ``block_bytes // (4 R)`` at a time. Each anchor's row
-    is independent of the others, so tiling changes nothing but how the
-    matrix product may round (its blocking), not which rows meet which."""
+    is independent of the others, so tiling (and the range) changes nothing
+    but how the matrix product may round (its blocking), not which rows
+    meet which."""
     q, r, d = groups.shape
-    anchors = groups[0]
+    start, count = check_anchor_range(anchor_range, r)
+    anchors = groups[0, start:start + count]
     chunk = max(1, block_bytes // (4 * max(r, 1)))
-    nn = torch.empty((r, q), dtype=torch.int64, device=groups.device)
-    nn[:, 0] = torch.arange(r, device=groups.device)
-    tuples = torch.empty((r, q, d), dtype=torch.float32, device=groups.device)
+    nn = torch.empty((count, q), dtype=torch.int64, device=groups.device)
+    nn[:, 0] = torch.arange(start, start + count, device=groups.device)
+    tuples = torch.empty((count, q, d), dtype=torch.float32,
+                         device=groups.device)
     tuples[:, 0] = anchors
-    worst_nn = torch.zeros(r, dtype=torch.float32, device=groups.device)
-    for a0 in range(0, r, chunk):
-        rows = slice(a0, min(r, a0 + chunk))
+    worst_nn = torch.zeros(count, dtype=torch.float32, device=groups.device)
+    for a0 in range(0, count, chunk):
+        rows = slice(a0, min(count, a0 + chunk))
         for j in range(1, q):
             sq = _masked_sq_dists(anchors[rows], groups[j], mask[j])
             idx = sq.argmin(dim=1)

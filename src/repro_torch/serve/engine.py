@@ -29,6 +29,14 @@ and no ``device`` it raises. The device tier gathers each query's keyword
 groups from that resident corpus and issues one anchor-star dispatch per
 query.
 
+**Sharded serving** (``mesh=``, a
+:class:`~repro_torch.core.device_plane.DevicePlane`, a list of shard
+devices or ``"auto"``): one plane carries every tier. The engine's
+``"torch"`` backend splits each device-routed bin that packs a subset a
+shard over the plane's slabs (K1, K2 or K2i once a slab), and the device
+tier scores each shard's slice of the anchors with K6 and merges the
+shards' top-k. Answers are the single-device engine's, bit for bit.
+
 **Streaming ingest** (``insert`` / ``delete`` / ``compact``): the engine
 serves while the corpus changes. Inserts land in an append-only delta
 (:class:`~repro_torch.core.types.StreamingCorpus` +
@@ -97,7 +105,8 @@ from repro_torch.core import carry, plan, promish_a, promish_e
 from repro_torch.core import store as storemod
 from repro_torch.core.backend import (DistanceBackend, NumpyBackend,
                                       TorchBackend, resolve_device)
-from repro_torch.core.device_plane import gather_groups, pack_group_ids
+from repro_torch.core.device_plane import (gather_groups, get_plane,
+                                           pack_group_ids)
 from repro_torch.core.distributed import nks_anchor_topk
 from repro_torch.core.filters import Filter
 from repro_torch.core.index import (IndexDelta, PromishIndex, absorb_into,
@@ -157,7 +166,15 @@ class PipelineStats:
     the backend's LRU. The device tier fills ``pack`` (host id packing, the
     ids' upload and the device gather, as enqueued), ``dispatch`` (the
     anchor-star search and the readback that waits for it), the transfer
-    bytes and ``shard_dispatches`` (dispatches per device: one device here).
+    bytes and ``shard_dispatches``.
+
+    Device-plane accounting (``mesh=``): ``shard_dispatches[i]`` counts the
+    dispatches shard i took part in (a single-device dispatch lands on
+    shard 0; the list has one entry without a plane),
+    ``shard_valid_cells``/``shard_total_cells`` each shard's valid and
+    padded join-block cells, ``sharded_dispatches`` the dispatches split
+    over the shards and ``t_collective_s`` their wall (the shards' launches
+    and the gather back; for the device tier the whole sharded search).
     """
 
     batch_size: int
@@ -192,6 +209,10 @@ class PipelineStats:
     host_routed_subsets: int = 0
     bin_occupancy: dict = dataclasses.field(default_factory=dict)
     shard_dispatches: list[int] = dataclasses.field(default_factory=list)
+    sharded_dispatches: int = 0
+    t_collective_s: float = 0.0
+    shard_valid_cells: list[int] = dataclasses.field(default_factory=list)
+    shard_total_cells: list[int] = dataclasses.field(default_factory=list)
     # Streaming-ingest accounting: the corpus generation the batch ran
     # against (bumped by compaction only), the delta/tombstone sizes at
     # batch time, and the engine's lifetime compaction count.
@@ -245,7 +266,27 @@ class PipelineStats:
             "pack_s": self.t_pack_s,
             "dispatch_s": self.t_dispatch_s,
             "enumerate_s": self.t_enumerate_s,
+            "collective_s": self.t_collective_s,
             "cache_hit_rate": self.cache_hits / probed if probed else None,
+        }
+
+    @property
+    def shard_utilisation(self) -> list[float]:
+        """Valid-cell fraction of each shard's packed join blocks (the
+        complement is pad waste shipped to that shard)."""
+        return [round(v / t, 4) if t else 0.0
+                for v, t in zip(self.shard_valid_cells,
+                                self.shard_total_cells)]
+
+    @property
+    def sharding(self) -> dict:
+        """JSON-ready device-plane summary."""
+        return {
+            "sharded_dispatches": self.sharded_dispatches,
+            "shard_dispatches": list(self.shard_dispatches),
+            "shard_utilisation": self.shard_utilisation,
+            "padded_cell_ratio": self.padded_cell_ratio,
+            "collective_s": self.t_collective_s,
         }
 
     @property
@@ -354,7 +395,8 @@ _DELTA_FIELDS = ("t_pack_s", "t_dispatch_s", "cache_hits", "cache_misses",
                  "prune_tier_dispatches", "cells_pruned", "t_prune_s",
                  "t_host_s", "host_routed_dispatches", "host_routed_subsets",
                  "elig_fold_dispatches", "elig_dense_dispatches",
-                 "cold_bytes_read")
+                 "cold_bytes_read", "sharded_dispatches", "t_collective_s")
+_SHARD_FIELDS = ("shard_dispatches", "shard_valid_cells", "shard_total_cells")
 
 
 class NKSEngine:
@@ -366,7 +408,7 @@ class NKSEngine:
                  build_exact: bool = True, build_approx: bool = True,
                  device: str | torch.device | None = None,
                  faults: FaultPlan | None = None, synopsis: bool = False,
-                 resident_budget_bytes: int | None = None,
+                 resident_budget_bytes: int | None = None, mesh=None,
                  _indices: tuple[PromishIndex, PromishIndex] | None = None):
         """Put the corpus on ``device`` (the CUDA card unless the caller
         passes another; see :func:`repro_torch.core.backend.resolve_device`)
@@ -394,7 +436,21 @@ class NKSEngine:
         cache (``TorchBackend(cache_bytes=)``), the hot tier above the
         memory-mapped leaves of an engine opened with :meth:`from_store`.
         ``faults`` (a :class:`~repro_torch.serve.faults.FaultPlan`) arms the
-        ``compact`` and ``wal_ack`` fault points for the durability tests."""
+        ``compact`` and ``wal_ack`` fault points for the durability tests.
+
+        ``mesh`` attaches a device plane: a
+        :class:`~repro_torch.core.device_plane.DevicePlane`, a list of shard
+        devices, or ``"auto"`` (``launch.mesh.make_serving_mesh``: every
+        local card, or ``REPRO_MESH_OVERRIDE``'s first value, on ``device``'s
+        kind). The engine's device is the plane's first; the ``"torch"``
+        backend shards its device-routed bins over the plane and the device
+        tier runs the sharded anchor-star search. ``mesh=None`` (default)
+        keeps every tier on one device."""
+        self.plane = None
+        if mesh is not None:
+            self.plane = get_plane(mesh, device=device)
+            self.plane.check_device(device)
+            device = self.plane.device
         self.device = resolve_device(device)
         self._bulk = dataset
         self.last_batch_stats: PipelineStats | None = None
@@ -403,10 +459,10 @@ class NKSEngine:
                                   synopsis=synopsis)
         self.resident_budget_bytes = resident_budget_bytes
         self._corpus_token = next(_CORPUS_TOKENS)
-        self.backend = TorchBackend(device=self.device) \
-            if resident_budget_bytes is None else \
-            TorchBackend(device=self.device,
-                         cache_bytes=int(resident_budget_bytes))
+        kw = {} if resident_budget_bytes is None \
+            else {"cache_bytes": int(resident_budget_bytes)}
+        self.backend = TorchBackend(device=self.device, plane=self.plane,
+                                    **kw)
         self.backend.attach(dataset.points, self._corpus_token)
         self.build_stats = BuildStats()
         if _indices is not None:
@@ -440,8 +496,8 @@ class NKSEngine:
         self._wal_group = 0         # ingest_group() nesting depth
         self._replaying = False
         self.backend.warmup(dataset.dim)
-        shape = (2, 128)
-        nks_anchor_topk(
+        shape = (2, 128 if self.plane is None else self.plane.shard_pad(128))
+        (nks_anchor_topk if self.plane is None else self.plane.nks_topk)(
             torch.zeros((*shape, dataset.dim), device=self.device),
             torch.ones(shape, dtype=torch.bool, device=self.device),
             torch.zeros(shape, dtype=torch.int32, device=self.device), 1)
@@ -807,10 +863,11 @@ class NKSEngine:
 
     @classmethod
     def recover(cls, root: str, *, device: str | torch.device | None = None,
-                verify: bool = True,
+                mesh=None, verify: bool = True,
                 faults: FaultPlan | None = None) -> "NKSEngine":
         """Rebuild an engine on ``device`` (the card unless the caller asks
-        for another) from its WAL root: latest snapshot + log replay.
+        for another; with ``mesh``, the plane's first device) from its WAL
+        root: latest snapshot + log replay.
 
         The recovered engine answers **bit-identically** to an uninterrupted
         engine that executed the same acknowledged op sequence: the snapshot
@@ -830,7 +887,7 @@ class NKSEngine:
                      synopsis=bp.get("synopsis", False),
                      build_exact=em["build_exact"],
                      build_approx=em["build_approx"], device=device,
-                     compact_ratio=em["compact_ratio"],
+                     mesh=mesh, compact_ratio=em["compact_ratio"],
                      compact_min=em["compact_min"],
                      auto_compact=em["auto_compact"], faults=faults,
                      _indices=(snap["index_e"], snap["index_a"]))
@@ -870,7 +927,7 @@ class NKSEngine:
 
     @classmethod
     def from_store(cls, directory: str, *,
-                   device: str | torch.device | None = None,
+                   device: str | torch.device | None = None, mesh=None,
                    mmap: bool = True, verify: bool = False,
                    resident_budget_bytes: int | None = None,
                    **kw) -> "NKSEngine":
@@ -884,7 +941,8 @@ class NKSEngine:
         corpus that does not fit there raises. ``resident_budget_bytes``
         bounds the backend's tile and table cache. Answers are bit-identical
         to an engine built with the store's recorded ``build_params``, and
-        streaming absorbs and compactions continue the same sequence. ``kw``
+        streaming absorbs and compactions continue the same sequence.
+        ``mesh`` attaches a device plane as the constructor does; ``kw``
         goes to the constructor."""
         st = storemod.load_store(directory, mmap=mmap, verify=verify)
         bp = st["build_params"] or {}
@@ -895,7 +953,8 @@ class NKSEngine:
                    synopsis=bp.get("synopsis", False),
                    build_exact=st["index_e"] is not None,
                    build_approx=st["index_a"] is not None,
-                   device=device, resident_budget_bytes=resident_budget_bytes,
+                   device=device, mesh=mesh,
+                   resident_budget_bytes=resident_budget_bytes,
                    _indices=(st["index_e"], st["index_a"]), **kw)
 
     @property
@@ -1024,25 +1083,38 @@ class NKSEngine:
         anchors are the points of ``keywords[0]`` as given. Only the (q, R)
         ids and mask cross to the device, where the groups are gathered from
         the resident corpus; diameters and ids come back in one readback.
-        Candidates are the anchor stars of finite diameter, ascending.
-        ``eligible`` (a filtered query's point mask) restricts the packed
-        groups; a group the filter empties means no feasible candidate, so
-        the dispatch is skipped."""
+        On a plane (R rounded to a shard multiple) the groups go to every
+        shard and each scores its slice of the anchors
+        (``DevicePlane.nks_topk``). Candidates are the anchor stars of
+        finite diameter, ascending. ``eligible`` (a filtered query's point
+        mask) restricts the packed groups; a group the filter empties means
+        no feasible candidate, so the dispatch is skipped."""
         if eligible is not None and any(
                 not eligible[self.dataset.points_with(v)].any()
                 for v in keywords):
             return []
         t0 = time.perf_counter()
         dev = self.device
-        pg = pack_group_ids(self.dataset, keywords, eligible=eligible)
+        plane = self.plane
+        pg = (pack_group_ids if plane is None else plane.pack_group_ids)(
+            self.dataset, keywords, eligible=eligible)
         mask = torch.from_numpy(pg.mask).to(dev)
         ids = torch.from_numpy(pg.ids).to(dev)
         groups = gather_groups(self.backend._points_dev, mask, ids)
         t1 = time.perf_counter()
-        diams, cids = nks_anchor_topk(groups, mask, ids, k)
+        if plane is None:
+            diams, cids = nks_anchor_topk(groups, mask, ids, k)
+        else:
+            diams, cids = plane.nks_topk(groups, mask, ids, k)
         diams, cids = diams.cpu().numpy(), cids.cpu().numpy()
         if stats is not None:
-            stats.shard_dispatches[0] += 1
+            if plane is None:
+                stats.shard_dispatches[0] += 1
+            else:
+                stats.sharded_dispatches += 1
+                stats.t_collective_s += time.perf_counter() - t1
+                for i in range(plane.n_shards):
+                    stats.shard_dispatches[i] += 1
             stats.t_pack_s += t1 - t0
             stats.t_dispatch_s += time.perf_counter() - t1
             stats.h2d_bytes += pg.mask.nbytes + pg.ids.nbytes
@@ -1126,6 +1198,8 @@ class NKSEngine:
                               backend=backend.name)
         b0 = dataclasses.replace(backend.stats)
         b0_bins = dict(backend.stats.bin_points)
+        # dataclasses.replace shares the list fields: snapshot them by value
+        b0_shards = [list(getattr(backend.stats, f)) for f in _SHARD_FIELDS]
         # Flexible semantics: each query's m-of-k subqueries run the
         # plan/dispatch/enumerate loop as independent *execution* entries
         # that share the original query's queue (and weight vector) — the
@@ -1238,6 +1312,10 @@ class NKSEngine:
         stats.t_rescore_s = timers["rescore_s"]
         for f in _DELTA_FIELDS:
             setattr(stats, f, getattr(backend.stats, f) - getattr(b0, f))
+        for f, before in zip(_SHARD_FIELDS, b0_shards):
+            getattr(stats, f).extend(
+                v - (before[i] if i < len(before) else 0)
+                for i, v in enumerate(getattr(backend.stats, f)))
         for edge, (pts, padded) in backend.stats.bin_points.items():
             before = b0_bins.get(edge, (0, 0))
             dp, dpad = pts - before[0], padded - before[1]
@@ -1288,8 +1366,11 @@ class NKSEngine:
         if tier == "device":
             t0 = time.perf_counter()
             self._validate_queries(queries)
-            stats = PipelineStats(batch_size=len(queries), tier=tier,
-                                  backend="anchor", shard_dispatches=[0])
+            n_sh = 1 if self.plane is None else self.plane.n_shards
+            stats = PipelineStats(
+                batch_size=len(queries), tier=tier,
+                backend="anchor" if self.plane is None else "device-plane",
+                shard_dispatches=[0] * n_sh)
             resolved = self._resolve_namespace(queries, flt)
             eligible = self._eligible(flt)
             if eligible is not None:

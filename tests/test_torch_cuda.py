@@ -233,17 +233,19 @@ def _star_query(q: int, a: int, d: int, seed: int):
     return groups.contiguous(), mask
 
 
-def _check_star(groups, mask, got, want, band):
-    """Kernel against plain version on the valid anchors: nn[:, 0] the
-    anchor itself; each neighbour within the band of the plain one's
-    float64 distance (index 0 at BIG where the group has no valid point);
-    worst_nn and the diameters of the kernel's own tuples within the band."""
+def _check_star(groups, mask, got, want, band, anchor_range=None):
+    """Kernel against plain version on the valid anchors (of
+    ``anchor_range`` ``(a0, count)``, default all): nn[:, 0] the anchor
+    itself; each neighbour within the band of the plain one's float64
+    distance (index 0 at BIG where the group has no valid point); worst_nn
+    and the diameters of the kernel's own tuples within the band."""
     q = groups.shape[0]
+    a0, count = anchor_range or (0, groups.shape[1])
     (nn, worst, diam), (nn_p, worst_p, _) = got, want
-    valid = mask[0]
+    valid = mask[0, a0:a0 + count]
     assert nn.dtype == torch.int32 and nn.shape == nn_p.shape
     assert torch.equal(nn[:, 0], nn_p[:, 0])
-    a64 = groups[0].double()
+    a64 = groups[0, a0:a0 + count].double()
     for j in range(1, q):
         if not bool(mask[j].any()):
             assert bool((nn[valid, j] == 0).all())
@@ -1404,3 +1406,176 @@ def test_ingest_pipeline_with_model_embedder_on_card(tmp_path):
             pts[row], emb.extract(by_id[ext2doc[int(ext)]]).point)
     assert store.counts()[DONE] == 48
     store.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 64, 2304])
+def test_anchor_star_ranges_on_card_plane(d):
+    """K6 over anchor ranges, as a plane's shards call it: a range aligned
+    to 128, one off a 128 boundary, the tail, a range whose anchors are all
+    masked, and 8 equal slices of R. Each range's valid rows equal the same
+    rows of the whole call bit for bit, and its plain version (the same
+    range) within the band; two launches a range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import diameter
+    q, r = 5, 3008
+    groups, mask = _star_query(q, r, d, seed=d + 7)
+    mask[0, 1500:1800] = False                   # a stretch with no anchor
+    whole = diameter.anchor_star(groups, mask)
+    band = _query_band(groups, mask)
+    per = r // 8
+    ranges = [(0, 640), (1000, 1000), (r - 17, 17), (1520, 200)] \
+        + [(i * per, per) for i in range(8)]
+    for a0, count in ranges:
+        before = diameter.launches["anchor_star"]
+        got = diameter.anchor_star(groups, mask, anchor_range=(a0, count))
+        torch.cuda.synchronize()
+        assert diameter.launches["anchor_star"] == before + 2
+        assert [t.shape[0] for t in got] == [count] * 3
+        valid = mask[0, a0:a0 + count]
+        assert torch.equal(got[0][:, 0].long(),
+                           torch.arange(a0, a0 + count, device="cuda"))
+        for g, w in zip(got, whole):
+            assert torch.equal(g[valid], w[a0:a0 + count][valid])
+        want = ref.anchor_star(groups, mask, anchor_range=(a0, count))
+        _check_star(groups, mask, got, want, band, (a0, count))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 64])
+def test_anchor_star_run_split_on_card_plane(d):
+    """The served q=9 query's sparsity (groups of 2,961, 23, 4, 2, 2, 1, 2
+    and 1 valid points, packed first) at a shard's anchor range: few runs
+    of column tiles are live, so the kernel splits the fullest run's live
+    tiles into parts. Its rows equal those of one column tile a unit (no
+    split) bit for bit, whole and at each of 8 ranges, and the plain
+    version within the band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import diameter
+    q, r = 9, 8192
+    groups, mask = _star_query(q, r, d, seed=d + 11)
+    mask.zero_()
+    for j, n in enumerate([8150, 2961, 23, 4, 2, 2, 1, 2, 1]):
+        mask[j, :n] = True
+    band = _query_band(groups, mask)
+    per = r // 8
+    for rng in [None] + [(i * per, per) for i in range(8)]:
+        got = diameter.anchor_star(groups, mask, anchor_range=rng)
+        one = diameter.anchor_star(groups, mask, anchor_range=rng,
+                                   tiles_per_unit=1)
+        for g, w in zip(got, one):
+            assert torch.equal(g, w)
+        want = ref.anchor_star(groups, mask, anchor_range=rng)
+        _check_star(groups, mask, got, want, band, rng)
+
+
+def _plane_tile(seed: int, s: int = 16, p: int = 192, d: int = 64):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((s, p, d), generator=gen, device="cuda") * 3
+    lens = torch.randint(0, p + 1, (s,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lens[3] = 0                                  # an empty subset
+    lens[8:10] = 0                               # an empty slab (shard 4)
+    x = torch.where(torch.arange(p, device="cuda")[None, :, None]
+                    < lens[:, None, None], x, 0.0)
+    r = torch.rand((s,), generator=gen, device="cuda") * 8 + 4
+    el = torch.rand((s, p), generator=gen, device="cuda") < 0.6
+    words = torch.from_numpy(pack_join_mask(el.cpu().numpy()).view(np.int32))
+    return x.contiguous(), lens, r, words.cuda()
+
+
+@pytest.mark.cuda
+def test_plane_joins_match_one_device_on_card():
+    """An 8-shard plane on the one card (every shard ``cuda:0``): the masks
+    and counts of K1, and the counts of K2 and K2i, with and without
+    eligibility words, equal the single-device calls bit for bit; each
+    kernel launches once a slab (K2i's two kernels once a slab)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core.device_plane import DevicePlane
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_serving_mesh
+    plane = DevicePlane(make_serving_mesh(data=8))
+    assert plane.devices == (torch.device("cuda", 0),) * 8
+    x, lens, r, words = _plane_tile(3)
+    for elig in (None, words):
+        before = dict(pairwise_l2.launches)
+        m8, c8 = plane.join_batched_masked(x, lens, r, elig)
+        m1, c1 = ops.pairwise_l2_join_batched_masked(x, lens, r, elig)
+        assert torch.equal(m8, m1) and torch.equal(c8, c1)
+        name = "join_batched_masked" + ("" if elig is None else "_elig")
+        assert pairwise_l2.launches[name] == before[name] + 9
+        for dtype, name, per in (("bf16", "join_batched_prune", 1),
+                                 ("int8", "join_batched_prune_int8", 2)):
+            name += "" if elig is None else "_elig"
+            before = pairwise_l2.launches[name]
+            n8 = plane.join_batched_counts(x, lens, r * 1.5, elig,
+                                           dtype=dtype)
+            n1 = ops.pairwise_l2_join_batched_counts(x, lens, r * 1.5, elig,
+                                                     dtype=dtype)
+            assert torch.equal(n8, n1)
+            assert pairwise_l2.launches[name] == before + 9 * per
+
+
+@pytest.mark.cuda
+def test_plane_engine_matches_one_device_on_card():
+    """``NKSEngine(mesh=8 shards on cuda:0)`` against the single-device
+    engine on the card over one corpus: exact (default, forced onto the
+    device with the bf16 and the int8 prune tier, under a filter) and
+    approx batches bit for bit, with sharded dispatches on shards 1-7;
+    the device tier's ids and float64 diameters bit for bit, K6 two
+    launches a shard a query."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import NKSEngine, flickr_like_dataset, random_queries
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.device_plane import DevicePlane
+    from repro_torch.core.filters import where
+    from repro_torch.data.synthetic import attach_attrs
+    from repro_torch.kernels import diameter
+    from repro_torch.launch.mesh import make_serving_mesh
+    ds = attach_attrs(flickr_like_dataset(n=20_000, d=32, u=300, t=4,
+                                          seed=5), seed=1)
+    plane = DevicePlane(make_serving_mesh(data=8))
+    one = NKSEngine(ds, device="cuda")
+    eight = NKSEngine(ds, mesh=plane,
+                      _indices=(one.index_e, one.index_a))
+    queries = random_queries(ds, 3, 24, seed=1)
+
+    def rows(res):
+        return [[(c.ids, c.diameter) for c in r.candidates] for r in res]
+
+    runs = [("exact", {}, None), ("approx", {}, None),
+            ("exact", dict(route="device", prune_tier="on"), None),
+            ("exact", dict(route="device", prune_tier="on",
+                           prune_dtype="int8"), None),
+            ("exact", dict(route="device"), where(("price", "<", 50.0)))]
+    for tier, kw, flt in runs:
+        b1 = TorchBackend(**kw) if kw else "torch"
+        b8 = TorchBackend(plane=plane, **kw) if kw else "torch"
+        want = one.query_batch(queries, k=2, tier=tier, backend=b1,
+                               filter=flt)
+        got = eight.query_batch(queries, k=2, tier=tier, backend=b8,
+                                filter=flt)
+        assert rows(got) == rows(want), (tier, kw, flt)
+        st = eight.last_batch_stats
+        if kw:
+            assert st.sharded_dispatches > 0
+            assert len(st.shard_dispatches) == 8
+            assert all(n > 0 for n in st.shard_dispatches[1:])
+            assert 0 < st.t_collective_s <= st.t_dispatch_s
+    q9 = random_queries(ds, 9, 8, seed=2)
+    for qs, k in ((queries, 1), (q9, 10)):
+        want = one.query_batch(qs, k=k, tier="device")
+        before = diameter.launches["anchor_star"]
+        got = eight.query_batch(qs, k=k, tier="device")
+        assert diameter.launches["anchor_star"] == before + 16 * len(qs)
+        assert rows(got) == rows(want)
+        st = eight.last_batch_stats
+        assert st.backend == "device-plane"
+        assert st.shard_dispatches == [len(qs)] * 8

@@ -15,6 +15,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
     ("quickstart.py", ["--device", "cpu", "--n", "1000"],
      "answers equal the direct batch"),
     ("ingest_corpus.py", ["--device", "cpu"], "(matches static build)"),
+    ("distributed_serve.py", ["--device", "cpu", "--n", "3000"],
+     "answers equal the single-device engine's"),
 ])
 def test_example_runs_with_jax_blocked(tmp_path, script, argv, expect):
     path = ROOT / "examples" / "torch" / script
