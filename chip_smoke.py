@@ -103,7 +103,8 @@ Phases:
      filters — price < 50 (fold mode: eligibility words into K1, and K2 on
      the prune tier), price < 10 and price < 1 (below the 0.25 threshold:
      eligible-dense packing), category == 3 with price in [20, 70] — and,
-     per filter, 64 more drawn from the keywords holding 4 to 16 eligible
+     per filter, 16 more (``--filter-feasible``) drawn from the keywords
+     holding 4 to 16 eligible
      points (every one answerable), each set through the exact tier
      (default backend, and forced onto the device with the prune tier
      armed), the approx tier and the device tier, every batch a path of its
@@ -181,13 +182,14 @@ Phases:
      deletes submitted while it runs, an explicit compaction (K5: 55);
      then every tier and price<50 bit for bit a fresh engine's over the
      final rows. No request may fail and no swallowed-error counter move.
-  3h. [ingest] 10,000 flickr-like documents (d_raw 256, u=24,874, t=11)
+  3h. [ingest] 2,500 flickr-like documents (d_raw 256, u=24,874, t=11)
      through ``ProjectionEmbedder(64)`` and a 4-worker ``IngestPipeline``
      into that runtime, one worker killed at its 3rd insert under 10 s
      leases: the queue drains, no worker thread dies, one row lands per
      document and is its embedding bit for bit, K5 5 an insert op.
   3i. [examples] ``examples/torch/quickstart.py --n 2000`` and
-     ``examples/torch/ingest_corpus.py`` as child processes on the card:
+     ``examples/torch/ingest_corpus.py`` as child processes on the card,
+     one after the other:
      exit 0. Beside it, and beside no phase that reports a time, the host
      build of 3d's compacted indices runs in child processes (a scale of
      an index each), waited for before [launch].
@@ -198,7 +200,7 @@ Phases:
      again) in a child process: exit 0, every line parses, the malformed
      line an error, the first 64 answers equal an engine's in this process
      fed the same documents; the child's launch counters (K5 660).
-  3k. [tenant] At a reduced size (two tenants of 50,000 synthetic points,
+  3k. [tenant] At a reduced size (two tenants of 25,000 synthetic points,
      d=64, 1,000 local keywords each): 16 tenant-local 3-keyword queries
      per tenant in the exact, approx and device tiers; results echo the
      local ids, cover the resolved keywords, never reach the other tenant,
@@ -226,10 +228,29 @@ Phases:
      K7 40 launches a document, K5 5 an insert batch, 8 documents embedded
      again bit for bit, device and exact answers equal a fresh engine's
      over the final rows.
+  4c. [generate] Serve the language models: MiniCPM-2B at full width and
+     depth on the [embed] weights, 8 prompts of 512 random tokens,
+     ``prefill(max_seq=576)`` (K7 40 launches) and 64 greedy ``decode``
+     steps (K7 none): prefill tokens/s, decode ms a step and tokens/s, the
+     KV cache's bytes and a decode step's bound (weights and live cache
+     over 3.35 TB/s). The prefill's logits equal the forward's last
+     position within 2^-6 of the largest; prefill 448 then decode 64 given
+     tokens equals the forward within 5e-2 of the largest logit. Then
+     olmoe-1b-7b, mamba2-2.7b, hymba-1.5b (2,048-token prompts: its 1,024
+     window bites), whisper-large-v3 (1,500 random frames, 64 tokens) at
+     full width and depth, llama-3.2-vision-90b and llama4-maverick at
+     full width cut to one super-block, B=2, each freed before the next:
+     prefill (K7 once an attention layer), the same two checks over 8
+     decode steps (MoE at no drop, on the forward's expert choices), the
+     MoE slots dropped at the served capacity and the aux loss.
   5. Hold K7 against its plain PyTorch version on the card: on the path's
      own q, k, v of both shapes (recorded during phase 4), causal; the long
      shape again with window 1024; grouped-query heads (36 query, 4 kv,
-     head dim 128). Tolerance (``kernels.ref.flash_attention_tolerance``):
+     head dim 128); and the first q, k, v of every (shape, mask) the
+     [generate] prefills gave it: olmoe (2, 512, 16, 128), hymba (2, 2048,
+     25/5, 64) with window 1024, whisper's non-causal encoder (2, 1500, 20,
+     64) and its decoder, the vision self layers (2, 512, 64/8, 128) and
+     llama4 (2, 512, 40/8, 128), each beside SDPA under the same mask. Tolerance (``kernels.ref.flash_attention_tolerance``):
      the two round the softmax numerators at different scales (running
      against final maximum: 2^-9 relative each) and the output once, so
      ``|kernel - plain| <= 2^-7 |plain| + 2^-6 sqrt(sum_j p_j^2 v_j^2) / l``,
@@ -2904,7 +2925,8 @@ def launch_phase(args, report: dict, served, by_path: dict) -> None:
     output line parse, the malformed line get ``status: error`` and nothing
     else an error; its first 64 answers must equal this process's engine
     over the corpus the launcher builds (``flickr_like_dataset(seed=0)``,
-    default geometry), fed the same 2,000 documents by the same pipeline,
+    default geometry), fed the same ``--launch-docs`` documents by the same
+    pipeline,
     answer by answer (ids translated through both job journals). Meanwhile
     this process builds that engine."""
     import argparse
@@ -3182,10 +3204,454 @@ def ingest_model_phase(args, report: dict, model, by_path: dict) -> tuple:
     return rec_k7, rec_k5
 
 
+# [generate]'s families beyond MiniCPM-2B: (architecture, prompt tokens,
+# layers kept or None for the full depth). The two depth cuts keep one
+# super-block: llama-3.2-vision-90b's 4 self-attention layers and 1 cross
+# layer (its 100 layers would need 176 GB), llama4-maverick's dense layer
+# and 128-expert MoE layer (its 48 layers about 800 GB).
+GENERATE_FAMILIES = (("olmoe-1b-7b", 512, None), ("mamba2-2.7b", 512, None),
+                     ("hymba-1.5b", 2048, None),
+                     ("whisper-large-v3", 64, None),
+                     ("llama-3.2-vision-90b", 512, 5),
+                     ("llama4-maverick-400b-a17b", 512, 2))
+# Teacher-forced decode against the forward: the reference's own invariant
+# (its tests/test_models_smoke.py, rtol and atol 5e-2, at the smoke configs'
+# depth of at most 4 layers), made relative to the largest logit, held at
+# full width on each model's first SHALLOW layers. The whole-sequence and
+# one-token paths round differently, and the difference compounds layer
+# after layer, in the reference too (tools/teacher_forced_depth.py, CPU:
+# mamba2 at width 256 drifts 0.0161 / 0.0340 / 0.0550 at 4 / 16 / 64
+# layers in the reference, 0.0125 / 0.0328 / 0.0494 in the port). So at
+# the full depth L the bound grows as independent roundings add, as
+# sqrt(L / SHALLOW). Prefill against the forward's last position: both run
+# the same kernels on the same shapes up to the head, whose product differs
+# in shape (one position against all), so within a bf16 rounding of it.
+GENERATE_TOL = 5e-2
+SHALLOW = 4
+PREFILL_TOL = 2.0 ** -6
+
+
+def forced_tol(cfg) -> float:
+    """The teacher-forced bound at the decoder depth of ``cfg``."""
+    return GENERATE_TOL * max(1.0, (cfg.n_layers / SHALLOW) ** 0.5)
+
+
+def shallow(cfg, params) -> tuple:
+    """The model's first SHALLOW layers at full width (the same tensors),
+    for the check at the reference test's depth. A model whose layers come
+    in super-blocks runs one block in [generate] and is kept whole."""
+    if cfg.family == "vlm" or (cfg.moe is not None and cfg.moe.every > 1) \
+            or cfg.n_layers <= SHALLOW:
+        return cfg, params
+    if cfg.family == "audio":
+        return (dataclasses.replace(cfg, n_layers=SHALLOW,
+                                    enc_layers=min(cfg.enc_layers, SHALLOW)),
+                {**params, "enc_layers": params["enc_layers"][:SHALLOW],
+                 "dec_layers": params["dec_layers"][:SHALLOW]})
+    return (dataclasses.replace(cfg, n_layers=SHALLOW),
+            {**params, "layers": params["layers"][:SHALLOW]})
+
+
+def teacher_forced(cfg, params, tokens, extra, n_prompt: int,
+                   by_path=None, path=None) -> dict:
+    """Prefill ``tokens[:, :n_prompt]``, then decode the rest one given
+    token a step, against ``forward_train`` over all of them: max |decode -
+    forward| over the largest live logit at positions n_prompt - 1 ..
+    (the prefill's logits and every step's). A mixture-of-experts model
+    runs at a capacity that drops nothing (``capacity_factor = E / k``):
+    at the served capacity a slot's fate depends on the tokens sharing its
+    row, so a forward over all tokens and a one-token decode differ by
+    design where an expert overflows; and on the forward's expert choices
+    (:class:`RouteReplay`). With ``path`` the decode steps are a path of
+    their own in ``by_path``. Returns err, decode seconds, reroutes."""
+    import torch
+    from repro_torch.models import audio, moe, transformer
+    from repro_torch.models.api import model_api
+    replay = None
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        replay = RouteReplay(moe)
+    api = model_api(cfg)
+    ex = extra or None
+    steps = tokens.shape[1] - n_prompt
+    try:
+        with torch.inference_mode():
+            full, _ = (audio if cfg.family == "audio" else transformer) \
+                .forward_train(params, cfg, tokens, extra=ex)
+            if replay is not None:
+                replay.replay = True
+            logits, cache = api.prefill(
+                params, {**extra, "tokens": tokens[:, :n_prompt]},
+                max_seq=tokens.shape[1])
+
+            def forced():
+                nonlocal cache
+                got = [logits]
+                for i in range(n_prompt, tokens.shape[1]):
+                    if replay is not None:
+                        replay.pos = i
+                    lg, cache = api.decode(params, cache, tokens[:, i:i + 1])
+                    got.append(lg)
+                return torch.stack(got, 1)
+            if path is None:
+                ts = time.perf_counter()
+                got = forced()
+                torch.cuda.synchronize()
+                dec_s = time.perf_counter() - ts
+            else:
+                got, dec_s = drive_path(by_path, path, forced)
+            check(bool(torch.isfinite(got[..., :cfg.vocab_size].float())
+                       .all()), f"[generate] {cfg.name}: a non-finite logit")
+            check(cache["pos"] == tokens.shape[1], f"[generate] {cfg.name}: "
+                  f"pos {cache['pos']} after {steps} steps")
+            err = rel_err(got, full[:, n_prompt - 1:], cfg.vocab_size)
+    finally:
+        if replay is not None:
+            replay.restore()
+    flips = [] if replay is None else replay.flips
+    check(all(g <= m * (1 + 1e-3) + 1e-6 for g, m in flips),
+          f"[generate] {cfg.name}: a token routed otherwise than in the "
+          f"forward where its input's difference cannot explain it (gap, "
+          f"bound): {[f for f in flips if f[0] > f[1]]}")
+    return {"err": err, "decode_s": dec_s, "reroutes": len(flips)}
+
+
+def held(label: str, cfg, res: dict, tol: float) -> None:
+    check(res["err"] <= tol, f"[generate] {label}: teacher-forced decode "
+          f"differs from the forward by {res['err']} of its largest logit "
+          f"(limit {tol:.4g} at {cfg.n_layers} layers)")
+
+
+def rel_err(got, want, vocab: int) -> float:
+    """max |got - want| over max |want| of two logit tensors on the card,
+    over the live vocabulary (the padded columns hold -1e30)."""
+    want = want[..., :vocab].float()
+    return float((got[..., :vocab].float() - want).abs().max()
+                 / want.abs().max())
+
+
+def attention_layers(cfg) -> int:
+    """K7 launches of one prefill: every self-attention layer (the audio
+    encoder's too); cross-attention and decode take the direct path."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "audio":
+        return cfg.enc_layers + cfg.n_layers
+    if cfg.family == "vlm":
+        from repro_torch.models.transformer import n_blocks
+        return n_blocks(cfg) * (cfg.cross_attn_every - 1)
+    return cfg.n_layers
+
+
+class MoEDrops:
+    """Wraps ``models.moe.apply_moe`` while a path runs and adds up its
+    slots over capacity and all its slots."""
+
+    def __init__(self, moe):
+        self.moe, self.fn = moe, moe.apply_moe
+        self.stats: dict = {}
+        moe.apply_moe = self
+
+    def __call__(self, p, x, cfg, stats=None):
+        return self.fn(p, x, cfg, self.stats)
+
+    def restore(self) -> None:
+        self.moe.apply_moe = self.fn
+
+
+class RouteReplay:
+    """Wraps ``models.moe.route`` for the teacher-forced check of a
+    mixture-of-experts model. While ``replay`` is off it keeps each call's
+    expert choice and probabilities (the forward: one call a MoE layer);
+    while on, call i takes the expert choice of recorded call i modulo the
+    MoE layers, at positions ``pos`` onwards (set by the caller: 0 for the
+    prefill, the step's position for a decode step), with its own
+    probabilities' weights renormalised over them. A token whose own choice
+    differs is kept in ``flips`` as (the recorded gap between its k-th and
+    (k+1)-th router logits, the most its input's difference from the
+    forward's can move such a gap: ``|x - x_fwd|_2`` times twice the
+    router's largest column norm). Each gap must lie within that: the
+    forward runs K7 and decode the direct path, whose roundings move the
+    layer's input, and at such a near tie either choice is right; the check
+    is of the cache, not of that choice."""
+
+    def __init__(self, moe):
+        self.moe, self.fn = moe, moe.route
+        self.calls: list = []
+        self.flips: list = []
+        self.replay, self.i, self.pos = False, 0, 0
+        moe.route = self
+
+    def __call__(self, p, x, cfg):
+        import torch
+        probs, w, e, aux = self.fn(p, x, cfg)
+        if not self.replay:
+            self.calls.append((e, probs, x))
+            return probs, w, e, aux
+        want_e, want_p, want_x = self.calls[self.i % len(self.calls)]
+        self.i += 1
+        span = slice(self.pos, self.pos + x.shape[1])
+        want_e, want_p = want_e[:, span], want_p[:, span]
+        differ = (e.sort(-1).values != want_e.sort(-1).values).any(-1)
+        if bool(differ.any()):
+            logp = want_p.clamp_min(1e-38).log().sort(-1, descending=True) \
+                .values
+            gap = logp[..., cfg.top_k - 1] - logp[..., cfg.top_k]
+            moved = (x.float() - want_x[:, span].float()).norm(dim=-1) \
+                * 2 * p["router"].float().norm(dim=0).max()
+            self.flips += [(float(g), float(m)) for g, m in
+                           zip(gap[differ], moved[differ])]
+        w = torch.gather(probs, -1, want_e)
+        return probs, w / w.sum(-1, keepdim=True).clamp_min(1e-9), want_e, aux
+
+    def restore(self) -> None:
+        self.moe.route = self.fn
+
+
+def _tensors(tree) -> list:
+    """The tensors of a nested dict/list of parameters or caches."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tensors(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _tensors(v)]
+    return [tree]
+
+
+def param_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def generate_phase(args, report: dict, model, by_path: dict) -> list:
+    """[generate] Serve the language models on the card: prefill, decode
+    and their caches, every prefill self-attention through K7.
+
+    MiniCPM-2B at full width and depth on the [embed] parameters: 8
+    prompts of 512 random tokens, ``prefill(max_seq=576)`` (K7 40 times),
+    then 64 greedy ``decode`` steps (K7 never); prefill tokens/s, decode ms
+    a step and tokens/s, the KV cache's bytes, and a decode step's bound
+    (the weights and the live cache read once over 3.35 TB/s). Checks: the
+    prefill's logits equal ``forward_train``'s at the last position within
+    ``PREFILL_TOL`` of the largest; a teacher-forced run (prefill 448 of the
+    same tokens, then decode the next 64 given ones) equals the forward's
+    logits at those positions within ``GENERATE_TOL`` of the largest; every
+    logit finite; ``pos`` advances.
+
+    Then the other families at full width (``GENERATE_FAMILIES``), B=2,
+    random weights from the seed, each freed before the next: prefill
+    (K7 once an attention layer), the same prefill check, then 8
+    teacher-forced decode steps against the forward over the prompt and
+    those tokens. Mixture-of-experts models report the slots their served
+    prefill dropped over capacity and the forward's aux loss, and run the
+    teacher-forced check at a capacity that drops nothing (``capacity_factor
+    = E / k``): at the served capacity a slot's fate depends on the tokens
+    sharing its row, so a forward over all tokens and a one-token decode
+    differ by design where an expert overflows. The vision gates are set to
+    seeded values in [0.5, 1.5] (0 at initialisation would hide the
+    cross-attention). Returns K7's cases for its row: the first (q, k, v)
+    of every (shape, mask) these prefills gave it."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.models import audio, moe, transformer
+    from repro_torch.models.api import model_api
+
+    cfg, api, params, _, _ = model
+    out: dict = {}
+    report["generate"] = out
+    rng = np.random.default_rng(args.seed + 20)
+    dev = params["final_norm"]["w"].device
+    card = card_line()
+
+    b, s, n_new, max_seq = 8, 512, 64, 576
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                           device=dev)
+    with torch.inference_mode():
+        api.prefill(params, {"tokens": toks}, max_seq=max_seq)   # warm-up
+        (first, cache), pre_s = drive_path(
+            by_path, "generate-prefill",
+            lambda: api.prefill(params, {"tokens": toks}, max_seq=max_seq))
+        k7 = by_path["generate-prefill"]["flash_attention"]
+        check(k7 == cfg.n_layers, f"[generate] K7 launched {k7} times in "
+              f"the prefill, want {cfg.n_layers}")
+        check(cache["pos"] == s, f"[generate] prefill pos {cache['pos']}")
+        kv_bytes = param_bytes(cache["layers"])
+        finite = torch.isfinite(first.float()).all()
+
+        def greedy():
+            nonlocal cache, finite
+            logits = first
+            for _ in range(n_new):
+                tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+                logits, cache = api.decode(params, cache, tok)
+                finite = finite & torch.isfinite(logits.float()).all()
+        _, dec_s = drive_path(by_path, "generate-decode", greedy)
+        k7 = by_path["generate-decode"]["flash_attention"]
+        check(k7 == 0, f"[generate] K7 launched {k7} times in decode")
+        check(cache["pos"] == s + n_new, f"[generate] pos {cache['pos']} "
+              f"after {n_new} steps")
+        check(bool(finite), "[generate] a non-finite logit")
+        del cache
+        full, _ = transformer.forward_train(params, cfg, toks)
+        err_prefill = rel_err(first, full[:, -1], cfg.vocab_size)
+        check(err_prefill <= PREFILL_TOL, f"[generate] prefill logits differ "
+              f"from the forward's last position by {err_prefill}")
+        del full
+    # teacher-forced: prefill 448 tokens, decode the next 64 given ones, at
+    # the full depth and on the first SHALLOW layers
+    forced = teacher_forced(cfg, params, toks, {}, s - n_new)
+    held(cfg.name, cfg, forced, forced_tol(cfg))
+    scfg, sparams = shallow(cfg, params)
+    forced_shallow = teacher_forced(scfg, sparams, toks, {}, s - n_new) \
+        if scfg is not cfg else forced
+    held(f"{cfg.name} first {scfg.n_layers} layers", scfg, forced_shallow,
+         GENERATE_TOL)
+    weights = param_bytes(params)
+    # a decode step reads the weights and the live cache once: mean over
+    # the 64 steps of 40 x 2 x B x (pos + 1) x d_model x 2 bytes
+    live = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.resolved_head_dim \
+        * 2 * (s + (n_new + 1) / 2)
+    bound_ms = (weights + live) / PEAK_BYTES_S * 1e3
+    out["minicpm"] = {
+        "model": cfg.name, "batch": b, "prompt": s, "new_tokens": n_new,
+        "max_seq": max_seq, "prefill_s": pre_s,
+        "prefill_tokens_per_s": b * s / pre_s, "decode_s": dec_s,
+        "decode_ms_per_step": dec_s / n_new * 1e3,
+        "decode_tokens_per_s": b * n_new / dec_s, "kv_cache_bytes": kv_bytes,
+        "weight_bytes": weights, "decode_step_bound_ms": bound_ms,
+        "prefill_err": err_prefill, "teacher_forced_err": forced["err"],
+        "teacher_forced_limit": forced_tol(cfg),
+        "teacher_forced_err_shallow": forced_shallow["err"],
+        "launches": {p: by_path[p] for p in ("generate-prefill",
+                                             "generate-decode")},
+        "card": card}
+    print(f"[generate] {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}): {b} prompts of {s} tokens, prefill "
+          f"{pre_s:.4f}s = {b * s / pre_s:.0f} tokens/s (K7 "
+          f"{by_path['generate-prefill']['flash_attention']}); {n_new} greedy "
+          f"decode steps {dec_s:.4f}s = {dec_s / n_new * 1e3:.3f} ms a step = "
+          f"{b * n_new / dec_s:.1f} tokens/s (K7 0); KV cache {kv_bytes} "
+          f"bytes at max_seq {max_seq}; a step reads {weights} weight bytes "
+          f"+ {live:.4g} cache bytes: bound {bound_ms:.4f} ms over "
+          f"{PEAK_BYTES_S:.3g} B/s; card {card}", flush=True)
+    print(f"[generate] {cfg.name}: prefill logits vs the forward's last "
+          f"position {err_prefill:.3g} of the largest (limit "
+          f"{PREFILL_TOL:.3g}); teacher-forced 448 + 64 vs the forward "
+          f"{forced['err']:.4g} at {cfg.n_layers} layers (limit "
+          f"{forced_tol(cfg):.4g}), {forced_shallow['err']:.4g} on the first "
+          f"{scfg.n_layers} (limit {GENERATE_TOL}); every logit finite",
+          flush=True)
+
+    cases = []
+    for arch, seq, depth in GENERATE_FAMILIES:
+        fcfg = get_config(arch)
+        if depth is not None:
+            fcfg = dataclasses.replace(fcfg, n_layers=depth)
+        fapi = model_api(fcfg)
+        mod = audio if fcfg.family == "audio" else transformer
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        fparams = fapi.init(torch.Generator(device="cuda")
+                            .manual_seed(args.seed))
+        for blk in fparams["layers"] if fcfg.family == "vlm" else []:
+            for gate in ("gate_a", "gate_m"):
+                blk["cross"][gate].fill_(float(rng.uniform(0.5, 1.5)))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - ts
+        ftoks = torch.as_tensor(rng.integers(0, fcfg.vocab_size,
+                                             (2, seq + 8)), device=dev)
+        extra = {}
+        if fcfg.family == "vlm":
+            extra["patches"] = torch.as_tensor(rng.standard_normal(
+                (2, fcfg.vision_tokens, fcfg.vision_dim), np.float32),
+                device=dev).to(torch.bfloat16)
+        if fcfg.family == "audio":
+            extra["frames"] = torch.as_tensor(rng.standard_normal(
+                (2, fcfg.audio_frames, fcfg.d_model), np.float32),
+                device=dev).to(torch.bfloat16)
+        ex = extra or None
+        prompt = {**extra, "tokens": ftoks[:, :seq]}
+        with torch.inference_mode():                          # warm-up
+            fapi.prefill(fparams, prompt, max_seq=seq + 8)
+        rec = MaskRecorder(kernel_ops)
+        drops = MoEDrops(moe)
+        try:
+            with torch.inference_mode():
+                (plog, pcache), fpre_s = drive_path(
+                    by_path, f"generate-{arch}-prefill",
+                    lambda: fapi.prefill(fparams, prompt, max_seq=seq + 8))
+        finally:
+            rec.restore()
+            drops.restore()
+        k7, want = (by_path[f"generate-{arch}-prefill"]["flash_attention"],
+                    attention_layers(fcfg))
+        check(k7 == want, f"[generate] {arch}: K7 launched {k7} times in "
+              f"the prefill, want {want}")
+        with torch.inference_mode():
+            flog, aux = mod.forward_train(fparams, fcfg, ftoks[:, :seq],
+                                          extra=ex)
+            f_err = rel_err(plog, flog[:, -1], fcfg.vocab_size)
+            check(f_err <= PREFILL_TOL, f"[generate] {arch}: prefill logits "
+                  f"differ from the forward's last position by {f_err}")
+            del flog, plog, pcache
+        path = f"generate-{arch}-decode"
+        tf = teacher_forced(fcfg, fparams, ftoks, extra, seq, by_path, path)
+        k7 = by_path[path]["flash_attention"]
+        check(k7 == 0, f"[generate] {arch}: K7 launched {k7} times in decode")
+        held(arch, fcfg, tf, forced_tol(fcfg))
+        scfg, sparams = shallow(fcfg, fparams)
+        tf_shallow = teacher_forced(scfg, sparams, ftoks, extra, seq) \
+            if scfg is not fcfg else tf
+        held(f"{arch} first {scfg.n_layers} layers", scfg, tf_shallow,
+             GENERATE_TOL)
+        fdec_s, t_err = tf["decode_s"], tf["err"]
+        rep = {"layers": fcfg.n_layers, "enc_layers": fcfg.enc_layers,
+               "depth_cut": depth is not None, "params": sum(
+                   t.numel() for t in _tensors(fparams)),
+               "init_s": init_s, "prompt": seq, "prefill_s": fpre_s,
+               "prefill_tokens_per_s": 2 * seq / fpre_s,
+               "decode_ms_per_step": fdec_s / 8 * 1e3,
+               "prefill_err": f_err, "teacher_forced_err": t_err,
+               "teacher_forced_limit": forced_tol(fcfg),
+               "teacher_forced_err_shallow": tf_shallow["err"],
+               "shallow_layers": scfg.n_layers,
+               "k7_prefill": by_path[f"generate-{arch}-prefill"][
+                   "flash_attention"]}
+        if fcfg.moe is not None:
+            rep.update(dropped_slots=drops.stats.get("dropped", 0),
+                       slots=drops.stats.get("slots", 0), aux=float(aux),
+                       near_tie_reroutes=tf["reroutes"])
+        out[arch] = rep
+        print(f"[generate] {arch} ({fcfg.n_layers} layers"
+              f"{' (cut)' if depth else ''}, d_model {fcfg.d_model}, "
+              f"{rep['params']} parameters in {init_s:.2f}s): B=2 prompts of "
+              f"{seq} tokens, prefill {fpre_s:.4f}s (K7 {rep['k7_prefill']}),"
+              f" 8 decode steps {fdec_s / 8 * 1e3:.3f} ms a step (K7 0); "
+              f"prefill vs forward {f_err:.3g}, teacher-forced vs forward "
+              f"{t_err:.4g} (limit {forced_tol(fcfg):.4g}), on the first "
+              f"{scfg.n_layers} layers {tf_shallow['err']:.4g} (limit "
+              f"{GENERATE_TOL})"
+              + (f"; MoE slots dropped over capacity {rep['dropped_slots']}"
+                 f" of {rep['slots']}, aux loss {rep['aux']:.6g}; teacher-"
+                 f"forced run at no drop on the forward's expert choices "
+                 f"({tf['reroutes']} near-tie tokens routed otherwise on "
+                 f"their own)" if fcfg.moe is not None else ""), flush=True)
+        for (shape, kvh, causal, window), qkv in rec.first.items():
+            cases.append((f"generate {arch}", qkv, window, causal))
+        del fparams, sparams, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cases
+
+
 def examples_phase(args, report: dict) -> None:
     """[examples] ``examples/torch/quickstart.py --n 2000`` and
     ``examples/torch/ingest_corpus.py`` as child processes on the card (the
-    default device), side by side: each must exit 0."""
+    default device), one after the other: each must exit 0. (Side by side,
+    each engine's cost-model probe timed its joins while the other's ran,
+    and once measured a negative slope and raised.)"""
     import os
     import subprocess
     import tempfile
@@ -3196,17 +3662,16 @@ def examples_phase(args, report: dict) -> None:
     with tempfile.TemporaryDirectory(prefix="nks-examples-") as tmp:
         env["TMPDIR"] = tmp
         ts = time.perf_counter()
-        children = {name: subprocess.Popen(
-            [sys.executable, str(ROOT / "examples" / "torch" / name), *argv],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env, cwd=tmp) for name, argv in runs.items()}
-        for name, child in children.items():
-            stdout, stderr = child.communicate(timeout=600)
+        for name, argv in runs.items():
+            child = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / "torch" / name),
+                 *argv], capture_output=True, text=True, env=env, cwd=tmp,
+                timeout=600)
             out[name] = {"rc": child.returncode,
                          "s": time.perf_counter() - ts,
-                         "last": stdout.strip().splitlines()[-1:]}
+                         "last": child.stdout.strip().splitlines()[-1:]}
             check(child.returncode == 0, f"[examples] {name} exited "
-                  f"{child.returncode}:\n{stderr[-2000:]}")
+                  f"{child.returncode}:\n{child.stderr[-2000:]}")
             print(f"[examples] {name} {' '.join(runs[name])}: exit 0 after "
                   f"{out[name]['s']:.1f}s; last line {out[name]['last']}",
                   flush=True)
@@ -3795,8 +4260,11 @@ class ShapeRecorder:
         self.lock = threading.Lock()
         ops.flash_attention = self
 
+    def key(self, q, k, kw) -> tuple:
+        return tuple(q.shape)
+
     def __call__(self, q, k, v, **kw):
-        key = tuple(q.shape)
+        key = self.key(q, k, kw)
         with self.lock:
             self.calls[key] = self.calls.get(key, 0) + 1
             if key not in self.first:
@@ -3805,6 +4273,15 @@ class ShapeRecorder:
 
     def restore(self) -> None:
         self.ops.flash_attention = self.fn
+
+
+class MaskRecorder(ShapeRecorder):
+    """A :class:`ShapeRecorder` keyed by the attention's mask too: (q
+    shape, kv heads, causal, window)."""
+
+    def key(self, q, k, kw) -> tuple:
+        return (tuple(q.shape), k.shape[2], kw.get("causal", True),
+                kw.get("window"))
 
 
 def live_pairs(s: int, t: int, causal: bool, window) -> int:
@@ -4139,8 +4616,9 @@ def flash_row(rec: ShapeRecorder, k7_by_path: dict,
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
 
-    def sdpa(q, k, v, window):
-        """The library's causal attention on the same inputs."""
+    def sdpa(q, k, v, window, causal):
+        """The library's attention on the same inputs, under the same
+        mask."""
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         mask = None
         if window is not None:
@@ -4148,7 +4626,7 @@ def flash_row(rec: ShapeRecorder, k7_by_path: dict,
             mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
                                                   - window)
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=k.shape[2] != q.shape[2])
 
     def dropped_tile(q, k, v):
@@ -4168,17 +4646,17 @@ def flash_row(rec: ShapeRecorder, k7_by_path: dict,
                               (2, 2048, 4, 128)))
     shapes = sorted(rec.first, key=lambda sh: -rec.calls[sh])
     longest = max(shapes, key=lambda sh: sh[1])
-    cases = [("path", rec.first[sh], None) for sh in shapes]
-    cases.append(("path+window", rec.first[longest], 1024))
-    cases.append(("gqa", gqa, None))
+    cases = [("path", rec.first[sh], None, True) for sh in shapes]
+    cases.append(("path+window", rec.first[longest], 1024, True))
+    cases.append(("gqa", gqa, None, True))
     cases += list(extra)
     rows = []
     shared: dict = {}        # the row; the profiler fills its device_ms too
-    for label, (q, k, v), window in cases:
+    for label, (q, k, v), window, causal in cases:
         b, s, h, hd = q.shape
-        got = FA.flash_attention(q, k, v, causal=True, window=window)
-        want = ref.flash_attention(q, k, v, causal=True, window=window)
-        tol = ref.flash_attention_tolerance(q, k, v, want, causal=True,
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        tol = ref.flash_attention_tolerance(q, k, v, want, causal=causal,
                                             window=window).clamp_min_(1e-30)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
@@ -4188,14 +4666,14 @@ def flash_row(rec: ShapeRecorder, k7_by_path: dict,
               f"K7 {label} {tuple(q.shape)}: differs from the plain version "
               f"by {max_err} ({err_over_tol} of the bf16 tolerance)")
         fault = None
-        if window is None and s >= 128:
+        if window is None and causal and s >= 128:
             fault = float(((dropped_tile(q, k, v).float()
                             - want[:, s - 64:].float()).abs()
                            / tol[:, s - 64:]).max())
             check(fault > 1.0, f"K7 {label}: a dropped key tile stays "
                                f"within the tolerance ({fault} of it)")
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-        b_ms, b_by = bound(attention_flops(b, s, h, hd, k.shape[1], True,
+        b_ms, b_by = bound(attention_flops(b, s, h, hd, k.shape[1], causal,
                                            window), nbytes, PEAK_BF16_FLOPS)
         plain_abs = want.float().abs()
         stats = dict(max_abs_plain=float(plain_abs.max()),
@@ -4206,28 +4684,30 @@ def flash_row(rec: ShapeRecorder, k7_by_path: dict,
                      dropped_tile_err_over_tol=fault)
         del got, want, err, tol, plain_abs
         # kernel and library in turns: kernel, sdpa, sdpa, kernel
-        ms_k = [cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True,
+        ms_k = [cuda_ms(lambda: FA.flash_attention(q, k, v, causal=causal,
                                                    window=window), 20)]
-        ms_l = [cuda_ms(lambda: sdpa(q, k, v, window), 20) for _ in range(2)]
-        ms_k.append(cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True,
+        ms_l = [cuda_ms(lambda: sdpa(q, k, v, window, causal), 20)
+                for _ in range(2)]
+        ms_k.append(cuda_ms(lambda: FA.flash_attention(q, k, v, causal=causal,
                                                        window=window), 20))
         rows.append(dict(
             case=label, shape=list(q.shape), kv_heads=k.shape[2],
-            window=window, max_abs_err=max_err, **stats,
+            window=window, causal=causal, max_abs_err=max_err, **stats,
             ms=sum(ms_k) / 2, ms_runs=ms_k,
             plain_ms=cuda_ms(lambda: ref.flash_attention(
-                q, k, v, causal=True, window=window), 3, warmup=1),
+                q, k, v, causal=causal, window=window), 3, warmup=1),
             library_ms=sum(ms_l) / 2, library_ms_runs=ms_l,
             ratio_to_library=sum(ms_k) / sum(ms_l),
             bound_ms=b_ms, bound_by=b_by))
         targets = (rows[-1], shared) if len(rows) == 1 else (rows[-1],)
         profiles.add(f"K7 {label} {tuple(q.shape)}",
                      "flash_attention.flash_attention", (q, k, v), "flash_fwd",
-                     "flash_attention", 20, *targets, causal=True,
+                     "flash_attention", 20, *targets, causal=causal,
                      window=window)
         torch.cuda.empty_cache()
         print(f"[kernel] flash_attention {label} {tuple(q.shape)} kv "
-              f"{k.shape[2]} window {window}: {rows[-1]['ms']:.4f} ms "
+              f"{k.shape[2]} causal {causal} window {window}: "
+              f"{rows[-1]['ms']:.4f} ms "
               f"(runs {ms_k}; plain {rows[-1]['plain_ms']:.4f} ms, sdpa "
               f"{rows[-1]['library_ms']:.4f} ms (runs {ms_l}), kernel/sdpa "
               f"{rows[-1]['ratio_to_library']:.3f}, bound {b_ms:.4f} ms by "
@@ -4564,7 +5044,8 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
     flash = next(r for r in rows if r["name"] == "flash_attention")
     for case in flash["cases"]:
         print(f"[K7] {case['case']} {case['shape']} kv {case['kv_heads']} "
-              f"window {case['window']}: {case['ms']:.4f} ms by events, "
+              f"causal {case['causal']} window {case['window']}: "
+              f"{case['ms']:.4f} ms by events, "
               f"{case.get('device_ms')} ms device, sdpa "
               f"{case['library_ms']:.4f} ms, kernel/sdpa "
               f"{case['ratio_to_library']:.3f}, bound {case['bound_ms']:.4f} "
@@ -4626,10 +5107,10 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="corpus points (default: Table III's 10^6)")
     ap.add_argument("--queries", type=int, default=64)
-    ap.add_argument("--semantics-queries", type=int, default=32,
+    ap.add_argument("--semantics-queries", type=int, default=16,
                     help="queries of the batch run under each semantics "
                          "variant on both backends")
-    ap.add_argument("--filter-feasible", type=int, default=32,
+    ap.add_argument("--filter-feasible", type=int, default=16,
                     help="feasible queries drawn per filter")
     ap.add_argument("--compare", type=int, default=8,
                     help="queries per tier held to the numpy backend")
@@ -4641,17 +5122,17 @@ def main() -> int:
                     help="points inserted in the streaming phase (8 batches)")
     ap.add_argument("--stream-deletes", type=int, default=1_000,
                     help="points deleted there, half bulk and half delta")
-    ap.add_argument("--tenant-points", type=int, default=50_000,
+    ap.add_argument("--tenant-points", type=int, default=25_000,
                     help="points per tenant of the tenant-scoped check")
     ap.add_argument("--runtime-points", type=int, default=10_000,
                     help="points churned through the serving runtime (8 "
                          "insert ops; a tenth deleted): its compaction "
                          "threshold")
-    ap.add_argument("--ingest-docs", type=int, default=5_000,
+    ap.add_argument("--ingest-docs", type=int, default=2_500,
                     help="documents through the ingest pipeline into the "
                          "runtime (keep it under the threshold left after "
                          "the runtime's compactions)")
-    ap.add_argument("--launch-docs", type=int, default=2_000,
+    ap.add_argument("--launch-docs", type=int, default=1_000,
                     help="documents the launcher ingests before serving")
     ap.add_argument("--launch-points", type=int, default=100_000,
                     help="corpus points of the launcher's child process")
@@ -4767,14 +5248,16 @@ def main() -> int:
             "embed", embed, args, report)
         rec_k7_model, rec_k5_model = phase(
             "ingest-model", ingest_model_phase, args, report, model, by_path)
+        k7_generate = phase("generate", generate_phase, args, report, model,
+                            by_path)
         del model
         ts = time.perf_counter()
         rows.append(flash_row(rec, {
             "embed": k7, **{p: c["flash_attention"] for p, c in by_path.items()
                             if c["flash_attention"]}}, profiles,
-            [("ingest-model", qkv, None)
-             for qkv in rec_k7_model.first.values()]))
-        del rec, rec_k7_model
+            [("ingest-model", qkv, None, True)
+             for qkv in rec_k7_model.first.values()] + k7_generate))
+        del rec, rec_k7_model, k7_generate
         star_by, k6_by = ({p: c[n] for p, c in by_path.items()}
                           for n in ("anchor_star", "tuple_diameters"))
         star_by["embed-device"] = k6["anchor_star"]

@@ -1,5 +1,5 @@
 """minicpm-2b [dense] — 40L d_model=2304 36H (GQA kv=36) d_ff=5760
-vocab=122753, llama-like. [arXiv:2404.06395; hf]"""
+vocab=122753, WSD schedule, llama-like. [arXiv:2404.06395; hf]"""
 from repro_torch.configs.base import ArchConfig
 
 CONFIG = ArchConfig(
@@ -14,4 +14,6 @@ CONFIG = ArchConfig(
     head_dim=64,
     mlp="swiglu",
     norm="rmsnorm",
+    schedule="wsd",
+    tie_embeddings=True,
 )

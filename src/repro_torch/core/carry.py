@@ -1,10 +1,10 @@
 """Carry a built corpus, an index or model parameters across as plain arrays.
 
-The serving state is the corpus and the two ProMiSH indices; the embedder's
-is the language model's parameters. These constructors rebuild that state
-from plain numpy arrays — what any other implementation (or a file) can hand
-over — so an engine answers, and a model embeds, as the one the arrays were
-read from.
+The serving state is the corpus and the two ProMiSH indices; the language
+model's is its parameters (any of the ten architectures). These
+constructors rebuild that state from plain numpy arrays — what any other
+implementation (or a file) can hand over — so an engine answers, and a
+model embeds and generates, as the one the arrays were read from.
 """
 from __future__ import annotations
 
@@ -76,9 +76,14 @@ def index_to_arrays(index: PromishIndex) -> dict:
                         for h in index.structures])
 
 
-# Parameters held in fp32 (the norms' weights, which the forward reads in
-# fp32); every other leaf is a matrix or bias the forward casts to bf16.
-_FP32_LEAVES = ("w", "b", "qn", "kn")
+# Parameters held in fp32: the norms' weights and biases, and the leaves the
+# reference reads in fp32 (the MoE router, the SSM's conv taps and biases in
+# its one-token step, its decay, skip, dt bias and gated-norm weight, and the
+# vision gates, tanh of an fp32 scalar). Every other leaf is a matrix, bias
+# or position table the forward casts to bf16.
+_FP32_LEAVES = ("w", "b", "qn", "kn", "router", "conv_x", "conv_b", "conv_c",
+                "conv_bias_x", "conv_bias_b", "conv_bias_c", "a_log",
+                "d_skip", "dt_bias", "norm_w", "gate_a", "gate_m")
 
 
 def _leaf(name: str, a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -87,29 +92,79 @@ def _leaf(name: str, a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _convert(node: dict, device: torch.device, index: tuple = ()) -> dict:
+    """A parameter dict with every leaf read at ``index`` of its leading
+    (stacked) axes."""
+    return {k: _convert(v, device, index) if isinstance(v, dict)
+            else _leaf(k, np.asarray(v)[index], device)
+            for k, v in node.items()}
+
+
+def _stack_len(node: dict) -> int:
+    leaf = node
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return len(leaf)
+
+
 def model_params_from_numpy(cfg: ArchConfig, tree: dict, *,
                             device: str | torch.device | None = None) -> dict:
     """The port's parameters, on ``device`` (the card unless the caller
-    asks for another), from a dense model's parameter tree as numpy arrays:
-    fp32 leaves, the layers stacked on a leading axis (the layout of the
-    reference's ``init_params``). Matrices and biases become bf16 — the
-    value the forward casts them to at every use — and norm weights stay
-    fp32. The layer stack becomes a list of per-layer dictionaries. An
-    untied output head is not carried: the embedding forward never reads
-    it."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family}: dense only")
+    asks for another), from a model's parameter tree as numpy arrays in the
+    layout of the reference's ``init_params``: fp32 leaves, homogeneous
+    layers stacked on a leading axis, super-blocks on two. Leaves the
+    forward reads in fp32 stay fp32 (:data:`_FP32_LEAVES`); every other
+    leaf becomes bf16, the value the forward casts it to at every use. The
+    stacks become lists:
+
+      * ``layers`` (dense, state-space, hybrid, MoE with ``every == 1``):
+        one dict a layer;
+      * MoE super-blocks ``{"dense": (nb, every - 1, ...), "moe": (nb,
+        ...)}``: one ``{"dense": [...], "moe": {...}}`` a block;
+      * vision ``{"self": (nb, every - 1, ...), "cross": (nb, ...)}``: one
+        ``{"self": [...], "cross": {...}}`` a block, and ``vis_proj``;
+      * audio: ``enc_layers`` and ``dec_layers``, with ``enc_pos``,
+        ``dec_pos`` and ``enc_norm``.
+
+    The embedding table and, when the head is untied, ``embed.head`` are
+    carried."""
+    from repro_torch.models.transformer import n_blocks
     device = resolve_device(device)
-
-    def convert(node, index=None):
-        return {k: convert(v, index) if isinstance(v, dict)
-                else _leaf(k, v if index is None else v[index], device)
-                for k, v in node.items()}
-
+    fam = cfg.family
+    out = {"embed": _convert(tree["embed"], device),
+           "final_norm": _convert(tree["final_norm"], device)}
+    if fam == "audio":
+        for name in ("enc_layers", "dec_layers"):
+            stacked = tree[name]
+            out[name] = [_convert(stacked, device, (i,))
+                         for i in range(_stack_len(stacked))]
+        want = (cfg.enc_layers, cfg.n_layers)
+        got = (len(out["enc_layers"]), len(out["dec_layers"]))
+        if got != want:
+            raise ValueError(f"{got} stacked encoder/decoder layers, config "
+                             f"has {want}")
+        for name in ("enc_pos", "dec_pos"):
+            out[name] = _leaf(name, tree[name], device)
+        out["enc_norm"] = _convert(tree["enc_norm"], device)
+        return out
     stacked = tree["layers"]
-    n = len(stacked["ln1"]["w"])
-    if n != cfg.n_layers:
-        raise ValueError(f"{n} stacked layers, config has {cfg.n_layers}")
-    return {"embed": {"tok": _leaf("tok", tree["embed"]["tok"], device)},
-            "final_norm": convert(tree["final_norm"]),
-            "layers": [convert(stacked, i) for i in range(n)]}
+    nb = n_blocks(cfg)
+    if fam == "moe" and cfg.moe.every > 1:
+        inner, outer, per = "dense", "moe", cfg.moe.every - 1
+    elif fam == "vlm":
+        inner, outer, per = "self", "cross", cfg.cross_attn_every - 1
+    else:
+        inner = None
+    n = _stack_len(stacked)
+    if n != nb:
+        raise ValueError(f"{n} stacked layers, config has {nb}")
+    if inner is None:
+        out["layers"] = [_convert(stacked, device, (i,)) for i in range(n)]
+    else:
+        out["layers"] = [{inner: [_convert(stacked[inner], device, (i, j))
+                                  for j in range(per)],
+                          outer: _convert(stacked[outer], device, (i,))}
+                         for i in range(n)]
+    if fam == "vlm":
+        out["vis_proj"] = _leaf("vis_proj", tree["vis_proj"], device)
+    return out

@@ -1,39 +1,77 @@
-"""Model API of the port: ``init`` and ``embed``.
+"""Model API of the port: one entry point for all ten architectures.
 
     api = model_api(get_config("minicpm-2b"))
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
     # on the host: api.init(torch.Generator().manual_seed(0), device="cpu")
-    emb = api.embed(params, {"tokens": tokens})   # (B, d_model) -> points
+    loss, metrics = api.loss(params, batch)          # forward value only
+    logits, cache = api.prefill(params, batch, max_seq=576)
+    logits, cache = api.decode(params, cache, tokens)   # tokens (B, 1)
+    cache = api.init_cache(batch=8, max_seq=576)
+    emb = api.embed(params, batch)   # (B, d_model) -> ProMiSH points
 
-The reference's ``loss``, ``prefill`` and ``decode`` come with the training
-and serving slices of the LM stack.
+``batch`` holds ``"tokens"`` (B, S), and ``"targets"`` (and an optional
+``"mask"``) for the loss, ``"patches"`` (B, vision_tokens, vision_dim) for
+the vision family, ``"frames"`` (B, audio_frames, d_model) for the audio
+family. ``loss`` is the reference's forward value with no autograd: the
+training step, its optimizer and the attention backward come with the
+training slice. ``count_params`` and ``active_params`` build the parameters
+as fake tensors (``meta`` storage), which allocates nothing.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.backend import resolve_device
+from repro_torch.models import audio as audio_lib
 from repro_torch.models import transformer as tf_lib
-from repro_torch.models.common import Params
+from repro_torch.models.common import ACT_DTYPE, Params
 
 Batch = dict[str, Any]
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor,
+          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross-entropy with an fp32 log-sum-exp."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ArchConfig
     init: Callable
+    loss: Callable
+    prefill: Callable
+    decode: Callable
+    init_cache: Callable
     embed: Callable
 
 
+def _extra_of(cfg: ArchConfig, batch: Batch):
+    if cfg.family == "vlm":
+        return {"patches": batch["patches"]}
+    if cfg.family == "audio":
+        return {"frames": batch["frames"]}
+    return None
+
+
+def _module(cfg: ArchConfig):
+    return audio_lib if cfg.family == "audio" else tf_lib
+
+
 def model_api(cfg: ArchConfig) -> ModelAPI:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family}: the port runs the "
-                                  f"dense family only")
+    mod = _module(cfg)
 
     def init(gen: torch.Generator, *,
              device: str | torch.device | None = None) -> Params:
@@ -43,17 +81,72 @@ def model_api(cfg: ArchConfig) -> ModelAPI:
         if resolve_device(gen.device) != device:
             raise ValueError(f"generator on {gen.device}, parameters asked "
                              f"for on {device}")
-        return tf_lib.init_params(cfg, gen)
+        return mod.init_params(cfg, gen)
+
+    def loss(params: Params, batch: Batch):
+        """(xent + aux, {"xent", "aux"}), fp32 scalars; no autograd."""
+        with torch.no_grad():
+            logits, aux = mod.forward_train(params, cfg, batch["tokens"],
+                                            extra=_extra_of(cfg, batch))
+            xent = _xent(logits, batch["targets"], batch.get("mask"))
+        return xent + aux, {"xent": xent, "aux": aux}
+
+    def prefill(params: Params, batch: Batch, *, max_seq: int | None = None):
+        """(last-token logits (B, padded vocab), cache at ``max_seq``)."""
+        return mod.prefill(params, cfg, batch["tokens"],
+                           extra=_extra_of(cfg, batch), max_seq=max_seq)
+
+    def decode(params: Params, cache: Params, tokens: torch.Tensor):
+        """One step of (B, 1) tokens: (logits, cache advanced in place)."""
+        return mod.decode(params, cfg, cache, tokens)
+
+    def init_cache(batch: int, max_seq: int, *,
+                   device: str | torch.device | None = None,
+                   dtype=ACT_DTYPE) -> Params:
+        """An empty cache on ``device`` (the card unless asked)."""
+        return mod.init_cache(cfg, batch, max_seq,
+                              device=resolve_device(device), dtype=dtype)
 
     def embed(params: Params, batch: Batch) -> torch.Tensor:
         """Mean-pooled final hidden states -> (B, d_model) bf16, under
         ``batch["mask"]`` (B, S) when given. Sums accumulate in fp32 and
         round to bf16, as the reference's bf16 reductions do."""
-        hidden = tf_lib.forward_train(params, cfg, batch["tokens"])
+        hidden, _ = mod.forward_train(params, cfg, batch["tokens"],
+                                      extra=_extra_of(cfg, batch),
+                                      return_hidden=True)
         mask = batch.get("mask")
         if mask is None:
             return hidden.mean(dim=1)
         m = mask.to(hidden.dtype)[..., None]
         return (hidden * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
 
-    return ModelAPI(cfg=cfg, init=init, embed=embed)
+    return ModelAPI(cfg=cfg, init=init, loss=loss, prefill=prefill,
+                    decode=decode, init_cache=init_cache, embed=embed)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def count_params(cfg: ArchConfig) -> int:
+    """Parameters of the architecture (the padded vocabulary included),
+    counted on fake tensors: shapes on the ``meta`` device, no storage."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        params = _module(cfg).init_params(cfg, torch.Generator())
+        return sum(math.prod(t.shape) for t in _leaves(params))
+
+
+def active_params(cfg: ArchConfig) -> int:
+    """Parameters a token uses (mixture of experts: top-k of the pool)."""
+    total = count_params(cfg)
+    if cfg.moe is None:
+        return total
+    e, k, f, d = (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
+                  cfg.d_model)
+    n_moe_layers = cfg.n_layers // cfg.moe.every
+    return total - n_moe_layers * (e - k) * 3 * d * f

@@ -1,7 +1,7 @@
-"""Shared layers of the dense decoder: plain functions over tensors.
+"""Shared layers of the language models: plain functions over tensors.
 
-The port of the reference package's ``models/common.py``, trimmed to what the
-dense forward runs. Conventions, as there:
+The port of the reference package's ``models/common.py``. Conventions, as
+there:
 
   * activations bf16; matrix weights are held in bf16 (the value the
     reference casts its fp32 parameters to at every product), norm weights
@@ -9,8 +9,12 @@ dense forward runs. Conventions, as there:
   * parameters are dictionaries of tensors under the reference's names and
     layouts (attention weights head-axis-explicit: wq (D, H, hd),
     wo (H, hd, D));
-  * the self-attention goes through ``kernels.ops.flash_attention``: the
-    hand-written kernel K7 on the card, its plain version on the CPU.
+  * a self-attention over a whole sequence (the forward and prefill) goes
+    through ``kernels.ops.flash_attention``: the hand-written kernel K7 on
+    the card, its plain version on the CPU. A decode step (one query over
+    the cache) and cross-attention (queries and keys of different lengths)
+    take the reference's direct path in torch ops, as the reference never
+    sends them to its kernel: bf16 operands, fp32 products and softmax.
 
 Tensor-parallel sharding hints have no meaning on one card and are not
 ported; the grouped-query heads are read in place by the kernel.
@@ -101,6 +105,8 @@ class AttnSpec:
     d_model: int
     qk_norm: bool = False
     bias: bool = False
+    causal: bool = True
+    window: int | None = None       # sliding-window width (tokens) or None
     rope_theta: float | None = 10_000.0
 
 
@@ -146,17 +152,105 @@ def _project_qkv(p: Params, spec: AttnSpec, x: torch.Tensor,
     return q, k, v
 
 
+def f32_dot(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` of bf16 operands with fp32 products and sums, the
+    reference's ``preferred_element_type=float32``: the operands are rounded
+    to bf16 and multiplied in fp32 (a bf16 product would round its result
+    to bf16)."""
+    return torch.einsum(equation, a.to(ACT_DTYPE).float(),
+                        b.to(ACT_DTYPE).float())
+
+
+def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's direct attention path (``blockwise_attention`` for a
+    decode step or a short sequence): q (B, S, H, hd), k, v (B, T, Kv, hd),
+    ``valid`` a (B, S, T) or broadcastable bool mask or None (every key).
+    Scores in fp32 from bf16 operands, masked to -1e30, an fp32 softmax, the
+    probabilities rounded to v's dtype for the PV product (fp32 sums), the
+    output in q's dtype."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, hd)
+    sc = f32_dot("bskgd,btkd->bksgt", qg, k) * (1.0 / float(hd) ** 0.5)
+    if valid is not None:
+        sc = sc.masked_fill(~valid[:, None, :, None, :], -1e30)
+    p = torch.softmax(sc, dim=-1)
+    out = f32_dot("bksgt,btkd->bksgd", p.to(v.dtype), v)
+    return out.permute(0, 2, 1, 3, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) x (H, hd, D) -> (B, S, D)."""
+    h, hd, d = wo.shape
+    return out.flatten(-2) @ wo.to(out.dtype).reshape(h * hd, d)
+
+
 def self_attention(p: Params, spec: AttnSpec, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over a whole sequence (no cache): (B, S, D) ->
-    (B, S, D). Positions must be 0..S-1 on every row, which is what the
-    attention kernel assumes. (The reference's sliding-window option serves
-    the hybrid family, not ported yet; the kernel takes a window.)"""
+                   positions: torch.Tensor, *,
+                   cache: Params | None = None) -> tuple[torch.Tensor, Params]:
+    """Self-attention, (B, S, D) -> ((B, S, D), kv).
+
+    Without a cache (the forward and prefill) ``positions`` must be 0..S-1
+    on every row, which is what the kernel assumes; the whole sequence goes
+    through ``ops.flash_attention`` (K7 on the card) under the spec's
+    causality and window, and ``kv`` is this sequence's ``{"k", "v"}``
+    (B, S, Kv, hd). With ``cache = {"k", "v"}`` (B, T, Kv, hd) tensors and
+    ``"pos"`` (a Python int, the position of the first new token), a decode
+    step: the new keys and values are written into the cache tensors in
+    place at ``pos``, and the queries attend, by the reference's direct
+    path, to the keys at or before ``pos`` and their own position, inside
+    the window (the reference's mask). Masked keys carry no weight, so only
+    the live span of the cache is read. ``kv`` is then the updated cache
+    tensors."""
     q, k, v = _project_qkv(p, spec, x, positions)
-    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True)
-    h, hd, d = p["wo"].shape
-    return out.flatten(-2) @ p["wo"].to(x.dtype).reshape(h * hd, d)
+    if cache is None:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=spec.causal,
+                                  window=spec.window)
+        return _out_proj(out, p["wo"]), {"k": k, "v": v}
+    pos, s = cache["pos"], x.shape[1]
+    k_all, v_all = cache["k"], cache["v"]
+    k_all[:, pos:pos + s] = k.to(k_all.dtype)
+    v_all[:, pos:pos + s] = v.to(v_all.dtype)
+    # the reference's mask: keys at or before ``pos``, at or before the
+    # query, inside its window; keys before ``lo`` are outside every window
+    lo = 0 if spec.window is None else max(0, pos - spec.window + 1)
+    kv_pos = torch.arange(lo, pos + 1, device=x.device)
+    q_pos = positions[:, :, None]
+    valid = kv_pos <= q_pos if spec.causal \
+        else torch.ones_like(kv_pos <= q_pos)
+    if spec.window is not None:
+        valid = valid & (kv_pos > q_pos - spec.window)
+    out = direct_attention(q, k_all[:, lo:pos + 1], v_all[:, lo:pos + 1],
+                           valid)
+    return _out_proj(out, p["wo"]), {"k": k_all, "v": v_all}
+
+
+def cross_kv(p: Params, spec: AttnSpec,
+             kv_src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention keys and values (B, T, Kv, hd) from memory tokens
+    (B, T, D): computed once a request and cached in serving."""
+    k, v = _heads(kv_src, p["wk"]), _heads(kv_src, p["wv"])
+    if spec.qk_norm:
+        k = rmsnorm(k, p["kn"])
+    return k, v
+
+
+def cross_attention(p: Params, spec: AttnSpec, x: torch.Tensor,
+                    kv_src: torch.Tensor | None = None, *,
+                    k: torch.Tensor | None = None,
+                    v: torch.Tensor | None = None) -> torch.Tensor:
+    """Cross-attention: queries from x (B, S, D), keys and values from
+    ``kv_src`` (B, T, D) or given (k, v); no RoPE, no mask. The reference
+    runs it on its direct path (its kernel takes T == S only)."""
+    if k is None:
+        k, v = cross_kv(p, spec, kv_src)
+    q = _heads(x, p["wq"])
+    if spec.qk_norm:
+        q = rmsnorm(q, p["qn"])
+    return _out_proj(direct_attention(q, k, v), p["wo"])
 
 
 # ---------------------------------------------------------------------- MLP
@@ -189,11 +283,30 @@ def padded_vocab(vocab: int) -> int:
     return ((vocab + VOCAB_ALIGN - 1) // VOCAB_ALIGN) * VOCAB_ALIGN
 
 
-def init_embed(gen: torch.Generator, vocab: int, d: int) -> Params:
-    """Embedding table padded to :data:`VOCAB_ALIGN` rows. (The reference's
-    untied output head comes with the slice that computes logits.)"""
-    return {"tok": dense_init(gen, (padded_vocab(vocab), d))}
+def init_embed(gen: torch.Generator, vocab: int, d: int,
+               tie: bool) -> Params:
+    """Embedding table padded to :data:`VOCAB_ALIGN` rows, and an untied
+    output head (D, padded vocab) unless ``tie``. Padded logit columns are
+    pushed to -1e30 in :func:`unembed`."""
+    vp = padded_vocab(vocab)
+    p = {"tok": dense_init(gen, (vp, d))}
+    if not tie:
+        p["head"] = dense_init(gen, (d, vp))
+    return p
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["tok"].to(ACT_DTYPE)[tokens]
+
+
+def unembed(p: Params, x: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(..., D) -> (..., padded vocab) logits in x's dtype: through the
+    head, or the embedding table when tied; the padded columns get -1e30
+    added in the logits' dtype."""
+    w = p["head"] if "head" in p else p["tok"].t()
+    logits = x @ w.to(x.dtype)
+    vp = logits.shape[-1]
+    if vp != vocab:
+        pad = (torch.arange(vp, device=x.device) >= vocab).to(logits.dtype)
+        logits = logits + pad * -1e30
+    return logits

@@ -1579,3 +1579,99 @@ def test_plane_engine_matches_one_device_on_card():
         st = eight.last_batch_stats
         assert st.backend == "device-plane"
         assert st.shard_dispatches == [len(qs)] * 8
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["minicpm-2b", "qwen3-32b", "codeqwen1.5-7b",
+                                  "starcoder2-7b", "mamba2-2.7b",
+                                  "olmoe-1b-7b", "llama4-maverick-400b-a17b",
+                                  "hymba-1.5b", "llama-3.2-vision-90b",
+                                  "whisper-large-v3"])
+def test_lm_serving_on_card_matches_cpu(name):
+    """Each family's smoke config, head dim 64 (K7 takes 64 or 128), on the
+    card against the port on the CPU: the forward's logits, prefill and
+    three decode steps within 2^-5 of the largest logit (K7 against its
+    plain version, cuBLAS against the CPU's sums), the vision gates set to
+    0.7 so that cross-attention shows. Mixture-of-experts layers on the card
+    take the CPU's expert choices (a near tie may route otherwise under
+    other rounding; ``tests/test_torch_lm_serve.py``). K7 launches in the
+    forward and prefill of every family with attention, never in decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import audio, transformer
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.api import model_api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(name).smoke(), head_dim=64)
+    api = model_api(cfg)
+    mod = audio if cfg.family == "audio" else transformer
+    cpu = api.init(torch.Generator().manual_seed(0), device="cpu")
+    for block in cpu["layers"] if cfg.family == "vlm" else []:
+        block["cross"]["gate_a"].fill_(0.7)
+        block["cross"]["gate_m"].fill_(0.7)
+    card = _to(cpu, "cuda")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                     generator=gen)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(2, cfg.vision_tokens, cfg.vision_dim,
+                                       generator=gen).to(torch.bfloat16)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(2, cfg.audio_frames, cfg.d_model,
+                                      generator=gen).to(torch.bfloat16)
+    steps = torch.randint(0, cfg.vocab_size, (3, 2, 1), generator=gen)
+
+    route, chosen = tmoe.route, []
+
+    def run(params, b, replay):
+        calls = iter(chosen) if replay else None
+
+        def routed(p, x, mcfg):
+            probs, w, e, aux = route(p, x, mcfg)
+            if calls is None:
+                chosen.append(e.cpu())
+                return probs, w, e, aux
+            e = next(calls).to(x.device)
+            w = torch.gather(probs, -1, e)
+            return probs, w / w.sum(-1, keepdim=True).clamp_min(1e-9), e, aux
+        tmoe.route = routed
+        try:
+            with torch.inference_mode():
+                full, _ = mod.forward_train(
+                    params, cfg, b["tokens"],
+                    extra={k: b[k] for k in ("patches", "frames")
+                           if k in b} or None)
+                flash.reset_launches()
+                out = [api.prefill(params, b, max_seq=20)]
+                k7_prefill = flash.launches["flash_attention"]
+                for tok in steps:
+                    out.append(api.decode(params, out[-1][1],
+                                          tok.to(b["tokens"].device)))
+                k7_decode = flash.launches["flash_attention"] - k7_prefill
+        finally:
+            tmoe.route = route
+        return full, [o[0] for o in out], k7_prefill, k7_decode
+
+    want_full, want, _, _ = run(cpu, batch, False)
+    got_full, got, k7_prefill, k7_decode = run(card, _to(batch, "cuda"), True)
+    for g, w, what in [(got_full, want_full, "forward")] + [
+            (g, w, f"step {i}") for i, (g, w) in enumerate(zip(got, want))]:
+        g, w = g.float().cpu(), w.float()
+        assert bool(torch.isfinite(g).all()), what
+        assert float((g - w).abs().max()) <= 2.0 ** -5 * float(
+            w.abs().max()), what
+    attn_layers = {"ssm": 0, "audio": cfg.enc_layers + cfg.n_layers}.get(
+        cfg.family, cfg.n_layers - (cfg.n_layers // cfg.cross_attn_every
+                                    if cfg.family == "vlm" else 0))
+    assert k7_prefill == attn_layers and k7_decode == 0

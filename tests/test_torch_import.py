@@ -11,8 +11,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def test_cpu_query_batch_runs_with_jax_blocked():
-    """A CPU query batch in every tier and a smoke embed-and-ingest, with
-    JAX blocked."""
+    """A CPU query batch in every tier, a smoke embed-and-ingest, and a
+    prefill and a decode step of three families, with JAX blocked."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None          # any import of jax now fails
@@ -48,6 +48,21 @@ def test_cpu_query_batch_runs_with_jax_blocked():
             api, params, batches, [[i % 3, 3] for i in range(8)],
             device="cpu", n_scales=3)
         assert tagged.query_batch([[0, 3]], k=1)[0].candidates
+        from repro_torch.launch.step import make_decode_step, make_prefill_step
+        for arch in ("mamba2-2.7b", "olmoe-1b-7b", "whisper-large-v3"):
+            cfg = get_config(arch).smoke()
+            api = model_api(cfg)
+            params = api.init(torch.Generator().manual_seed(2), device="cpu")
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 6),
+                                             generator=gen)}
+            if cfg.family == "audio":
+                batch["frames"] = torch.randn(
+                    2, cfg.audio_frames, cfg.d_model, generator=gen)
+            logits, cache = make_prefill_step(cfg, max_seq=8)(params, batch)
+            tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            logits, cache = make_decode_step(cfg)(params, cache, tok)
+            assert cache["pos"] == 7 and logits.shape[0] == 2
+            assert bool(torch.isfinite(logits.float()).all())
         loaded = [m for m in sys.modules
                   if m == "repro" or m.startswith(("repro.", "jax"))]
         assert loaded == ["jax"], loaded      # only the blocking sentinel

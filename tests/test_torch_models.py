@@ -1,4 +1,5 @@
-"""The port's dense decoder against the reference package, on the CPU.
+"""The port's dense decoder against the reference package, on the CPU, and
+every architecture's config.
 
 The reference initialises each dense architecture's ``smoke()`` config; its
 fp32 parameters go to the port through ``core.carry.model_params_from_numpy``
@@ -17,6 +18,8 @@ sums round once at the end but whose inputs may already differ by an ulp,
 within 2^-6 of the output's largest magnitude; the whole forward (2 to 4
 layers and the mean pool) within 2^-5 of it.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +30,7 @@ from repro.configs import get_config as ref_get_config
 from repro.models import common as rc
 from repro.models import transformer as rt
 from repro.models.api import model_api as ref_model_api
-from repro_torch.configs import LATER_SLICE, REGISTRY, get_config
+from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core.carry import model_params_from_numpy
 from repro_torch.models import common as tc
 from repro_torch.models import transformer as tt
@@ -35,7 +38,7 @@ from repro_torch.models.api import model_api
 
 torch.set_num_threads(1)
 
-DENSE = sorted(REGISTRY)
+DENSE = sorted(n for n, c in REGISTRY.items() if c.family == "dense")
 B, S = 2, 24
 
 
@@ -78,21 +81,24 @@ def _positions():
         torch.arange(S, dtype=torch.int32).expand(B, S)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", sorted(REGISTRY))
 def test_configs_match_reference(name):
     for ours, theirs in ((get_config(name), ref_get_config(name)),
                          (get_config(name).smoke(),
                           ref_get_config(name).smoke())):
+        assert set(ours.__dataclass_fields__) \
+            == set(theirs.__dataclass_fields__)
         for field in ours.__dataclass_fields__:
-            assert getattr(ours, field) == getattr(theirs, field), field
+            a, b = getattr(ours, field), getattr(theirs, field)
+            if dataclasses.is_dataclass(b):      # the MoE and SSM blocks
+                assert dataclasses.asdict(a) == dataclasses.asdict(b), field
+            else:
+                assert a == b, field
+        if theirs.moe is not None:
+            assert ours.moe.expert_parallel(ours.d_model) \
+                == theirs.moe.expert_parallel(theirs.d_model)
         assert ours.resolved_head_dim == theirs.resolved_head_dim
-
-
-@pytest.mark.parametrize("name", sorted(LATER_SLICE))
-def test_other_families_name_their_slice(name):
-    assert ref_get_config(name).family == LATER_SLICE[name] != "dense"
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        get_config(name)
+        assert ours.is_encoder_decoder == theirs.is_encoder_decoder
 
 
 @pytest.mark.parametrize("entry", ["init", "carry"])
@@ -126,7 +132,9 @@ def test_embed_tokens_and_vocab_padding(arch):
     rcfg, cfg, rparams, tparams = arch
     assert tc.padded_vocab(cfg.vocab_size) == rc.padded_vocab(rcfg.vocab_size)
     assert tparams["embed"]["tok"].shape[0] % tc.VOCAB_ALIGN == 0
-    assert set(tparams["embed"]) == {"tok"}       # no untied head carried
+    # the output head is carried where it is not tied to the table
+    assert set(tparams["embed"]) == ({"tok"} if cfg.tie_embeddings
+                                     else {"tok", "head"})
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
     want = rc.embed_tokens(rparams["embed"], jnp.asarray(toks))
     got = tc.embed_tokens(tparams["embed"], torch.from_numpy(toks))
@@ -180,7 +188,7 @@ def test_self_attention(arch):
     jx, tx = _x((B, S, cfg.d_model), seed=5)
     jpos, tpos = _positions()
     want, _ = rc.self_attention(rl["attn"], rt.attn_spec(rcfg), jx, jpos)
-    got = tc.self_attention(tl["attn"], tt.attn_spec(cfg), tx, tpos)
+    got, _ = tc.self_attention(tl["attn"], tt.attn_spec(cfg), tx, tpos)
     _close(got, want, 2.0 ** -6)
 
 
@@ -199,7 +207,8 @@ def test_apply_self_layer(arch):
     jx, tx = _x((B, S, cfg.d_model), seed=7)
     jpos, tpos = _positions()
     want, _, _ = rt.apply_self_layer(rl, rcfg, jx, jpos, use_moe=False)
-    _close(tt.apply_self_layer(tl, cfg, tx, tpos), want, 2.0 ** -6)
+    got, _, _ = tt.apply_self_layer(tl, cfg, tx, tpos)
+    _close(got, want, 2.0 ** -6)
 
 
 @pytest.mark.parametrize("masked", [False, True])
