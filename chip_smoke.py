@@ -11,7 +11,7 @@ Phases:
   1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and report
      the card (name and power limit, as nvidia-smi gives them) and the
      ``-Xptxas -v`` lines (registers, shared memory, spills) of the K7,
-     K1-K4 and K6 kernels.
+     K7b, K1-K4 and K6 kernels.
   1b. [build] Build the engine over a flickr-like corpus of 10^6 points
      (Table III's largest real dataset: u=24,874 keywords, t=11 tags, at the
      d=64 top of the paper's dimensionality grid; attribute columns price,
@@ -193,7 +193,7 @@ Phases:
      exit 0. Beside it, and beside no phase that reports a time, the host
      build of 3d's compacted indices runs in child processes (a scale of
      an index each), waited for before [launch].
-  3j. [launch] ``python -m repro_torch.launch.serve`` at 10^5 points
+  3j. [launch] ``python -m repro_torch.launch.serve`` at 5 x 10^4 points
      (``--launch-points``) with ``--runtime --wal --ingest-docs 2000`` on a
      request file (64 queries,
      inserts, a delete, health, snapshot, a malformed line, the queries
@@ -243,6 +243,38 @@ Phases:
      prefill (K7 once an attention layer), the same two checks over 8
      decode steps (MoE at no drop, on the forward's expert choices), the
      MoE slots dropped at the served capacity and the aux loss.
+  4d. [train] Train the language models (after [generate]): (c) the main
+     path, ``launch/train.py``'s entry point for MiniCPM-2B at full width
+     and depth, 3 steps at global batch 2 (cut from train_4k's 256 to one
+     card) and sequence 4,096, remat on, bf16 optimizer state, fp32 master
+     parameters: K7 2 x 40 launches a step (the forward and the remat
+     recompute), K7b 3 x 40 (three kernels a layer), every loss and
+     gradient norm finite, every parameter leaf moved; seconds a step,
+     tokens/s, the model-FLOP share (6 N tokens plus 3 x the attention
+     forward's, over 989 TFLOP/s), ``max_memory_allocated``, and one more
+     step under the profiler (K7, K7b, matrix products, the rest). (d) The
+     fault-tolerant loop at embedder-100m's full size (12 x 768, vocab
+     32,000; ``examples/torch/train_embedder.py``'s config, the launcher's
+     trainer),
+     B=8, S=512, bf16 moments: 6 uninterrupted steps; 6 checkpointed every
+     3 with a SIGTERM in step 4 (saved at step 5); every restored leaf's
+     sha256 equal to its manifest's; a new loop resumes at step 5; the
+     interrupted and resumed losses within 2^-10 of the uninterrupted
+     run's (the embedding's backward sums repeated tokens by atomics, in
+     an order that changes between runs). (b) MiniCPM-2B cut to 2 layers
+     at full width, B=1, S=512: the loss within 2^-8 and every gradient
+     leaf within 2^-4 of its norm plus 2^-10 of the largest (the CPU
+     tests' tolerance) of the same parameters and batch on the CPU, then
+     the AdamW step on both (parameters within 2 lr, each leaf's step
+     within 1/4). (a) K7b against its plain twin at MiniCPM-2B's (2, 4096,
+     36, 64), embedder-100m's (8, 512, 12/4, 64), hymba's (2, 2048, 25/5,
+     64) window 1024 and a hd-128 GQA shape (2, 512, 40/8, 128), all
+     causal, from K7's own output and row statistics: within
+     ``ref.flash_attention_bwd_tolerance``, two calls bit for bit, a
+     dropped key tile outside the tolerance (embedder shape); timed by
+     events beside SDPA's backward (``torch.autograd.grad`` through
+     ``F.scaled_dot_product_attention``), the plain twin, and by the
+     fresh-process profiler (its three kernels one by one).
   5. Hold K7 against its plain PyTorch version on the card: on the path's
      own q, k, v of both shapes (recorded during phase 4), causal; the long
      shape again with window 1024; grouped-query heads (36 query, 4 kv,
@@ -311,6 +343,7 @@ import concurrent.futures
 import ctypes
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -2913,7 +2946,7 @@ finally:
 
 
 def launch_phase(args, report: dict, served, by_path: dict) -> None:
-    """[launch] ``python -m repro_torch.launch.serve --n 100000 --d 64 --u
+    """[launch] ``python -m repro_torch.launch.serve --n 50000 --d 64 --u
     24874 --t 11 --attrs --tier exact --runtime --wal DIR --requests FILE
     --ingest-docs 2000`` in a child process on the card (run as ``-m`` runs
     it, through ``runpy``, so that the child prints its launch counters at
@@ -4549,33 +4582,38 @@ def kernel_table(prof) -> dict:
     return kernels
 
 
-def profile_window(fn, own: tuple[str, str, str]) -> dict:
+def profile_window(fn, owns: list[tuple[str, str, str]]) -> dict:
     """Run ``fn()`` once under torch.profiler (CPU and CUDA activity,
     every event kept): its wall, summed kernel time, busy share (kernel
-    time / wall) and the share of kernel time of the hand-written kernel
-    ``own`` = (label, name mark, launch counter), of matrix products
-    (cuBLAS/CUTLASS kernels) and of everything else. The profiler's events
-    of ``own`` are counted against its launch counter over the window: where
-    they differ, the figures are None beside both counts, since the
-    profiler lost events. Returns ``{}`` if it saw no device time."""
-    label, mark, counter = own
-    before = launch_counts()[counter]
+    time / wall) and the share of kernel time of each hand-written kernel
+    in ``owns`` = [(label, name mark, launch counter), ...], of matrix
+    products (cuBLAS/CUTLASS kernels) and of everything else. Each own
+    kernel's profiler events are counted against its launch counter over
+    the window: where any differ, the figures are None beside the counts,
+    since the profiler lost events. Returns ``{}`` if it saw no device
+    time."""
+    before = launch_counts()
     kernels, wall = profiled(fn, 1)
-    launches = launch_counts()[counter] - before
-    _, events = marked(kernels, mark)
+    after = launch_counts()
     total = sum(v[0] for v in kernels.values())
     if total <= 0.0:
         return {}
-    counts = {"own_events": events, "own_launches": launches,
+    counts = {"own_events": {label: marked(kernels, mark)[1]
+                             for label, mark, _ in owns},
+              "own_launches": {label: after[c] - before[c]
+                               for label, _, c in owns},
               "kernel_events": sum(v[1] for v in kernels.values()),
               "kernel_names": sorted(k[:160] for k in kernels)}
-    if events != launches:
+    if counts["own_events"] != counts["own_launches"]:
         return {"wall_s": wall, "kernel_s": None, "busy_share": None,
-                "share_of_kernel_time": None, **counts}
-    kinds = {label: 0.0, "matmul": 0.0, "other": 0.0}
+                "share_of_kernel_time": None, "kernel_s_by_kind": None,
+                **counts}
+    kinds = {label: 0.0 for label, _, _ in owns}
+    kinds.update(matmul=0.0, other=0.0)
     for name, (sec, _) in kernels.items():
-        kind = label if mark in name else "matmul" \
-            if any(m in name.lower() for m in MATMUL_MARKS) else "other"
+        kind = next((label for label, mark, _ in owns if mark in name),
+                    "matmul" if any(m in name.lower() for m in MATMUL_MARKS)
+                    else "other")
         kinds[kind] += sec
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_s": wall, "kernel_s": total, "busy_share": total / wall,
@@ -4597,16 +4635,18 @@ def profile_embed(api, params, batches) -> dict:
             for b in batches:
                 api.embed(params, {"tokens": torch.as_tensor(
                     b["tokens"], device=dev)})
-    prof = profile_window(run, ("flash_attention (K7)", "flash_fwd",
-                                "flash_attention"))
+    prof = profile_window(run, [("flash_attention (K7)", "flash_fwd",
+                                 "flash_attention")])
     return {"batches": len(batches), **prof} if prof else {}
 
 
 def flash_row(rec: ShapeRecorder, k7_by_path: dict,
               profiles: KernelProfiles, extra=()) -> dict:
     """K7 against its plain version at the embed path's shapes, two
-    variants and the ``extra`` cases (label, (q, k, v), window) that other
-    paths recorded; timings with CUDA events beside
+    variants and the ``extra`` cases (label, (q, k, v), window, causal[,
+    with_lse]) that other paths recorded; with ``with_lse`` (the train
+    step's call) the row log-sum-exp too, within ``LSE_TOL`` of the plain
+    version's; timings with CUDA events beside
     ``F.scaled_dot_product_attention`` on the same inputs, and the kernel's
     device time from the fresh-process profiler. Each case has its own
     numbers; the row's own are those of the shape the embed path launched
@@ -4652,10 +4692,18 @@ def flash_row(rec: ShapeRecorder, k7_by_path: dict,
     cases += list(extra)
     rows = []
     shared: dict = {}        # the row; the profiler fills its device_ms too
-    for label, (q, k, v), window, causal in cases:
+    for label, (q, k, v), window, causal, *with_lse in cases:
         b, s, h, hd = q.shape
-        got = FA.flash_attention(q, k, v, causal=causal, window=window)
-        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        kw = dict(causal=causal, window=window, return_lse=any(with_lse))
+        got = FA.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention(q, k, v, **kw)
+        lse_err = None
+        if kw["return_lse"]:
+            (got, got_lse), (want, want_lse) = got, want
+            lse_err = float((got_lse - want_lse).abs().max())
+            check(lse_err <= LSE_TOL, f"K7 {label} {tuple(q.shape)}: the row "
+                  f"log-sum-exp differs from the plain version's by {lse_err}")
+            del got_lse, want_lse
         tol = ref.flash_attention_tolerance(q, k, v, want, causal=causal,
                                             window=window).clamp_min_(1e-30)
         torch.cuda.synchronize()
@@ -4672,7 +4720,8 @@ def flash_row(rec: ShapeRecorder, k7_by_path: dict,
                            / tol[:, s - 64:]).max())
             check(fault > 1.0, f"K7 {label}: a dropped key tile stays "
                                f"within the tolerance ({fault} of it)")
-        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) \
+            + (4.0 * b * h * s if kw["return_lse"] else 0.0)
         b_ms, b_by = bound(attention_flops(b, s, h, hd, k.shape[1], causal,
                                            window), nbytes, PEAK_BF16_FLOPS)
         plain_abs = want.float().abs()
@@ -4681,40 +4730,39 @@ def flash_row(rec: ShapeRecorder, k7_by_path: dict,
                      median_row_rms_plain=float(
                          plain_abs.square().mean(-1).sqrt().median()),
                      max_err_over_tol=err_over_tol,
-                     dropped_tile_err_over_tol=fault)
+                     dropped_tile_err_over_tol=fault, lse=kw["return_lse"],
+                     lse_max_abs_err=lse_err)
         del got, want, err, tol, plain_abs
         # kernel and library in turns: kernel, sdpa, sdpa, kernel
-        ms_k = [cuda_ms(lambda: FA.flash_attention(q, k, v, causal=causal,
-                                                   window=window), 20)]
+        ms_k = [cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 20)]
         ms_l = [cuda_ms(lambda: sdpa(q, k, v, window, causal), 20)
                 for _ in range(2)]
-        ms_k.append(cuda_ms(lambda: FA.flash_attention(q, k, v, causal=causal,
-                                                       window=window), 20))
+        ms_k.append(cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 20))
         rows.append(dict(
             case=label, shape=list(q.shape), kv_heads=k.shape[2],
             window=window, causal=causal, max_abs_err=max_err, **stats,
             ms=sum(ms_k) / 2, ms_runs=ms_k,
-            plain_ms=cuda_ms(lambda: ref.flash_attention(
-                q, k, v, causal=causal, window=window), 3, warmup=1),
+            plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), 3,
+                             warmup=1),
             library_ms=sum(ms_l) / 2, library_ms_runs=ms_l,
             ratio_to_library=sum(ms_k) / sum(ms_l),
             bound_ms=b_ms, bound_by=b_by))
         targets = (rows[-1], shared) if len(rows) == 1 else (rows[-1],)
         profiles.add(f"K7 {label} {tuple(q.shape)}",
                      "flash_attention.flash_attention", (q, k, v), "flash_fwd",
-                     "flash_attention", 20, *targets, causal=causal,
-                     window=window)
+                     "flash_attention", 20, *targets, **kw)
         torch.cuda.empty_cache()
         print(f"[kernel] flash_attention {label} {tuple(q.shape)} kv "
-              f"{k.shape[2]} causal {causal} window {window}: "
+              f"{k.shape[2]} causal {causal} window {window} lse "
+              f"{kw['return_lse']}: "
               f"{rows[-1]['ms']:.4f} ms "
               f"(runs {ms_k}; plain {rows[-1]['plain_ms']:.4f} ms, sdpa "
               f"{rows[-1]['library_ms']:.4f} ms (runs {ms_l}), kernel/sdpa "
               f"{rows[-1]['ratio_to_library']:.3f}, bound {b_ms:.4f} ms by "
               f"{b_by}); max_abs_err {rows[-1]['max_abs_err']}, max|plain| "
               f"{stats['max_abs_plain']}, rms(plain) {stats['rms_plain']}, "
-              f"err/tol {err_over_tol}, dropped tile err/tol {fault}",
-              flush=True)
+              f"err/tol {err_over_tol}, dropped tile err/tol {fault}, lse "
+              f"max_abs_err {lse_err}", flush=True)
     main_case = rows[0]
     shared.update(dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4759,8 +4807,8 @@ def device_profile(fn, n_queries: int, label: str) -> dict:
     anchor-star kernels as its own: no matrix product and no argmin may
     appear among its kernels (the neighbour stage is all in the fused
     kernel), and the kernels a query launches are counted."""
-    prof = profile_window(fn, ("anchor_star (K6)", "anchor_star_",
-                               "anchor_star"))
+    prof = profile_window(fn, [("anchor_star (K6)", "anchor_star_",
+                                "anchor_star")])
     bad = [n for n in prof.get("kernel_names", ())
            if any(m in n.lower() for m in MATMUL_MARKS + ("argmin",))]
     check(not bad, f"{label}: the device tier launched {bad}")
@@ -5018,6 +5066,522 @@ def diameter_row(cases: list, launches_by_path: dict,
     return row
 
 
+# [train]: K7b's cases (label, (B, S, H, Kv, hd), window), all causal:
+# MiniCPM-2B's train shape, embedder-100m's, hymba's window and a hd-128
+# grouped-query shape (llama4's heads).
+K7B_CASES = (("minicpm-2b train", (2, 4096, 36, 36, 64), None),
+             ("embedder-100m train", (8, 512, 12, 4, 64), None),
+             ("hymba window", (2, 2048, 25, 5, 64), 1024),
+             ("llama4 gqa hd128", (2, 512, 40, 8, 128), None))
+# The CPU tests' training tolerances (tests/test_torch_train_grads.py,
+# tests/test_torch_train.py): the loss within 2^-8; each gradient leaf
+# within 2^-4 of its norm plus 2^-10 of the largest leaf's norm.
+TRAIN_LOSS, TRAIN_LEAF, TRAIN_FLOOR = 2.0 ** -8, 2.0 ** -4, 2.0 ** -10
+# A resumed run's losses against an uninterrupted run's, relative: the two
+# runs differ only where the embedding's backward sums repeated tokens'
+# bf16 gradients by atomics, in an order that changes from run to run (one
+# bf16 rounding of a few rows of the table's gradient, then AdamW steps of
+# lr <= 3e-4 from there).
+RESUME_TOL = 2.0 ** -10
+K7B_MARK = "bwd_"                 # K7b's kernels: bwd_rowdot, bwd_dkdv, bwd_dq
+# K7's row log-sum-exp (fp32) against the plain version's, absolute: the two
+# sum the same fp32 exponentials in other orders (the kernel's exp the fast
+# one), ~2^-20 relative of lse ~ log(T) <= 12.
+LSE_TOL = 1e-4
+
+
+def attention_bwd_flops(b, s, h, hd, causal=True, window=None) -> float:
+    """With the row statistics given, the backward recomputes S = QK^T and
+    takes dV, dP, dQ and dK over the live pairs: 10 hd flops per pair."""
+    return 10.0 * hd * b * h * live_pairs(s, s, causal, window)
+
+
+def tree_allclose(got, want, label: str) -> float:
+    """Each leaf of ``got`` within ``TRAIN_LEAF`` of the norm of ``want``'s
+    plus ``TRAIN_FLOOR`` of the largest leaf norm; returns the worst ratio
+    of the difference to the leaf's norm."""
+    from repro_torch.train.optimizer import tree_leaves
+    g, w = tree_leaves(got), tree_leaves(want)
+    check(len(g) == len(w), f"{label}: {len(g)} leaves against {len(w)}")
+    norms = [float(x.float().norm()) for x in w]
+    floor = TRAIN_FLOOR * max(norms)
+    worst = 0.0
+    for i, (a, b, n) in enumerate(zip(g, w, norms)):
+        err = float((a.float().cpu() - b.float().cpu()).norm())
+        check(bool(a.float().isfinite().all()), f"{label}: leaf {i} not "
+              f"finite")
+        check(err <= TRAIN_LEAF * n + floor, f"{label}: leaf {i} {tuple(b.shape)} "
+              f"differs by {err} (norm {n}, floor {floor})")
+        worst = max(worst, err / max(n, 1e-30))
+    return worst
+
+
+def train_full(args, report: dict, by_path: dict) -> None:
+    """[train] (c) ``launch/train.py``'s entry point for MiniCPM-2B at full
+    width and depth: 3 steps at global batch 2 and sequence 4,096 (cut from
+    train_4k's 256 to one card), remat on, bf16 optimizer state, fp32
+    master parameters; then one more step under the profiler."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.data.token_pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models.api import count_params, model_api
+    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
+
+    out = report.setdefault("train", {})
+    steps, gb, seq = 3, 2, 4096
+    tmp = tempfile.mkdtemp(prefix="chip-train-")
+    argv = ["--arch", "minicpm-2b", "--steps", str(steps), "--global-batch",
+            str(gb), "--seq-len", str(seq), "--ckpt-dir", tmp,
+            "--ckpt-every", "1000"]
+    torch.cuda.reset_peak_memory_stats()
+    (cfg, state, hist), wall = drive_path(
+        by_path, "train", lambda: train_launch.run(
+            train_launch.parser().parse_args(argv)))
+    peak = torch.cuda.max_memory_allocated()
+    c = by_path["train"]
+    layers = cfg.n_layers
+    check(c["flash_attention"] == 2 * layers * steps,
+          f"[train] K7 launched {c['flash_attention']} times in {steps} "
+          f"steps, want 2 x {layers} a step (forward and remat)")
+    check(c["flash_attention_bwd"] == 3 * layers * steps,
+          f"[train] K7b launched {c['flash_attention_bwd']} kernels in "
+          f"{steps} steps, want one call (3 kernels) a layer a step")
+    check([h["step"] for h in hist] == list(range(steps)),
+          f"[train] steps {[h['step'] for h in hist]}")
+    for h in hist:
+        check(all(math.isfinite(h[k]) for k in ("loss", "grad_norm", "lr")),
+              f"[train] a non-finite metric: {h}")
+    check(all(t.dtype == torch.float32 for t in tree_leaves(state["params"]))
+          and all(t.dtype == torch.bfloat16
+                  for t in tree_leaves(state["opt"]["m"])),
+          "[train] state types: want fp32 masters and bf16 moments")
+    dev = state["params"]["final_norm"]["w"].device
+    api = model_api(cfg)
+    init = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    still = sum(torch.equal(p, i.float()) for p, i in
+                zip(tree_leaves(state["params"]), tree_leaves(init)))
+    del init
+    check(still == 0, f"[train] {still} parameter leaves did not move")
+    n_params = count_params(cfg)
+    tokens = gb * seq
+    attn = 3.0 * attention_flops(gb, seq, cfg.n_heads, cfg.resolved_head_dim) \
+        * layers
+    model_flops = 6.0 * n_params * tokens + attn
+    step_s = [h["time_s"] for h in hist]
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    opt_cfg = OptimizerConfig(total_steps=steps, schedule=cfg.schedule,
+                              state_dtype="bfloat16")
+    batch = train_launch.batch_to(TokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, global_batch=gb, seq_len=seq))
+        .batch_at(steps), dev)
+    step_fn = make_train_step(cfg, opt_cfg)
+    prof = profile_window(
+        lambda: step_fn(state["params"], state["opt"], batch),
+        [("K7", "flash_fwd", "flash_attention"),
+         ("K7b", K7B_MARK, "flash_attention_bwd")])
+    out["minicpm"] = dict(
+        argv=argv, steps=hist, step_s=step_s, steady_step_s=steady,
+        tokens_per_step=tokens, tokens_per_s=tokens / steady,
+        params=n_params, model_flops_per_step=model_flops,
+        model_flop_share=model_flops / steady / PEAK_BF16_FLOPS,
+        max_memory_allocated=peak, wall_s=wall, launches=c,
+        profile=prof, card=card_line())
+    del state, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    m = out["minicpm"]
+    print(f"[train] {cfg.name} ({layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters, fp32 masters, bf16 moments, remat): "
+          f"{steps} steps at B={gb} S={seq}, losses "
+          f"{[round(h['loss'], 5) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 5) for h in hist]}; step seconds "
+          f"{[round(s, 4) for s in step_s]} (steady {steady:.4f} s = "
+          f"{tokens / steady:.0f} tokens/s, model-FLOP share "
+          f"{m['model_flop_share']:.3f} of 989 TFLOP/s); "
+          f"max_memory_allocated {peak} bytes; K7 {c['flash_attention']} "
+          f"launches, K7b {c['flash_attention_bwd']} kernels; every leaf "
+          f"moved; card {m['card']}", flush=True)
+    print(f"[train] profiler, one more step: wall {prof.get('wall_s')} s, "
+          f"kernels {prof.get('kernel_s')} s (busy {prof.get('busy_share')}), "
+          f"seconds by kind {prof.get('kernel_s_by_kind')}; events "
+          f"{prof.get('own_events')} for {prof.get('own_launches')} "
+          f"launches", flush=True)
+
+
+def train_grads(args, report: dict, by_path: dict) -> None:
+    """[train] (b) MiniCPM-2B cut in depth to 2 layers at full width, B=1,
+    S=512: the loss and every leaf's gradient on the card (K7, K7b) against
+    the same parameters and batch on the CPU (the plain versions), then
+    the AdamW update that follows on both."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.token_pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.step import value_and_grad
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models.api import master_params, model_api
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                             init_opt_state, tree_leaves,
+                                             tree_map)
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=2)
+    on_card = master_params(model_api(cfg).init(
+        torch.Generator(device="cuda").manual_seed(args.seed + 27),
+        device="cuda"))
+    params = tree_map(lambda t: t.cpu(), on_card)
+    host_batch = TokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, global_batch=1, seq_len=512,
+        seed=args.seed)).batch_at(0)
+    (loss, metrics, grads), wall = drive_path(
+        by_path, "train-grads", lambda: value_and_grad(
+            cfg, on_card, batch_to(host_batch, "cuda")))
+    c = by_path["train-grads"]
+    check(c["flash_attention"] == 2 * cfg.n_layers
+          and c["flash_attention_bwd"] == 3 * cfg.n_layers,
+          f"[train] {cfg.n_layers}-layer gradients launched K7 "
+          f"{c['flash_attention']} and K7b {c['flash_attention_bwd']} "
+          f"kernels, want 2 and 3 a layer")
+    ts = time.perf_counter()
+    want_loss, _, want = value_and_grad(cfg, params,
+                                        batch_to(host_batch, "cpu"))
+    cpu_s = time.perf_counter() - ts
+    check(abs(float(loss) - float(want_loss)) <= TRAIN_LOSS
+          * abs(float(want_loss)), f"[train] 2-layer loss {float(loss)} "
+          f"on the card, {float(want_loss)} on the CPU")
+    grad_worst = tree_allclose(grads, want, "[train] 2-layer gradients")
+    opt_cfg = OptimizerConfig(total_steps=10, warmup_steps=2,
+                              schedule="wsd", peak_lr=1e-3)
+    states = [init_opt_state(p, opt_cfg) for p in (on_card, params)]
+    init = tree_map(torch.clone, params)
+    _, _, om = adamw_update(on_card, grads, states[0], opt_cfg)
+    _, _, om_cpu = adamw_update(params, want, states[1], opt_cfg)
+    lr = float(om_cpu["lr"])
+    # A first AdamW step moves each element by lr g/(|g| + eps) (plus the
+    # decay): where the two gradients surely share a sign (|g| above twice
+    # their difference) and |g| clipped is far above eps, the two moves
+    # agree to 3% of lr (eps/|g| <= 1% on each side) plus fp32 roundings of
+    # the parameter, and a move of the wrong sign is 2 lr off. The elements
+    # held so must be a tenth of those with a gradient at least (0.309 in
+    # a run on an H100: 0.88-0.99 of every layer's and norm's leaf, 0.027
+    # of the tied table's).
+    clip = min(1.0, 1.0 / float(om_cpu["grad_norm"]))
+    sure_n = nonzero_n = 0
+    by_leaf = []
+    for a, b, ga, gb in zip(tree_leaves(on_card), tree_leaves(params),
+                            tree_leaves(grads), tree_leaves(want)):
+        ga, gb = ga.float().cpu(), gb.float()
+        sure = (gb.abs() > 2 * (ga - gb).abs()) & (gb.abs() * clip > 1e-6)
+        d = (a.cpu() - b).abs()[sure]
+        check(bool((d <= 0.03 * lr + 2.0 ** -21 * b.abs()[sure]).all()),
+              f"[train] 2-layer AdamW: a parameter "
+              f"{float(d.max()) if d.numel() else 0.0} from "
+              f"the CPU's where the gradients share a sign (lr {lr})")
+        sure_n += int(sure.sum())
+        nonzero_n += int((gb != 0).sum())
+        by_leaf.append((list(gb.shape), int(sure.sum()) / max(
+            int((gb != 0).sum()), 1)))
+    sure_share = sure_n / max(nonzero_n, 1)
+    check(sure_share >= 0.1, f"[train] 2-layer AdamW: the gradients share a "
+          f"sure sign on {sure_share} of the elements only")
+    step_worst = 0.0
+    for a, b, p0 in zip(tree_leaves(on_card), tree_leaves(params),
+                        tree_leaves(init)):
+        ref_step = (b - p0).norm()
+        err = float((a.cpu() - b).norm())
+        check(err <= 0.25 * float(ref_step) + 1e-6,
+              f"[train] 2-layer AdamW step differs by {err} (step "
+              f"{float(ref_step)})")
+        step_worst = max(step_worst, err / max(float(ref_step), 1e-30))
+    m_worst = tree_allclose(states[0]["m"], states[1]["m"],
+                            "[train] 2-layer AdamW m")
+    report.setdefault("train", {})["grads"] = dict(
+        loss_card=float(loss), loss_cpu=float(want_loss),
+        grad_norm_card=float(om["grad_norm"]),
+        grad_norm_cpu=float(om_cpu["grad_norm"]),
+        worst_leaf_rel=grad_worst, worst_step_rel=step_worst,
+        sure_sign_share=sure_share, sure_sign_share_by_leaf=by_leaf,
+        worst_m_rel=m_worst, card_s=wall, cpu_s=cpu_s, launches=c)
+    print(f"[train] minicpm-2b cut to 2 layers at full width, B=1 S=512: "
+          f"loss {float(loss):.6f} on the card, {float(want_loss):.6f} on the "
+          f"CPU; every gradient leaf within {TRAIN_LEAF} of its norm (worst "
+          f"{grad_worst:.5f}); AdamW: moves within 3% of lr where the "
+          f"gradients surely share a sign ({sure_share:.4f} of the nonzero "
+          f"ones), steps within 1/4 (worst {step_worst:.5f}), m worst "
+          f"{m_worst:.5f}; card "
+          f"{wall:.3f}s, CPU {cpu_s:.3f}s", flush=True)
+    del on_card, grads, states, params, want, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def load_example(name: str):
+    """A module of ``examples/torch`` by file (the examples are scripts,
+    not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_resume(args, report: dict, by_path: dict) -> None:
+    """[train] (d) The fault-tolerant loop at embedder-100m's full size (12
+    x 768, vocab 32,000; ``examples/torch/train_embedder.py``'s config,
+    ``launch.train.trainer``), B=8, S=512, bf16 optimizer state: 6
+    uninterrupted steps; then 6 checkpointed every 3 with a SIGTERM in step
+    4 (the loop saves step 5 and stops); every leaf restored from that
+    checkpoint hashes to its manifest's sha256; a second loop resumes at
+    step 5. The interrupted and resumed losses equal the uninterrupted
+    run's within ``RESUME_TOL``."""
+    import gc
+    import json
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import torch
+    from repro_torch.ckpt.checkpoint import (find_latest, leaf_digests,
+                                             load_checkpoint)
+    from repro_torch.data.token_pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.train import trainer
+    from repro_torch.models.api import count_params
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_loop import LoopConfig, TrainLoop
+
+    cfg = load_example("train_embedder").EMBEDDER
+    steps, b, s = 6, 8, 512
+    opt_cfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2, total_steps=steps,
+                              schedule="wsd", state_dtype="bfloat16")
+    init_state, stepper = trainer(cfg, opt_cfg, torch.device("cuda"))
+    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                        global_batch=b, seq_len=s,
+                                        seed=args.seed))
+    n_params = count_params(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip-train-ckpt-")
+    disk_room(tmp, 3 * n_params * 8.0, "train")
+    try:
+        (_, straight), wall_a = drive_path(
+            by_path, "train-embedder", TrainLoop(LoopConfig(
+                total_steps=steps, ckpt_dir=os.path.join(tmp, "a"),
+                ckpt_every=1000), stepper, pipe, init_state).run)
+        c = by_path["train-embedder"]
+        check(c["flash_attention"] == 2 * cfg.n_layers * steps
+              and c["flash_attention_bwd"] == 3 * cfg.n_layers * steps,
+              f"[train] embedder loop launches {c}")
+        calls = [0]
+
+        def preempted(state, batch):
+            calls[0] += 1
+            if calls[0] == 5:                      # during step 4
+                os.kill(os.getpid(), signal.SIGTERM)
+            return stepper(state, batch)
+        ck = os.path.join(tmp, "b")
+        ts = time.perf_counter()
+        _, first = TrainLoop(LoopConfig(total_steps=steps, ckpt_dir=ck,
+                                        ckpt_every=3), preempted, pipe,
+                             init_state).run()
+        wall_b = time.perf_counter() - ts
+        check([h["step"] for h in first] == [0, 1, 2, 3, 4],
+              f"[train] the preempted loop ran {[h['step'] for h in first]}")
+        latest = find_latest(ck)
+        check(latest is not None and latest.endswith("step_00000005"),
+              f"[train] latest checkpoint {latest}")
+        ts = time.perf_counter()
+        restored, step, extra = load_checkpoint(latest, init_state())
+        load_s = time.perf_counter() - ts
+        with open(os.path.join(latest, "manifest.json")) as f:
+            manifest = json.load(f)["leaves"]
+        digests = leaf_digests(restored)
+        check(step == 5 and extra == {"next_step": 5}
+              and set(digests) == set(manifest)
+              and all(digests[k] == manifest[k]["sha256"] for k in digests),
+              "[train] a restored leaf's sha256 differs from the manifest's")
+        bf16 = sum(v["dtype"] == "bfloat16" for v in manifest.values())
+        del restored
+        (_, resumed), wall_c = drive_path(
+            by_path, "train-embedder-resume", TrainLoop(LoopConfig(
+                total_steps=steps, ckpt_dir=ck, ckpt_every=3), stepper, pipe,
+                init_state).run)
+        check([h["step"] for h in resumed] == [5],
+              f"[train] the resumed loop ran {[h['step'] for h in resumed]}")
+        got = [h["loss"] for h in first + resumed]
+        want = [h["loss"] for h in straight]
+        worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        check(all(math.isfinite(x) for x in got + want) and worst <= RESUME_TOL,
+              f"[train] interrupted and resumed losses {got} against "
+              f"uninterrupted {want} (worst {worst})")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(latest, f))
+                         for f in os.listdir(latest))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_s = [h["time_s"] for h in straight]
+    report.setdefault("train", {})["embedder"] = dict(
+        params=n_params, losses_uninterrupted=want, losses_resumed=got,
+        worst_rel=worst, step_s=step_s, walls_s=[wall_a, wall_b, wall_c],
+        restore_s=load_s, checkpoint_bytes=ckpt_bytes, bf16_leaves=bf16,
+        launches=c)
+    print(f"[train] {cfg.name} ({n_params} parameters), B={b} S={s}, bf16 "
+          f"moments: 6 steps in {wall_a:.3f}s (step seconds "
+          f"{[round(x, 4) for x in step_s]}); SIGTERM in step 4 -> saved "
+          f"step 5 ({ckpt_bytes} bytes, {bf16} bf16 leaves), restored in "
+          f"{load_s:.3f}s with every leaf's sha256 equal to the manifest's; "
+          f"resumed at step 5; losses within {worst:.3g} of the "
+          f"uninterrupted run's (limit {RESUME_TOL:.3g})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def k7b_row(by_path: dict, profiles: KernelProfiles) -> tuple[dict, list]:
+    """[train] (a) K7b against its plain twin (``ref.flash_attention_bwd``)
+    at ``K7B_CASES`` on random bf16 inputs, from the plain forward's output
+    and row statistics (K7's own, which the train step hands K7b, are held
+    to those in K7's row: the cases returned): every element of dq, dk, dv
+    within
+    ``ref.flash_attention_bwd_tolerance``; two calls identical bit for bit;
+    at the embedder shape a planted fault (the plain twin with key tile
+    [64, 128) dropped) outside the tolerance. Times by CUDA events (kernel,
+    SDPA's backward, SDPA's backward, kernel), the plain twin, and the
+    kernel by the fresh-process profiler; SDPA's backward is
+    ``torch.autograd.grad`` through ``F.scaled_dot_product_attention`` on
+    the same inputs (its forward run once beforehand). The row's own
+    numbers are MiniCPM-2B's. Returns the row and K7's cases at these
+    shapes with the log-sum-exp on, for :func:`flash_row`."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rows, shared, k7_cases = [], {}, []
+    for label, (b, s, h, kv, hd), window in K7B_CASES:
+        q, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((b, s, kv, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = ref.flash_attention(q, k, v, causal=True, window=window,
+                                     return_lse=True)
+        o, lse = o.contiguous(), lse.contiguous()
+        k7_cases.append((f"lse {label}", (q, k, v), window, True, True))
+
+        def kernel():
+            return FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                          window=window)
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        check(same, f"K7b {label}: two calls on the same inputs differ")
+        want = ref.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                       window=window)
+        tols = ref.flash_attention_bwd_tolerance(q, k, v, o, do, lse, want,
+                                                 causal=True, window=window)
+        errs, ratio = {}, 0.0
+        for name, g_, w_, t_ in zip(("dq", "dk", "dv"), got, want, tols):
+            check(bool(g_.float().isfinite().all()),
+                  f"K7b {label}: a non-finite {name}")
+            e = (g_.float() - w_.float()).abs()
+            errs[name] = float(e.max())
+            ratio = max(ratio, float((e / t_.clamp_min(1e-30)).max()))
+            del e
+        check(ratio <= 1.0, f"K7b {label} {(b, s, h, hd)}: differs from the "
+              f"plain version by {errs} ({ratio} of the tolerance)")
+        fault = None
+        if label.startswith("embedder"):
+            k2, v2 = k.clone(), v.clone()
+            k2[:, 64:128], v2[:, 64:128] = 0, 0
+            bad = ref.flash_attention_bwd(q, k2, v2, o, do, lse, causal=True,
+                                          window=window)
+            fault = min(float(((x.float() - w_.float()).abs()
+                               / t_.clamp_min(1e-30)).max())
+                        for x, w_, t_ in zip(bad, want, tols))
+            check(fault > 1.0, f"K7b {label}: a dropped key tile stays "
+                  f"within the tolerance ({fault} of it)")
+            del bad, k2, v2
+        del got, again, want, tols
+        torch.cuda.empty_cache()
+
+        qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True)
+                      for a in (q, k, v))
+        mask = None
+        if window is not None:
+            i = torch.arange(s, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                  - window)
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=kv != h)
+        dot = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        ms_k = [cuda_ms(kernel, 10)]
+        ms_l = [cuda_ms(library, 10) for _ in range(2)]
+        ms_k.append(cuda_ms(kernel, 10))
+        plain_ms = cuda_ms(lambda: ref.flash_attention_bwd(
+            q, k, v, o, do, lse, causal=True, window=window), 2, warmup=1)
+        del lib_out, qt, kt, vt
+        torch.cuda.empty_cache()
+        nbytes = 2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * lse.numel()
+        b_ms, b_by = bound(attention_bwd_flops(b, s, h, hd, True, window),
+                           nbytes, PEAK_BF16_FLOPS)
+        rows.append(dict(
+            case=label, shape=[b, s, h, hd], kv_heads=kv, window=window,
+            causal=True, max_abs_err=max(errs.values()), errs=errs,
+            max_err_over_tol=ratio, dropped_tile_err_over_tol=fault,
+            deterministic=same, ms=sum(ms_k) / 2, ms_runs=ms_k,
+            plain_ms=plain_ms, library_ms=sum(ms_l) / 2,
+            library_ms_runs=ms_l, ratio_to_library=sum(ms_k) / sum(ms_l),
+            bound_ms=b_ms, bound_by=b_by))
+        targets = (rows[-1], shared) if len(rows) == 1 else (rows[-1],)
+        profiles.add(f"K7b {label} {(b, s, h, hd)}",
+                     "flash_attention.flash_attention_bwd",
+                     (q, k, v, o, do, lse), K7B_MARK, "flash_attention_bwd",
+                     10, *targets, parts=("bwd_rowdot", "bwd_dkdv", "bwd_dq"),
+                     causal=True, window=window)
+        print(f"[kernel] flash_attention_bwd {label} {(b, s, h, hd)} kv {kv} "
+              f"window {window}: {rows[-1]['ms']:.4f} ms (runs {ms_k}; plain "
+              f"{plain_ms:.4f} ms, SDPA backward {rows[-1]['library_ms']:.4f} "
+              f"ms (runs {ms_l}), kernel/SDPA "
+              f"{rows[-1]['ratio_to_library']:.3f}, bound {b_ms:.4f} ms by "
+              f"{b_by}); max_abs_err {errs}, err/tol {ratio}, dropped tile "
+              f"err/tol {fault}, two calls bit for bit {same}", flush=True)
+    main_case = rows[0]
+    paths = {p: n["flash_attention_bwd"] for p, n in by_path.items()
+             if n.get("flash_attention_bwd")}
+    shared.update(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/common.py:177",
+        replaces_note="no pallas_call: the gradient the reference takes by "
+                      "XLA autodiff of blockwise_attention's direct path",
+        launches=by_path["train"]["flash_attention_bwd"], path="train",
+        launches_by_path=paths,
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        max_err_over_tol=max(r["max_err_over_tol"] for r in rows),
+        shape=main_case["shape"], ms=main_case["ms"],
+        plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+        bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
+        ratio_to_library=main_case["ratio_to_library"], cases=rows))
+    return shared, k7_cases
+
+
+def train_phase(args, report: dict, by_path: dict,
+                profiles: KernelProfiles) -> tuple[dict, list]:
+    """[train] (c), (d), (b), then (a); returns K7b's kernel row and K7's
+    cases at its shapes."""
+    train_full(args, report, by_path)
+    train_resume(args, report, by_path)
+    train_grads(args, report, by_path)
+    return k7b_row(by_path, profiles)
+
+
 def ptxas_report(name: str) -> list[str]:
     """The register, shared-memory and spill lines nvcc's ``-Xptxas -v``
     printed for the current build of ``csrc/<name>.cu``, each after the
@@ -5061,6 +5625,19 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
               f"differ by at most {r['library_count_diff']}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), SASS HGMMA "
               f"{r['sass_hgmma']}", flush=True)
+    k7b = next(r for r in rows if r["name"] == "flash_attention_bwd")
+    for case in k7b["cases"]:
+        dev = case.get("device_ms")
+        share = f", the bound {case['bound_ms'] / dev:.1%} of it" if dev \
+            else ""
+        print(f"[K7b] {case['case']} {case['shape']} kv {case['kv_heads']} "
+              f"window {case['window']}: {case['ms']:.4f} ms by events, "
+              f"{dev} ms device{share}, parts "
+              f"{case.get('device', {}).get('parts')}, SDPA backward "
+              f"{case['library_ms']:.4f} ms, kernel/SDPA "
+              f"{case['ratio_to_library']:.3f}, plain {case['plain_ms']:.4f} "
+              f"ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']})",
+              flush=True)
     k2i = next(r for r in rows if r["name"] == "join_batched_prune_int8")
     for case in k2i["cases"]:
         dev = case.get("device_ms")
@@ -5107,7 +5684,7 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="corpus points (default: Table III's 10^6)")
     ap.add_argument("--queries", type=int, default=64)
-    ap.add_argument("--semantics-queries", type=int, default=16,
+    ap.add_argument("--semantics-queries", type=int, default=8,
                     help="queries of the batch run under each semantics "
                          "variant on both backends")
     ap.add_argument("--filter-feasible", type=int, default=16,
@@ -5134,7 +5711,7 @@ def main() -> int:
                          "the runtime's compactions)")
     ap.add_argument("--launch-docs", type=int, default=1_000,
                     help="documents the launcher ingests before serving")
-    ap.add_argument("--launch-points", type=int, default=100_000,
+    ap.add_argument("--launch-points", type=int, default=50_000,
                     help="corpus points of the launcher's child process")
     ap.add_argument("--model-docs", type=int, default=64,
                     help="documents of 512 tokens embedded by MiniCPM-2B "
@@ -5170,14 +5747,16 @@ def main() -> int:
         # one nvcc per source, all started together
         with concurrent.futures.ThreadPoolExecutor() as pool:
             list(pool.map(build.build, ("pairwise_l2", "flash_attention",
-                                        "diameter", "project_bin")))
+                                        "flash_attention_bwd", "diameter",
+                                        "project_bin")))
         report["build_s"] = time.perf_counter() - t0
         card = card_line()
         report["card"] = card
         print(f"[build] kernels built in {report['build_s']:.1f}s; card: "
               f"{card}", flush=True)
         report["ptxas"] = {n: ptxas_report(n) for n in
-                           ("flash_attention", "pairwise_l2", "diameter")}
+                           ("flash_attention", "flash_attention_bwd",
+                            "pairwise_l2", "diameter")}
         for n, lines in report["ptxas"].items():
             for line in lines:
                 print(f"[ptxas] {n}: {line}", flush=True)
@@ -5251,13 +5830,20 @@ def main() -> int:
         k7_generate = phase("generate", generate_phase, args, report, model,
                             by_path)
         del model
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        k7b, k7_train = phase("train", train_phase, args, report, by_path,
+                              profiles)
         ts = time.perf_counter()
         rows.append(flash_row(rec, {
             "embed": k7, **{p: c["flash_attention"] for p, c in by_path.items()
                             if c["flash_attention"]}}, profiles,
             [("ingest-model", qkv, None, True)
-             for qkv in rec_k7_model.first.values()] + k7_generate))
-        del rec, rec_k7_model, k7_generate
+             for qkv in rec_k7_model.first.values()] + k7_generate
+            + k7_train))
+        del rec, rec_k7_model, k7_generate, k7_train
+        rows.append(k7b)
         star_by, k6_by = ({p: c[n] for p, c in by_path.items()}
                           for n in ("anchor_star", "tuple_diameters"))
         star_by["embed-device"] = k6["anchor_star"]

@@ -1,10 +1,12 @@
 """Carry a built corpus, an index or model parameters across as plain arrays.
 
 The serving state is the corpus and the two ProMiSH indices; the language
-model's is its parameters (any of the ten architectures). These
-constructors rebuild that state from plain numpy arrays — what any other
-implementation (or a file) can hand over — so an engine answers, and a
-model embeds and generates, as the one the arrays were read from.
+model's is its parameters (any of the ten architectures), and in training
+its optimizer state too. These constructors rebuild that state from plain
+numpy arrays — what any other implementation (or a file) can hand over — so
+an engine answers, and a model embeds, generates and trains on, as the one
+the arrays were read from; their inverses hand the model's state back in the
+reference's stacked layout.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.core.index import BucketSynopsis, HIStructure, PromishIndex
 from repro_torch.core.types import KeywordDataset, dataset_from_csr
 from repro_torch.utils.csr import CSR
+from repro_torch.utils.tree import tree_map
 
 
 def _csr(offsets, values) -> CSR:
@@ -86,17 +89,20 @@ _FP32_LEAVES = ("w", "b", "qn", "kn", "router", "conv_x", "conv_b", "conv_c",
                 "d_skip", "dt_bias", "norm_w", "gate_a", "gate_m")
 
 
-def _leaf(name: str, a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _leaf(name: str, a: np.ndarray, device: torch.device,
+          master: bool = False) -> torch.Tensor:
     t = torch.tensor(np.asarray(a, dtype=np.float32))
-    dtype = torch.float32 if name in _FP32_LEAVES else torch.bfloat16
+    dtype = torch.float32 if master or name in _FP32_LEAVES \
+        else torch.bfloat16
     return t.to(device=device, dtype=dtype)
 
 
-def _convert(node: dict, device: torch.device, index: tuple = ()) -> dict:
+def _convert(node: dict, device: torch.device, index: tuple = (),
+             **kw) -> dict:
     """A parameter dict with every leaf read at ``index`` of its leading
     (stacked) axes."""
-    return {k: _convert(v, device, index) if isinstance(v, dict)
-            else _leaf(k, np.asarray(v)[index], device)
+    return {k: _convert(v, device, index, **kw) if isinstance(v, dict)
+            else _leaf(k, np.asarray(v)[index], device, **kw)
             for k, v in node.items()}
 
 
@@ -108,14 +114,17 @@ def _stack_len(node: dict) -> int:
 
 
 def model_params_from_numpy(cfg: ArchConfig, tree: dict, *,
-                            device: str | torch.device | None = None) -> dict:
+                            device: str | torch.device | None = None,
+                            master: bool = False) -> dict:
     """The port's parameters, on ``device`` (the card unless the caller
     asks for another), from a model's parameter tree as numpy arrays in the
     layout of the reference's ``init_params``: fp32 leaves, homogeneous
     layers stacked on a leading axis, super-blocks on two. Leaves the
     forward reads in fp32 stay fp32 (:data:`_FP32_LEAVES`); every other
-    leaf becomes bf16, the value the forward casts it to at every use. The
-    stacks become lists:
+    leaf becomes bf16, the value the forward casts it to at every use. With
+    ``master`` every leaf stays fp32: the master copy training updates,
+    as the reference's parameters are fp32 throughout (the forward still
+    casts each matrix to bf16 where it uses it). The stacks become lists:
 
       * ``layers`` (dense, state-space, hybrid, MoE with ``every == 1``):
         one dict a layer;
@@ -130,13 +139,14 @@ def model_params_from_numpy(cfg: ArchConfig, tree: dict, *,
     carried."""
     from repro_torch.models.transformer import n_blocks
     device = resolve_device(device)
+    kw = dict(master=master)
     fam = cfg.family
-    out = {"embed": _convert(tree["embed"], device),
-           "final_norm": _convert(tree["final_norm"], device)}
+    out = {"embed": _convert(tree["embed"], device, **kw),
+           "final_norm": _convert(tree["final_norm"], device, **kw)}
     if fam == "audio":
         for name in ("enc_layers", "dec_layers"):
             stacked = tree[name]
-            out[name] = [_convert(stacked, device, (i,))
+            out[name] = [_convert(stacked, device, (i,), **kw)
                          for i in range(_stack_len(stacked))]
         want = (cfg.enc_layers, cfg.n_layers)
         got = (len(out["enc_layers"]), len(out["dec_layers"]))
@@ -144,8 +154,8 @@ def model_params_from_numpy(cfg: ArchConfig, tree: dict, *,
             raise ValueError(f"{got} stacked encoder/decoder layers, config "
                              f"has {want}")
         for name in ("enc_pos", "dec_pos"):
-            out[name] = _leaf(name, tree[name], device)
-        out["enc_norm"] = _convert(tree["enc_norm"], device)
+            out[name] = _leaf(name, tree[name], device, **kw)
+        out["enc_norm"] = _convert(tree["enc_norm"], device, **kw)
         return out
     stacked = tree["layers"]
     nb = n_blocks(cfg)
@@ -159,12 +169,88 @@ def model_params_from_numpy(cfg: ArchConfig, tree: dict, *,
     if n != nb:
         raise ValueError(f"{n} stacked layers, config has {nb}")
     if inner is None:
-        out["layers"] = [_convert(stacked, device, (i,)) for i in range(n)]
+        out["layers"] = [_convert(stacked, device, (i,), **kw)
+                         for i in range(n)]
     else:
-        out["layers"] = [{inner: [_convert(stacked[inner], device, (i, j))
+        out["layers"] = [{inner: [_convert(stacked[inner], device, (i, j),
+                                           **kw)
                                   for j in range(per)],
-                          outer: _convert(stacked[outer], device, (i,))}
+                          outer: _convert(stacked[outer], device, (i,),
+                                          **kw)}
                          for i in range(n)]
     if fam == "vlm":
-        out["vis_proj"] = _leaf("vis_proj", tree["vis_proj"], device)
+        out["vis_proj"] = _leaf("vis_proj", tree["vis_proj"], device, **kw)
     return out
+
+
+def stack_lists(tree):
+    """A tree of tensors whose lists (the port's layers, super-blocks and
+    their members) are stacked leaf by leaf on a new leading axis, nested
+    lists on as many axes: the reference's stacked layout, dtypes and
+    devices kept."""
+    if isinstance(tree, dict):
+        return {k: stack_lists(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _stack_trees([stack_lists(v) for v in tree])
+    return tree
+
+
+def _stack_trees(parts: list):
+    if parts[0] is None:
+        return None
+    if isinstance(parts[0], dict):
+        return {k: _stack_trees([p[k] for p in parts]) for k in parts[0]}
+    return torch.stack(parts)
+
+
+def unstack_lists(tree, like):
+    """The inverse of :func:`stack_lists`: ``tree``'s stacked leaves split
+    on their leading axes into the lists of ``like`` (entries are views of
+    the stacked tensors)."""
+    if isinstance(like, dict):
+        return {k: unstack_lists(tree[k], v) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return [unstack_lists(tree_map(lambda t: t[i], tree), v)
+                for i, v in enumerate(like)]
+    return tree
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
+
+
+def model_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`model_params_from_numpy`: the reference's
+    stacked parameter tree as fp32 numpy arrays (bf16 leaves widened
+    exactly); the layout follows from the lists themselves."""
+    return _to_numpy(stack_lists(params))
+
+
+def opt_state_from_numpy(cfg: ArchConfig, state: dict, *,
+                         device: str | torch.device | None = None) -> dict:
+    """An AdamW state ``{"m", "v", "step"}`` (the reference's
+    ``init_opt_state`` layout, numpy arrays) in the port's layout: the
+    moments as parameter trees in the reference's state type (bf16 or
+    fp32, read from ``m``'s leaves), ``step`` an int32 scalar tensor."""
+    leaf = state["m"]["final_norm"]["w"]
+    dtype = torch.bfloat16 if "bfloat16" in str(np.asarray(leaf).dtype) \
+        else torch.float32
+    device = resolve_device(device)
+
+    def moments(tree):
+        return tree_map(lambda t: t.to(dtype), model_params_from_numpy(
+            cfg, tree, device=device, master=True))
+    return {"m": moments(state["m"]), "v": moments(state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The inverse of :func:`opt_state_from_numpy`: the moments as the
+    reference's stacked fp32 numpy trees, ``step`` an int32 numpy
+    scalar."""
+    return {"m": model_params_to_numpy(state["m"]),
+            "v": model_params_to_numpy(state["v"]),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}

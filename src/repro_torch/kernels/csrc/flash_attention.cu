@@ -14,7 +14,11 @@
 //   * online softmax with fp32 running max m, denominator l and
 //     accumulator; the numerators p = exp(s - m) are rounded to bf16 before
 //     the PV dot, l sums them unrounded;
-//   * out = acc / max(l, 1e-30), rounded to bf16.
+//   * out = acc / max(l, 1e-30), rounded to bf16;
+//   * optionally the row's log-sum-exp lse = m + log(l) in fp32 (B, H, S),
+//     in the units of the scaled scores: the statistics the backward (K7b,
+//     csrc/flash_attention_bwd.cu) recomputes the softmax from. A null lse
+//     pointer writes nothing (serving).
 // GQA: query head h reads kv head h / (H / Kv) in place (the reference
 // repeats K and V per query head first; the values are the same).
 //
@@ -119,9 +123,9 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS, Cfg<HD>::MIN_BLOCKS)
 flash_fwd(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
-          const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int B,
-          int S, int T, int H, int KVH, int causal, int window, float scale,
-          int pow2_scale) {
+          const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+          float* __restrict__ lse, int B, int S, int T, int H, int KVH,
+          int causal, int window, float scale, int pow2_scale) {
   using C = Cfg<HD>;
   // log2(e) times the factor the scores still need: exp(x) = 2^(x log2e).
   const float l2e = pow2_scale ? LOG2E * scale : LOG2E;
@@ -368,6 +372,10 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
         l = fmaxf(l, 1e-30f);
         const int row = row0 + i * 8;
         if (row >= S) continue;
+        // m is in the product's units: times the scale folded into l2e
+        if (lse != nullptr && t4 == 0)
+          lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+              m_run[i] * (pow2_scale ? scale : 1.f) + logf(l);
         bf16* dst = o + ((static_cast<int64_t>(b) * S + row) * H + h) * HD
                     + t4 * 2;
 #pragma unroll
@@ -407,9 +415,9 @@ int encode(CUtensorMap* map, const void* base, int batch, int rows, int heads,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int T, int H, int KVH, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int T, int H, int KVH, int causal, int window,
+           float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap mq, mk, mv;
   int res = encode(&mq, q, B, S, H, HD, BM);
@@ -428,27 +436,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   int exp2 = 0;
   const int pow2_scale = scale > 0.f && std::frexp(scale, &exp2) == 0.5f;
   flash_fwd<HD><<<ctas, THREADS, C::SMEM, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(o), B, S, T, H, KVH, causal, window,
-      scale, pow2_scale);
+      mq, mk, mv, static_cast<bf16*>(o), lse, B, S, T, H, KVH, causal,
+      window, scale, pow2_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o (B, S, H, hd) and k, v (B, T, KVH, hd), all contiguous bf16 on the
-// device with 16-byte aligned bases; H a multiple of KVH; hd 64 or 128;
-// window <= 0 means none. The caller validates shapes. Returns the CUDA
-// error of the launch (0 if none), or minus the CUresult of a tensor map
-// that could not be encoded.
+// device with 16-byte aligned bases; lse (B, H, S) fp32 or null; H a
+// multiple of KVH; hd 64 or 128; window <= 0 means none. The caller
+// validates shapes. Returns the CUDA error of the launch (0 if none), or
+// minus the CUresult of a tensor map that could not be encoded.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int S,
-                                   int T, int H, int KVH, int hd, int causal,
-                                   int window, float scale, void* stream) {
+                                   const void* v, void* o, void* lse, int B,
+                                   int S, int T, int H, int KVH, int hd,
+                                   int causal, int window, float scale,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (hd == 64)
-    return launch<64>(q, k, v, o, B, S, T, H, KVH, causal, window, scale, st);
+    return launch<64>(q, k, v, o, l, B, S, T, H, KVH, causal, window, scale,
+                      st);
   if (hd == 128)
-    return launch<128>(q, k, v, o, B, S, T, H, KVH, causal, window, scale,
-                       st);
+    return launch<128>(q, k, v, o, l, B, S, T, H, KVH, causal, window,
+                       scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

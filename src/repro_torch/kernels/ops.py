@@ -24,8 +24,11 @@ fallback from the card to the host.
     fused in one kernel on the card (``kernels.diameter``).
   * :func:`tuple_diameters` — the diameters r(A) of a batch of given
     candidate tuples (the TPU kernel's own function).
-  * :func:`flash_attention` — causal or windowed attention forward (the LM
-    embedder's self-attention).
+  * :func:`flash_attention` — causal, windowed or non-causal attention (the
+    language models' self-attention), differentiable: under autograd its
+    gradient is the backward kernel K7b on the card (the plain
+    ``ref.flash_attention_bwd`` on the CPU), from the forward's saved row
+    log-sum-exp.
   * :func:`project_and_bin` — the random projections and both bin keys of
     every point (the index build, inserts and deletes).
 """
@@ -147,12 +150,45 @@ def tuple_diameters(pts: torch.Tensor) -> torch.Tensor:
     return ref.tuple_diameters(pts)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Attention with its hand-written backward: the forward (K7, or the
+    plain version on the CPU) keeps the rows' log-sum-exp and saves q, k, v,
+    the output and it; the backward is K7b (``flash_attention_bwd``) on the
+    card, ``ref.flash_attention_bwd`` on the CPU. Nothing else computes the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        fwd = _flash.flash_attention if _route(q) == "cuda" \
+            else ref.flash_attention
+        out, lse = fwd(q, k, v, causal=causal, window=window,
+                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = _flash.flash_attention_bwd if _route(q) == "cuda" \
+            else ref.flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), lse,
+                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
     """Attention of q (B, S, H, hd) over k, v (B, T, Kv, hd), positions 0..
     on both axes; returns (B, S, H, hd). On the card only bf16 with hd 64 or
-    128 is taken (anything else raises)."""
+    128 is taken (anything else raises). Under grad mode with an input
+    that requires grad, the call is differentiable (:class:`_FlashAttention`:
+    the forward also keeps the row log-sum-exp); otherwise (serving,
+    ``no_grad``, ``inference_mode``) it is the forward alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
     if _route(q) == "cuda":
         return _flash.flash_attention(q, k, v, causal=causal, window=window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)

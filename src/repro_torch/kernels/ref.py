@@ -331,36 +331,63 @@ def anchor_star(groups: torch.Tensor, mask: torch.Tensor, *,
     return nn.to(torch.int32), worst_nn, tuple_diameters(tuples)
 
 
-def _attention_numerators(q, k, v, causal, window):
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain attention's working type: fp32, or fp64 for fp64 inputs
+    (``torch.autograd.gradcheck``)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _attention_mask(s: int, t: int, causal: bool, window,
+                    device) -> torch.Tensor:
+    """(S, T) bool: query ``i`` sees key ``j``."""
+    q_pos = torch.arange(s, device=device)[:, None]
+    kv_pos = torch.arange(t, device=device)[None, :]
+    valid = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        valid &= kv_pos <= q_pos
+    if window is not None:
+        valid &= kv_pos > q_pos - window
+    return valid
+
+
+def _scaled_query(q: torch.Tensor) -> torch.Tensor:
+    """``q * (1/sqrt(hd))`` in the working type, rounded to q's dtype (the
+    kernels' scaled query), back in the working type."""
+    acc = _acc_dtype(q)
+    return (q.to(acc) * (1.0 / float(q.shape[-1]) ** 0.5)).to(q.dtype).to(acc)
+
+
+def _repeat_heads(a: torch.Tensor, g: int, acc) -> torch.Tensor:
+    return a.repeat_interleave(g, dim=2).to(acc) if g > 1 else a.to(acc)
+
+
+def _attention_numerators(q, k, v, causal, window, with_max: bool = False):
     """Unnormalised softmax numerators ``p = exp(s - rowmax)`` (B, H, S, T)
     in fp32 over the scores of ``q * (1/sqrt(hd))`` (rounded to q's dtype)
     against k, with masked scores at -1e30, and v repeated per query head
-    (B, T, H, hd)."""
+    (B, T, H, hd); with ``with_max`` the row maxima (B, H, S, 1) too."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     if h % kvh:
         raise ValueError(f"{h} query heads are not a multiple of {kvh} "
                          f"kv heads")
     g = h // kvh
-    qs = (q.float() * (1.0 / float(hd) ** 0.5)).to(q.dtype).float()
-    kf = k.repeat_interleave(g, dim=2).float() if g > 1 else k.float()
+    acc = _acc_dtype(q)
+    qs = _scaled_query(q)
+    kf = _repeat_heads(k, g, acc)
     vv = v.repeat_interleave(g, dim=2) if g > 1 else v
     sc = torch.einsum("bshd,bthd->bhst", qs, kf)
-    q_pos = torch.arange(s, device=q.device)[:, None]
-    kv_pos = torch.arange(t, device=q.device)[None, :]
-    valid = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        valid &= kv_pos <= q_pos
-    if window is not None:
-        valid &= kv_pos > q_pos - window
+    valid = _attention_mask(s, t, causal, window, q.device)
     # in place: at (2, 4096, 36, 64) one score block is 4.8 GB
     p = sc.masked_fill_(~valid, -1e30)
-    return p.sub_(p.amax(dim=-1, keepdim=True)).exp_(), vv
+    mx = p.amax(dim=-1, keepdim=True)
+    p = p.sub_(mx).exp_()
+    return (p, vv, mx) if with_max else (p, vv)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    return_lse: bool = False):
     """Attention forward (kernel ``flash_attention`` in
     ``csrc/flash_attention.cu``), written out as einsum and softmax.
 
@@ -368,20 +395,75 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     h reads kv head ``h // (H // Kv)``); positions run 0.. on both axes.
     Query ``i`` sees key ``j`` iff ``j < T``, and ``j <= i`` when ``causal``,
     and ``j > i - window`` with a ``window``; masked scores are -1e30.
-    Returns (B, S, H, hd) in q's dtype.
+    Returns (B, S, H, hd) in q's dtype, and with ``return_lse`` also the
+    rows' log-sum-exp ``rowmax + log(l)`` (B, H, S) in the working type,
+    the statistics :func:`flash_attention_bwd` reads.
 
     Rounds where the kernel rounds: ``q * (1/sqrt(hd))`` is taken in fp32 and
     rounded to q's dtype before the QK^T dot, the softmax numerators to v's
     dtype before the PV dot; products accumulate in fp32 and the output is
     ``acc / max(l, 1e-30)`` with the fp32 denominator. In fp32 this is the
-    dense-softmax oracle of the flash kernel. The kernel normalises
-    numerators by a running maximum, this version by the row maximum, so the
-    two round the numerators at different scales."""
-    p, vv = _attention_numerators(q, k, v, causal, window)
+    dense-softmax oracle of the flash kernel (fp64 inputs work in fp64). The
+    kernel normalises numerators by a running maximum, this version by the
+    row maximum, so the two round the numerators at different scales."""
+    p, vv, mx = _attention_numerators(q, k, v, causal, window, with_max=True)
+    acc = _acc_dtype(q)
     denom = p.sum(dim=-1)                                       # (B, H, S)
-    out = torch.einsum("bhst,bthd->bshd", p.to(v.dtype).float(), vv.float())
-    return (out / denom.clamp_min(1e-30).transpose(1, 2)[..., None]) \
+    out = torch.einsum("bhst,bthd->bshd", p.to(v.dtype).to(acc), vv.to(acc))
+    out = (out / denom.clamp_min(1e-30).transpose(1, 2)[..., None]) \
         .to(q.dtype)
+    if not return_lse:
+        return out
+    return out, mx[..., 0] + denom.clamp_min(1e-30).log()
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward (kernel K7b, ``csrc/flash_attention_bwd.cu``)
+    written out with a dense softmax: the gradients (dq, dk, dv) of
+    :func:`flash_attention`'s output ``o`` (B, S, H, hd) under the cotangent
+    ``do``, from the forward's row log-sum-exp ``lse`` (B, H, S); the mask
+    and the head grouping as there. Returns tensors of q's, k's and v's
+    dtypes.
+
+    Rounds where the kernel rounds, in fp32 (fp64 for fp64 inputs): the
+    scaled query ``qs = q * (1/sqrt(hd))`` rounded to q's dtype; P = exp(qs
+    k^T - lse), 0 where masked; D = rowsum(do * o); dv = round(P)^T do (P
+    rounded to v's dtype), dP = do v^T, dS = P (dP - D); dq = (1/sqrt(hd))
+    round(dS) k and dk = round(dS)^T qs (dS rounded to q's dtype); the
+    grouped query heads' dk and dv summed into their kv head. In fp32 with
+    fp32 inputs nothing rounds, and this is the exact gradient of the dense
+    attention. Not autograd: :func:`_attention_numerators` works in place,
+    and the score block is built once (4.8 GB in fp32 at (2, 4096, 36,
+    64)); dP is turned into dS in place."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if h % kvh:
+        raise ValueError(f"{h} query heads are not a multiple of {kvh} "
+                         f"kv heads")
+    g = h // kvh
+    acc = _acc_dtype(q)
+    scale = 1.0 / float(hd) ** 0.5
+    qs = _scaled_query(q)
+    kf, vf = _repeat_heads(k, g, acc), _repeat_heads(v, g, acc)
+    dof = do.to(acc)
+    p = torch.einsum("bshd,bthd->bhst", qs, kf)
+    p = p.sub_(lse.to(acc)[..., None]).exp_().masked_fill_(
+        ~_attention_mask(s, t, causal, window, q.device), 0.0)
+    dvec = (dof * o.to(acc)).sum(dim=-1).transpose(1, 2)        # (B, H, S)
+    dv = torch.einsum("bhst,bshd->bthd", p.to(v.dtype).to(acc), dof)
+    ds = torch.einsum("bshd,bthd->bhst", dof, vf)
+    ds = ds.sub_(dvec[..., None]).mul_(p)
+    del p
+    ds = ds.to(q.dtype).to(acc)
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, qs)
+    if g > 1:
+        dk = dk.reshape(b, t, kvh, g, hd).sum(dim=3)
+        dv = dv.reshape(b, t, kvh, g, hd).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_tolerance(q: torch.Tensor, k: torch.Tensor,
@@ -411,3 +493,76 @@ def flash_attention_tolerance(q: torch.Tensor, k: torch.Tensor,
     spread = torch.einsum("bhst,bthd->bshd", p.square_(),
                           vv.float().square()).sqrt_() / denom
     return 2.0 ** -7 * plain.float().abs() + 2.0 ** -6 * spread
+
+
+def flash_attention_bwd_tolerance(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  do: torch.Tensor, lse: torch.Tensor,
+                                  plain: tuple, *, causal: bool = True,
+                                  window: int | None = None) -> tuple:
+    """Element-wise bounds (fp32, the gradients' shapes) on ``|kernel -
+    plain|`` for K7b against :func:`flash_attention_bwd` on the same bf16
+    inputs, ``plain`` being its (dq, dk, dv):
+
+        dv: 2^-7 |plain| + 2^-6 sqrt(sum_i P_ij^2 do_i^2)
+        dk: 2^-7 |plain| + 2^-6 sqrt(sum_i dS_ij^2 qs_i^2)
+        dq: 2^-7 |plain| + 2^-6 scale sqrt(sum_j dS_ij^2 k_j^2)
+
+    (sums over the queries of every head of a kv head's group for dk and
+    dv). The two versions take P, dP and D in fp32 in other orders (and the
+    kernel's exp is the fast one), so their P and dS differ by ~2^-20
+    relative; each rounds P and dS to bf16 before a product, and where the
+    two values straddle a rounding boundary the rounded terms differ by one
+    bf16 ulp, <= 2^-7 of the term. That happens to a small fraction of the
+    terms, at random, so the products' differences are a few such ulps of
+    the largest terms: the second term allows four at the root-sum-square
+    of the terms. Each rounds its fp32 result to bf16 once: one ulp, <= 2^-7
+    |plain|. fp32 summation-order differences (~2^-24 sqrt(S) relative) lie
+    far below both, except in dS = P (dP - D) where dP and D cancel (a row
+    whose output is one key's value: one live key, or equal values): there
+    each version's fp32 dot products leave up to hd 2^-24 (|do_i| |v_j| +
+    |do_i| |o_i|) of noise (norms over hd), so dq and dk also take
+
+        dq: c scale |do_i| sum_j W_ij |k_j|,  dk: c sum_i W_ij |do_i| |qs_i|,
+        W_ij = P_ij (|v_j| + |o_i|),  c = hd 2^-22 (both versions' noise).
+
+    A kernel that drops or mis-weights a key or query tile lies far
+    outside."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    acc = _acc_dtype(q)
+    scale = 1.0 / float(hd) ** 0.5
+    qs = _scaled_query(q)
+    kf, vf = _repeat_heads(k, g, acc), _repeat_heads(v, g, acc)
+    dof = do.to(acc)
+    p = torch.einsum("bshd,bthd->bhst", qs, kf)
+    p = p.sub_(lse.to(acc)[..., None]).exp_().masked_fill_(
+        ~_attention_mask(s, t, causal, window, q.device), 0.0)
+    dvec = (dof * o.to(acc)).sum(dim=-1).transpose(1, 2)
+    ds = torch.einsum("bshd,bthd->bhst", dof, vf)
+    ds = ds.sub_(dvec[..., None]).mul_(p).square_()
+    spread_dk = torch.einsum("bhst,bshd->bthd", ds, qs.square())
+    spread_dq = torch.einsum("bhst,bthd->bshd", ds, kf.square())
+    del ds
+    # the cancellation noise of dP - D
+    c = hd * 2.0 ** -22
+    do_n = dof.norm(dim=-1).transpose(1, 2)[..., None]          # (B,H,S,1)
+    w = p * (vf.norm(dim=-1).transpose(1, 2)[:, :, None, :]
+             + o.to(acc).norm(dim=-1).transpose(1, 2)[..., None])
+    noise_dq = c * scale * do_n.transpose(1, 2) \
+        * torch.einsum("bhst,bthd->bshd", w, kf.abs())
+    noise_dk = c * torch.einsum("bhst,bshd->bthd", w.mul_(do_n), qs.abs())
+    del w
+    spread_dv = torch.einsum("bhst,bshd->bthd", p.square_(), dof.square())
+    del p
+    if g > 1:
+        spread_dk = spread_dk.reshape(b, t, kvh, g, hd).sum(dim=3)
+        spread_dv = spread_dv.reshape(b, t, kvh, g, hd).sum(dim=3)
+        noise_dk = noise_dk.reshape(b, t, kvh, g, hd).sum(dim=3)
+    dq, dk, dv = plain
+    return (2.0 ** -7 * dq.to(acc).abs()
+            + 2.0 ** -6 * scale * spread_dq.sqrt_() + noise_dq,
+            2.0 ** -7 * dk.to(acc).abs() + 2.0 ** -6 * spread_dk.sqrt_()
+            + noise_dk,
+            2.0 ** -7 * dv.to(acc).abs() + 2.0 ** -6 * spread_dv.sqrt_())

@@ -3,7 +3,7 @@
     api = model_api(get_config("minicpm-2b"))
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
     # on the host: api.init(torch.Generator().manual_seed(0), device="cpu")
-    loss, metrics = api.loss(params, batch)          # forward value only
+    loss, metrics = api.loss(params, batch)          # differentiable
     logits, cache = api.prefill(params, batch, max_seq=576)
     logits, cache = api.decode(params, cache, tokens)   # tokens (B, 1)
     cache = api.init_cache(batch=8, max_seq=576)
@@ -12,9 +12,13 @@
 ``batch`` holds ``"tokens"`` (B, S), and ``"targets"`` (and an optional
 ``"mask"``) for the loss, ``"patches"`` (B, vision_tokens, vision_dim) for
 the vision family, ``"frames"`` (B, audio_frames, d_model) for the audio
-family. ``loss`` is the reference's forward value with no autograd: the
-training step, its optimizer and the attention backward come with the
-training slice. ``count_params`` and ``active_params`` build the parameters
+family. ``loss`` is differentiable, as the reference's is: under grad mode
+its attention's gradient is K7b on the card (``kernels.ops``), and with
+``remat`` (the default) each layer runs again in the backward. Training
+takes fp32 master parameters (``core.carry.model_params_from_numpy(...,
+master=True)``, or :func:`master_params`): the forward casts every matrix
+to bf16 where it uses it, so the loss is the same as on the bf16 serving
+parameters. ``count_params`` and ``active_params`` build the parameters
 as fake tensors (``meta`` storage), which allocates nothing.
 """
 from __future__ import annotations
@@ -30,6 +34,7 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.models import audio as audio_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.common import ACT_DTYPE, Params
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 Batch = dict[str, Any]
 
@@ -83,12 +88,14 @@ def model_api(cfg: ArchConfig) -> ModelAPI:
                              f"for on {device}")
         return mod.init_params(cfg, gen)
 
-    def loss(params: Params, batch: Batch):
-        """(xent + aux, {"xent", "aux"}), fp32 scalars; no autograd."""
-        with torch.no_grad():
-            logits, aux = mod.forward_train(params, cfg, batch["tokens"],
-                                            extra=_extra_of(cfg, batch))
-            xent = _xent(logits, batch["targets"], batch.get("mask"))
+    def loss(params: Params, batch: Batch, *, remat: bool = True):
+        """(xent + aux, {"xent", "aux"}), fp32 scalars; differentiable
+        under grad mode, with each layer recomputed in the backward when
+        ``remat``."""
+        logits, aux = mod.forward_train(params, cfg, batch["tokens"],
+                                        extra=_extra_of(cfg, batch),
+                                        remat=remat)
+        xent = _xent(logits, batch["targets"], batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
     def prefill(params: Params, batch: Batch, *, max_seq: int | None = None):
@@ -113,7 +120,7 @@ def model_api(cfg: ArchConfig) -> ModelAPI:
         round to bf16, as the reference's bf16 reductions do."""
         hidden, _ = mod.forward_train(params, cfg, batch["tokens"],
                                       extra=_extra_of(cfg, batch),
-                                      return_hidden=True)
+                                      remat=False, return_hidden=True)
         mask = batch.get("mask")
         if mask is None:
             return hidden.mean(dim=1)
@@ -124,12 +131,11 @@ def model_api(cfg: ArchConfig) -> ModelAPI:
                     decode=decode, init_cache=init_cache, embed=embed)
 
 
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+def master_params(tree):
+    """A copy of a parameter tree with every tensor in fp32: the master
+    copy training updates (the reference's parameters are fp32
+    throughout). Serving's bf16 matrices become their fp32 values."""
+    return tree_map(lambda t: t.float().clone(), tree)
 
 
 def count_params(cfg: ArchConfig) -> int:
@@ -138,7 +144,7 @@ def count_params(cfg: ArchConfig) -> int:
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         params = _module(cfg).init_params(cfg, torch.Generator())
-        return sum(math.prod(t.shape) for t in _leaves(params))
+        return sum(math.prod(t.shape) for t in tree_leaves(params))
 
 
 def active_params(cfg: ArchConfig) -> int:

@@ -18,6 +18,7 @@ projected once from the encoder output: ``{"layers": [{"k", "v", "xk",
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (ACT_DTYPE, AttnSpec, Params,
@@ -71,20 +72,33 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     }
 
 
-def encode(params: Params, cfg: ArchConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def _layers(body, layers, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``x = body(p_l, x)`` over ``layers``; under grad mode with ``remat``
+    each call runs inside ``torch.utils.checkpoint.checkpoint`` (the
+    reference's remat around its scan body)."""
+    remat = remat and torch.is_grad_enabled()
+    for p_l in layers:
+        x = checkpoint(body, p_l, x, use_reentrant=False) if remat \
+            else body(p_l, x)
+    return x
+
+
+def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
     """frames (B, T, D) from the stub frontend -> encoder states (B, T, D)."""
     b, t, _ = frames.shape
     x = frames.to(ACT_DTYPE) + params["enc_pos"][:t].to(ACT_DTYPE)
     positions = torch.arange(t, dtype=torch.int32,
                              device=frames.device).expand(b, t)
     spec = _spec(cfg, causal=False)
-    for p_l in params["enc_layers"]:
+
+    def body(p_l, x):
         h = apply_norm(p_l["ln1"], x, cfg.norm, cfg.norm_eps)
         att, _ = self_attention(p_l["attn"], spec, h, positions)
         x = x + att
         h = apply_norm(p_l["ln2"], x, cfg.norm, cfg.norm_eps)
-        x = x + apply_mlp(p_l["mlp"], h, cfg.mlp)
+        return x + apply_mlp(p_l["mlp"], h, cfg.mlp)
+    x = _layers(body, params["enc_layers"], x, remat)
     return apply_norm(params["enc_norm"], x, cfg.norm, cfg.norm_eps)
 
 
@@ -108,17 +122,20 @@ def _zero(device) -> torch.Tensor:
 
 
 def forward_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-                  extra: dict, return_hidden: bool = False):
+                  extra: dict, remat: bool = True,
+                  return_hidden: bool = False):
     """tokens (B, S) and ``extra["frames"]`` (B, T, D) -> (logits, aux =
-    0)."""
+    0). Differentiable; ``remat`` recomputes each encoder and decoder layer
+    in the backward (it does nothing outside grad mode)."""
     b, s = tokens.shape
-    enc_out = encode(params, cfg, extra["frames"])
+    enc_out = encode(params, cfg, extra["frames"], remat=remat)
     x = embed_tokens(params["embed"], tokens) \
         + params["dec_pos"][:s].to(ACT_DTYPE)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    for p_l in params["dec_layers"]:
-        x, _ = _dec_layer(p_l, cfg, x, positions, enc_out)
+    x = _layers(lambda p_l, x: _dec_layer(p_l, cfg, x, positions,
+                                          enc_out)[0],
+                params["dec_layers"], x, remat)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     if return_hidden:
         return x, _zero(x.device)

@@ -109,8 +109,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, b_in: torch.Tensor,
     cum = torch.cumsum(da, dim=2)                         # inclusive
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Qi,Qj,H)
     tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
-    l_mat = torch.where(tri[None, None, :, :, None], torch.exp(seg),
-                        torch.zeros((), device=x.device))
+    # exp of the masked segment sums (0 above the diagonal): the same
+    # values as where(tri, exp(seg), 0), without an overflowing exp there
+    # whose infinite derivative would turn the masked gradient into NaN
+    l_mat = torch.exp(seg.masked_fill(~tri[None, None, :, :, None],
+                                      float("-inf")))
 
     # intra-chunk: y[i] = sum_{j<=i} (C_i . B_j) L_ij dt_j x_j
     cb = f32_dot("bcign,bcjgn->bcijg", cc, bc)            # (B,nc,Qi,Qj,G)

@@ -23,12 +23,16 @@ keys and values into the cache tensors in place and returns the cache with
 
 Three drivers share the layer functions, as in the reference:
 ``forward_train`` (no cache; logits or the final-norm hidden states, and the
-aux loss), ``prefill`` (builds the cache; last-token logits) and ``decode``
-(one step, cache in and out).
+aux loss; differentiable, with the reference's ``remat``: under grad mode
+each entry of ``params["layers"]`` runs inside
+``torch.utils.checkpoint.checkpoint``, which keeps only its input and runs
+it again in the backward), ``prefill`` (builds the cache; last-token
+logits) and ``decode`` (one step, cache in and out).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
@@ -219,15 +223,19 @@ def _kvc(kv: Params, pos: int) -> Params:
 # --------------------------------------------------------------- drivers
 def _run(params: Params, cfg: ArchConfig, x: torch.Tensor,
          positions: torch.Tensor, *, extra=None, cache: Params | None = None,
-         max_seq: int | None = None):
+         max_seq: int | None = None, remat: bool = False):
     """The layer stack, one driver for all three modes: no cache and no
     ``max_seq`` (the forward), ``max_seq`` (prefill: builds the cache
     layers) or ``cache`` (decode). Returns (x, aux, cache layers or
-    None)."""
+    None). ``remat`` (the forward under grad mode only) runs each entry of
+    ``params["layers"]`` (a layer or a super-block) under
+    ``torch.utils.checkpoint.checkpoint``: the reference's
+    remat of its scan body."""
     fam = cfg.family
     aux = _zero(x.device)
     pos = None if cache is None else cache["pos"]
     building = max_seq is not None
+    keep = building or cache is not None
     layers_in = cache["layers"] if cache is not None \
         else [None] * len(params["layers"])
     out_layers = []
@@ -239,33 +247,32 @@ def _run(params: Params, cfg: ArchConfig, x: torch.Tensor,
 
     if fam == "vlm" and cache is None:
         vis = _vision(params, extra)
-    for p_l, c_l in zip(params["layers"], layers_in):
+
+    def block(p_l, c_l, x):
+        """One entry of ``params["layers"]``: (x, aux, its cache layer)."""
         if fam == "dense" or (fam == "moe" and cfg.moe.every == 1):
-            x, kv, a = self_layer(p_l, c_l, x)
-            aux = aux + a
-            out_layers.append(kv)
-        elif fam == "moe":
-            dense_kv = []
+            return self_layer(p_l, c_l, x)
+        if fam == "moe":
+            a_sum, dense_kv = _zero(x.device), []
             for j, p_d in enumerate(p_l["dense"]):
                 x, kv, a = self_layer(p_d, None if c_l is None
                                       else c_l["dense"][j], x)
-                aux = aux + a
+                a_sum = a_sum + a
                 dense_kv.append(kv)
             x, kv, a = self_layer(p_l["moe"], None if c_l is None
                                   else c_l["moe"], x)
-            aux = aux + a
-            out_layers.append({"dense": dense_kv, "moe": kv})
-        elif fam == "ssm":
+            return x, {"dense": dense_kv, "moe": kv}, a_sum + a
+        if fam == "ssm":
             x, st = apply_ssm_layer(p_l, cfg, x, state=c_l)
-            out_layers.append(st)
-        elif fam == "hybrid":
+            return x, st, None
+        if fam == "hybrid":
             kv_in = None if c_l is None else _kvc(c_l, pos)
             x, kv, st = apply_hybrid_layer(
                 p_l, cfg, x, positions, cache=kv_in,
                 state=None if c_l is None else c_l["state"])
-            out_layers.append({**(_padded(kv, max_seq) if building else kv),
-                               "state": st})
-        elif fam == "vlm":
+            return x, {**(_padded(kv, max_seq) if building else kv),
+                       "state": st}, None
+        if fam == "vlm":
             self_kv = []
             for j, p_d in enumerate(p_l["self"]):
                 x, kv, _ = self_layer(p_d, None if c_l is None
@@ -277,22 +284,34 @@ def _run(params: Params, cfg: ArchConfig, x: torch.Tensor,
             else:
                 xk, xv = c_l["xk"], c_l["xv"]
             x = apply_cross_layer(p_l["cross"], cfg, x, k=xk, v=xv)
-            out_layers.append({"self": self_kv, "xk": xk, "xv": xv})
+            return x, {"self": self_kv, "xk": xk, "xv": xv}, None
+        raise ValueError(fam)
+
+    remat = remat and not keep and torch.is_grad_enabled()
+    for p_l, c_l in zip(params["layers"], layers_in):
+        if remat:
+            x, layer, a = checkpoint(block, p_l, c_l, x, use_reentrant=False)
         else:
-            raise ValueError(fam)
-    keep = building or cache is not None
+            x, layer, a = block(p_l, c_l, x)
+        if a is not None:
+            aux = aux + a
+        if keep:
+            out_layers.append(layer)
     return x, aux, (out_layers if keep else None)
 
 
 def forward_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-                  extra: dict | None = None, return_hidden: bool = False):
+                  extra: dict | None = None, remat: bool = True,
+                  return_hidden: bool = False):
     """(B, S) tokens -> (logits (B, S, padded vocab) in bf16, aux loss fp32
     scalar); no cache. ``return_hidden`` swaps the logits for the final-norm
-    hidden states (B, S, D): the embedding trunk that feeds ProMiSH."""
+    hidden states (B, S, D): the embedding trunk that feeds ProMiSH.
+    Differentiable; ``remat`` recomputes each layer in the backward (it
+    does nothing outside grad mode)."""
     bsz, s = tokens.shape
     x = embed_tokens(params["embed"], tokens)
     x, aux, _ = _run(params, cfg, x, _positions(bsz, s, tokens.device),
-                     extra=extra)
+                     extra=extra, remat=remat)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     if return_hidden:
         return x, aux

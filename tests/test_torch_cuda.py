@@ -1675,3 +1675,114 @@ def test_lm_serving_on_card_matches_cpu(name):
         cfg.family, cfg.n_layers - (cfg.n_layers // cfg.cross_attn_every
                                     if cfg.family == "vlm" else 0))
     assert k7_prefill == attn_layers and k7_decode == 0
+
+
+# K7b, the attention backward: (B, S, T, H, Kv, hd, causal, window) with
+# query and key tiles that have edges, grouped heads (GQA 4/2, 4/1, 40/8,
+# 12/4), hd 64 and 128, windows, non-causal and S != T, one row.
+FLASH_BWD_CASES = [
+    (2, 130, 130, 4, 2, 64, True, None), (1, 33, 33, 4, 1, 128, True, None),
+    (2, 200, 200, 8, 8, 64, False, None), (1, 300, 300, 4, 2, 64, True, 100),
+    (1, 96, 160, 4, 4, 64, False, None), (1, 160, 96, 4, 2, 64, True, None),
+    (1, 1, 1, 2, 1, 64, True, None), (2, 512, 512, 12, 4, 64, True, None),
+    (1, 257, 257, 40, 8, 128, True, None),
+    (1, 256, 256, 4, 2, 128, False, 64)]
+
+
+def _bwd_inputs(b, s, t, h, kv, hd, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda")
+                 .to(torch.bfloat16)
+                 for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd),
+                               (b, s, h, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", FLASH_BWD_CASES)
+def test_flash_attention_bwd_matches_plain_version_on_card(b, s, t, h, kv,
+                                                           hd, causal,
+                                                           window):
+    """K7's row log-sum-exp against the plain version's (fp32, 1e-4
+    absolute: both sum the same unrounded numerators, in other orders), and
+    K7b against ``ref.flash_attention_bwd`` on K7's output and statistics:
+    every element of dq, dk, dv within
+    ``ref.flash_attention_bwd_tolerance``; a second call gives the same bits
+    (no atomics); three launches counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import flash_attention as flash
+    q, k, v, do = _bwd_inputs(b, s, t, h, kv, hd, b * s + t + hd + h)
+    o, lse = flash.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    _, lse_plain = ref.flash_attention(q, k, v, causal=causal,
+                                       window=window, return_lse=True)
+    assert float((lse - lse_plain).abs().max()) <= 1e-4
+    before = flash.launches["flash_attention_bwd"]
+    got = flash.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                    window=window)
+    again = flash.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                      window=window)
+    assert flash.launches["flash_attention_bwd"] == before + 6
+    want = ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                   window=window)
+    tols = ref.flash_attention_bwd_tolerance(q, k, v, o, do, lse, want,
+                                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    for name, g, a, w, tol in zip(("dq", "dk", "dv"), got, again, want,
+                                  tols):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        assert bool(torch.isfinite(g.float()).all()), name
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= tol).all()), \
+            (name, float((err / tol.clamp_min(1e-30)).max()))
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_reaches_k7b_on_card():
+    """Under autograd ``ops.flash_attention`` runs K7 with statistics and
+    its backward runs K7b and nothing else: the gradients equal a direct
+    K7b call's bit for bit. Under ``no_grad`` the forward alone runs (no
+    statistics kept), as in serving."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops
+    q, k, v, do = _bwd_inputs(2, 192, 192, 8, 2, 64, 11)
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    flash.reset_launches()
+    out = ops.flash_attention(*leaves, causal=True, window=None)
+    out.backward(do)
+    assert flash.launches == {"flash_attention": 1, "flash_attention_bwd": 3}
+    o, lse = flash.flash_attention(q, k, v, causal=True, return_lse=True)
+    want = flash.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    assert torch.equal(out.detach(), o)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    flash.reset_launches()
+    with torch.no_grad():
+        ops.flash_attention(*leaves, causal=True)
+    assert flash.launches == {"flash_attention": 1, "flash_attention_bwd": 0}
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import flash_attention as flash
+    q, k, v, do = _bwd_inputs(1, 64, 64, 4, 2, 64, 3)
+    o, lse = flash.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(TypeError):
+        flash.flash_attention_bwd(q, k, v, o, do.float(), lse)
+    with pytest.raises(ValueError):
+        flash.flash_attention_bwd(q, k, v, o, do, lse[:, :, :32])
+    with pytest.raises(ValueError):
+        flash.flash_attention_bwd(q, k, v, o, do, lse.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        flash.flash_attention_bwd(q, k, v, o, do.transpose(1, 2), lse)
+    with pytest.raises(ValueError):
+        flash.flash_attention_bwd(q[..., :32].contiguous(),
+                                  k[..., :32].contiguous(),
+                                  v[..., :32].contiguous(),
+                                  o[..., :32].contiguous(),
+                                  do[..., :32].contiguous(), lse)

@@ -17,6 +17,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
     ("ingest_corpus.py", ["--device", "cpu"], "(matches static build)"),
     ("distributed_serve.py", ["--device", "cpu", "--n", "3000"],
      "answers equal the single-device engine's"),
+    ("train_embedder.py", ["--device", "cpu", "--steps", "4"],
+     "NKS query [0, 1] -> ids="),
 ])
 def test_example_runs_with_jax_blocked(tmp_path, script, argv, expect):
     path = ROOT / "examples" / "torch" / script

@@ -18,19 +18,44 @@ references on the same seeded numpy inputs:
     2^-9, so the outputs (averages of v, |v| <= ~4.5) agree to two bf16
     ulps of the output plus 2^-8 of max|v|.
 
-The CUDA kernel itself runs only on the card: ``test_torch_cuda.py`` holds it
-against this plain version there, and ``chip_smoke.py`` at the embed path's
-shapes.
+The backward (K7b's plain version, ``kernels.ref.flash_attention_bwd``) is
+held, on the cases of the issue's grid (causal, window and non-causal; GQA
+4/2 and 4/1; hd 16, 64 and 128; S = 1, 33 and 130):
+
+  * in fp32, against autograd of a dense fp32 softmax attention: nothing
+    rounds, so they agree to 1e-5 of the largest of the three gradients
+    (at S = 1 the exact dq and dk are 0, and both give fp32 noise);
+  * in bf16, against ``jax.vjp`` of the reference's
+    ``models.common.blockwise_attention`` (the gradient the reference's
+    training takes on the CPU, XLA autodiff of its direct path): within
+    2^-6 of the largest of the three reference gradients. The two round at
+    different places: the reference rounds the normalised probabilities and
+    the probabilities' cotangent dP to bf16, the port the unnormalised
+    numerators P and dS; each rounding is a relative 2^-9 and each output
+    is rounded to bf16 once (the largest difference on the grid is 0.0065
+    of the scale);
+  * through ``ops.flash_attention`` under autograd (the
+    ``torch.autograd.Function`` whose CPU route is the plain forward and
+    backward): its gradients equal the plain backward's bit for bit, and
+    ``torch.autograd.gradcheck`` passes in fp64 on a tiny case.
+
+The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
+holds them against these plain versions there, and ``chip_smoke.py`` at the
+main paths' shapes.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.kernels.ref import flash_attention_ref
 from repro.models.common import blockwise_attention
 from repro_torch.kernels import flash_attention as cuda_flash
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(1)
 
@@ -198,3 +223,106 @@ def test_kernel_wrapper_refuses_what_tma_cannot_take():
     with pytest.raises(ValueError, match="work units"):
         cuda_flash.check_units(1 << 16, 1 << 16, 64)
     assert cuda_flash.launches["flash_attention"] == 0
+
+
+# (causal, window) x (H, Kv) x hd x S: the backward's grid.
+BWD_CASES = list(itertools.product([(True, None), (True, 8), (False, None)],
+                                   [(4, 2), (4, 1)], [16, 64, 128],
+                                   [1, 33, 130]))
+
+
+def _bwd_inputs(s, h, kv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((2, s, h, hd), (2, s, kv, hd), (2, s, kv, hd),
+                               (2, s, h, hd)))
+
+
+def _dense_attention(q, k, v, causal, window):
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    kf, vf = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    sc = torch.einsum("bshd,bthd->bhst", q * (1.0 / hd ** 0.5), kf)
+    i = torch.arange(s)
+    mask = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[None, :] > i[:, None] - window
+    sc = sc.masked_fill(~mask, -1e30)
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(sc, -1), vf)
+
+
+@pytest.mark.parametrize("mask,heads,hd,s", BWD_CASES)
+def test_plain_backward_matches_dense_autograd_fp32(mask, heads, hd, s):
+    (causal, window), (h, kv) = mask, heads
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _bwd_inputs(s, h, kv, hd, seed=s + hd + h * kv))
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    _dense_attention(*leaves, causal, window).backward(do)
+    o, lse = ref.flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    got = ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                  window=window)
+    scale = max(float(a.grad.abs().max()) for a in leaves)
+    for g, leaf in zip(got, leaves):
+        assert g.dtype == torch.float32 and g.shape == leaf.shape
+        assert float((g - leaf.grad).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("mask,heads,hd,s", BWD_CASES)
+def test_backward_matches_reference_vjp_bf16(mask, heads, hd, s):
+    (causal, window), (h, kv) = mask, heads
+    q, k, v, do = _bwd_inputs(s, h, kv, hd, seed=7 * s + hd + h * kv)
+    pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], (2, s))
+    _, vjp = jax.vjp(lambda a, b, c: blockwise_attention(
+        a, b, c, pos, pos, causal=causal, window=window),
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    want = [np.asarray(g.astype(jnp.float32))
+            for g in vjp(jnp.asarray(do, jnp.bfloat16))]
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+              for a in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
+    out.backward(torch.from_numpy(do).to(torch.bfloat16))
+    scale = max(float(np.abs(w).max()) for w in want)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == torch.bfloat16
+        err = float(np.abs(leaf.grad.float().numpy() - w).max())
+        assert err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_autograd_function_routes_cpu_to_plain_backward():
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in
+                   _bwd_inputs(70, 8, 2, 64, seed=5))
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=True, window=24)
+    assert out.grad_fn is not None
+    out.backward(do)
+    o, lse = ref.flash_attention(q, k, v, causal=True, window=24,
+                                 return_lse=True)
+    assert torch.equal(out.detach(), o)
+    want = ref.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                   window=24)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    with torch.no_grad():
+        assert ops.flash_attention(*leaves, causal=True).grad_fn is None
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 3),
+                                           (False, None)])
+def test_autograd_function_gradcheck_fp64(causal, window):
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, dtype=torch.float64,
+                           requires_grad=True)
+               for shape in ((1, 6, 4, 8), (1, 6, 2, 8), (1, 6, 2, 8)))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: ops.flash_attention(a, b, c, causal=causal,
+                                            window=window), (q, k, v))
+
+
+def test_backward_wrapper_takes_cuda_bf16_only():
+    x = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_flash.flash_attention_bwd(x, x, x, x, x, lse)

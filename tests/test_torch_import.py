@@ -75,6 +75,36 @@ def test_cpu_query_batch_runs_with_jax_blocked():
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_cpu_training_runs_with_jax_blocked(tmp_path):
+    """The training slice with JAX blocked: the launcher's smoke run (token
+    pipeline, train step with K7b's plain version, AdamW, the loop and its
+    checkpoints) and a resume from its checkpoint."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None          # any import of jax now fails
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.launch import train
+        argv = ["--arch", "qwen3-32b", "--smoke", "--device", "cpu",
+                "--steps", "2", "--ckpt-dir", {str(tmp_path)!r},
+                "--ckpt-every", "1"]
+        _, state, hist = train.run(train.parser().parse_args(argv))
+        assert len(hist) == 2 and int(state["opt"]["step"]) == 2
+        argv[argv.index("--steps") + 1] = "3"
+        _, state, hist = train.run(train.parser().parse_args(argv))
+        assert [h["step"] for h in hist] == [2]
+        loaded = [m for m in sys.modules
+                  if m == "repro" or m.startswith(("repro.", "jax"))]
+        assert loaded == ["jax"], loaded      # only the blocking sentinel
+        print("ok")
+        """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_port_sources_name_no_reference_or_jax():
     """The port's sources, ``chip_smoke.py`` and the port's examples."""
     pattern = re.compile(r"\brepro\.|jax", re.IGNORECASE)
