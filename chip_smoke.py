@@ -274,7 +274,10 @@ Phases:
      dropped key tile outside the tolerance (embedder shape); timed by
      events beside SDPA's backward (``torch.autograd.grad`` through
      ``F.scaled_dot_product_attention``), the plain twin, and by the
-     fresh-process profiler (its three kernels one by one).
+     fresh-process profiler (its three kernels one by one: bwd_prep,
+     bwd_dkdv, bwd_dq), each beside the previous design's times ("was");
+     the K7b kernels' registers and spills from nvcc's report (no
+     spills).
   5. Hold K7 against its plain PyTorch version on the card: on the path's
      own q, k, v of both shapes (recorded during phase 4), causal; the long
      shape again with window 1024; grouped-query heads (36 query, 4 kv,
@@ -5083,7 +5086,15 @@ TRAIN_LOSS, TRAIN_LEAF, TRAIN_FLOOR = 2.0 ** -8, 2.0 ** -4, 2.0 ** -10
 # bf16 rounding of a few rows of the table's gradient, then AdamW steps of
 # lr <= 3e-4 from there).
 RESUME_TOL = 2.0 ** -10
-K7B_MARK = "bwd_"                 # K7b's kernels: bwd_rowdot, bwd_dkdv, bwd_dq
+K7B_MARK = "bwd_"                 # K7b's kernels: bwd_prep, bwd_dkdv, bwd_dq
+K7B_PARTS = ("bwd_prep", "bwd_dkdv", "bwd_dq")
+# The previous K7b design's times at K7B_CASES (mma.sync from shared memory,
+# no TMA; blocks of 64 keys or queries): ms by events and device ms by the
+# profiler, on an H100 80GB HBM3 at 700 W.
+K7B_WAS = {"minicpm-2b train": (3.9285, 3.8703),
+           "embedder-100m train": (0.1809, 0.1742),
+           "hymba window": (0.6866, 0.7077),
+           "llama4 gqa hd128": (0.3990, 0.3906)}
 # K7's row log-sum-exp (fp32) against the plain version's, absolute: the two
 # sum the same fp32 exponentials in other orders (the kernel's exp the fast
 # one), ~2^-20 relative of lse ~ log(T) <= 12.
@@ -5451,8 +5462,10 @@ def k7b_row(by_path: dict, profiles: KernelProfiles) -> tuple[dict, list]:
     kernel by the fresh-process profiler; SDPA's backward is
     ``torch.autograd.grad`` through ``F.scaled_dot_product_attention`` on
     the same inputs (its forward run once beforehand). The row's own
-    numbers are MiniCPM-2B's. Returns the row and K7's cases at these
-    shapes with the log-sum-exp on, for :func:`flash_row`."""
+    numbers are MiniCPM-2B's; each case keeps the previous design's times
+    (``K7B_WAS``) beside its own, and the row the kernels' registers and
+    spills from nvcc's report, which must show none. Returns the row and K7's cases at
+    these shapes with the log-sum-exp on, for :func:`flash_row`."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -5531,9 +5544,11 @@ def k7b_row(by_path: dict, profiles: KernelProfiles) -> tuple[dict, list]:
         nbytes = 2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * lse.numel()
         b_ms, b_by = bound(attention_bwd_flops(b, s, h, hd, True, window),
                            nbytes, PEAK_BF16_FLOPS)
+        was_ms, was_device_ms = K7B_WAS[label]
         rows.append(dict(
             case=label, shape=[b, s, h, hd], kv_heads=kv, window=window,
-            causal=True, max_abs_err=max(errs.values()), errs=errs,
+            causal=True, was_ms=was_ms, was_device_ms=was_device_ms,
+            max_abs_err=max(errs.values()), errs=errs,
             max_err_over_tol=ratio, dropped_tile_err_over_tol=fault,
             deterministic=same, ms=sum(ms_k) / 2, ms_runs=ms_k,
             plain_ms=plain_ms, library_ms=sum(ms_l) / 2,
@@ -5543,16 +5558,24 @@ def k7b_row(by_path: dict, profiles: KernelProfiles) -> tuple[dict, list]:
         profiles.add(f"K7b {label} {(b, s, h, hd)}",
                      "flash_attention.flash_attention_bwd",
                      (q, k, v, o, do, lse), K7B_MARK, "flash_attention_bwd",
-                     10, *targets, parts=("bwd_rowdot", "bwd_dkdv", "bwd_dq"),
+                     10, *targets, parts=K7B_PARTS,
                      causal=True, window=window)
         print(f"[kernel] flash_attention_bwd {label} {(b, s, h, hd)} kv {kv} "
               f"window {window}: {rows[-1]['ms']:.4f} ms (runs {ms_k}; plain "
               f"{plain_ms:.4f} ms, SDPA backward {rows[-1]['library_ms']:.4f} "
               f"ms (runs {ms_l}), kernel/SDPA "
               f"{rows[-1]['ratio_to_library']:.3f}, bound {b_ms:.4f} ms by "
-              f"{b_by}); max_abs_err {errs}, err/tol {ratio}, dropped tile "
-              f"err/tol {fault}, two calls bit for bit {same}", flush=True)
+              f"{b_by}; was {was_ms} ms); max_abs_err {errs}, err/tol "
+              f"{ratio}, dropped tile err/tol {fault}, two calls bit for "
+              f"bit {same}", flush=True)
     main_case = rows[0]
+    ptxas = ptxas_report("flash_attention_bwd")
+    spills = [ln for ln in ptxas if "spill" in ln]
+    for ln in ptxas:
+        print(f"[K7b] ptxas {ln}", flush=True)
+    check(bool(spills) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+        f"K7b's kernels spill: {spills}")
     paths = {p: n["flash_attention_bwd"] for p, n in by_path.items()
              if n.get("flash_attention_bwd")}
     shared.update(dict(
@@ -5568,7 +5591,8 @@ def k7b_row(by_path: dict, profiles: KernelProfiles) -> tuple[dict, list]:
         shape=main_case["shape"], ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
         bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
-        ratio_to_library=main_case["ratio_to_library"], cases=rows))
+        ratio_to_library=main_case["ratio_to_library"], ptxas=ptxas,
+        cases=rows))
     return shared, k7_cases
 
 
@@ -5636,8 +5660,9 @@ def redesigned_summary(rows: list[dict], elig_rows: list[dict]) -> None:
               f"{case.get('device', {}).get('parts')}, SDPA backward "
               f"{case['library_ms']:.4f} ms, kernel/SDPA "
               f"{case['ratio_to_library']:.3f}, plain {case['plain_ms']:.4f} "
-              f"ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']})",
-              flush=True)
+              f"ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}); "
+              f"was {case['was_ms']} ms by events, {case['was_device_ms']} "
+              f"ms device (the mma.sync design)", flush=True)
     k2i = next(r for r in rows if r["name"] == "join_batched_prune_int8")
     for case in k2i["cases"]:
         dev = case.get("device_ms")

@@ -179,7 +179,9 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     const int n_end = causal ? min(T, w.m0 + BM) : T;
     const int n_begin = window > 0 ? max(0, w.m0 - window + 1) : 0;
     w.j0 = n_begin / BN;
-    w.j1 = (n_end + BN - 1) / BN;
+    // none when every key is out of the window (non-causal, S > T + window):
+    // the unit's rows then count no tiles on either side
+    w.j1 = max(w.j0, (n_end + BN - 1) / BN);
     return w;
   };
 
@@ -390,39 +392,15 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// A 4-d map over a contiguous (batch, rows, heads, HD) bf16 tensor, boxes of
-// 64 features x 1 head x `box_rows` rows x 1 batch, 128-byte swizzled; rows
-// out of range read as zeros. Returns the CUresult.
-int encode(CUtensorMap* map, const void* base, int batch, int rows, int heads,
-           int hd, int box_rows) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(hd) * 2,
-      static_cast<cuuint64_t>(hd) * heads * 2,
-      static_cast<cuuint64_t>(hd) * heads * rows * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return static_cast<int>(fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
-}
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int T, int H, int KVH, int causal, int window,
            float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap mq, mk, mv;
-  int res = encode(&mq, q, B, S, H, HD, BM);
-  if (res == CUDA_SUCCESS) res = encode(&mk, k, B, T, KVH, HD, BN);
-  if (res == CUDA_SUCCESS) res = encode(&mv, v, B, T, KVH, HD, BN);
+  int res = encode_heads(&mq, q, B, S, H, HD, BM);
+  if (res == CUDA_SUCCESS) res = encode_heads(&mk, k, B, T, KVH, HD, BN);
+  if (res == CUDA_SUCCESS) res = encode_heads(&mv, v, B, T, KVH, HD, BN);
   if (res != CUDA_SUCCESS) return -res;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);

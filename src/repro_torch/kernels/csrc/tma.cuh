@@ -1,8 +1,8 @@
 // Hopper TMA copies and mbarriers shared by the kernels that feed shared
-// memory through tensor maps: K7 (flash_attention.cu) and K2i's join
-// (pairwise_l2.cu). sm_90a; the tensor maps are encoded on the host by
-// cuTensorMapEncodeTiled, reached through the runtime, so no library links
-// -lcuda.
+// memory through tensor maps: K7 (flash_attention.cu), K7b
+// (flash_attention_bwd.cu) and K2i's join (pairwise_l2.cu). sm_90a; the
+// tensor maps are encoded on the host by cuTensorMapEncodeTiled, reached
+// through the runtime, so no library links -lcuda.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -68,6 +68,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "r"(c3), "r"(bar) : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte aligned)
+// into shared memory; completes `bar`'s transaction bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // needs no -lcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -95,6 +106,31 @@ EncodeTiled encode_fn() {
                : nullptr;
   }();
   return fn;
+}
+
+// A 4-d map over a contiguous (batch, rows, heads, hd) bf16 tensor, boxes of
+// 64 features x 1 head x `box_rows` rows x 1 batch, 128-byte swizzled; rows
+// out of range read as zeros (K7's and K7b's operands). Returns the
+// CUresult.
+inline int encode_heads(CUtensorMap* map, const void* base, int batch,
+                        int rows, int heads, int hd, int box_rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(hd) * 2,
+      static_cast<cuuint64_t>(hd) * heads * 2,
+      static_cast<cuuint64_t>(hd) * heads * rows * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return static_cast<int>(fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // Hopper warpgroup matrix-multiply (wgmma) helpers shared by the kernels
 // that feed bf16 or int8 tiles from shared memory to the tensor cores: K7
-// (flash_attention.cu), K2 and K2i (pairwise_l2.cu). sm_90a only.
+// (flash_attention.cu), K7b (flash_attention_bwd.cu), K2 and K2i
+// (pairwise_l2.cu). sm_90a only.
 //
 // A tile is a block of 128-byte rows (64 bf16 or 128 int8), 128-byte
 // swizzled: 16-byte chunk c of row r sits at chunk c ^ (r & 7) of its row,
@@ -48,6 +49,13 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's committed groups are pending:
+// every older group has retired (groups retire in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads of wgmma results above the wait.
@@ -113,6 +121,22 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32 fp32) += A (64 x 16 bf16, shared) * B (32 x 16 bf16, shared),
+// both K-major; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -8,9 +8,10 @@ contiguity and what the kernel's TMA copies need (16-byte aligned bases;
 every stride is then a multiple of 128 bytes), allocates the output (and the
 row log-sum-exp when asked), launches on the current stream, raises on a
 launch error, and adds one to :data:`launches` for each launch.
-:func:`flash_attention_bwd` does the same for the gradients; its one call
-launches three kernels (the row dot D, then dk/dv, then dq) and counts
-three.
+:func:`flash_attention_bwd` does the same for the gradients, with the
+scratch its kernels share (the rows' statistics, and the scaled query at hd
+128); its one call launches three kernels (the prep, then dk/dv, then dq)
+and counts three.
 There is no fallback and no copy: they take CUDA bf16 tensors with head dim
 64 or 128 only, and raise on anything else (``kernels.ops`` routes CPU
 tensors to the plain versions, ``kernels.ref.flash_attention`` and
@@ -35,11 +36,12 @@ _MAX_UNITS = 2 ** 31 - 1
 # A TMA tensor map takes dimensions below 2^32 and byte strides below 2^40.
 _TMA_MAX_DIM = 2 ** 32 - 1
 _TMA_MAX_STRIDE = 2 ** 40 - 1
-# K7b's grids: (B x heads, tiles of 64 rows); a grid's y extent is 65535.
-# A call launches BWD_KERNELS kernels: the row dot D, dk/dv and dq.
-BWD_TILE = 64
+# K7b's work units: BWD_UNIT rows of one (batch, head), keys of a kv head
+# for dk/dv, queries of a query head for dq, numbered in int32. A call
+# launches BWD_KERNELS kernels: the prep (the rows' log-sum-exp and D, and
+# the scaled query at hd 128), dk/dv and dq.
+BWD_UNIT = 128
 BWD_KERNELS = 3
-_MAX_GRID_Y = 65535
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,7 +71,7 @@ def _bind() -> ctypes.CDLL:
 
 def _bind_bwd() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build.build("flash_attention_bwd")))
-    lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 8 \
+    lib.flash_attention_bwd.argtypes = [_P] * 11 + [_I] * 8 \
         + [ctypes.c_float, _P]
     lib.flash_attention_bwd.restype = _I
     return lib
@@ -89,12 +91,13 @@ def check_tma_operand(name: str, t: torch.Tensor) -> None:
                          f"map's limits")
 
 
-def check_units(b: int, s: int, h: int) -> None:
-    """Raises where the kernel cannot number the work units of a
-    (B, S, H) query in int32."""
-    units = -(-s // QUERY_TILE) * b * h
+def check_units(b: int, s: int, h: int, tile: int = QUERY_TILE) -> None:
+    """Raises where a kernel cannot number the work units of ``tile`` rows
+    of a (B, S, H) tensor in int32 (K7: query tiles of :data:`QUERY_TILE`;
+    K7b: :data:`BWD_UNIT` queries or keys)."""
+    units = -(-s // tile) * b * h
     if units > _MAX_UNITS:
-        raise ValueError(f"{units} work units (ceil(S/{QUERY_TILE}) x B x H) "
+        raise ValueError(f"{units} work units (ceil({s}/{tile}) x {b} x {h}) "
                          f"exceed the kernel's int32 unit index")
 
 
@@ -176,9 +179,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """CUDA kernel K7b — see ``kernels.ref.flash_attention_bwd``: (dq, dk,
     dv) of K7's output ``o`` under the cotangent ``do`` (both (B, S, H, hd),
     contiguous bf16), from q, k, v as K7 takes them and K7's ``lse`` (B, H,
-    S) contiguous fp32. Every base must be 16-byte aligned (the kernels read
-    16 bytes a thread); B x heads and the 64-row tile counts must fit the
-    kernels' grids. Raises on anything else."""
+    S) contiguous fp32. q, k, v and do must suit the kernels' TMA tensor maps
+    (:func:`check_tma_operand`) and o start on a 16-byte boundary; the work
+    units must be numbered in int32 (:func:`check_units`). Raises on
+    anything else."""
     _check_qkv(q, k, v, window)
     _check_bf16(q, (("o", o), ("do", do)))
     b, s, h, hd = q.shape
@@ -192,23 +196,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be a contiguous ({b}, {h}, {s}) fp32 "
                          f"tensor on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
-    if b * h > _MAX_UNITS or -(-max(s, t_len) // BWD_TILE) > _MAX_GRID_Y:
-        raise ValueError(f"(B={b}, S={s}, T={t_len}, H={h}) exceeds the "
-                         f"backward kernels' grids")
+    check_units(b, s, h, BWD_UNIT)
+    check_units(b, t_len, kvh, BWD_UNIT)
     dq, dk, dv = (torch.empty_like(a) for a in (q, k, v))
     if b and s and h:
-        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
-                        ("lse", lse)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start on a 16-byte boundary, "
-                                 f"got address {t.data_ptr():#x}")
-        dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        # the rows' (lse log2(e), D), padded to whole query tiles, then the
+        # two kernels' unit counters (int32, zeroed by the prep kernel); the
+        # scaled query where the scale 1/sqrt(hd) is not a power of two
+        s_pad = -(-s // QUERY_TILE) * QUERY_TILE
+        stats = torch.empty(b * h * s_pad * 2 + 2, dtype=torch.float32,
+                            device=q.device)
+        qs = torch.empty_like(q) if hd == 128 else None
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do),
+                        ("qs", qs)):
+            if t is not None:
+                check_tma_operand(name, t)
+        if o.data_ptr() % 16:
+            raise ValueError(f"o must start on a 16-byte boundary, got "
+                             f"address {o.data_ptr():#x}")
         with torch.cuda.device(q.device):
             err = backward_library().flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t_len, h,
-                kvh, hd, int(causal), window or 0, 1.0 / float(hd) ** 0.5,
+                do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                None if qs is None else qs.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, s, t_len, h, kvh, hd,
+                int(causal), window or 0, 1.0 / float(hd) ** 0.5,
                 torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on("flash_attention_bwd", err)
         build.count(launches, "flash_attention_bwd", BWD_KERNELS)

@@ -1679,14 +1679,22 @@ def test_lm_serving_on_card_matches_cpu(name):
 
 # K7b, the attention backward: (B, S, T, H, Kv, hd, causal, window) with
 # query and key tiles that have edges, grouped heads (GQA 4/2, 4/1, 40/8,
-# 12/4), hd 64 and 128, windows, non-causal and S != T, one row.
+# 12/4), hd 64 and 128, windows, non-causal and S != T, one row. Then the
+# persistent kernels' edges: more units than resident CTAs (several rounds
+# of the walk), S and T off the 128-key unit, a window edge inside a tile
+# with S != T non-causal, hd 128 in groups of 5 and of 1.
 FLASH_BWD_CASES = [
     (2, 130, 130, 4, 2, 64, True, None), (1, 33, 33, 4, 1, 128, True, None),
     (2, 200, 200, 8, 8, 64, False, None), (1, 300, 300, 4, 2, 64, True, 100),
     (1, 96, 160, 4, 4, 64, False, None), (1, 160, 96, 4, 2, 64, True, None),
     (1, 1, 1, 2, 1, 64, True, None), (2, 512, 512, 12, 4, 64, True, None),
     (1, 257, 257, 40, 8, 128, True, None),
-    (1, 256, 256, 4, 2, 128, False, 64)]
+    (1, 256, 256, 4, 2, 128, False, 64),
+    (4, 1024, 1024, 16, 16, 64, True, None),
+    (2, 330, 330, 4, 2, 64, True, None), (1, 190, 250, 4, 1, 64, False, None),
+    (1, 160, 224, 4, 2, 64, False, 40),
+    (1, 300, 300, 40, 8, 128, True, 100),
+    (2, 190, 190, 4, 4, 128, True, None)]
 
 
 def _bwd_inputs(b, s, t, h, kv, hd, seed):
