@@ -277,7 +277,33 @@ Phases:
      fresh-process profiler (its three kernels one by one: bwd_prep,
      bwd_dkdv, bwd_dq), each beside the previous design's times ("was");
      the K7b kernels' registers and spills from nvcc's report (no
-     spills).
+     spills); and at a (dp, tp) shard's heads of MiniCPM-2B,
+     (1, 512, 18, 64) and (1, 4096, 18, 64). (a) runs after [shard], so
+     its launch counts take in the sharded paths. The launcher in (c) runs
+     with ``REPRO_MESH_OVERRIDE=1,1``: one card, one shard.
+  4e. [shard] The sharded training side (after [train]), on a (pod=2,
+     data=2, model=2) mesh of eight ``cuda:0`` shards unless stated: (a)
+     MiniCPM-2B at full width cut to 2 layers: the attention (4, 512, 36,
+     64) split once per (dp, tp) shard (K7 8 launches of (1, 512, 18,
+     64)) bit for bit the whole call (K7b's gradients compared too); one
+     ``make_train_step(..., mesh=)`` step at global batch 4, S=512, fp32
+     masters, bf16 moments, against the unsharded step on the same batch:
+     K7 2 x 8 a layer, K7b 3 x 8 kernels a layer, the loss within 2^-8,
+     the gradient norm within 2^-4, each parameter within 2 lr and each
+     leaf's step within 1/4 (the CPU tests' tolerances), the counted
+     all-gather and reduce-scatter bytes equal to
+     ``launch.dryrun.train_collectives``. (b) ``compressed_psum`` over
+     ``pod`` on the two pods' mean gradients: within amax/127 of the exact
+     mean, identical on both pods, error buffers ``g32 - deq`` exactly.
+     (c) ``pipeline_forward`` on a (pod=4) mesh, a full-width MiniCPM-2B
+     layer a stage, 8 microbatches of (1, 512): outputs bit for bit the
+     sequential application, the gradients through the schedule (K7b per
+     stage) against the sequential backward's; both walls and the bubble
+     3/11. (d) ``REPRO_MESH_OVERRIDE=2,2,2 python -m
+     repro_torch.launch.train --arch minicpm-2b --multi-pod --global-batch
+     16 --seq-len 4096 --steps 2`` at full depth in a child process: two
+     finite steps, rank 0's 4 of 16 rows each (the reference's defect),
+     K7 and K7b per (dp, tp) shard; s a step, tokens/s, peak memory.
   5. Hold K7 against its plain PyTorch version on the card: on the path's
      own q, k, v of both shapes (recorded during phase 4), causal; the long
      shape again with window 1024; grouped-query heads (36 query, 4 kv,
@@ -5075,7 +5101,11 @@ def diameter_row(cases: list, launches_by_path: dict,
 K7B_CASES = (("minicpm-2b train", (2, 4096, 36, 36, 64), None),
              ("embedder-100m train", (8, 512, 12, 4, 64), None),
              ("hymba window", (2, 2048, 25, 5, 64), 1024),
-             ("llama4 gqa hd128", (2, 512, 40, 8, 128), None))
+             ("llama4 gqa hd128", (2, 512, 40, 8, 128), None),
+             # [shard]: a (dp, tp) shard's heads of MiniCPM-2B, in the
+             # sharded step (a) and in the launcher's child (d)
+             ("shard step", (1, 512, 18, 18, 64), None),
+             ("shard launcher", (1, 4096, 18, 18, 64), None))
 # The CPU tests' training tolerances (tests/test_torch_train_grads.py,
 # tests/test_torch_train.py): the loss within 2^-8; each gradient leaf
 # within 2^-4 of its norm plus 2^-10 of the largest leaf's norm.
@@ -5133,6 +5163,7 @@ def train_full(args, report: dict, by_path: dict) -> None:
     train_4k's 256 to one card), remat on, bf16 optimizer state, fp32
     master parameters; then one more step under the profiler."""
     import gc
+    import os
     import tempfile
     import torch
     from repro_torch.data.token_pipeline import PipelineConfig, TokenPipeline
@@ -5148,9 +5179,18 @@ def train_full(args, report: dict, by_path: dict) -> None:
             str(gb), "--seq-len", str(seq), "--ckpt-dir", tmp,
             "--ckpt-every", "1000"]
     torch.cuda.reset_peak_memory_stats()
-    (cfg, state, hist), wall = drive_path(
-        by_path, "train", lambda: train_launch.run(
-            train_launch.parser().parse_args(argv)))
+    # one card, one shard: the production mesh's override at 1 x 1
+    saved = os.environ.get("REPRO_MESH_OVERRIDE")
+    os.environ["REPRO_MESH_OVERRIDE"] = "1,1"
+    try:
+        (cfg, state, hist), wall = drive_path(
+            by_path, "train", lambda: train_launch.run(
+                train_launch.parser().parse_args(argv)))
+    finally:
+        if saved is None:
+            del os.environ["REPRO_MESH_OVERRIDE"]
+        else:
+            os.environ["REPRO_MESH_OVERRIDE"] = saved
     peak = torch.cuda.max_memory_allocated()
     c = by_path["train"]
     layers = cfg.n_layers
@@ -5449,6 +5489,492 @@ def train_resume(args, report: dict, by_path: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# [shard] (a): each leaf's step (the parameter's move) within this share of
+# the unsharded step's in norm. Readings on an H100 80GB HBM3 at 700 W: the
+# sound step 0.0882 in three runs (near-zero gradients move either way); the
+# control, the same step with one dp shard's gradient dropped, 0.8148 (its
+# worst gradient leaf 0.518 of the norm, against 0.0074 sound). 1/4 lies
+# near their geometric mean, 2.8x above the one and 3.3x below the other.
+SHARD_STEP_TOL = 0.25
+
+# [shard]: the sharded training side on a (pod, data, model) mesh dealt onto
+# the one card. The launcher's child (d) reports its rows, steps and launch
+# counters as its last line.
+SHARD_CHILD = r'''
+import json, sys, time
+import torch
+from repro_torch.data.token_pipeline import TokenPipeline
+from repro_torch.kernels import diameter, flash_attention, pairwise_l2
+from repro_torch.kernels import project_bin
+from repro_torch.launch import train
+rows = []
+batch_at = TokenPipeline.batch_at
+def recorded(self, step, dp_rank=0, dp_size=1):
+    out = batch_at(self, step, dp_rank, dp_size)
+    rows.append([step, dp_rank, dp_size, int(out["tokens"].shape[0])])
+    return out
+TokenPipeline.batch_at = recorded
+torch.cuda.reset_peak_memory_stats()
+ts = time.perf_counter()
+cfg, state, hist = train.run(train.parser().parse_args(sys.argv[1:]))
+wall = time.perf_counter() - ts
+launches = {}
+for mod in (pairwise_l2, diameter, project_bin, flash_attention):
+    launches.update(mod.launches)
+print(json.dumps({"rows": rows, "steps": hist, "wall_s": wall,
+                  "n_layers": cfg.n_layers, "launches": launches,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+'''
+
+
+def shard_step(args, report: dict, by_path: dict) -> tuple:
+    """[shard] (a) MiniCPM-2B at full width cut to 2 layers on a (pod=2,
+    data=2, model=2) mesh of eight ``cuda:0`` shards: the attention alone
+    (4, 512, 36, 64), sharded (``models.common.attend`` under the mesh's
+    hints: K7 once per (dp, tp) shard, (1, 512, 18, 64) each) against the
+    whole call, the output bit for bit (and the gradients by K7b, reported);
+    then one sharded train step (global batch 4, S=512, fp32 masters, bf16
+    moments, seed-0 pipeline batch) against the unsharded step on the same
+    parameters and batch: K7 8 a layer a forward (and the remat recompute),
+    K7b 3 x 8 kernels a layer, the loss within 2^-8, the gradient norm
+    within 2^-4, every gradient leaf within 2^-4 of the unsharded one in
+    norm, every parameter's move within 3% of lr of the unsharded step's
+    where the two gradients surely share a sign, each leaf's step within
+    ``SHARD_STEP_TOL`` in norm; a control (one dp shard's gradient
+    dropped) must fail the gradient and step limits. The counted
+    all-gather and reduce-scatter bytes equal ``launch/dryrun.py``'s
+    reckoning (a logical count: one collective a leaf a dp shard). Returns
+    (cfg, mesh, parameters, batch) for (b)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.token_pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import dp_axes, make_local_mesh
+    from repro_torch.launch import step as step_mod
+    from repro_torch.launch.step import (make_train_step, shard_state,
+                                         sharded_value_and_grad,
+                                         value_and_grad)
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import hints
+    from repro_torch.models.api import master_params, model_api
+    from repro_torch.models.common import attend
+    from repro_torch.train.optimizer import (OptimizerConfig,
+                                             init_opt_state, tree_leaves,
+                                             tree_map)
+
+    out = report.setdefault("shard", {})
+    mesh = make_local_mesh(2, 2, pod=2)
+    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 29)
+    q, k, v, do = (torch.randn((4, 512, cfg.n_heads, 64), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    want = ops.flash_attention(q, k, v, causal=True)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    hints.enable_hints_mesh(mesh, dp_axes(mesh), "model")
+    try:
+        got, _ = drive_path(by_path, "shard-attention", lambda: attend(
+            q, k, v, causal=True, window=None))
+        with torch.enable_grad():
+            g_sh = torch.autograd.grad(attend(qg, kg, vg, causal=True,
+                                              window=None), (qg, kg, vg), do)
+    finally:
+        hints.disable_hints()
+    with torch.enable_grad():
+        g_whole = torch.autograd.grad(ops.flash_attention(
+            qg, kg, vg, causal=True), (qg, kg, vg), do)
+    c = by_path["shard-attention"]
+    check(c["flash_attention"] == 8 and c["flash_unsharded"] == 0,
+          f"[shard] the sharded attention launched K7 {c['flash_attention']}"
+          f" times ({c['flash_unsharded']} whole), want once per (dp, tp) "
+          f"shard")
+    check(torch.equal(got, want), "[shard] the sharded attention's output "
+          "is not the unsharded K7 output bit for bit")
+    bwd_bits = all(torch.equal(a, b) for a, b in zip(g_sh, g_whole))
+    out["attention"] = dict(shape=list(q.shape), shard_shape=[1, 512, 18, 64],
+                            forward_bit_for_bit=True,
+                            backward_bit_for_bit=bwd_bits)
+    del q, k, v, do, qg, kg, vg, got, want, g_sh, g_whole
+
+    params0 = master_params(model_api(cfg).init(
+        torch.Generator(device="cuda").manual_seed(args.seed + 29),
+        device="cuda"))
+    opt_cfg = OptimizerConfig(total_steps=10, warmup_steps=2,
+                              schedule="wsd", peak_lr=1e-3,
+                              state_dtype="bfloat16")
+    host = TokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, global_batch=4, seq_len=512,
+        seed=args.seed)).batch_at(0)
+    batch = batch_to(host, "cuda")
+    # a warm-up step of each kind (cuBLAS and allocator set-up), discarded
+    for mesh_ in (None, mesh):
+        warm = tree_map(torch.clone, params0)
+        make_train_step(cfg, opt_cfg, mesh=mesh_)(
+            warm, init_opt_state(warm, opt_cfg), batch)
+        del warm
+    torch.cuda.synchronize()
+    plain_p = tree_map(torch.clone, params0)
+    plain_s = init_opt_state(plain_p, opt_cfg)
+    (_, _, m_plain), plain_wall = drive_path(
+        by_path, "shard-unsharded-step",
+        lambda: make_train_step(cfg, opt_cfg)(plain_p, plain_s, batch))
+    del plain_s
+    pieces = shard_state(params0, init_opt_state(params0, opt_cfg), mesh)
+    step = make_train_step(cfg, opt_cfg, mesh=mesh)
+    sh.census.reset()
+    torch.cuda.reset_peak_memory_stats()
+    (p_sh, _, m_sh), wall = drive_path(by_path, "shard-step",
+                                       lambda: step(*pieces, batch))
+    peak = torch.cuda.max_memory_allocated()
+    census = sh.census.totals()
+    want_census = dryrun.train_collectives(cfg, mesh, 4)
+    n = cfg.n_layers
+    c = by_path["shard-step"]
+    check(c["flash_attention"] == 2 * 8 * n
+          and c["flash_attention_bwd"] == 3 * 8 * n
+          and c["flash_unsharded"] == 0,
+          f"[shard] the sharded step launched K7 {c['flash_attention']}, "
+          f"K7b {c['flash_attention_bwd']} kernels ({c['flash_unsharded']} "
+          f"whole), want 2 x 8 and 3 x 8 a layer")
+    check(census == want_census, f"[shard] counted collectives {census}, "
+          f"the dry run reckons {want_census}")
+    loss, ref_loss = float(m_sh["loss"]), float(m_plain["loss"])
+    check(abs(loss - ref_loss) <= TRAIN_LOSS * abs(ref_loss),
+          f"[shard] loss {loss} sharded, {ref_loss} unsharded")
+    gn, ref_gn = float(m_sh["grad_norm"]), float(m_plain["grad_norm"])
+    check(abs(gn - ref_gn) <= TRAIN_LEAF * ref_gn,
+          f"[shard] gradient norm {gn} sharded, {ref_gn} unsharded")
+    # the gradients of both steps (K7b is deterministic: the same bits as
+    # inside them), and a control: the sharded step with one dp shard's
+    # gradient dropped, which the gradient and step checks must refuse
+    _, _, g_plain = value_and_grad(cfg, params0, batch)
+    pspecs = sh.param_specs(params0, mesh)
+    g_sh = sh.gather_tree(sharded_value_and_grad(
+        cfg, shard_state(params0, init_opt_state(params0, opt_cfg),
+                         mesh)[0], batch, mesh)[2], pspecs, mesh)
+    calls = [0]
+
+    def dropped(*a, **kw):
+        loss_, metrics_, g_ = value_and_grad(*a, **kw)
+        calls[0] += 1
+        return loss_, metrics_, (tree_map(torch.zeros_like, g_)
+                                 if calls[0] == 4 else g_)
+    step_mod.value_and_grad = dropped
+    try:
+        ctl_p, _, _ = make_train_step(cfg, opt_cfg, mesh=mesh)(
+            *shard_state(params0, init_opt_state(params0, opt_cfg), mesh),
+            batch)
+        calls[0] = 0
+        g_ctl = sh.gather_tree(sharded_value_and_grad(
+            cfg, shard_state(params0, init_opt_state(params0, opt_cfg),
+                             mesh)[0], batch, mesh)[2], pspecs, mesh)
+    finally:
+        step_mod.value_and_grad = value_and_grad
+    ctl_p = sh.gather_tree(ctl_p, pspecs, mesh)
+    grad_worst = tree_allclose(g_sh, g_plain, "[shard] sharded gradients")
+    ctl_grad = max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                   for a, b in zip(tree_leaves(g_ctl), tree_leaves(g_plain)))
+    del g_ctl
+    lr = float(m_plain["lr"])
+    full = sh.gather_tree(p_sh, pspecs, mesh)
+    # A first AdamW step moves each element by about lr sign(g): where the
+    # two gradients surely share a sign (|g| above twice their difference,
+    # |g| clipped far above eps) the moves agree to 3% of lr plus fp32
+    # roundings, and a wrong sign is 2 lr off ([train] (b)'s check).
+    clip = min(1.0, 1.0 / float(m_plain["grad_norm"]))
+    sure_n = nonzero_n = 0
+    worst_step = ctl_step = 0.0
+    for a, b, c_, p0, ga, gb in zip(
+            tree_leaves(full), tree_leaves(plain_p), tree_leaves(ctl_p),
+            tree_leaves(params0), tree_leaves(g_sh), tree_leaves(g_plain)):
+        sure = (gb.abs() > 2 * (ga - gb).abs()) & (gb.abs() * clip > 1e-6)
+        d = (a - b).abs()[sure]
+        check(bool((d <= 0.03 * lr + 2.0 ** -21 * b.abs()[sure]).all()),
+              f"[shard] a parameter {float(d.max()) if d.numel() else 0.0}"
+              f" from the unsharded step's where the gradients share a sign "
+              f"(lr {lr})")
+        sure_n += int(sure.sum())
+        nonzero_n += int((gb != 0).sum())
+        ref_step = float((b - p0).norm())
+        worst_step = max(worst_step,
+                         float((a - b).norm()) / max(ref_step, 1e-30))
+        ctl_step = max(ctl_step,
+                       float((c_ - b).norm()) / max(ref_step, 1e-30))
+    sure_share = sure_n / max(nonzero_n, 1)
+    check(sure_share >= 0.1, f"[shard] the gradients share a sure sign on "
+          f"{sure_share} of the elements only")
+    check(worst_step <= SHARD_STEP_TOL, f"[shard] a leaf's step differs by "
+          f"{worst_step} of the unsharded step's")
+    check(ctl_grad > TRAIN_LEAF and ctl_step > SHARD_STEP_TOL,
+          f"[shard] the control (one dp shard's gradient dropped) passes: "
+          f"gradient {ctl_grad}, step {ctl_step}")
+    out["step"] = dict(
+        mesh=mesh.shape, layers=n, global_batch=4, seq=512,
+        loss=loss, loss_unsharded=ref_loss, grad_norm=gn,
+        grad_norm_unsharded=ref_gn, worst_grad_leaf_rel=grad_worst,
+        sure_sign_share=sure_share, worst_step_rel=worst_step,
+        control_grad_leaf_rel=ctl_grad, control_step_rel=ctl_step,
+        wall_s=wall, unsharded_wall_s=plain_wall,
+        max_memory_allocated=peak, census=census, launches=c,
+        card=card_line())
+    print(f"[shard] (a) attention (4, 512, 36, 64) over (pod 2, data 2, "
+          f"model 2) on cuda:0: K7 8 launches of (1, 512, 18, 64), output "
+          f"bit for bit the whole call's; K7b's gradients bit for bit "
+          f"{bwd_bits}", flush=True)
+    print(f"[shard] (a) minicpm-2b at full width, 2 layers, global batch 4, "
+          f"S=512: sharded step {wall:.4f} s (unsharded {plain_wall:.4f} s), "
+          f"loss {loss:.6f} (unsharded {ref_loss:.6f}), grad norm {gn:.6f} "
+          f"({ref_gn:.6f}); gradient leaves within {grad_worst:.5f}, moves "
+          f"within 3% of lr where the gradients surely share a sign "
+          f"({sure_share:.4f} of the nonzero ones), steps within "
+          f"{worst_step:.5f} of the unsharded (limit {SHARD_STEP_TOL}); "
+          f"control with one dp shard's gradient dropped: gradient "
+          f"{ctl_grad:.5f}, steps {ctl_step:.5f}; K7 "
+          f"{c['flash_attention']}, K7b {c['flash_attention_bwd']} kernels; "
+          f"census {census} = the dry run's; max_memory_allocated {peak}; "
+          f"card {out['step']['card']}", flush=True)
+    del p_sh, pieces, full, plain_p, step, ctl_p, g_sh, g_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, mesh, params0, batch
+
+
+def shard_compress(args, report: dict, by_path: dict, cfg, mesh, params0,
+                   batch) -> None:
+    """[shard] (b) ``compressed_psum`` over ``pod`` on the two pods' mean
+    gradients (pod p: rows 2p, 2p+1 of (a)'s batch): every element within
+    amax / 127 of the exact mean (amax the leaf's largest magnitude over
+    both pods), the result identical on both pods, each new error buffer
+    exactly ``g32 - deq``."""
+    import gc
+    import torch
+    from repro_torch.launch.step import value_and_grad
+    from repro_torch.train.grad_compress import (_quantize,
+                                                 compressed_psum,
+                                                 init_error_buf)
+    from repro_torch.train.optimizer import tree_leaves
+
+    pods = []
+    for p in range(2):
+        rows = {k: t[2 * p:2 * p + 2] for k, t in batch.items()}
+        pods.append(value_and_grad(cfg, params0, rows)[2])
+    bufs = [init_error_buf(g) for g in pods]
+    (red, err), wall = drive_path(by_path, "shard-compress",
+                                  lambda: compressed_psum(pods, bufs, mesh))
+    worst, n_el = 0.0, 0
+    for i, (g0, g1) in enumerate(zip(tree_leaves(pods[0]),
+                                     tree_leaves(pods[1]))):
+        exact = (g0.float() + g1.float()) / 2
+        amax = max(float(g0.abs().max()), float(g1.abs().max()))
+        r0, r1 = tree_leaves(red[0])[i], tree_leaves(red[1])[i]
+        d = float((r0.float() - exact).abs().max())
+        check(d <= amax / 127.0, f"[shard] compressed_psum leaf {i}: {d} "
+              f"from the exact mean (amax/127 {amax / 127.0})")
+        check(torch.equal(r0, r1), f"[shard] compressed_psum leaf {i} "
+              f"differs between the pods")
+        for p, g in enumerate((g0, g1)):
+            g32 = g.float() + tree_leaves(bufs[p])[i]
+            qq, scale = _quantize(g32)
+            check(torch.equal(tree_leaves(err[p])[i],
+                              g32 - qq.float() * scale),
+                  f"[shard] error buffer of leaf {i}, pod {p}")
+        worst = max(worst, d / max(amax / 127.0, 1e-30))
+        n_el += g0.numel()
+    n_leaves = len(tree_leaves(pods[0]))
+    report.setdefault("shard", {})["compress"] = dict(
+        leaves=n_leaves, elements=n_el, worst_over_amax_127=worst,
+        wall_s=wall, payload_bytes=n_el + 4 * n_leaves,
+        fp32_bytes=4 * n_el, card=card_line())
+    print(f"[shard] (b) compressed_psum over pod on the two pods' mean "
+          f"gradients ({n_leaves} leaves, {n_el} elements): within "
+          f"{worst:.4f} of amax/127 of the exact mean, identical on both "
+          f"pods, error buffers g32 - deq exactly; {wall:.4f} s; int8 "
+          f"payload {n_el + 4 * n_leaves} bytes a pod against {4 * n_el} in "
+          f"fp32", flush=True)
+    del pods, bufs, red, err
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shard_pipeline(args, report: dict, by_path: dict) -> None:
+    """[shard] (c) ``pipeline_forward`` on a (pod=4, data=1, model=1) mesh
+    of ``cuda:0`` stages, each one MiniCPM-2B decoder layer at full width
+    (fp32 masters), M=8 microbatches of (1, 512): the outputs bit for bit
+    the sequential application of the same four layers to each
+    microbatch; a backward through the schedule (K7b once per stage per
+    microbatch) against the sequential backward's gradients, bit for bit
+    or within the CPU tests' gradient tolerance; the schedule's wall
+    against the sequential one's, and the bubble (S-1)/(M+S-1) = 3/11."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import master_params
+    from repro_torch.models.transformer import (apply_self_layer,
+                                                init_self_layer)
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.pipeline_parallel import pipeline_forward
+
+    cfg = get_config("minicpm-2b")
+    n_stages, m, seq = 4, 8, 512
+    mesh = make_local_mesh(1, 1, pod=n_stages)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 31)
+    layers = [master_params(init_self_layer(gen, cfg))
+              for _ in range(n_stages)]
+    x = torch.randn((m, 1, seq, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    positions = torch.arange(seq, dtype=torch.int32,
+                             device="cuda").expand(1, seq)
+
+    def stage(p, h):
+        return apply_self_layer(p, cfg, h, positions)[0]
+
+    def piped():
+        return pipeline_forward(stage, layers, x, mesh=mesh)
+
+    def sequential():
+        outs = []
+        for h in x:
+            for p in layers:
+                h = stage(p, h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    with torch.no_grad():
+        got, pipe_s = drive_path(by_path, "shard-pipeline-forward", piped)
+        want, seq_s = drive_path(by_path, "shard-sequential-forward",
+                                 sequential)
+    check(torch.equal(got, want), "[shard] the pipeline's outputs are not "
+          "the sequential application's bit for bit")
+    c = by_path["shard-pipeline-forward"]
+    check(c["flash_attention"] == n_stages * m, f"[shard] the pipeline "
+          f"launched K7 {c['flash_attention']} times, want {n_stages * m}")
+    leaves = tree_leaves(layers)
+
+    def grads(fn):
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss = fn().float().square().mean()
+                return torch.autograd.grad(loss, leaves)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+    g_pipe, bwd_s = drive_path(by_path, "shard-pipeline",
+                               lambda: grads(piped))
+    g_seq = grads(sequential)
+    c = by_path["shard-pipeline"]
+    check(c["flash_attention"] == n_stages * m
+          and c["flash_attention_bwd"] == 3 * n_stages * m,
+          f"[shard] the pipeline's backward launched K7 "
+          f"{c['flash_attention']} and K7b {c['flash_attention_bwd']} "
+          f"kernels, want {n_stages * m} and 3 x {n_stages * m}")
+    bits = all(torch.equal(a, b) for a, b in zip(g_pipe, g_seq))
+    worst = 0.0 if bits else tree_allclose(list(g_pipe), list(g_seq),
+                                           "[shard] pipeline gradients")
+    bubble = (n_stages - 1) / (m + n_stages - 1)
+    report.setdefault("shard", {})["pipeline"] = dict(
+        stages=n_stages, microbatches=m, microbatch=[1, seq, cfg.d_model],
+        forward_bit_for_bit=True, gradients_bit_for_bit=bits,
+        worst_grad_rel=worst, pipeline_forward_s=pipe_s,
+        sequential_forward_s=seq_s, pipeline_backward_s=bwd_s,
+        bubble=bubble, launches=c, card=card_line())
+    print(f"[shard] (c) pipeline_forward over pod=4 stages of one "
+          f"minicpm-2b layer each, M={m} microbatches of (1, {seq}): outputs "
+          f"bit for bit the sequential application; gradients through the "
+          f"schedule bit for bit {bits} (worst leaf {worst}); forward "
+          f"{pipe_s:.4f} s against sequential {seq_s:.4f} s (stages share "
+          f"one card), forward and backward {bwd_s:.4f} s; bubble "
+          f"(S-1)/(M+S-1) = 3/11 = {bubble:.4f}; K7 {c['flash_attention']}, "
+          f"K7b {c['flash_attention_bwd']} kernels", flush=True)
+    del layers, x, got, want, g_pipe, g_seq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shard_launcher(args, report: dict, by_path: dict) -> None:
+    """[shard] (d) ``REPRO_MESH_OVERRIDE=2,2,2 python -m
+    repro_torch.launch.train --arch minicpm-2b --multi-pod --global-batch
+    16 --seq-len 4096 --steps 2`` at full depth in a child process (its
+    entry point run under a recorder of the pipeline's rows): two finite
+    steps, each given rank 0's 16 / 4 = 4 rows (the reference's
+    ``dp_rank=0`` defect), K7 and K7b once per (dp, tp) shard a layer;
+    seconds a step, tokens/s over the rows trained, peak memory. The loop
+    checkpoints only every ``--ckpt-every`` (1000) steps or when
+    preempted, so it saves nothing here."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip-shard-")
+    argv = ["--arch", "minicpm-2b", "--multi-pod", "--global-batch", "16",
+            "--seq-len", "4096", "--steps", "2", "--ckpt-dir", tmp,
+            "--ckpt-every", "1000"]
+    env = {**os.environ, "REPRO_MESH_OVERRIDE": "2,2,2",
+           "PYTHONPATH": str(ROOT / "src")}
+    ts = time.perf_counter()
+    try:
+        child = subprocess.run([sys.executable, "-c", SHARD_CHILD, *argv],
+                               env=env, cwd=str(ROOT), capture_output=True,
+                               text=True, timeout=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    child_s = time.perf_counter() - ts
+    check(child.returncode == 0, f"[shard] the launcher exited "
+          f"{child.returncode}:\n{child.stderr[-3000:]}")
+    res = json.loads(child.stdout.strip().splitlines()[-1])
+    steps, n = res["steps"], res["n_layers"]
+    check([h["step"] for h in steps] == [0, 1]
+          and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                  for h in steps), f"[shard] launcher steps {steps}")
+    check(res["rows"] == [[0, 0, 4, 4], [1, 0, 4, 4]], f"[shard] the "
+          f"launcher's rows {res['rows']}, want rank 0's 4 of 16 a step")
+    c = res["launches"]
+    check(c["flash_attention"] == 2 * 2 * 8 * n
+          and c["flash_attention_bwd"] == 2 * 3 * 8 * n
+          and c["flash_unsharded"] == 0,
+          f"[shard] the launcher launched K7 {c['flash_attention']}, K7b "
+          f"{c['flash_attention_bwd']} ({c['flash_unsharded']} whole)")
+    by_path["shard-launcher"] = c
+    step_s = [h["time_s"] for h in steps]
+    steady = step_s[-1]               # the first step sets up cuBLAS
+    tokens = 4 * 4096
+    report.setdefault("shard", {})["launcher"] = dict(
+        argv=argv, rows=res["rows"], steps=steps, step_s=step_s,
+        steady_step_s=steady, tokens_per_step=tokens,
+        tokens_per_s=tokens / steady,
+        max_memory_allocated=res["max_memory_allocated"],
+        run_s=res["wall_s"], child_s=child_s, launches=c, card=card_line())
+    print(f"[shard] (d) the launcher, REPRO_MESH_OVERRIDE=2,2,2 --multi-pod "
+          f"minicpm-2b ({n} layers) global batch 16, S=4096: losses "
+          f"{[round(h['loss'], 5) for h in steps]}, each step given rows "
+          f"{res['rows']} (rank 0's 4 of 16); step seconds "
+          f"{[round(s, 4) for s in step_s]} (steady {steady:.4f} s = "
+          f"{tokens / steady:.1f} tokens/s trained); "
+          f"max_memory_allocated {res['max_memory_allocated']} bytes; run "
+          f"{res['wall_s']:.1f} s, child {child_s:.1f} s; K7 "
+          f"{c['flash_attention']}, K7b {c['flash_attention_bwd']} kernels",
+          flush=True)
+
+
+def shard_phase(args, report: dict, by_path: dict) -> None:
+    """[shard] (a) the sharded step, (b) the compressed reduce, (c) the
+    pipeline, (d) the launcher on a mesh."""
+    import gc
+    import torch
+    cfg, mesh, params0, batch = shard_step(args, report, by_path)
+    shard_compress(args, report, by_path, cfg, mesh, params0, batch)
+    del params0, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_pipeline(args, report, by_path)
+    shard_launcher(args, report, by_path)
+
+
 def k7b_row(by_path: dict, profiles: KernelProfiles) -> tuple[dict, list]:
     """[train] (a) K7b against its plain twin (``ref.flash_attention_bwd``)
     at ``K7B_CASES`` on random bf16 inputs, from the plain forward's output
@@ -5544,7 +6070,7 @@ def k7b_row(by_path: dict, profiles: KernelProfiles) -> tuple[dict, list]:
         nbytes = 2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * lse.numel()
         b_ms, b_by = bound(attention_bwd_flops(b, s, h, hd, True, window),
                            nbytes, PEAK_BF16_FLOPS)
-        was_ms, was_device_ms = K7B_WAS[label]
+        was_ms, was_device_ms = K7B_WAS.get(label, (None, None))
         rows.append(dict(
             case=label, shape=[b, s, h, hd], kv_heads=kv, window=window,
             causal=True, was_ms=was_ms, was_device_ms=was_device_ms,
@@ -5596,14 +6122,11 @@ def k7b_row(by_path: dict, profiles: KernelProfiles) -> tuple[dict, list]:
     return shared, k7_cases
 
 
-def train_phase(args, report: dict, by_path: dict,
-                profiles: KernelProfiles) -> tuple[dict, list]:
-    """[train] (c), (d), (b), then (a); returns K7b's kernel row and K7's
-    cases at its shapes."""
+def train_phase(args, report: dict, by_path: dict) -> None:
+    """[train] (c), (d), (b); (a), K7b's row, runs after [shard]."""
     train_full(args, report, by_path)
     train_resume(args, report, by_path)
     train_grads(args, report, by_path)
-    return k7b_row(by_path, profiles)
 
 
 def ptxas_report(name: str) -> list[str]:
@@ -5858,8 +6381,9 @@ def main() -> int:
         import gc
         gc.collect()
         torch.cuda.empty_cache()
-        k7b, k7_train = phase("train", train_phase, args, report, by_path,
-                              profiles)
+        phase("train", train_phase, args, report, by_path)
+        phase("shard", shard_phase, args, report, by_path)
+        k7b, k7_train = phase("k7b-row", k7b_row, by_path, profiles)
         ts = time.perf_counter()
         rows.append(flash_row(rec, {
             "embed": k7, **{p: c["flash_attention"] for p, c in by_path.items()

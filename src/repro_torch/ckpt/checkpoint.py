@@ -166,8 +166,12 @@ class CheckpointManager:
         self.keep = keep
         self.every = every
 
+    def due(self, step: int) -> bool:
+        """Whether :meth:`maybe_save` saves at ``step`` unforced."""
+        return step != 0 and step % self.every == 0
+
     def maybe_save(self, step: int, state, extra=None, force: bool = False):
-        if not force and (step == 0 or step % self.every):
+        if not force and not self.due(step):
             return None
         path = save_checkpoint(self.directory, step, state, extra)
         self._gc()

@@ -54,7 +54,7 @@ import torch
 from repro_torch.core.distributed import replicated_topk_merge  # noqa: F401
 from repro_torch.core.distributed import sharded_nks_topk
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import make_serving_mesh, resolve_device
+from repro_torch.launch.mesh import Mesh, make_serving_mesh, resolve_device
 
 
 @dataclasses.dataclass
@@ -167,14 +167,23 @@ class DevicePlane:
 
     ``devices`` (default :func:`repro_torch.launch.mesh.make_serving_mesh`)
     holds one device a shard, all CUDA or all CPU; a device may hold more
-    than one shard. Shard i owns the contiguous slab [i S/n, (i+1) S/n) of
-    a sharded tile and the anchors [i R/n, (i+1) R/n) of a query's groups.
+    than one shard. A :class:`~repro_torch.launch.mesh.Mesh` gives its
+    devices along ``data`` (the other axes at 0), as the reference's plane
+    takes its device mesh and shards over its ``data`` axis. Shard i owns the
+    contiguous slab [i S/n, (i+1) S/n) of a sharded tile and the anchors
+    [i R/n, (i+1) R/n) of a query's groups.
     The first device is where slabs are gathered back and where the
     backend keeps its resident corpus."""
 
-    def __init__(self, devices: Sequence[str | torch.device] | None = None):
+    def __init__(self, devices: Sequence[str | torch.device] | Mesh
+                 | None = None):
         if devices is None:
             devices = make_serving_mesh()
+        if isinstance(devices, Mesh):
+            if "data" not in devices.axis_names:
+                raise ValueError(f"mesh has no 'data' axis: "
+                                 f"{devices.axis_names}")
+            devices = devices.along("data")
         if isinstance(devices, (str, torch.device)):
             devices = [devices]
         self.devices = tuple(resolve_device(d) for d in devices)

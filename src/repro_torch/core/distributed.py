@@ -30,6 +30,7 @@ the resident corpus).
 :func:`distributed_nks_topk`): every shard holds the whole centred groups
 and scores its own contiguous slice of the anchors (``anchor_range``), and
 :func:`replicated_topk_merge` merges the shards' top-k lists into one.
+:func:`search_step_specs` gives that step's input stand-ins and specs.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ANCHOR_BLOCK_BYTES, BIG
-from repro_torch.launch.mesh import resolve_device
+from repro_torch.launch.mesh import Mesh, resolve_device
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -152,12 +153,31 @@ def distributed_nks_topk(plane_or_devices, groups: torch.Tensor,
                          mask: torch.Tensor, ids: torch.Tensor, k: int
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sharded anchor-star top-k (:func:`sharded_nks_topk`) over a
-    ``DevicePlane`` or a list of shard devices. Returns (diams
+    ``DevicePlane``, a ``launch.mesh.Mesh`` (its ``data`` axis, as the
+    reference shards R over it) or a list of shard devices. Returns (diams
     (min(k, R),), ids (min(k, R), q)) on the first device."""
-    devices = getattr(plane_or_devices, "devices", None)
+    if isinstance(plane_or_devices, Mesh):
+        devices = tuple(plane_or_devices.along("data"))
+    else:
+        devices = getattr(plane_or_devices, "devices", None)
     if devices is None:
         devices = tuple(resolve_device(d) for d in plane_or_devices)
     return sharded_nks_topk(devices, groups, mask, ids, k)
+
+
+def search_step_specs(q: int, r_total: int, d: int, k: int):
+    """Stand-ins (``meta`` tensors: groups (q, R, d) fp32, mask (q, R)
+    bool, ids (q, R) int32) and specs of the sharded serve step: R over
+    ``data``, which is how :func:`sharded_nks_topk` deals the anchors to
+    its shards. ``k`` does not change the inputs' shapes."""
+    del k
+    meta = torch.device("meta")
+    structs = (torch.empty((q, r_total, d), dtype=torch.float32,
+                           device=meta),
+               torch.empty((q, r_total), dtype=torch.bool, device=meta),
+               torch.empty((q, r_total), dtype=torch.int32, device=meta))
+    specs = ((None, "data", None), (None, "data"), (None, "data"))
+    return structs, specs
 
 
 def diameter_band(groups: np.ndarray, mask: np.ndarray) -> float:

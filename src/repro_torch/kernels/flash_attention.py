@@ -25,8 +25,11 @@ import torch
 
 from repro_torch.kernels import build
 
-# Launches since the last reset_launches().
-launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+# Launches since the last reset_launches(); ``flash_unsharded`` counts the
+# attention calls under a mesh that ran whole because their rows or heads did
+# not divide the shards (``models.common``), not a kernel.
+launches = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "flash_unsharded": 0}
 
 HEAD_DIMS = (64, 128)
 # The kernel's work unit is QUERY_TILE query rows of one (batch, head); units

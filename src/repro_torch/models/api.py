@@ -18,8 +18,11 @@ its attention's gradient is K7b on the card (``kernels.ops``), and with
 takes fp32 master parameters (``core.carry.model_params_from_numpy(...,
 master=True)``, or :func:`master_params`): the forward casts every matrix
 to bf16 where it uses it, so the loss is the same as on the bf16 serving
-parameters. ``count_params`` and ``active_params`` build the parameters
-as fake tensors (``meta`` storage), which allocates nothing.
+parameters. ``params_specs``, ``input_specs`` and ``cache_specs`` give
+shape-and-type stand-ins of the parameters, a cell's inputs and its decode
+cache as tensors on the ``meta`` device (nothing allocated: the
+parameters are built as fake tensors, since a generator cannot draw on
+``meta``); ``count_params`` and ``active_params`` count through them.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import audio as audio_lib
 from repro_torch.models import transformer as tf_lib
@@ -138,18 +141,61 @@ def master_params(tree):
     return tree_map(lambda t: t.float().clone(), tree)
 
 
-def count_params(cfg: ArchConfig) -> int:
-    """Parameters of the architecture (the padded vocabulary included),
-    counted on fake tensors: shapes on the ``meta`` device, no storage."""
+# ------------------------------------------------------------- input specs
+META = torch.device("meta")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell) -> Batch:
+    """Stand-ins for every input of (arch x cell): int32 token ids (the
+    token pipeline's type), bf16 patches or frames."""
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind == "train":
+        batch: Batch = {"tokens": _meta((b, s), torch.int32),
+                        "targets": _meta((b, s), torch.int32)}
+    elif cell.kind == "prefill":
+        batch = {"tokens": _meta((b, s), torch.int32)}
+    else:                                  # decode: one new token, cache of s
+        batch = {"tokens": _meta((b, 1), torch.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = _meta((b, cfg.vision_tokens, cfg.vision_dim),
+                                 ACT_DTYPE)
+    if cfg.family == "audio":
+        batch["frames"] = _meta((b, cfg.audio_frames, cfg.d_model),
+                                ACT_DTYPE)
+    return batch
+
+
+def cache_specs(cfg: ArchConfig, cell: ShapeCell) -> Params:
+    """Stand-ins of the decode cache at this cell (seq_len positions);
+    ``pos`` stays the Python int 0."""
+    return _module(cfg).init_cache(cfg, cell.global_batch, cell.seq_len,
+                                   device=META)
+
+
+def params_specs(cfg: ArchConfig) -> Params:
+    """Stand-ins of the parameters, in the types ``init`` gives them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         params = _module(cfg).init_params(cfg, torch.Generator())
-        return sum(math.prod(t.shape) for t in tree_leaves(params))
+        shapes = iter([(tuple(t.shape), t.dtype)
+                       for t in tree_leaves(params)])
+    return tree_map(lambda _: _meta(*next(shapes)), params)
 
 
-def active_params(cfg: ArchConfig) -> int:
-    """Parameters a token uses (mixture of experts: top-k of the pool)."""
-    total = count_params(cfg)
+def count_params(cfg: ArchConfig) -> int:
+    """Parameters of the architecture (the padded vocabulary included),
+    counted on :func:`params_specs`."""
+    return sum(math.prod(t.shape) for t in tree_leaves(params_specs(cfg)))
+
+
+def active_params(cfg: ArchConfig, total: int | None = None) -> int:
+    """Parameters a token uses (mixture of experts: top-k of the pool), of
+    ``total`` parameters (default ``count_params(cfg)``)."""
+    total = count_params(cfg) if total is None else total
     if cfg.moe is None:
         return total
     e, k, f, d = (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,

@@ -16,8 +16,15 @@ there:
     take the reference's direct path in torch ops, as the reference never
     sends them to its kernel: bf16 operands, fp32 products and softmax.
 
-Tensor-parallel sharding hints have no meaning on one card and are not
-ported; the grouped-query heads are read in place by the kernel.
+Under a mesh (``models.hints.enable_hints_mesh``) the whole-sequence
+self-attention runs once per (dp, tp) shard, each on its shard's device
+over its batch rows and its heads, and the pieces are gathered, as the
+reference wraps its kernel in ``shard_map``; the grouped-query heads are
+expanded to one key and value head per query head where the kv heads do
+not divide the TP axis (the reference's expansion). Otherwise the kernel
+reads the grouped heads in place. GSPMD's automatic tensor parallelism of
+the matrix products has no counterpart: each data-parallel shard runs the
+products on its whole parameters.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.models import hints
 
 Params = dict[str, Any]
 ACT_DTYPE = torch.bfloat16
@@ -206,9 +215,7 @@ def self_attention(p: Params, spec: AttnSpec, x: torch.Tensor,
     tensors."""
     q, k, v = _project_qkv(p, spec, x, positions)
     if cache is None:
-        out = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=spec.causal,
-                                  window=spec.window)
+        out = attend(q, k, v, causal=spec.causal, window=spec.window)
         return _out_proj(out, p["wo"]), {"k": k, "v": v}
     pos, s = cache["pos"], x.shape[1]
     k_all, v_all = cache["k"], cache["v"]
@@ -226,6 +233,73 @@ def self_attention(p: Params, spec: AttnSpec, x: torch.Tensor,
     out = direct_attention(q, k_all[:, lo:pos + 1], v_all[:, lo:pos + 1],
                            valid)
     return _out_proj(out, p["wo"]), {"k": k_all, "v": v_all}
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int | None) -> torch.Tensor:
+    """Whole-sequence self-attention of q (B, S, H, hd) over k, v (B, S,
+    Kv, hd) through ``ops.flash_attention`` (K7 forward, K7b backward on
+    the card). With a TP size over 1 (``hints.tp_size``), S > 1, groups of
+    g > 1 and kv heads that do not divide it while the query heads do, k
+    and v are first repeated to one head per query head (the reference's
+    expansion). With an active mesh the call runs per shard
+    (:func:`_sharded_attend`)."""
+    b, s, h, _ = q.shape
+    kvh = k.shape[2]
+    g, tp = h // kvh, hints.tp_size()
+    if s > 1 and g > 1 and kvh % tp != 0 and h % tp == 0:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    ctx = hints.active()
+    if ctx is None or ctx.get("mesh") is None:
+        return ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window)
+    return _sharded_attend(q, k, v, ctx, causal, window)
+
+
+def _sharded_attend(q, k, v, ctx: dict, causal: bool,
+                    window: int | None) -> torch.Tensor:
+    """``ops.flash_attention`` once per (dp, tp) shard of the active mesh,
+    each on its shard's device over its batch rows (row blocks in the
+    order of the dp axes' coordinates, ``pod`` major) and its heads (kv
+    heads with their whole groups), the pieces gathered on q's device.
+    Inside ``hints.on_dp_shard`` the rows are that one dp shard's. Where
+    the rows do not divide the dp shards or the heads the TP size, the
+    call runs whole on the mesh's first device (of the dp shard's, inside
+    one), counted under ``flash_unsharded``."""
+    mesh = ctx["mesh"]
+    tp = ctx["tp"]
+    shard = ctx.get("dp_shard")
+    dp_coords = [shard] if shard is not None else list(
+        mesh.coords([a for a in ctx["dp"] if a in mesh.shape]))
+    tp_n = mesh.shape.get(tp, 1)
+    b, h, kvh = q.shape[0], q.shape[2], k.shape[2]
+    if b % len(dp_coords) or h % tp_n or kvh % tp_n:
+        build.count(_flash.launches, "flash_unsharded")
+        dev = mesh.device_at(**(shard or {}))
+        out = ops.flash_attention(*(t.to(dev).contiguous() for t in (q, k, v)),
+                                  causal=causal, window=window)
+        return out.to(q.device)
+    rows, heads, kv_heads = b // len(dp_coords), h // tp_n, kvh // tp_n
+    outs = []
+    for i, coords in enumerate(dp_coords):
+        r = slice(i * rows, (i + 1) * rows)
+        parts = []
+        for j in range(tp_n):
+            dev = mesh.device_at(**coords, **({tp: j} if tp in mesh.shape
+                                              else {}))
+            hq = slice(j * heads, (j + 1) * heads)
+            hk = slice(j * kv_heads, (j + 1) * kv_heads)
+            out = ops.flash_attention(
+                q[r, :, hq].to(dev).contiguous(),
+                k[r, :, hk].to(dev).contiguous(),
+                v[r, :, hk].to(dev).contiguous(), causal=causal,
+                window=window)
+            parts.append(out.to(q.device))
+        outs.append(parts[0] if tp_n == 1 else torch.cat(parts, dim=2))
+    # one piece is the output itself: no copy
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
 def cross_kv(p: Params, spec: AttnSpec,

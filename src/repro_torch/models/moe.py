@@ -9,6 +9,8 @@ its tensor-parallel axis; on one card there is nothing to pin.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -40,17 +42,53 @@ def capacity(s: int, cfg: MoEConfig) -> int:
                             * cfg.capacity_factor)))
 
 
+# While a sharded train step runs its data-parallel shards (``launch.step``):
+# (keys {id(router tensor): key}, table {key: (expert counts, slots)},
+# record), else None. See :func:`whole_batch_balance`.
+_balance: tuple | None = None
+
+
+@contextlib.contextmanager
+def whole_batch_balance(keys: dict, table: dict, *, record: bool):
+    """While it is open, a router ``r`` that ``keys`` names (by
+    ``id(r)``) shares its slot fractions f_e across the shards of one
+    batch. With ``record``, each call adds its expert counts and slots to
+    ``table[keys[id(r)]]``; without, its f_e is the table's counts over
+    its slots: the whole batch's. The aux loss ``E sum_e f_e P_e`` is a
+    product of means, so a shard's own f_e would not give the whole
+    batch's loss; with the whole batch's f_e (which carries no gradient)
+    the row-weighted sum of the shards' aux losses is the whole batch's,
+    and so is its gradient."""
+    global _balance
+    saved, _balance = _balance, (keys, table, record)
+    try:
+        yield
+    finally:
+        _balance = saved
+
+
 def route(p: Params, x: torch.Tensor, cfg: MoEConfig):
     """Router probabilities (B, S, E) in fp32, the top-k weights
     (renormalised) and experts (B, S, k), and the load-balance aux loss
-    ``aux_w * E * sum_e f_e P_e`` (Switch)."""
+    ``aux_w * E * sum_e f_e P_e`` (Switch; f_e the whole batch's inside
+    :func:`whole_batch_balance`)."""
     b, s, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
     top_w, top_e = torch.topk(probs, k, dim=-1)
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
-    f_e = torch.bincount(top_e.reshape(-1), minlength=e).float() \
-        / (b * s * k)
+    counts = torch.bincount(top_e.reshape(-1), minlength=e).float()
+    f_e = counts / (b * s * k)
+    if _balance is not None:
+        keys, table, record = _balance
+        key = keys[id(p["router"])]
+        if record:
+            c, n = table.get(key, (None, 0))
+            table[key] = (counts if c is None else c.to(counts.device)
+                          + counts, n + b * s * k)
+        else:
+            c, n = table[key]
+            f_e = c.to(counts.device) / n
     p_e = probs.mean(dim=(0, 1))
     aux = cfg.aux_loss_weight * e * (f_e * p_e).sum()
     return probs, top_w, top_e, aux

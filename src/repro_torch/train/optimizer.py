@@ -97,28 +97,42 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
+def adamw_scalars(step: torch.Tensor, gnorm: torch.Tensor,
+                  cfg: OptimizerConfig) -> dict:
+    """The step's scalars from the current ``step`` and the gradients'
+    global norm: the new step, the learning rate, the clip scale and the
+    two bias corrections (fp32 tensors on ``step``'s device)."""
+    step = step + 1
+    return {"step": step, "lr": lr_at(cfg, step),
+            "scale": torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                                 max=1.0),
+            "bc1": 1.0 - torch.pow(cfg.b1, step.float()),
+            "bc2": 1.0 - torch.pow(cfg.b2, step.float())}
+
+
+@torch.no_grad()
+def adamw_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+               v: torch.Tensor, sc: dict, cfg: OptimizerConfig) -> None:
+    """One leaf's AdamW step in place, under the scalars ``sc``
+    (:func:`adamw_scalars`, on the leaf's device)."""
+    g = g.float() * sc["scale"]
+    m32 = m.float() * cfg.b1 + g * (1 - cfg.b1)
+    v32 = v.float() * cfg.b2 + g * g * (1 - cfg.b2)
+    update = (m32 / sc["bc1"]) / (torch.sqrt(v32 / sc["bc2"]) + cfg.eps)
+    p32 = p.float()
+    p.copy_(p32 - sc["lr"] * (update + cfg.weight_decay * p32))
+    m.copy_(m32)
+    v.copy_(v32)
+
+
+@torch.no_grad()
 def adamw_update(params, grads, opt_state: dict, cfg: OptimizerConfig):
     """One AdamW step, written into ``params`` and ``opt_state``'s moments
     and step in place. Returns (params, opt_state, {"lr", "grad_norm"}),
     the same trees."""
-    step = opt_state["step"] + 1
-    lr = lr_at(cfg, step)
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    bc1 = 1.0 - torch.pow(cfg.b1, step.float())
-    bc2 = 1.0 - torch.pow(cfg.b2, step.float())
-
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m32 = m.float() * cfg.b1 + g * (1 - cfg.b1)
-        v32 = v.float() * cfg.b2 + g * g * (1 - cfg.b2)
-        update = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        p32 = p.float()
-        p.copy_(p32 - lr * (update + cfg.weight_decay * p32))
-        m.copy_(m32)
-        v.copy_(v32)
-
-    tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
-    opt_state["step"].copy_(step)
-    return params, opt_state, {"lr": lr, "grad_norm": gnorm}
+    sc = adamw_scalars(opt_state["step"], gnorm, cfg)
+    tree_map(lambda p, g, m, v: adamw_leaf(p, g, m, v, sc, cfg), params,
+             grads, opt_state["m"], opt_state["v"])
+    opt_state["step"].copy_(sc["step"])
+    return params, opt_state, {"lr": sc["lr"], "grad_norm": gnorm}

@@ -49,13 +49,17 @@ def _sync(state) -> None:
 
 class TrainLoop:
     def __init__(self, cfg: LoopConfig, step_fn: Callable,
-                 pipeline: TokenPipeline, init_state: Callable):
+                 pipeline: TokenPipeline, init_state: Callable,
+                 to_tensors: Callable | None = None):
         """step_fn(state, batch) -> (state, metrics); init_state() -> a tree
-        {"params", "opt", ...} of tensors."""
+        {"params", "opt", ...} of tensors; ``to_tensors(state)``, where the
+        state holds something else (the sharded launcher's pieces), gives
+        the tree of tensors a checkpoint writes."""
         self.cfg = cfg
         self.step_fn = step_fn
         self.pipeline = pipeline
         self.init_state = init_state
+        self.to_tensors = to_tensors or (lambda state: state)
         self._preempted = False
 
     def _handle_preemption(self, signum, frame):
@@ -104,10 +108,11 @@ class TrainLoop:
                     metrics_f.write(json.dumps(rec) + "\n")
                     metrics_f.flush()
 
-                mgr.maybe_save(step + 1, state, extra={"next_step": step + 1})
+                if self._preempted or mgr.due(step + 1):
+                    mgr.maybe_save(step + 1, self.to_tensors(state),
+                                   extra={"next_step": step + 1},
+                                   force=self._preempted)
                 if self._preempted:
-                    mgr.maybe_save(step + 1, state,
-                                   extra={"next_step": step + 1}, force=True)
                     break
         finally:
             signal.signal(signal.SIGTERM, old_term)

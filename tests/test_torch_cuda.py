@@ -1761,7 +1761,8 @@ def test_flash_attention_autograd_reaches_k7b_on_card():
     flash.reset_launches()
     out = ops.flash_attention(*leaves, causal=True, window=None)
     out.backward(do)
-    assert flash.launches == {"flash_attention": 1, "flash_attention_bwd": 3}
+    assert flash.launches == {"flash_attention": 1, "flash_attention_bwd": 3,
+                              "flash_unsharded": 0}
     o, lse = flash.flash_attention(q, k, v, causal=True, return_lse=True)
     want = flash.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
     assert torch.equal(out.detach(), o)
@@ -1770,7 +1771,8 @@ def test_flash_attention_autograd_reaches_k7b_on_card():
     flash.reset_launches()
     with torch.no_grad():
         ops.flash_attention(*leaves, causal=True)
-    assert flash.launches == {"flash_attention": 1, "flash_attention_bwd": 0}
+    assert flash.launches == {"flash_attention": 1, "flash_attention_bwd": 0,
+                              "flash_unsharded": 0}
 
 
 @pytest.mark.cuda
@@ -1794,3 +1796,152 @@ def test_flash_attention_bwd_raises_on_what_it_does_not_take():
                                   v[..., :32].contiguous(),
                                   o[..., :32].contiguous(),
                                   do[..., :32].contiguous(), lse)
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_card():
+    """[shard] (a) at small size: MiniCPM-2B's smoke config at head dim 64
+    on a (pod=2, data=2, model=2) mesh of ``cuda:0`` shards, global batch
+    4: K7 once per (dp, tp) shard a layer (forward and remat) and K7b 3 x
+    8 kernels a layer; the sharded attention bit for bit the whole call's;
+    the loss within 2^-8, the gradient norm and each gradient leaf within
+    2^-4, and each parameter's move within 3% of lr where the gradients
+    surely share a sign, of the unsharded step on the card; the counted
+    collectives the dry run's reckoning."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import dp_axes, make_local_mesh
+    from repro_torch.launch.step import (make_train_step,
+                                         sharded_value_and_grad,
+                                         value_and_grad)
+    from repro_torch.models import hints
+    from repro_torch.models.api import master_params, model_api
+    from repro_torch.models.common import attend
+    from repro_torch.train.optimizer import (OptimizerConfig,
+                                             init_opt_state, tree_leaves,
+                                             tree_map)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("minicpm-2b").smoke(), head_dim=64)
+    mesh = make_local_mesh(2, 2, pod=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((4, 128, 4, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    want = ops.flash_attention(q, k, v, causal=True)
+    flash.reset_launches()
+    hints.enable_hints_mesh(mesh, dp_axes(mesh), "model")
+    try:
+        got = attend(q, k, v, causal=True, window=None)
+    finally:
+        hints.disable_hints()
+    assert flash.launches["flash_attention"] == 8
+    assert torch.equal(got, want)
+
+    params0 = master_params(model_api(cfg).init(
+        torch.Generator(device="cuda").manual_seed(1), device="cuda"))
+    ocfg = OptimizerConfig(total_steps=10, warmup_steps=2, schedule="wsd",
+                           peak_lr=1e-3)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 65), device="cuda")
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    plain = tree_map(torch.clone, params0)
+    _, _, m_plain = make_train_step(cfg, ocfg)(
+        plain, init_opt_state(plain, ocfg), batch)
+    sh.census.reset()
+    flash.reset_launches()
+    p_sh, _, m_sh = make_train_step(cfg, ocfg, mesh=mesh)(
+        params0, init_opt_state(params0, ocfg), batch)
+    n = cfg.n_layers
+    assert flash.launches == {"flash_attention": 2 * 8 * n,
+                              "flash_attention_bwd": 3 * 8 * n,
+                              "flash_unsharded": 0}
+    pspecs = sh.param_specs(params0, mesh)
+    assert sh.census.totals() == sh.step_census(params0, pspecs, mesh)
+    assert abs(float(m_sh["loss"]) - float(m_plain["loss"])) \
+        <= 2.0 ** -8 * float(m_plain["loss"])
+    assert abs(float(m_sh["grad_norm"]) - float(m_plain["grad_norm"])) \
+        <= 2.0 ** -4 * float(m_plain["grad_norm"])
+    _, _, g_plain = value_and_grad(cfg, params0, batch)
+    g_sh = sh.gather_tree(sharded_value_and_grad(
+        cfg, sh.shard_tree(params0, pspecs, mesh), batch, mesh)[2],
+        pspecs, mesh)
+    lr = float(m_plain["lr"])
+    clip = min(1.0, 1.0 / float(m_plain["grad_norm"]))
+    full = sh.gather_tree(p_sh, pspecs, mesh)
+    for a, b, p0, ga, gb in zip(tree_leaves(full), tree_leaves(plain),
+                                tree_leaves(params0), tree_leaves(g_sh),
+                                tree_leaves(g_plain)):
+        assert float((ga - gb).norm()) <= 2.0 ** -4 * float(gb.norm()) \
+            + 1e-6
+        # a first AdamW step moves an element by about lr sign(g): where
+        # the gradients surely share a sign the moves agree to 3% of lr
+        sure = (gb.abs() > 2 * (ga - gb).abs()) & (gb.abs() * clip > 1e-6)
+        assert bool(((a - b).abs()[sure]
+                     <= 0.03 * lr + 2.0 ** -21 * b.abs()[sure]).all())
+        assert float((a - b).norm()) <= 0.25 * float((b - p0).norm()) + 1e-6
+
+
+@pytest.mark.cuda
+def test_pipeline_forward_on_card():
+    """[shard] (c) at small size: four smoke MiniCPM-2B layers (head dim 64)
+    as the stages of a (pod=4) mesh of ``cuda:0`` stages, 8 microbatches of
+    (1, 64): outputs bit for bit the sequential application; the gradients
+    through the schedule (K7b once a stage a microbatch) within 2^-4 of
+    each leaf's norm plus 2^-10 of the largest of the sequential
+    backward's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import master_params
+    from repro_torch.models.transformer import (apply_self_layer,
+                                                init_self_layer)
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.pipeline_parallel import pipeline_forward
+    cfg = dataclasses.replace(get_config("minicpm-2b").smoke(), head_dim=64)
+    mesh = make_local_mesh(1, 1, pod=4)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    layers = [master_params(init_self_layer(gen, cfg)) for _ in range(4)]
+    x = torch.randn((8, 1, 64, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    pos = torch.arange(64, dtype=torch.int32, device="cuda").expand(1, 64)
+
+    def stage(p, h):
+        return apply_self_layer(p, cfg, h, pos)[0]
+
+    def sequential():
+        outs = []
+        for h in x:
+            for p in layers:
+                h = stage(p, h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    leaves = tree_leaves(layers)
+
+    def grads(fn):
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            return torch.autograd.grad(fn().float().square().mean(), leaves)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+
+    with torch.no_grad():
+        got = pipeline_forward(stage, layers, x, mesh=mesh)
+        assert torch.equal(got, sequential())
+    flash.reset_launches()
+    g_pipe = grads(lambda: pipeline_forward(stage, layers, x, mesh=mesh))
+    assert flash.launches["flash_attention"] == 32
+    assert flash.launches["flash_attention_bwd"] == 3 * 32
+    g_seq = grads(sequential)
+    norms = [float(g.norm()) for g in g_seq]
+    for a, b, nb in zip(g_pipe, g_seq, norms):
+        assert float((a - b).norm()) <= 2.0 ** -4 * nb + 2.0 ** -10 * max(
+            norms)

@@ -56,7 +56,7 @@ from repro_torch.serve.engine import NKSEngine
 
 torch.set_num_threads(1)
 
-PLANE = DevicePlane(make_local_mesh(8))
+PLANE = DevicePlane(make_local_mesh(8, device="cpu"))
 SIZES = [40, 44, 37, 41, 39, 45, 42, 38, 40, 43,     # class 64: sharded
          9, 11, 10]                                   # class 16: one device
 RADII = [2.5] * 10 + [3.0, float("inf"), 2.0]
@@ -128,7 +128,7 @@ def test_balance_order_and_shard_cells_match_reference(n_shards, seed):
     perm = balance_order(lengths, n_shards)
     np.testing.assert_array_equal(perm, ref_balance_order(lengths, n_shards))
     assert sorted(perm.tolist()) == list(range(s))
-    plane = DevicePlane(make_local_mesh(n_shards))
+    plane = DevicePlane(make_local_mesh(n_shards, device="cpu"))
     fake = types.SimpleNamespace(n_shards=n_shards)
     assert plane.shard_cells(lengths[perm], 320) \
         == RefPlane.shard_cells(fake, lengths[perm], 320)
@@ -181,7 +181,8 @@ def test_backend_plane_blocks_bit_for_bit(n_shards, prune, filtered):
     one device, an infinite radius skips the device; the cached tile gives
     the same blocks, and so does a tight budget that chunks the bins and
     demotes those whose shard-rounded tile would exceed it."""
-    plane = PLANE if n_shards == 8 else DevicePlane(make_local_mesh(n_shards))
+    plane = PLANE if n_shards == 8 \
+        else DevicePlane(make_local_mesh(n_shards, device="cpu"))
     rng, points, id_lists, keys = _bins(1)
     eligible = rng.random(600) < 0.5 if filtered else None
     kw = dict(route="device", bin_strategy="pow2", prune_tier=prune[0],
@@ -222,13 +223,15 @@ def test_backend_budget_demotes_a_bin_to_one_device():
     kw = dict(route="device", bin_strategy="pow2", max_block_bytes=136_000)
     want = TorchBackend(device="cpu", **kw).self_join_blocks(
         points, ids, radii, keys=keys)
-    be = TorchBackend(plane=DevicePlane(make_local_mesh(3)), **kw)
+    be = TorchBackend(plane=DevicePlane(make_local_mesh(3, device="cpu")),
+                      **kw)
     _blocks_equal(be.self_join_blocks(points, ids, radii, keys=keys), want)
     assert be.stats.dispatches == 2 and be.stats.sharded_dispatches == 0
     assert be.stats.shard_dispatches == [2, 0, 0]
     assert be.stats.shard_total_cells == [2 * 8 * 64 * 64, 0, 0]
     with pytest.raises(ValueError, match="first device"):
-        TorchBackend(plane=DevicePlane(make_local_mesh(2)), device="cuda")
+        TorchBackend(plane=DevicePlane(make_local_mesh(2, device="cpu")),
+                     device="cuda")
 
 
 @pytest.fixture(scope="module")
@@ -428,7 +431,8 @@ def _ref_pair(n_shards: int):
     from repro.launch.mesh import make_serving_mesh as ref_serving_mesh
     mesh = ref_local_mesh(data=1, model=1) if n_shards == 1 \
         else ref_serving_mesh(data=n_shards)
-    return RefPlane(mesh), DevicePlane(make_local_mesh(n_shards))
+    return RefPlane(mesh), DevicePlane(make_local_mesh(n_shards,
+                                                       device="cpu"))
 
 
 def _ref_engines(n_shards: int):
