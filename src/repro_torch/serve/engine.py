@@ -242,6 +242,14 @@ class PipelineStats:
     buckets_pruned_zonemap: int = 0
     buckets_pruned_radius: int = 0
     cold_bytes_read: int = 0
+    # Spans on time.perf_counter(): the call's entry, and per query of a
+    # device-tier call, in order, (pack_start, dispatch_start,
+    # readback_done), the readings ``t_pack_s`` and ``t_dispatch_s`` sum
+    # (a query whose filter empties a group spans nothing). A query waits
+    # on its batchmates from ``t_call_start`` to its ``pack_start``.
+    t_call_start: float = 0.0
+    query_spans: list[tuple[float, float, float]] = dataclasses.field(
+        default_factory=list)
 
     @property
     def dispatches_per_scale(self) -> list[int]:
@@ -1092,6 +1100,9 @@ class NKSEngine:
         if eligible is not None and any(
                 not eligible[self.dataset.points_with(v)].any()
                 for v in keywords):
+            if stats is not None:
+                t = time.perf_counter()
+                stats.query_spans.append((t, t, t))
             return []
         t0 = time.perf_counter()
         dev = self.device
@@ -1107,16 +1118,18 @@ class NKSEngine:
         else:
             diams, cids = plane.nks_topk(groups, mask, ids, k)
         diams, cids = diams.cpu().numpy(), cids.cpu().numpy()
+        t2 = time.perf_counter()
         if stats is not None:
             if plane is None:
                 stats.shard_dispatches[0] += 1
             else:
                 stats.sharded_dispatches += 1
-                stats.t_collective_s += time.perf_counter() - t1
+                stats.t_collective_s += t2 - t1
                 for i in range(plane.n_shards):
                     stats.shard_dispatches[i] += 1
             stats.t_pack_s += t1 - t0
-            stats.t_dispatch_s += time.perf_counter() - t1
+            stats.t_dispatch_s += t2 - t1
+            stats.query_spans.append((t0, t1, t2))
             stats.h2d_bytes += pg.mask.nbytes + pg.ids.nbytes
             stats.d2h_bytes += diams.nbytes + cids.nbytes
         return [Candidate(tuple(sorted(set(int(x) for x in row))), float(dm))
@@ -1370,7 +1383,7 @@ class NKSEngine:
             stats = PipelineStats(
                 batch_size=len(queries), tier=tier,
                 backend="anchor" if self.plane is None else "device-plane",
-                shard_dispatches=[0] * n_sh)
+                shard_dispatches=[0] * n_sh, t_call_start=t0)
             resolved = self._resolve_namespace(queries, flt)
             eligible = self._eligible(flt)
             if eligible is not None:
@@ -1401,6 +1414,7 @@ class NKSEngine:
         pqs, stats = self._batch_search(qlists, k, tier,
                                         self._resolve_backend(backend), flt,
                                         sem)
+        stats.t_call_start = t0
         self._record_ingest(stats)
         self.last_batch_stats = stats
         per_q = (time.perf_counter() - t0) / max(len(qlists), 1)

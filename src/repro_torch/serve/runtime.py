@@ -45,6 +45,13 @@ lock; nothing else replaces that buffer meanwhile: only an insert (parked
 while a rebuild runs) and ``compact_commit`` (under the lock) attach rows,
 and a query attaches its own generation's rows, a no-op.
 
+Spans, on ``time.perf_counter()``: every :class:`Ticket` carries its
+request id and its admission, pick-up, engine-call and answer stamps;
+``RuntimeStats`` sums the queue and coalescing-window waits; and with
+``RuntimeConfig.span_log`` set, a bounded log keeps one
+:class:`BatchSpan` a coalesced batch, the engine's per-query spans of the
+call among them (``ServingRuntime.spans``).
+
 Fault injection (``serve.faults``) threads one deterministic
 :class:`FaultPlan` through the runtime (``dispatch``), the engine
 (``compact``), and the WAL (``wal_ack``); an :class:`InjectedCrash` anywhere
@@ -55,6 +62,7 @@ process death would.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import threading
 import time
@@ -87,6 +95,9 @@ class RuntimeConfig:
     # backend on its device (query_batch's default), or "numpy", float64
     # loops on the host.
     backend: str = "torch"
+    # Coalesced batches kept in the span log (``ServingRuntime.spans``), the
+    # newest last; 0 keeps none.
+    span_log: int = 0
 
 
 @dataclasses.dataclass
@@ -110,6 +121,12 @@ class RuntimeStats:
     bg_compactions: int = 0
     bg_compaction_faults: int = 0
     bg_compaction_errors: int = 0   # unexpected rebuild exceptions survived
+    # Waits, on time.perf_counter(): the sum over query tickets of admission
+    # to pick-up, and the coalescing-window waits the worker took (their
+    # sum and count).
+    t_queue_s: float = 0.0
+    t_window_s: float = 0.0
+    window_waits: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -135,22 +152,61 @@ class RuntimeResponse:
     error: str | None = None
     degraded: bool = False
     tier: str | None = None
-    latency_s: float = 0.0
+    latency_s: float = 0.0          # admission to resolution
 
     @property
     def ok(self) -> bool:
         return self.status == "ok"
 
 
+@dataclasses.dataclass
+class BatchSpan:
+    """One coalesced batch in the span log, on ``time.perf_counter()``.
+
+    ``batch`` is its id (``RuntimeStats.batches`` at its dispatch);
+    ``window`` the (start, end) of the coalescing-window wait taken before
+    its pick-up, or None; ``picked``, ``started`` (engine lock held, fault
+    check passed) and ``ended`` (``query_batch`` returned) its boundaries.
+    ``requests`` holds (request id, admitted_at, answered_at) per ticket,
+    in query order. ``t_call_start`` and ``query_spans`` are the engine's
+    spans of the call (:class:`~repro_torch.serve.engine.PipelineStats`),
+    children of this batch: per query (pack_start, dispatch_start,
+    readback_done), filled by the device tier."""
+
+    batch: int
+    window: tuple[float, float] | None
+    picked: float
+    started: float
+    ended: float
+    requests: list[tuple[int, float, float]]
+    t_call_start: float | None = None
+    query_spans: list[tuple[float, float, float]] = dataclasses.field(
+        default_factory=list)
+
+
 class Ticket:
-    """Single-use future handed back by :meth:`ServingRuntime.submit`."""
+    """Single-use future handed back by :meth:`ServingRuntime.submit`.
 
-    __slots__ = ("request", "deadline", "submitted_at", "_event", "response")
+    ``rid`` is the request's admission sequence number (None outside a
+    runtime); ``admitted_at`` (its creation unless given), ``picked_at``
+    (a query popped into a batch), ``started_at`` (its batch's engine call
+    began) and ``answered_at`` (resolved) are ``time.perf_counter()``
+    stamps, None where the ticket never got there (an ingest op is not
+    picked or started)."""
 
-    def __init__(self, request: dict, deadline: float | None):
+    __slots__ = ("request", "deadline", "rid", "admitted_at", "picked_at",
+                 "started_at", "answered_at", "_event", "response")
+
+    def __init__(self, request: dict, deadline: float | None,
+                 rid: int | None = None, admitted_at: float | None = None):
         self.request = request
         self.deadline = deadline
-        self.submitted_at = time.monotonic()
+        self.rid = rid
+        self.admitted_at = time.perf_counter() if admitted_at is None \
+            else admitted_at
+        self.picked_at: float | None = None
+        self.started_at: float | None = None
+        self.answered_at: float | None = None
         self._event = threading.Event()
         self.response: RuntimeResponse | None = None
 
@@ -163,7 +219,8 @@ class Ticket:
         return self.response
 
     def _resolve(self, response: RuntimeResponse) -> None:
-        response.latency_s = time.monotonic() - self.submitted_at
+        self.answered_at = time.perf_counter()
+        response.latency_s = self.answered_at - self.admitted_at
         self.response = response
         self._event.set()
 
@@ -201,6 +258,11 @@ class ServingRuntime:
         self.cfg = config or RuntimeConfig()
         self.faults = faults or getattr(engine, "_faults", None) or NO_FAULTS
         self.stats = RuntimeStats()
+        self._rids = itertools.count()
+        self._spans: deque[BatchSpan] | None = \
+            deque(maxlen=self.cfg.span_log) if self.cfg.span_log > 0 else None
+        # the coalescing-window wait of the worker's last gather, if taken
+        self._window: tuple[float, float] | None = None
         self._queue: deque[Ticket] = deque()
         self._deferred: list[Ticket] = []   # ingest parked during a rebuild
         self._lock = threading.Lock()           # guards queue + flags
@@ -231,8 +293,9 @@ class ServingRuntime:
         op = request.get("op", "query")
         deadline = deadline_s if deadline_s is not None \
             else request.get("deadline_s", self.cfg.default_deadline_s)
-        ticket = Ticket(request, time.monotonic() + deadline
-                        if deadline is not None else None)
+        now = time.perf_counter()
+        ticket = Ticket(request, now + deadline if deadline is not None
+                        else None, next(self._rids), now)
         self.stats.submitted += 1
         if op == "health":
             ticket._resolve(RuntimeResponse(op="health", status="ok",
@@ -257,6 +320,14 @@ class ServingRuntime:
             self._queue.append(ticket)
             self._work.notify_all()
         return ticket
+
+    def spans(self) -> list[BatchSpan]:
+        """The span log's batches, oldest first (empty with ``span_log``
+        0)."""
+        if self._spans is None:
+            return []
+        with self._lock:
+            return list(self._spans)
 
     def health(self) -> dict:
         """Queue / generation / degradation snapshot (lock-free reads of
@@ -334,7 +405,7 @@ class ServingRuntime:
                         self._flush_deferred_locked()
                     if self._stop and (not self._drain or not self._queue):
                         break
-                    self._expire(time.monotonic())
+                    self._expire(time.perf_counter())
                     if not self._queue:
                         continue
                     head = self._queue[0]
@@ -359,7 +430,7 @@ class ServingRuntime:
                 if run is not None:
                     self._exec_ingest_run(run)
                 elif batch:
-                    self._exec_query_batch(batch)
+                    self._exec_query_batch(batch, self._window)
                 # else: the batch-window wait inside _gather_locked released
                 # the lock and the compactor flushed deferred ingest to the
                 # queue front — the ingest barrier kept everything, so there
@@ -390,16 +461,22 @@ class ServingRuntime:
             self._deferred.clear()
 
     def _gather_locked(self) -> list[Ticket]:
-        """Pop a coalescable run of query tickets (same tier/k/filter)."""
+        """Pop a coalescable run of query tickets (same tier/k/filter),
+        stamping their pick-up; the window wait taken, if any, is left in
+        ``self._window``."""
         head = self._queue[0]
         key = self._batch_key(head.request)
+        self._window = None
+        w0 = time.perf_counter()
         if len(self._queue) < self.cfg.max_batch \
                 and self.cfg.batch_window_s > 0 \
-                and time.monotonic() - head.submitted_at \
-                < self.cfg.batch_window_s:
+                and w0 - head.admitted_at < self.cfg.batch_window_s:
             # Young head: give near-simultaneous arrivals one window to
             # coalesce before dispatching a tiny batch.
             self._work.wait(self.cfg.batch_window_s)
+            self._window = (w0, time.perf_counter())
+            self.stats.t_window_s += self._window[1] - w0
+            self.stats.window_waits += 1
         batch, keep = [], deque()
         pending = list(self._queue)
         for i, t in enumerate(pending):
@@ -415,6 +492,10 @@ class ServingRuntime:
             else:
                 keep.append(t)
         self._queue = keep
+        now = time.perf_counter()
+        for t in batch:
+            t.picked_at = now
+            self.stats.t_queue_s += now - t.admitted_at
         return batch
 
     def _gather_ingest_locked(self) -> list[Ticket]:
@@ -433,7 +514,8 @@ class ServingRuntime:
                 _semantics_key(req.get("semantics")))
 
     # -------------------------------------------------------------- execution
-    def _exec_query_batch(self, batch: list[Ticket]) -> None:
+    def _exec_query_batch(self, batch: list[Ticket],
+                          window: tuple[float, float] | None = None) -> None:
         tier, k, _, _ = self._batch_key(batch[0].request)
         flt = batch[0].request.get("filter")
         sem = batch[0].request.get("semantics")
@@ -453,10 +535,15 @@ class ServingRuntime:
             try:
                 self.faults.check("dispatch")
                 with self._engine_lock:
+                    started = time.perf_counter()
+                    for t in batch:
+                        t.started_at = started
                     results = self.engine.query_batch(
                         queries, k=k, tier=eff_tier,
                         backend=self.cfg.backend, filter=flt,
                         semantics=sem)
+                    ended = time.perf_counter()
+                    st = self.engine.last_batch_stats
                 break
             except _RETRYABLE as e:
                 self.stats.dispatch_retries += 1
@@ -489,6 +576,14 @@ class ServingRuntime:
             t._resolve(RuntimeResponse(
                 op="query", status="ok", tier=eff_tier, degraded=degraded,
                 payload={"candidates": res.candidates}))
+        if self._spans is not None:
+            span = BatchSpan(
+                self.stats.batches, window, batch[0].picked_at,
+                batch[0].started_at, ended,
+                [(t.rid, t.admitted_at, t.answered_at) for t in batch],
+                st.t_call_start, st.query_spans)
+            with self._lock:
+                self._spans.append(span)
 
     def _apply_ingest(self, req: dict) -> RuntimeResponse:
         """Apply one ingest op (caller holds the engine lock — and, for
